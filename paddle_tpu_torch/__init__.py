@@ -1,0 +1,28 @@
+"""paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu for NVIDIA Hopper.
+
+It mirrors the JAX package's module layout (``models/llama.py``,
+``nn/functional/flash_attention.py``, ``ops/...``) with PyTorch's own idiom:
+``nn.Module``s, plain functions on tensors, an explicit ``device`` and
+explicit ``torch.Generator``s. Hand-written kernels live in ``csrc/`` and
+build on first use (``ops/cuda/_build.py``).
+
+Entry points run on CUDA unless the caller passes ``device="cpu"``.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point builds on: CUDA by default, the CPU only
+    when asked for. With no device and no card this raises rather than
+    quietly building on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "paddle_tpu_torch runs on CUDA and no card is visible; pass "
+                "device='cpu' to run the plain versions on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device)

@@ -1,0 +1,275 @@
+"""LLaMA for serving: the port of paddle_tpu/models/llama.py (single device).
+
+RMSNorm + rotary GQA attention + SwiGLU MLP decoder blocks, a final RMSNorm
+and a causal-LM head with optional weight tying. Attention goes through
+``F.scaled_dot_product_attention``, which runs the hand-written Hopper
+flash-attention kernel for prompt-length queries on the card.
+
+Differences from the JAX module, by design:
+  * Linear layers are ``torch.nn.Linear`` (weight (out, in), y = x @ W^T);
+    paddle stores (in, out). ``models/convert.py`` transposes on transfer.
+  * The untied LM head stores its weight as (vocab, hidden), the layout of
+    the tied embedding, so both heads are one ``F.linear``.
+  * Initialisation draws from a ``torch.Generator`` seeded by ``seed``; it
+    can never match JAX's threefry bits, so parity goes through the converter.
+Tensor/sequence/pipeline parallelism, MoE, ring attention, recompute, the
+fused head + cross-entropy and the training loss are later slices and raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as tF
+from torch import nn
+
+from .. import resolve_device
+from ..incubate.nn.functional import _rotate_half, fused_rotary_position_embedding
+from ..nn import functional as F
+from ..nn.layer.norm import RMSNorm
+
+_TRAINING_SLICE = "the training slice of the port"
+_PARALLEL_SLICE = "a later (distributed) slice of the port"
+
+
+class LlamaConfig:
+    """Plain config object (PaddleNLP LlamaConfig field names)."""
+
+    def __init__(
+        self,
+        vocab_size=32000,
+        hidden_size=4096,
+        intermediate_size=11008,
+        num_hidden_layers=32,
+        num_attention_heads=32,
+        num_key_value_heads=None,
+        max_position_embeddings=4096,
+        initializer_range=0.02,
+        rms_norm_eps=1e-6,
+        rope_theta=10000.0,
+        use_flash_attention=True,
+        tie_word_embeddings=False,
+        num_experts=0,
+        moe_topk=2,
+        moe_gate="gshard",
+        moe_every_k=1,
+        tensor_parallel_degree=1,
+        sequence_parallel=False,
+        pipeline_parallel_degree=1,
+        recompute=False,
+        recompute_granularity="full",
+        recompute_policy=None,
+        hbm_budget=None,
+        fused_head_ce=False,
+        dtype="float32",
+        **kwargs,
+    ):
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.intermediate_size = intermediate_size
+        self.num_hidden_layers = num_hidden_layers
+        self.num_attention_heads = num_attention_heads
+        self.num_key_value_heads = num_key_value_heads or num_attention_heads
+        self.max_position_embeddings = max_position_embeddings
+        self.initializer_range = initializer_range
+        self.rms_norm_eps = rms_norm_eps
+        self.rope_theta = rope_theta
+        self.use_flash_attention = use_flash_attention
+        self.tie_word_embeddings = tie_word_embeddings
+        self.num_experts = num_experts
+        self.moe_topk = moe_topk
+        self.moe_gate = moe_gate
+        self.moe_every_k = moe_every_k
+        self.tensor_parallel_degree = tensor_parallel_degree
+        self.sequence_parallel = sequence_parallel
+        self.pipeline_parallel_degree = pipeline_parallel_degree
+        self.recompute = recompute
+        self.recompute_granularity = recompute_granularity
+        self.recompute_policy = recompute_policy
+        self.hbm_budget = hbm_budget
+        self.fused_head_ce = fused_head_ce
+        self.dtype = dtype
+        for k, v in kwargs.items():
+            setattr(self, k, v)
+
+    @property
+    def head_dim(self):
+        return self.hidden_size // self.num_attention_heads
+
+
+def _check_supported(config):
+    """Raise for the parts of the JAX model this slice does not port."""
+    unported = [
+        (config.tensor_parallel_degree > 1, "tensor_parallel_degree > 1", _PARALLEL_SLICE),
+        (config.sequence_parallel, "sequence_parallel", _PARALLEL_SLICE),
+        ((config.pipeline_parallel_degree or 1) > 1, "pipeline_parallel_degree > 1",
+         _PARALLEL_SLICE),
+        ((config.num_experts or 0) > 1, "MoE (num_experts > 1)", _PARALLEL_SLICE),
+        (getattr(config, "use_ring_attention", False), "ring attention", _PARALLEL_SLICE),
+        (config.recompute or config.recompute_policy not in (None, "none"),
+         "recompute", _TRAINING_SLICE),
+        (config.fused_head_ce, "fused_head_ce", _TRAINING_SLICE),
+    ]
+    for bad, what, where in unported:
+        if bad:
+            raise NotImplementedError(f"{what} is not ported yet: it belongs to {where}")
+
+
+def apply_rotary_pos_emb(q, k, cos, sin):
+    """q,k: (B, S, H, D); cos/sin: (S, D) broadcast over batch and heads."""
+    cos = cos[None, :, None, :]
+    sin = sin[None, :, None, :]
+    return q * cos + _rotate_half(q) * sin, k * cos + _rotate_half(k) * sin
+
+
+class LlamaAttention(nn.Module):
+    """Multi-head attention with rotary embeddings and grouped KV heads."""
+
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        self.config = config
+        self.num_heads = config.num_attention_heads
+        self.num_kv_heads = config.num_key_value_heads
+        self.head_dim = config.head_dim
+        h = config.hidden_size
+        kv = self.num_kv_heads * self.head_dim
+        kw = dict(bias=False, device=device, dtype=dtype)
+        self.q_proj = nn.Linear(h, h, **kw)
+        self.k_proj = nn.Linear(h, kv, **kw)
+        self.v_proj = nn.Linear(h, kv, **kw)
+        self.o_proj = nn.Linear(h, h, **kw)
+
+    def forward(self, hidden_states, attn_mask=None):
+        B, S = hidden_states.shape[:2]
+        q = self.q_proj(hidden_states).view(B, S, self.num_heads, self.head_dim)
+        k = self.k_proj(hidden_states).view(B, S, self.num_kv_heads, self.head_dim)
+        v = self.v_proj(hidden_states).view(B, S, self.num_kv_heads, self.head_dim)
+        # use_neox_rotary_style=False = rotate-half pairing, as the JAX model
+        q, k, _ = fused_rotary_position_embedding(
+            q, k, rotary_theta=self.config.rope_theta, use_neox_rotary_style=False)
+        out = F.scaled_dot_product_attention(
+            q, k, v, attn_mask=attn_mask, is_causal=attn_mask is None,
+            training=self.training)
+        return self.o_proj(out.reshape(B, S, self.num_heads * self.head_dim))
+
+
+class LlamaMLP(nn.Module):
+    """SwiGLU feed-forward: down(silu(gate(x)) * up(x))."""
+
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        h, m = config.hidden_size, config.intermediate_size
+        kw = dict(bias=False, device=device, dtype=dtype)
+        self.gate_proj = nn.Linear(h, m, **kw)
+        self.up_proj = nn.Linear(h, m, **kw)
+        self.down_proj = nn.Linear(m, h, **kw)
+
+    def forward(self, x):
+        return self.down_proj(F.swiglu(self.gate_proj(x), self.up_proj(x)))
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        self.self_attn = LlamaAttention(config, device, dtype)
+        self.mlp = LlamaMLP(config, device, dtype)
+        self.input_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps,
+                                       device, dtype)
+        self.post_attention_layernorm = RMSNorm(config.hidden_size,
+                                                config.rms_norm_eps, device, dtype)
+
+    def forward(self, hidden_states, attn_mask=None):
+        h = hidden_states + self.self_attn(self.input_layernorm(hidden_states), attn_mask)
+        return h + self.mlp(self.post_attention_layernorm(h))
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        self.config = config
+        self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size,
+                                         device=device, dtype=dtype)
+        self.layers = nn.ModuleList(
+            [LlamaDecoderLayer(config, device, dtype)
+             for _ in range(config.num_hidden_layers)])
+        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device, dtype)
+
+    def forward(self, input_ids, attn_mask=None):
+        h = self.embed_tokens(input_ids)
+        for layer in self.layers:
+            h = layer(h, attn_mask)
+        return self.norm(h)
+
+
+class LlamaLMHead(nn.Module):
+    """logits = h @ W with W (hidden, vocab) in paddle's layout; stored here
+    as (vocab, hidden), or the tied embedding itself."""
+
+    def __init__(self, config: LlamaConfig, embedding=None, device=None, dtype=None):
+        super().__init__()
+        self._tied = bool(config.tie_word_embeddings and embedding is not None)
+        if self._tied:
+            self._embedding = [embedding]  # list: not a registered submodule
+        else:
+            self.weight = nn.Parameter(torch.empty(
+                config.vocab_size, config.hidden_size, device=device, dtype=dtype))
+
+    def forward(self, hidden_states):
+        w = self._embedding[0].weight if self._tied else self.weight
+        return tF.linear(hidden_states, w)
+
+
+class LlamaForCausalLM(nn.Module):
+    """The serving model. ``device`` defaults to CUDA and raises where there
+    is no card; pass ``device="cpu"`` for the CPU. ``config.dtype`` sets the
+    parameter dtype (``"bfloat16"`` for the flagship); weights are drawn from
+    N(0, initializer_range) with a generator seeded by ``seed`` (norms 1)."""
+
+    def __init__(self, config: LlamaConfig, device=None, seed=0):
+        super().__init__()
+        _check_supported(config)
+        device = resolve_device(device)
+        dtype = getattr(torch, config.dtype) if isinstance(config.dtype, str) else config.dtype
+        self.config = config
+        self.llama = LlamaModel(config, device, dtype)
+        self.lm_head = LlamaLMHead(
+            config, self.llama.embed_tokens if config.tie_word_embeddings else None,
+            device, dtype)
+        self._init_weights(seed)
+        self.eval()
+
+    @torch.no_grad()
+    def _init_weights(self, seed):
+        gen = torch.Generator(device=self.llama.embed_tokens.weight.device)
+        gen.manual_seed(seed)
+        std = self.config.initializer_range
+        for name, p in self.named_parameters():
+            if not name.endswith("layernorm.weight") and name != "llama.norm.weight":
+                p.normal_(0.0, std, generator=gen)
+
+    @property
+    def device(self):
+        return self.llama.embed_tokens.weight.device
+
+    def forward(self, input_ids, labels=None, attn_mask=None):
+        if labels is not None:
+            raise NotImplementedError(
+                f"the causal-LM loss is not ported yet: it belongs to {_TRAINING_SLICE}")
+        return self.lm_head(self.llama(input_ids, attn_mask))
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens=32, temperature=0.0, generator=None):
+        """Greedy / temperature sampling, recomputing the prefix each step.
+
+        (The KV-cache decode path is LlamaDecodeEngine's job; this is the
+        correctness-oriented generate.) Returns prompt + new tokens.
+        """
+        out = torch.as_tensor(input_ids, device=self.device).long()
+        for _ in range(max_new_tokens):
+            nxt = self.forward(out)[:, -1, :]
+            if temperature and temperature > 0.0:
+                probs = torch.softmax(nxt / temperature, dim=-1)
+                tok = torch.multinomial(probs.float(), 1, generator=generator)
+            else:
+                tok = torch.argmax(nxt, dim=-1, keepdim=True)
+            out = torch.cat([out, tok.to(out.dtype)], dim=1)
+        return out

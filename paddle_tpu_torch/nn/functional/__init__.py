@@ -1,0 +1,4 @@
+"""Functionals of the port (counterpart of paddle_tpu.nn.functional)."""
+from .activation import swiglu  # noqa: F401
+from .flash_attention import scaled_dot_product_attention  # noqa: F401
+from .norm import rms_norm  # noqa: F401

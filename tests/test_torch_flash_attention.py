@@ -1,0 +1,140 @@
+"""Flash attention of the PyTorch port against the JAX package's Pallas kernel.
+
+The JAX side runs the Pallas kernel in interpret mode, as tests/test_pallas.py
+does; the port side runs the wrapper on CPU tensors, which takes the plain
+PyTorch version (the CUDA kernel itself is held to that version on the card
+by chip_smoke.py). Same numpy inputs on both sides.
+"""
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from paddle_tpu.ops.pallas.flash_attention import flash_attention_fwd as jax_flash
+from paddle_tpu_torch.nn.functional import flash_attention as port_F
+from paddle_tpu_torch.ops.cuda import flash_attention as port_fa
+
+
+@pytest.fixture(autouse=True)
+def _interpret_mode(monkeypatch):
+    monkeypatch.setenv("PADDLE_TPU_PALLAS_INTERPRET", "1")
+
+
+def _qkv(seed, B, Sq, Sk, Hq, Hkv, D):
+    r = np.random.RandomState(seed)
+    return (r.randn(B, Sq, Hq, D).astype(np.float32),
+            r.randn(B, Sk, Hkv, D).astype(np.float32),
+            r.randn(B, Sk, Hkv, D).astype(np.float32))
+
+
+def _both(q, k, v, causal):
+    ref = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               causal=causal))
+    out = port_fa.flash_attention_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                                      torch.from_numpy(v), causal=causal)
+    return out.numpy(), ref
+
+
+class TestPlainVersionMatchesPallas:
+    # the four shapes of tests/test_pallas.py, at its tolerance
+    @pytest.mark.parametrize("B,S,Hq,Hkv,D,causal", [
+        (2, 256, 4, 4, 64, True),
+        (2, 256, 4, 2, 64, True),     # GQA
+        (1, 128, 2, 2, 32, False),
+        (1, 384, 2, 1, 64, True),     # MQA, non-pow2 seq blocks
+    ])
+    def test_forward(self, B, S, Hq, Hkv, D, causal):
+        out, ref = _both(*_qkv(0, B, S, S, Hq, Hkv, D), causal)
+        np.testing.assert_allclose(out, ref, rtol=2e-5, atol=2e-5)
+
+    def test_cross_length_causal_bottom_right(self):
+        # Sq < Sk causal aligns bottom-right (tests/test_pallas.py TestCrossLengthCausal)
+        out, ref = _both(*_qkv(3, 1, 128, 256, 2, 2, 64), True)
+        np.testing.assert_allclose(out, ref, rtol=2e-5, atol=2e-5)
+
+    def test_counter_untouched_on_cpu(self):
+        before = port_fa.launches
+        _both(*_qkv(5, 1, 128, 128, 2, 2, 32), True)
+        assert port_fa.launches == before
+
+
+class TestLSE:
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_lse_is_logsumexp_of_math_scores(self, causal):
+        q, k, v = _qkv(1, 2, 96, 160, 4, 2, 32)
+        _, lse = port_fa.flash_attention_fwd_lse(
+            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal=causal)
+        qt = q.transpose(0, 2, 1, 3).astype(np.float64)
+        kt = np.repeat(k.transpose(0, 2, 1, 3), 2, axis=1).astype(np.float64)
+        s = qt @ kt.transpose(0, 1, 3, 2) / np.sqrt(32)
+        if causal:
+            s = np.where(np.tril(np.ones((96, 160), bool), k=160 - 96), s, -1e30)
+        m = s.max(-1, keepdims=True)
+        ref = (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
+        assert lse.shape == (2, 4, 96) and lse.dtype == torch.float32
+        np.testing.assert_allclose(lse.numpy(), ref, rtol=2e-5, atol=2e-5)
+
+
+class TestShapePolicy:
+    def test_gqa_heads_not_divisible(self):
+        q, k, v = (torch.from_numpy(a) for a in _qkv(0, 1, 16, 16, 3, 2, 8))
+        with pytest.raises(ValueError, match="not divisible"):
+            port_fa.flash_attention_fwd(q, k, v)
+        with pytest.raises(ValueError, match="not divisible"):
+            jax_flash(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()), jnp.asarray(v.numpy()))
+
+    def test_causal_needs_sq_le_sk(self):
+        q, k, v = (torch.from_numpy(a) for a in _qkv(0, 1, 32, 16, 2, 2, 8))
+        with pytest.raises(ValueError, match="Sq<=Sk"):
+            port_fa.flash_attention_fwd(q, k, v, causal=True)
+        with pytest.raises(ValueError, match="Sq<=Sk"):
+            jax_flash(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+                      jnp.asarray(v.numpy()), causal=True)
+
+    def test_policy_error_is_the_dispatcher_fallback_type(self):
+        assert issubclass(port_fa.FlashShapeError, ValueError)
+
+
+class TestDispatcher:
+    def test_cpu_tensor_takes_the_math_path(self, monkeypatch):
+        calls = []
+
+        def spy(*a, **kw):
+            calls.append(a)
+            return port_fa.flash_attention_fwd(*a, **kw)
+
+        monkeypatch.setattr(port_F, "flash_attention_fwd", spy)
+        q, k, v = (torch.from_numpy(a) for a in _qkv(2, 1, 256, 256, 4, 2, 32))
+        assert not port_F._use_kernel(q)
+        out = port_F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        assert calls == []
+        ref = port_F._math_sdpa(q, k, v, causal=True)
+        np.testing.assert_array_equal(out.numpy(), ref.numpy())
+
+    def test_math_path_matches_jax_math_path(self):
+        from paddle_tpu.nn.functional.flash_attention import _math_sdpa as jax_math
+
+        q, k, v = _qkv(4, 2, 64, 96, 4, 2, 32)
+        ref = np.asarray(jax_math(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  causal=True))
+        out = port_F._math_sdpa(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), causal=True)
+        np.testing.assert_allclose(out.numpy(), ref, rtol=2e-5, atol=2e-5)
+
+    def test_only_the_policy_error_falls_back(self, monkeypatch):
+        q, k, v = (torch.from_numpy(a) for a in _qkv(2, 1, 16, 16, 2, 2, 8))
+
+        def refuse(*a, **kw):
+            raise port_fa.FlashShapeError("unsupported")
+
+        def broken(*a, **kw):
+            raise RuntimeError("launch failed")
+
+        monkeypatch.setattr(port_F, "flash_attention_fwd", refuse)
+        out = port_F._sdpa(q, k, v, causal=True, use_kernel=True)
+        np.testing.assert_array_equal(out.numpy(),
+                                      port_F._math_sdpa(q, k, v, causal=True).numpy())
+        monkeypatch.setattr(port_F, "flash_attention_fwd", broken)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            port_F._sdpa(q, k, v, causal=True, use_kernel=True)

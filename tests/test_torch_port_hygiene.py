@@ -1,0 +1,80 @@
+"""Rules the PyTorch port keeps: no JAX and no paddle_tpu inside it, no quiet
+CPU fallback, and its kernel sources in the repo with the build git-ignored."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "paddle_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_paddle_tpu_import(path):
+    bad = [m for m in _imported_roots(path) if m.split(".")[0] in FORBIDDEN]
+    assert bad == [], f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_import_leaves_jax_and_paddle_tpu_unloaded():
+    code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.models, "
+            "paddle_tpu_torch.ops.cuda.flash_attention, paddle_tpu_torch.nn.functional; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = LlamaConfig(vocab_size=16, hidden_size=16, intermediate_size=32,
+                      num_hidden_layers=1, num_attention_heads=2)
+    with pytest.raises(RuntimeError, match="no card"):
+        LlamaForCausalLM(cfg)
+    assert LlamaForCausalLM(cfg, device="cpu").device.type == "cpu"
+
+
+def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    def launched(*a):
+        raise RuntimeError("kernel launch")
+
+    def plain(*a):
+        raise AssertionError("plain version taken for a CUDA tensor")
+
+    monkeypatch.setattr(fa, "_launch", launched)
+    monkeypatch.setattr(fa, "flash_attention_fwd_plain", plain)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    q = torch.zeros(1, 4, 2, 64)
+    with pytest.raises(RuntimeError, match="kernel launch"):
+        fa.flash_attention_fwd(q, q, q, causal=True)
+
+
+def test_kernel_source_present_and_build_ignored():
+    assert (PORT / "csrc" / "flash_attention_fwd.cu").is_file()
+    ignored = (ROOT / ".gitignore").read_text().split()
+    assert "paddle_tpu_torch/_build/" in ignored
