@@ -6,25 +6,42 @@
 Phases, each a hard check (the script exits nonzero on the first failure):
   1. device: card name and power limit, torch/CUDA versions; build every
      kernel from csrc/ with nvcc (one process per source, in parallel).
-  2. kernel: flash_attention_fwd (the hand-written kernel) against its plain
-     PyTorch version on the card, at the serving shapes and the edge cases,
-     with a tolerance per dtype; times of the kernel, the plain version and
-     torch's scaled_dot_product_attention (a yardstick only: the port never
-     calls it) beside the least time the card could take.
+  2. forward kernel: flash_attention_fwd (the hand-written kernel) against
+     its plain PyTorch version on the card, at the serving shapes and the
+     edge cases, with a tolerance per dtype; times of the kernel, the plain
+     version and torch's scaled_dot_product_attention (a yardstick only: the
+     port never calls it) beside the least time the card could take.
   3. serving at full width: the flagship LLaMA (vocab 32000, hidden 2048,
      8 layers, 16 heads x 128, bf16, random weights from a seed) served by
      LlamaDecodeEngine.generate (8 prompts x 128 tokens, 32 greedy new
      tokens) and LlamaForCausalLM.generate. Launch counts are set to 0 just
-     before and read just after: every prefill must launch the kernel once
-     per layer.
+     before and read just after: every prefill must launch the forward kernel
+     once per layer, and serving no backward kernel.
   4. card against CPU: the same width at 2 layers in fp32, copied to a CPU
      twin (which runs the plain versions); prefill logits must agree and
      greedy tokens must be identical.
+  5. backward kernels: the dq and dk/dv kernels against the plain backward
+     on the card, at the training shapes and the edge cases, with a
+     norm-relative tolerance per dtype; times of each kernel, the whole
+     backward, the plain version and torch's flash-attention backward (a
+     yardstick only) beside the least time the card could take.
+  6. training at full width: the flagship in bf16 with per-layer recompute,
+     AdamW(multi_precision) at lr 1e-4, batch 8 x 2048, the same batch every
+     step. Launch counts are set to 0 before one step and read after it:
+     2 forward launches per layer (recompute runs the forward again), one dq
+     and one dk/dv launch per layer. Every parameter must get a finite,
+     nonzero gradient, and the loss must fall; step time, tokens/s, MFU,
+     peak memory and a profiled step's device time by kernel group are
+     printed.
+  7. training, card against CPU: the same width at 2 layers in fp32, B2
+     S256 (so the fp32 kernels run), copied to a CPU twin; two AdamW steps
+     on each: losses, step-1 gradients and the parameters after step 2 must
+     agree within the tolerances below.
 The last line is the device JSON object; the line before it the card's name
 and power limit; before that the kernels JSON object.
 
 Matmul and cuDNN TF32 are switched off, so every float32 product here is
-full float32 (the CPU twin and the fp32 kernel checks depend on it).
+full float32 (the CPU twins and the fp32 kernel checks depend on it).
 """
 from __future__ import annotations
 
@@ -49,6 +66,27 @@ PEAK_HBM_BYTES = 3.35e12
 TOL = {"bfloat16": 2e-2, "float16": 5e-3, "float32": 1e-4}
 TOL_LSE = 1e-3             # LSE is float32 on both sides
 TOL_E2E_LOGITS = 2e-3      # fp32 model, card vs CPU: sums in another order
+
+# backward kernels vs the plain backward: ||kernel - plain|| / ||plain|| per
+# gradient. The kernels round P and dS to the input dtype before the dV, dK
+# and dQ products (as FA2 does) and the plain version keeps them in fp32;
+# both round the gradient to the input dtype at the end. bf16 rounds at
+# 2**-9 relative, so each of those roundings adds ~2e-3 of relative error
+# with random signs; 2e-2 leaves room for five of them lining up. fp16 rounds
+# at 2**-12 (~2.4e-4). fp32 differs only in summation order and exp.
+TOL_BWD = {"bfloat16": 2e-2, "float16": 5e-3, "float32": 1e-4}
+
+# training, card (kernels, cuBLAS) vs CPU twin (plain versions), fp32
+TRAIN_LR = 1e-4
+TOL_TRAIN_LOSS = 1e-4      # relative; float32 sums in another order
+TOL_TRAIN_GRAD = 1e-4      # norm-relative per parameter, same reason
+# An Adam step moves a parameter by about lr at most (|mhat / sqrt(vhat)|
+# <= ~1), so after two steps an honest difference is at most 2 * 2 * lr:
+# where a gradient is at the level of rounding, its sign may differ.
+TOL_TRAIN_PARAM_ABS = 4 * TRAIN_LR
+# ... and such elements are few: the updates p2 - p0 of card and CPU must
+# agree to 1e-2 norm-relative per parameter.
+TOL_TRAIN_UPDATE = 1e-2
 
 FLAGSHIP = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
                 num_hidden_layers=8, num_attention_heads=16, num_key_value_heads=16,
@@ -107,20 +145,39 @@ def call_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(B, Sq, Sk, Hq, Hkv, D, causal, elt, tensor_cores):
-    """Least time for the card: max(flops / peak, bytes / HBM rate). flops =
-    4 D per visible (query, key) pair; bytes = q, k, v read once, o written
-    once, plus the fp32 LSE."""
-    if causal:
-        off = Sk - Sq
-        pairs = sum(min(Sk, i + off + 1) for i in range(Sq))
-    else:
-        pairs = Sq * Sk
-    flops = 4.0 * D * pairs * B * Hq
-    nbytes = (2 * B * Sq * Hq * D + 2 * B * Sk * Hkv * D) * elt + 4 * B * Hq * Sq
+def visible_pairs(Sq, Sk, causal):
+    """(query, key) pairs the attention computes: all, or bottom-right causal."""
+    if not causal:
+        return Sq * Sk
+    off = Sk - Sq
+    return sum(min(Sk, i + off + 1) for i in range(Sq))
+
+
+def bound_ms(flops, nbytes, tensor_cores):
+    """Least time for the card: max(flops / peak, bytes / HBM rate)."""
     t_ops = flops / (PEAK_TC_FLOPS if tensor_cores else PEAK_FP32_FLOPS)
     t_bytes = nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def attention_bound_ms(B, Sq, Sk, Hq, Hkv, D, causal, elt, tensor_cores):
+    """Forward: flops = 4 D per visible (query, key) pair; bytes = q, k, v
+    read once, o written once, plus the fp32 LSE."""
+    flops = 4.0 * D * visible_pairs(Sq, Sk, causal) * B * Hq
+    nbytes = (2 * B * Sq * Hq * D + 2 * B * Sk * Hkv * D) * elt + 4 * B * Hq * Sq
+    return bound_ms(flops, nbytes, tensor_cores)
+
+
+def backward_bounds_ms(B, Sq, Sk, Hq, Hkv, D, causal, elt, tensor_cores):
+    """(dq bound, dk/dv bound), each (ms, bound_by). dq: three D-deep products
+    (S, dP, dQ), 6 D flops per visible pair; reads q, dO, k, v, LSE, delta,
+    writes dq. dk/dv: four products (S, dP, dV, dK), 8 D flops per pair;
+    reads q, dO, k, v, LSE, delta, writes dk, dv."""
+    pairs = visible_pairs(Sq, Sk, causal) * B * Hq
+    qsize, ksize, rows = B * Sq * Hq * D * elt, B * Sk * Hkv * D * elt, 8 * B * Hq * Sq
+    dq = bound_ms(6.0 * D * pairs, 3 * qsize + 2 * ksize + rows, tensor_cores)
+    dkv = bound_ms(8.0 * D * pairs, 2 * qsize + 4 * ksize + rows, tensor_cores)
+    return dq, dkv
 
 
 def phase_kernel(torch, fa):
@@ -190,7 +247,7 @@ def phase_serving(torch, fa, models):
     engine.generate(prompts, max_new_tokens=2)        # warm-up: allocator, libraries
     torch.cuda.synchronize()
 
-    fa.launches = 0
+    reset_counts(fa)
     t0 = time.perf_counter()
     toks = engine.generate(prompts, max_new_tokens=new)
     torch.cuda.synchronize()
@@ -219,6 +276,8 @@ def phase_serving(torch, fa, models):
     torch.cuda.synchronize()
     launches = fa.launches
 
+    if (fa.launches_bwd_dq, fa.launches_bwd_dkv) != (0, 0):
+        fail("serving launched a backward kernel")
     if after_generate != L:
         fail(f"engine.generate launched the kernel {after_generate} times, want {L}")
     if after_prefill - after_generate != L:
@@ -238,6 +297,282 @@ def phase_serving(torch, fa, models):
                 prompt=128, new_tokens=new, launches=launches,
                 launches_per_prefill=after_prefill - after_generate,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def reset_counts(fa):
+    fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
+
+
+def counts(fa):
+    return fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv
+
+
+def norm_rel(a, ref):
+    """||a - ref|| / ||ref|| in float32 (0 when both are 0)."""
+    a, ref = a.float(), ref.float()
+    den = ref.norm().item()
+    num = (a - ref).norm().item()
+    return num / den if den > 0 else num
+
+
+def library_backward(torch, q, k, v, do, causal, scale):
+    """torch's flash-attention backward on the outputs of its own forward (a
+    yardstick: one library call computing dq, dk and dv; the port never
+    calls it). Returns the callable."""
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    out, lse, cq, ck, mq, mk, seed, offset, _ = (
+        torch.ops.aten._scaled_dot_product_flash_attention(
+            qt, kt, vt, 0.0, causal, False, scale=scale))
+    return lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+        dot, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0, causal, seed, offset, scale=scale)
+
+
+def phase_backward(torch, fa):
+    """Backward kernels against the plain backward; times at the timed shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    cases = [
+        # name, B, Sq, Sk, Hq, Hkv, D, dtype, causal, timed
+        ("training", 8, 2048, 2048, 16, 16, 128, "bfloat16", True, True),
+        ("long_b1", 1, 2048, 2048, 16, 16, 128, "bfloat16", True, True),
+        ("gqa_hkv4", 2, 512, 512, 16, 4, 128, "bfloat16", True, False),
+        ("mqa_hkv1", 2, 512, 512, 16, 1, 128, "bfloat16", True, False),
+        ("non_causal", 2, 512, 512, 16, 16, 128, "bfloat16", False, False),
+        ("cross_length_causal", 2, 128, 2048, 16, 16, 128, "bfloat16", True, False),
+        ("ragged_1000", 2, 1000, 1000, 16, 16, 128, "bfloat16", True, False),
+        ("ragged_d64_noncausal", 2, 333, 1000, 8, 2, 64, "bfloat16", False, False),
+        ("fp16_d64", 2, 256, 256, 16, 16, 64, "float16", True, False),
+        ("fp32", 2, 256, 256, 16, 16, 128, "float32", True, False),
+        ("fp32_ragged_gqa_d64", 1, 300, 700, 8, 2, 64, "float32", True, False),
+    ]
+    checks, rows = [], {}
+    for name, B, Sq, Sk, Hq, Hkv, D, dt, causal, timed in cases:
+        dtype = getattr(torch, dt)
+        scale = 1.0 / math.sqrt(D)
+        q = torch.randn(B, Sq, Hq, D, device="cuda", generator=gen).to(dtype)
+        k = torch.randn(B, Sk, Hkv, D, device="cuda", generator=gen).to(dtype)
+        v = torch.randn(B, Sk, Hkv, D, device="cuda", generator=gen).to(dtype)
+        do = torch.randn(B, Sq, Hq, D, device="cuda", generator=gen).to(dtype)
+        with torch.no_grad():
+            out, lse = fa.flash_attention_fwd_lse(q, k, v, causal)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+        row = dict(name=name, shape=[B, Sq, Sk, Hq, Hkv, D], dtype=dt, causal=causal,
+                   tol=TOL_BWD[dt])
+        for gname, a, r in zip(("dq", "dk", "dv"), got, ref):
+            if a.shape != r.shape or a.dtype != r.dtype:
+                fail(f"{gname} at {name}: {tuple(a.shape)} {a.dtype}, want "
+                     f"{tuple(r.shape)} {r.dtype}")
+            row[f"{gname}_err"] = norm_rel(a, r)
+            row[f"{gname}_max_abs_err"] = (a.float() - r.float()).abs().max().item()
+        del ref
+        if not all(math.isfinite(row[f"{g}_err"]) and row[f"{g}_err"] <= TOL_BWD[dt]
+                   for g in ("dq", "dk", "dv")):
+            fail(f"backward kernels disagree with the plain backward at {row}")
+        if timed:
+            delta = fa._delta(out, do)
+            fns = dict(
+                dq=lambda: fa._launch_bwd_dq(q, k, v, do, lse, delta, causal, scale),
+                dkv=lambda: fa._launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale),
+                bwd=lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, causal),
+                plain=lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal),
+                library=library_backward(torch, q, k, v, do, causal, scale))
+            for key, fn in fns.items():
+                row[f"{key}_ms"] = device_ms(torch, fn)
+                row[f"{key}_call_ms"] = call_ms(torch, fn)
+            (row["dq_bound_ms"], row["dq_bound_by"]), (row["dkv_bound_ms"],
+                                                       row["dkv_bound_by"]) = (
+                backward_bounds_ms(B, Sq, Sk, Hq, Hkv, D, causal, q.element_size(),
+                                   dtype != torch.float32))
+            rows[name] = row
+        print("backward_check " + json.dumps(row), flush=True)
+        checks.append(row)
+        del q, k, v, do, out, lse, got
+        torch.cuda.empty_cache()
+    return checks, rows
+
+
+_KERNEL_GROUPS = (  # (substring of the kernel name, group), first match wins
+    ("fa_fwd", "attention forward kernel"), ("fa_bwd_dq", "attention dq kernel"),
+    ("fa_bwd_dkv", "attention dk/dv kernel"), ("gemm", "GEMM"), ("xmma", "GEMM"),
+    ("nvjet", "GEMM"), ("cutlass", "GEMM"), ("foreach", "optimizer (foreach)"),
+    ("multi_tensor", "optimizer (foreach)"), ("softmax", "softmax / log_softmax"),
+    ("reduce", "reductions"), ("elementwise", "elementwise"), ("memcpy", "memcpy / memset"),
+    ("memset", "memcpy / memset"))
+# CUPTI records the host waiting on a full launch queue as a device-side
+# activity; it is not a kernel
+_NOT_KERNELS = ("Command Buffer Full",)
+
+
+def profile_step(torch, step, step_ms):
+    """Device time of one training step by kernel group, from torch.profiler
+    (CUPTI): the device-side events only, so no time counts twice.
+    idle_share compares their sum with the median step time measured
+    without the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    groups, kernels = {}, []
+    for e in prof.key_averages():
+        ms = e.self_device_time_total / 1e3
+        if e.device_type != DeviceType.CUDA or ms <= 0 or e.key in _NOT_KERNELS:
+            continue
+        low = e.key.lower()
+        group = next((g for sub, g in _KERNEL_GROUPS if sub in low), "other")
+        groups[group] = groups.get(group, 0.0) + ms
+        kernels.append((ms, e.count, e.key[:90]))
+    device = sum(groups.values())
+    kernels.sort(reverse=True)
+    return dict(device_ms=device, idle_share=1.0 - device / step_ms if device else None,
+                by_group=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+                top_kernels=[dict(ms=ms, launches=n, name=k) for ms, n, k in kernels[:12]])
+
+
+def phase_training(torch, fa, models, AdamW, smi):
+    """The training main path at the flagship width and depth."""
+    cfg = models.LlamaConfig(**FLAGSHIP, dtype="bfloat16", recompute=True,
+                             recompute_granularity="full")
+    L, B, S = cfg.num_hidden_layers, 8, 2048
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = models.LlamaForCausalLM(cfg, device="cuda", seed=0)
+    model.train()
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters(), multi_precision=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", generator=gen)
+    labels = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", generator=gen)
+
+    # step 1: counted, and every parameter's gradient checked
+    torch.cuda.synchronize()
+    reset_counts(fa)
+    loss, logits = model(ids, labels=labels)
+    loss.backward()
+    torch.cuda.synchronize()
+    per_step = counts(fa)
+    if per_step != (2 * L, L, L):
+        fail(f"one training step launched (fwd, dq, dk/dv) = {per_step}, "
+             f"want {(2 * L, L, L)}")
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())
+           or not bool((p.grad != 0).any())]
+    if bad:
+        fail(f"parameters without a finite nonzero gradient: {bad}")
+    with torch.no_grad():
+        first = (loss.item(), model.criterion(logits.float(), labels).item())
+    del logits
+    opt.step()
+    opt.clear_grad()
+
+    def step():
+        loss, _ = model(ids, labels=labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    step()  # second warm-up
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = sorted(times)[len(times) // 2]
+    profile = profile_step(torch, step, step_ms)
+    with torch.no_grad():
+        loss, logits = model(ids, labels=labels)
+        last = (loss.item(), model.criterion(logits.float(), labels).item())
+    del logits
+    if not all(math.isfinite(x) for x in first + last):
+        fail(f"non-finite training loss: first {first}, last {last}")
+    # the fp32 recomputation of the loss decides: the bf16 loss rounds to
+    # 2**-4 near ln(32000)
+    if not last[1] < first[1]:
+        fail(f"the loss did not fall over 8 steps: {first} -> {last}")
+    n_params = sum(p.numel() for p in model.parameters())
+    n_embed = model.llama.embed_tokens.weight.numel()
+    tokens = B * S
+    flops = 6.0 * (n_params - n_embed) * tokens + 6.0 * L * B * S * S * cfg.hidden_size
+    return dict(
+        step_ms=step_ms, step_ms_all=times, tokens_per_sec=tokens / (step_ms / 1e3),
+        mfu=flops / (step_ms / 1e3) / PEAK_TC_FLOPS,
+        mfu_formula="(6*(params-embedding)*tokens + 6*L*B*S^2*hidden) / step_s / 989e12",
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        loss_first=first[0], loss_last=last[0], loss_first_fp32=first[1],
+        loss_last_fp32=last[1], params=n_params, batch=B, seq=S, layers=L,
+        launches_per_step=dict(fwd=per_step[0], bwd_dq=per_step[1], bwd_dkv=per_step[2]),
+        profile=profile, card=smi)
+
+
+def phase_train_card_vs_cpu(torch, fa, models, AdamW):
+    """Two AdamW steps of an fp32 model on the card (kernels in fp32) and of
+    its CPU twin (plain versions)."""
+    import copy
+
+    cfg = models.LlamaConfig(**dict(FLAGSHIP, num_hidden_layers=2), dtype="float32",
+                             recompute=True)
+    L = cfg.num_hidden_layers
+    gpu = models.LlamaForCausalLM(cfg, device="cuda", seed=5)
+    cpu = copy.deepcopy(gpu).to("cpu")
+    gpu.train()
+    cpu.train()
+    p0 = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    og = AdamW(learning_rate=TRAIN_LR, parameters=gpu.parameters())
+    oc = AdamW(learning_rate=TRAIN_LR, parameters=cpu.parameters())
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    ids = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen)
+    labels = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen)
+    labels[torch.rand(2, 256, generator=gen) < 0.1] = -100
+    reset_counts(fa)
+    losses, grad_err = [], {}
+    for i in range(2):
+        lg, _ = gpu(ids.cuda(), labels=labels.cuda())
+        lg.backward()
+        lc, _ = cpu(ids, labels=labels)
+        lc.backward()
+        losses.append((lg.item(), lc.item()))
+        err = abs(losses[-1][0] - losses[-1][1]) / abs(losses[-1][1])
+        if not (math.isfinite(err) and err <= TOL_TRAIN_LOSS):
+            fail(f"card vs CPU training loss at step {i + 1}: {losses[-1]}")
+        if i == 0:
+            cgrads = dict(cpu.named_parameters())
+            for n, p in gpu.named_parameters():
+                grad_err[n] = norm_rel(p.grad.cpu(), cgrads[n].grad)
+            worst = max(grad_err, key=grad_err.get)
+            if not grad_err[worst] <= TOL_TRAIN_GRAD:
+                fail(f"card vs CPU gradient of {worst}: {grad_err[worst]} > {TOL_TRAIN_GRAD}")
+        og.step()
+        oc.step()
+        og.clear_grad()
+        oc.clear_grad()
+    if counts(fa) != (2 * 2 * L, 2 * L, 2 * L):
+        fail(f"card training launched (fwd, dq, dk/dv) = {counts(fa)}, want "
+             f"{(2 * 2 * L, 2 * L, 2 * L)}")
+    param_abs, update_err = {}, {}
+    cparams = dict(cpu.named_parameters())
+    for n, p in gpu.named_parameters():
+        pg, pc = p.detach().cpu(), cparams[n].detach()
+        param_abs[n] = (pg - pc).abs().max().item()
+        update_err[n] = norm_rel(pg - p0[n], pc - p0[n])
+    worst_abs = max(param_abs, key=param_abs.get)
+    worst_upd = max(update_err, key=update_err.get)
+    if not param_abs[worst_abs] <= TOL_TRAIN_PARAM_ABS:
+        fail(f"card vs CPU parameter {worst_abs} after 2 steps: "
+             f"{param_abs[worst_abs]} > {TOL_TRAIN_PARAM_ABS}")
+    if not update_err[worst_upd] <= TOL_TRAIN_UPDATE:
+        fail(f"card vs CPU update of {worst_upd}: {update_err[worst_upd]} > "
+             f"{TOL_TRAIN_UPDATE}")
+    return dict(losses=losses, tol_loss=TOL_TRAIN_LOSS,
+                worst_grad_err=[worst, grad_err[worst]], tol_grad=TOL_TRAIN_GRAD,
+                worst_param_abs=[worst_abs, param_abs[worst_abs]],
+                tol_param_abs=TOL_TRAIN_PARAM_ABS,
+                worst_update_err=[worst_upd, update_err[worst_upd]],
+                tol_update=TOL_TRAIN_UPDATE, launches=list(counts(fa)))
 
 
 def phase_card_vs_cpu(torch, fa, models):
@@ -280,6 +615,7 @@ def main():
         import paddle_tpu_torch.models as models
         from paddle_tpu_torch.ops.cuda import _build
         from paddle_tpu_torch.ops.cuda import flash_attention as fa
+        from paddle_tpu_torch.optimizer import AdamW
     except ImportError as e:
         print(f"chip_smoke: the paddle_tpu_torch package is not beside this "
               f"script ({e})", file=sys.stderr)
@@ -300,28 +636,73 @@ def main():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
-    # phase 2: kernel against its plain version
+    # phase 2: forward kernel against its plain version
+    t0 = time.perf_counter()
     checks, main_row = phase_kernel(torch, fa)
+    print(f"phase_seconds 2 {time.perf_counter() - t0:.1f}", flush=True)
 
-    # phase 3: the main path (launch counts set to 0 inside, read after)
+    # phase 3: the serving main path (launch counts set to 0 inside, read after)
+    t0 = time.perf_counter()
     serving = phase_serving(torch, fa, models)
     print("serving " + json.dumps(dict(serving, card=smi)), flush=True)
+    print(f"phase_seconds 3 {time.perf_counter() - t0:.1f}", flush=True)
 
     # phase 4: card against CPU
+    t0 = time.perf_counter()
     e2e = phase_card_vs_cpu(torch, fa, models)
     print("card_vs_cpu " + json.dumps(e2e), flush=True)
+    print(f"phase_seconds 4 {time.perf_counter() - t0:.1f}", flush=True)
+
+    # phase 5: backward kernels against the plain backward
+    t0 = time.perf_counter()
+    bwd_checks, bwd_rows = phase_backward(torch, fa)
+    print(f"phase_seconds 5 {time.perf_counter() - t0:.1f}", flush=True)
+
+    # phase 6: the training main path (launch counts set to 0 inside, read after)
+    t0 = time.perf_counter()
+    training = phase_training(torch, fa, models, AdamW, smi)
+    print("training " + json.dumps(training), flush=True)
+    print(f"phase_seconds 6 {time.perf_counter() - t0:.1f}", flush=True)
+
+    # phase 7: training, card against CPU
+    t0 = time.perf_counter()
+    train_e2e = phase_train_card_vs_cpu(torch, fa, models, AdamW)
+    print("train_card_vs_cpu " + json.dumps(train_e2e), flush=True)
+    print(f"phase_seconds 7 {time.perf_counter() - t0:.1f}", flush=True)
 
     kernel = dict(
         name="flash_attention_fwd", route="cuda",
         source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
         replaces="paddle_tpu/ops/pallas/flash_attention.py:48",
-        launches=serving["launches"], max_abs_err=main_row["max_abs_err"],
+        launches=serving["launches"],
+        launches_by_path=dict(serving=serving["launches"],
+                              training=training["launches_per_step"]["fwd"]),
+        max_abs_err=main_row["max_abs_err"],
         tol=main_row["tol"], ms=main_row["kernel_ms"], kernel_ms=main_row["kernel_ms"],
         call_ms=main_row["kernel_call_ms"],
         plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
         bound_by=main_row["bound_by"], library_ms=main_row["library_ms"],
         shape=main_row["shape"], dtype=main_row["dtype"], checks=checks)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    tr, b1 = bwd_rows["training"], bwd_rows["long_b1"]
+    bwd_kernels = []
+    for key, name, line, grads in (("dq", "flash_attention_bwd_dq", 130, ("dq",)),
+                                   ("dkv", "flash_attention_bwd_dkv", 171, ("dk", "dv"))):
+        bwd_kernels.append(dict(
+            name=name, route="cuda", source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+            replaces=f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
+            launches=training["launches_per_step"][f"bwd_{key}"],
+            max_abs_err=max(tr[f"{g}_max_abs_err"] for g in grads),
+            norm_rel_err=max(tr[f"{g}_err"] for g in grads), tol=tr["tol"],
+            ms=tr[f"{key}_ms"], kernel_ms=tr[f"{key}_ms"], call_ms=tr[f"{key}_call_ms"],
+            # the plain version and the library call compute dq, dk and dv together
+            plain_ms=tr["plain_ms"], bound_ms=tr[f"{key}_bound_ms"],
+            bound_by=tr[f"{key}_bound_by"], library_ms=tr["library_ms"],
+            backward_ms=tr["bwd_ms"], shape=tr["shape"], dtype=tr["dtype"],
+            long_b1=dict(ms=b1[f"{key}_ms"], plain_ms=b1["plain_ms"],
+                         bound_ms=b1[f"{key}_bound_ms"], library_ms=b1["library_ms"],
+                         backward_ms=b1["bwd_ms"])))
+    bwd_kernels[0]["checks"] = bwd_checks
+    print(json.dumps({"kernels": [kernel] + bwd_kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

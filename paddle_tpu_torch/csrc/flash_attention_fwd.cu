@@ -26,18 +26,12 @@
 //     tiles are issued longest first so the tail of the grid is short.
 // fp32 inputs run on CUDA cores in full fp32 (no TF32), one query row per
 // four threads. wgmma, TMA and warp specialisation are left for later work.
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_attention_common.cuh"
 
 namespace {
 
 constexpr int kBlockM = 64;  // query rows per thread block
 constexpr int kBlockN = 64;  // keys per k/v tile
-constexpr float kNegBig = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
@@ -65,105 +59,6 @@ __device__ __forceinline__ int kv_limit(const Params& p, int q0) {
 // ---------------------------------------------------------------------------
 // bf16 / fp16: tensor cores
 // ---------------------------------------------------------------------------
-template <typename T>
-struct Mma;
-
-template <>
-struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                             const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-};
-
-template <>
-struct Mma<__half> {
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                             const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy that bypasses registers; with `valid` false
-// it writes 16 zero bytes and reads nothing.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// Four 8x8 b16 matrices from shared memory; lane l gives the address of row
-// l % 8 of matrix l / 8. Plain: lane gets (row lane/4, cols 2*(lane%4)+{0,1})
-// of each matrix; .trans: (rows 2*(lane%4)+{0,1}, col lane/4).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// Start copying rows [r0, r0 + ROWS) of a (rows, D) matrix with row stride
-// `stride` (elements; the last dim is contiguous) into shared memory with
-// row pitch LDS. Rows at or past `nrows` are zero-filled: a ragged tail must
-// read as 0, never as stale data, because 0 * NaN would poison P @ V.
-// Aligned rows go by cp.async (the caller commits and waits); others by
-// plain loads and stores, visible after the caller's __syncthreads.
-template <typename T, int D, int LDS, int ROWS, int THREADS>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long long stride,
-                                          int r0, int nrows, bool aligned16) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = ROWS * D / kVec;
-  for (int c = threadIdx.x; c < kChunks; c += THREADS) {
-    const int r = c / (D / kVec);
-    const int col = (c % (D / kVec)) * kVec;
-    T* d = dst + r * LDS + col;
-    const int gr = r0 + r;
-    const bool in = gr < nrows;
-    const T* s = in ? src + (long long)gr * stride + col : src;
-    if (aligned16) {
-      cp_async16(d, s, in);
-    } else if (in) {
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) d[e] = s[e];
-    } else {
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-}
-
 // One block = 64 query rows of one (b, q head); 4 warps x 16 rows each.
 // Fragment layouts are those of mma.sync m16n8k16 (PTX ISA): with g = lane/4
 // and t = lane%4, a thread holds A rows {g, g+8} x cols {2t, 2t+1, 2t+8,
@@ -460,23 +355,12 @@ fa_fwd_f32(const Params p) {
   }
 }
 
-constexpr int kMaxDevices = 64;
-
-// `configured` belongs to one kernel: above 48 KB a block's shared memory must
-// be granted explicitly, once per kernel and device (so never again inside a
-// CUDA-graph capture); a refused launch is reported only by cudaGetLastError.
+// A refused launch is reported only by cudaGetLastError.
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, bool* configured, int threads, size_t smem,
                    const Params& p, cudaStream_t stream) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = grant_smem(kernel, configured, smem);
   if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices || !configured[dev]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-    if (dev < kMaxDevices) configured[dev] = true;
-  }
   const dim3 grid((p.Sq + kBlockM - 1) / kBlockM, p.Hq, p.B);
   kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();

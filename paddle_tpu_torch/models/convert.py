@@ -1,10 +1,11 @@
-"""Weight transfer from the JAX package's LLaMA into the port.
+"""Weight transfer between the JAX package's LLaMA and the port.
 
 ``state`` maps the JAX model's ``state_dict()`` names to numpy arrays. Paddle
 stores a Linear weight as (in, out) with y = x @ W; torch.nn.Linear as
 (out, in), so every projection is transposed. The untied LM head is (hidden,
 vocab) in paddle and (vocab, hidden) here; a tied model has no
-``lm_head.weight`` at all.
+``lm_head.weight`` at all. ``llama_to_numpy`` goes the other way, for
+parameters or their gradients, so that tests compare both by the JAX names.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ _LINEARS = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
 _NORMS = ("input_layernorm", "post_attention_layernorm")
 
 
-def _name_map(config: LlamaConfig) -> dict[str, tuple[str, bool]]:
+def name_map(config: LlamaConfig) -> dict[str, tuple[str, bool]]:
     """JAX state_dict name -> (port parameter name, transpose?)."""
     names = {"llama.embed_tokens.weight": ("llama.embed_tokens.weight", False),
              "llama.norm.weight": ("llama.norm.weight", False)}
@@ -41,7 +42,7 @@ def llama_from_numpy(state, config: LlamaConfig, device=None, dtype=None):
     Raises KeyError for unknown or missing names and ValueError for a shape
     that does not match ``config``. ``dtype`` defaults to ``config.dtype``.
     """
-    names = _name_map(config)
+    names = name_map(config)
     unknown = sorted(set(state) - set(names))
     missing = sorted(set(names) - set(state))
     if unknown or missing:
@@ -61,3 +62,19 @@ def llama_from_numpy(state, config: LlamaConfig, device=None, dtype=None):
                                  f"{dst} {tuple(p.shape)}")
             p.copy_(t.to(p.dtype))
     return model
+
+
+def llama_to_numpy(model, grads=False):
+    """The port model's parameters (or, with ``grads``, their ``.grad``) as
+    float32 numpy arrays under the JAX ``state_dict()`` names, in paddle's
+    layout. A parameter without a gradient maps to None."""
+    params = dict(model.named_parameters())
+    out = {}
+    for src, (dst, transpose) in name_map(model.config).items():
+        t = params[dst].grad if grads else params[dst]
+        if t is None:
+            out[src] = None
+            continue
+        arr = t.detach().float().cpu().numpy()
+        out[src] = arr.T if transpose else arr
+    return out

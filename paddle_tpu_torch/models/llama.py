@@ -1,4 +1,5 @@
-"""LLaMA for serving: the port of paddle_tpu/models/llama.py (single device).
+"""LLaMA for serving and training: the port of paddle_tpu/models/llama.py
+(single device).
 
 RMSNorm + rotary GQA attention + SwiGLU MLP decoder blocks, a final RMSNorm
 and a causal-LM head with optional weight tying. Attention goes through
@@ -12,8 +13,14 @@ Differences from the JAX module, by design:
     the tied embedding, so both heads are one ``F.linear``.
   * Initialisation draws from a ``torch.Generator`` seeded by ``seed``; it
     can never match JAX's threefry bits, so parity goes through the converter.
-Tensor/sequence/pipeline parallelism, MoE, ring attention, recompute, the
-fused head + cross-entropy and the training loss are later slices and raise
+Training: ``loss, logits = model(ids, labels=labels)`` (the token-mean
+cross-entropy of ``LlamaPretrainingCriterion``), ``loss.backward()``, with
+per-layer recompute (``config.recompute``, granularity ``"full"``) in
+training mode (``model.train()``; a new model is in eval mode). Attention's
+backward runs the Hopper flash-attention backward kernels on the card.
+Tensor/sequence/pipeline parallelism, MoE, ring attention, selective
+recompute (``"full_attn"``/``"core_attn"``), the budget remat planner and the
+fused head + cross-entropy are later slices and raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -23,11 +30,12 @@ import torch.nn.functional as tF
 from torch import nn
 
 from .. import resolve_device
+from ..distributed.fleet.recompute import recompute
 from ..incubate.nn.functional import _rotate_half, fused_rotary_position_embedding
 from ..nn import functional as F
 from ..nn.layer.norm import RMSNorm
 
-_TRAINING_SLICE = "the training slice of the port"
+_TRAINING_SLICE = "a later training slice of the port"
 _PARALLEL_SLICE = "a later (distributed) slice of the port"
 
 
@@ -105,8 +113,11 @@ def _check_supported(config):
          _PARALLEL_SLICE),
         ((config.num_experts or 0) > 1, "MoE (num_experts > 1)", _PARALLEL_SLICE),
         (getattr(config, "use_ring_attention", False), "ring attention", _PARALLEL_SLICE),
-        (config.recompute or config.recompute_policy not in (None, "none"),
-         "recompute", _TRAINING_SLICE),
+        (config.recompute and (config.recompute_granularity or "full") != "full",
+         f"recompute_granularity={config.recompute_granularity!r} (selective recompute)",
+         _TRAINING_SLICE),
+        (config.recompute_policy not in (None, "none"), "recompute_policy (remat planner)",
+         _TRAINING_SLICE),
         (config.fused_head_ce, "fused_head_ce", _TRAINING_SLICE),
     ]
     for bad, what, where in unported:
@@ -176,10 +187,16 @@ class LlamaDecoderLayer(nn.Module):
                                        device, dtype)
         self.post_attention_layernorm = RMSNorm(config.hidden_size,
                                                 config.rms_norm_eps, device, dtype)
+        self._recompute = config.recompute
 
-    def forward(self, hidden_states, attn_mask=None):
+    def _block(self, hidden_states, attn_mask=None):
         h = hidden_states + self.self_attn(self.input_layernorm(hidden_states), attn_mask)
         return h + self.mlp(self.post_attention_layernorm(h))
+
+    def forward(self, hidden_states, attn_mask=None):
+        if self._recompute and self.training:
+            return recompute(self._block, hidden_states, attn_mask)
+        return self._block(hidden_states, attn_mask)
 
 
 class LlamaModel(nn.Module):
@@ -218,11 +235,37 @@ class LlamaLMHead(nn.Module):
         return tF.linear(hidden_states, w)
 
 
+class LlamaPretrainingCriterion(nn.Module):
+    """Token-mean causal-LM loss with ``ignore_index`` masking. Like the JAX
+    criterion it works in the logits' dtype and does not shift the labels:
+    ``labels[b, s]`` is the target of ``logits[b, s]``."""
+
+    def __init__(self, config: LlamaConfig, ignore_index=-100):
+        super().__init__()
+        self.config = config
+        self.ignore_index = ignore_index
+
+    def forward(self, logits, labels):
+        tok_loss = F.softmax_with_cross_entropy(logits, labels,
+                                                ignore_index=self.ignore_index)
+        if tok_loss.dim() > labels.dim():
+            tok_loss = tok_loss.squeeze(-1)
+        return self.masked_mean(tok_loss, labels)
+
+    def masked_mean(self, tok_loss, labels):
+        """Mean over the positions whose label is not ``ignore_index``."""
+        mask = (labels != self.ignore_index).to(tok_loss.dtype)
+        denom = torch.clamp(mask.sum(), min=1.0)
+        return (tok_loss * mask).sum() / denom
+
+
 class LlamaForCausalLM(nn.Module):
-    """The serving model. ``device`` defaults to CUDA and raises where there
-    is no card; pass ``device="cpu"`` for the CPU. ``config.dtype`` sets the
-    parameter dtype (``"bfloat16"`` for the flagship); weights are drawn from
-    N(0, initializer_range) with a generator seeded by ``seed`` (norms 1)."""
+    """The causal LM, for serving and training. ``device`` defaults to CUDA
+    and raises where there is no card; pass ``device="cpu"`` for the CPU.
+    ``config.dtype`` sets the parameter dtype (``"bfloat16"`` for the
+    flagship); weights are drawn from N(0, initializer_range) with a
+    generator seeded by ``seed`` (norms 1). A new model is in eval mode; call
+    ``train()`` before training (recompute runs only in training mode)."""
 
     def __init__(self, config: LlamaConfig, device=None, seed=0):
         super().__init__()
@@ -234,6 +277,7 @@ class LlamaForCausalLM(nn.Module):
         self.lm_head = LlamaLMHead(
             config, self.llama.embed_tokens if config.tie_word_embeddings else None,
             device, dtype)
+        self.criterion = LlamaPretrainingCriterion(config)
         self._init_weights(seed)
         self.eval()
 
@@ -251,10 +295,11 @@ class LlamaForCausalLM(nn.Module):
         return self.llama.embed_tokens.weight.device
 
     def forward(self, input_ids, labels=None, attn_mask=None):
-        if labels is not None:
-            raise NotImplementedError(
-                f"the causal-LM loss is not ported yet: it belongs to {_TRAINING_SLICE}")
-        return self.lm_head(self.llama(input_ids, attn_mask))
+        """Logits; with ``labels``, ``(loss, logits)``."""
+        logits = self.lm_head(self.llama(input_ids, attn_mask))
+        if labels is None:
+            return logits
+        return self.criterion(logits, labels), logits
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens=32, temperature=0.0, generator=None):

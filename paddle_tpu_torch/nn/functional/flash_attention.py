@@ -1,9 +1,9 @@
 """Attention functionals: scaled_dot_product_attention.
 
 Counterpart of paddle_tpu/nn/functional/flash_attention.py. The hot path is
-the hand-written Hopper flash-attention kernel (ops/cuda/flash_attention.py);
-the math path is the plain PyTorch attention used on the CPU, for short
-queries, masks and dropout. Layout is paddle's (batch, seq, num_heads,
+the hand-written Hopper flash-attention kernel (ops/cuda/flash_attention.py),
+differentiable through its backward kernels; the math path is the plain
+PyTorch attention used on the CPU, for short queries, masks and dropout. Layout is paddle's (batch, seq, num_heads,
 head_dim).
 """
 from __future__ import annotations

@@ -6,7 +6,8 @@ built when a module is imported: the first call that needs a kernel builds
 it, so the CPU-only tests import every module without a CUDA toolkit.
 
 Libraries go to ``paddle_tpu_torch/_build/`` (git-ignored), named by a hash
-of the source and the flags, so an edited source never loads a stale build.
+of the source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source never loads a stale build.
 """
 from __future__ import annotations
 
@@ -49,7 +50,9 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (SRC_DIR / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # the shared headers go into every key: an edited header rebuilds them all
+    headers = b"".join(p.read_bytes() for p in sorted(SRC_DIR.glob("*.cuh")))
+    key = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{key}.so"
 
 

@@ -1,15 +1,17 @@
-"""Flash-attention forward: the hand-written Hopper kernel, its wrapper and its
-plain PyTorch version.
+"""Flash attention: the hand-written Hopper kernels (forward; backward dq and
+dk/dv), their wrappers, their plain PyTorch versions and the autograd glue.
 
-Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py`` (``_fwd_kernel``,
-launched by ``_fwd``); the kernel is ``paddle_tpu_torch/csrc/
-flash_attention_fwd.cu``. Layout contract: paddle's (batch, seq, num_heads,
-head_dim) at the entry, read through strides by the kernel.
+Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``: ``_fwd_kernel``
+(launched by ``_fwd``) is ``paddle_tpu_torch/csrc/flash_attention_fwd.cu``;
+``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (launched by ``_bwd``) are
+``paddle_tpu_torch/csrc/flash_attention_bwd.cu``; the ``custom_vjp``
+``_flash`` is ``FlashAttentionFunction``. Layout contract: paddle's (batch,
+seq, num_heads, head_dim) at the entry, read through strides by the kernels.
 
-A tensor on the CPU takes the plain version (the CPU tests and the card's
-reference); a CUDA tensor launches the kernel or raises. The TPU kernel's
+A tensor on the CPU takes the plain versions (the CPU tests and the card's
+reference); a CUDA tensor launches the kernels or raises. The TPU kernels'
 "shrink the block to a divisor or raise" rule is a TPU tiling artifact: the
-kernel masks ragged tiles, so any Sq, Sk >= 1 runs.
+kernels mask ragged tiles, so any Sq, Sk >= 1 runs.
 """
 from __future__ import annotations
 
@@ -22,11 +24,16 @@ import torch
 from . import _build
 
 _NAME = "flash_attention_fwd"
+_NAME_BWD = "flash_attention_bwd"
 _NEG_INF = -1e30
 
-#: kernel launches since the count was last set to 0 (one per wrapper call
-#: that reaches the card)
+#: forward kernel launches since the count was last set to 0 (one per
+#: wrapper call that reaches the card)
 launches = 0
+#: backward dq kernel launches, counted the same way
+launches_bwd_dq = 0
+#: backward dk/dv kernel launches, counted the same way
+launches_bwd_dkv = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _HEAD_DIMS = (64, 128)
@@ -96,6 +103,17 @@ def flash_attention_fwd_plain(q, k, v, causal=False, scale=None):
     return out.transpose(1, 2).to(q.dtype), lse
 
 
+def _aligned16(*tensors):
+    """16-byte vector loads need every (b, s, h) row 16-byte aligned."""
+    return all(t.data_ptr() % 16 == 0 and all((st * t.element_size()) % 16 == 0
+                                              for st in t.stride()[:3])
+               for t in tensors)
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def _launch(q, k, v, causal, scale):
     global launches
     _check_kernel_inputs(q, k, v)
@@ -103,18 +121,12 @@ def _launch(q, k, v, causal, scale):
     Sk, Hkv = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    # 16-byte vector loads need every (b, s, h) row of q/k/v 16-byte aligned
-    elt = q.element_size()
-    aligned16 = all(t.data_ptr() % 16 == 0 and all((st * elt) % 16 == 0
-                                                  for st in t.stride()[:3])
-                    for t in (q, k, v))
     fn = _kernel()
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                  _DTYPE_CODE[q.dtype], B, Hq, Hkv, Sq, Sk, D,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-                 scale, int(causal), int(aligned16),
-                 torch.cuda.current_stream(q.device).cuda_stream)
+                 scale, int(causal), int(_aligned16(q, k, v)), _stream(q))
     if err:
         _build.check(_build.load(_NAME), err, "flash_attention_fwd launch")
     launches += 1
@@ -133,9 +145,164 @@ def _kernel():
     return fn
 
 
+@functools.cache
+def _bwd_kernels():
+    """The backward C entry points (dq, dk/dv), built and loaded on first use."""
+    lib = _build.load(_NAME_BWD)
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    dq, dkv = lib.pt_flash_attention_bwd_dq, lib.pt_flash_attention_bwd_dkv
+    # q, k, v, dO, lse, delta, then the output pointer(s)
+    dq.argtypes = [ptr] * 7 + [i32] * 7 + [i64] * 15 + [ctypes.c_float, i32, i32, ptr]
+    dkv.argtypes = [ptr] * 8 + [i32] * 7 + [i64] * 18 + [ctypes.c_float, i32, i32, ptr]
+    dq.restype = dkv.restype = ctypes.c_int
+    return dq, dkv
+
+
+def _check_bwd_inputs(q, k, v, do, lse, delta):
+    """What the backward kernels take beyond the forward's rules. Raises
+    ``FlashShapeError``; the wrapper never copies an input to fit."""
+    _check_kernel_inputs(q, k, v)
+    B, Sq, Hq, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise FlashShapeError(f"dO {tuple(do.shape)} {do.dtype} does not match q "
+                              f"{tuple(q.shape)} {q.dtype}")
+    if do.stride(3) != 1:
+        raise FlashShapeError(f"kernel needs dO's head dim contiguous, strides "
+                              f"{do.stride()}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.shape != (B, Hq, Sq) or t.dtype != torch.float32 or not t.is_contiguous()
+                or t.device != q.device):
+            raise FlashShapeError(f"{name} must be a contiguous float32 (B, Hq, Sq) "
+                                  f"tensor beside q, got {tuple(t.shape)} {t.dtype}")
+
+
+def _delta(out, do):
+    """delta = rowsum(dO * O) in float32, (B, Hq, Sq): the per-row term of dS
+    (plain torch on both devices, as the JAX package leaves it to XLA)."""
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _launch_bwd_dq(q, k, v, do, lse, delta, causal, scale):
+    global launches_bwd_dq
+    _check_bwd_inputs(q, k, v, do, lse, delta)
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    fn = _bwd_kernels()[0]
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), dq.data_ptr(), _DTYPE_CODE[q.dtype],
+                 B, Hq, Hkv, Sq, Sk, D,
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+                 *dq.stride()[:3], scale, int(causal), int(_aligned16(q, k, v, do)),
+                 _stream(q))
+    if err:
+        _build.check(_build.load(_NAME_BWD), err, "flash_attention_bwd dq launch")
+    launches_bwd_dq += 1
+    return dq
+
+
+def _launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale):
+    global launches_bwd_dkv
+    _check_bwd_inputs(q, k, v, do, lse, delta)
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    fn = _bwd_kernels()[1]
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype],
+                 B, Hq, Hkv, Sq, Sk, D,
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+                 *dk.stride()[:3], *dv.stride()[:3], scale, int(causal),
+                 int(_aligned16(q, k, v, do)), _stream(q))
+    if err:
+        _build.check(_build.load(_NAME_BWD), err, "flash_attention_bwd dk/dv launch")
+    launches_bwd_dkv += 1
+    return dk, dv
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, do, causal=False, scale=None):
+    """The plain PyTorch version of the backward kernels: (dq, dk, dv).
+
+    Flash-attention-2's recomputation, written out in float32: P from the
+    saved LSE, dP = dO V^T, dS = P (dP - rowsum(dO O)) scale, the three
+    products and the sum of dk, dv over each GQA group. Gradients come back in
+    the dtypes of q, k and v.
+    """
+    _check_shapes(q, k, v, causal)
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    s = float(scale if scale is not None else 1.0 / math.sqrt(D))
+    rep = Hq // Hkv
+    qt = q.transpose(1, 2).float()
+    kt = k.transpose(1, 2).float().repeat_interleave(rep, dim=1)
+    vt = v.transpose(1, 2).float().repeat_interleave(rep, dim=1)
+    dot = do.transpose(1, 2).float()
+    scores = (qt * s) @ kt.transpose(-1, -2)                # (B, Hq, Sq, Sk)
+    p = torch.exp(scores - lse[..., None])
+    if causal:
+        mask = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).tril(Sk - Sq)
+        p = p.masked_fill(~mask, 0.0)
+    dp = dot @ vt.transpose(-1, -2)
+    delta = (dot * out.transpose(1, 2).float()).sum(-1, keepdim=True)
+    ds = p * (dp - delta) * s
+    dq = ds @ kt
+    dk = (ds.transpose(-1, -2) @ qt).view(B, Hkv, rep, Sk, D).sum(2)
+    dv = (p.transpose(-1, -2) @ dot).view(B, Hkv, rep, Sk, D).sum(2)
+    return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, causal=False, scale=None):
+    """(dq, dk, dv) of flash attention from the forward's inputs, its output
+    and LSE, and the output's gradient ``do``; all (B, S, H, D) but the LSE
+    (B, Hq, Sq) float32.
+
+    On the card: delta = rowsum(dO O), then the dq kernel and the dk/dv
+    kernel (which sums dk and dv over each GQA group itself). ``do`` needs a
+    contiguous head dim; anything else raises ``FlashShapeError``.
+    """
+    _check_shapes(q, k, v, causal)
+    s = float(scale if scale is not None else 1.0 / math.sqrt(q.shape[-1]))
+    if q.is_cuda:
+        delta = _delta(out, do)
+        dq = _launch_bwd_dq(q, k, v, do, lse, delta, causal, s)
+        dk, dv = _launch_bwd_dkv(q, k, v, do, lse, delta, causal, s)
+        return dq, dk, dv
+    if q.device.type != "cpu":
+        raise RuntimeError(f"flash attention runs on CUDA or the CPU, not {q.device}")
+    return flash_attention_bwd_plain(q, k, v, out, lse, do, causal, s)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention as one autograd node (the JAX package's ``custom_vjp``
+    ``_flash``): the forward kernel saves (q, k, v, out, lse); the backward
+    runs the two backward kernels. On the CPU both are the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        if q.is_cuda:
+            out, lse = _launch(q, k, v, causal, scale)
+        else:
+            out, lse = flash_attention_fwd_plain(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention_fwd_lse(q, k, v, causal=False, scale=None):
     """(O, LSE) for (B, S, H, D) inputs; LSE is (B, Hq, Sq) float32, the
-    residual a backward pass needs.
+    residual the backward needs. O is differentiable (``FlashAttentionFunction``)
+    on both devices.
 
     Raises ``FlashShapeError`` (a ValueError) for what the JAX entry rejects:
     ``Hq % Hkv != 0``, causal with ``Sq > Sk``, mismatched shapes. On the card
@@ -145,11 +312,9 @@ def flash_attention_fwd_lse(q, k, v, causal=False, scale=None):
     """
     _check_shapes(q, k, v, causal)
     s = float(scale if scale is not None else 1.0 / math.sqrt(q.shape[-1]))
-    if q.is_cuda:
-        return _launch(q, k, v, causal, s)
-    if q.device.type != "cpu":
+    if not q.is_cuda and q.device.type != "cpu":
         raise RuntimeError(f"flash attention runs on CUDA or the CPU, not {q.device}")
-    return flash_attention_fwd_plain(q, k, v, causal, s)
+    return FlashAttentionFunction.apply(q, k, v, bool(causal), s)
 
 
 def flash_attention_fwd(q, k, v, causal=False, scale=None):

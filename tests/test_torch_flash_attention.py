@@ -1,4 +1,5 @@
-"""Flash attention of the PyTorch port against the JAX package's Pallas kernel.
+"""Flash attention of the PyTorch port against the JAX package's Pallas kernels
+(forward, and the backward through ``jax.grad`` of the custom VJP).
 
 The JAX side runs the Pallas kernel in interpret mode, as tests/test_pallas.py
 does; the port side runs the wrapper on CPU tensors, which takes the plain
@@ -8,6 +9,7 @@ by chip_smoke.py). Same numpy inputs on both sides.
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -57,6 +59,67 @@ class TestPlainVersionMatchesPallas:
         before = port_fa.launches
         _both(*_qkv(5, 1, 128, 128, 2, 2, 32), True)
         assert port_fa.launches == before
+
+
+def _grads_both(seed, B, Sq, Sk, Hq, Hkv, D, causal):
+    """(port dq, dk, dv), (JAX dq, dk, dv) of sum(O * G) for a random G."""
+    q, k, v = _qkv(seed, B, Sq, Sk, Hq, Hkv, D)
+    g = np.random.RandomState(seed + 100).randn(B, Sq, Hq, D).astype(np.float32)
+    ref = jax.grad(lambda q, k, v: jnp.sum(jax_flash(q, k, v, causal=causal) * g),
+                   (0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    port_fa.flash_attention_fwd(tq, tk, tv, causal=causal).backward(torch.from_numpy(g))
+    return [t.grad.numpy() for t in (tq, tk, tv)], [np.asarray(r) for r in ref]
+
+
+class TestBackwardMatchesPallas:
+    # the four shapes of tests/test_pallas.py and cross-length causal, at its
+    # backward tolerance
+    @pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal", [
+        (2, 256, 256, 4, 4, 64, True),
+        (2, 256, 256, 4, 2, 64, True),     # GQA
+        (1, 128, 128, 2, 2, 32, False),
+        (1, 384, 384, 2, 1, 64, True),     # MQA
+        (1, 128, 256, 2, 2, 64, True),     # cross-length, bottom-right
+    ])
+    def test_gradients(self, B, Sq, Sk, Hq, Hkv, D, causal):
+        out, ref = _grads_both(7, B, Sq, Sk, Hq, Hkv, D, causal)
+        for name, o, r in zip(("dq", "dk", "dv"), out, ref):
+            np.testing.assert_allclose(o, r, rtol=1e-3, atol=1e-3, err_msg=name)
+
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_plain_backward_is_autograd_of_plain_forward(self, causal):
+        q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv(8, 2, 96, 160, 4, 2, 32))
+        g = torch.from_numpy(np.random.RandomState(9).randn(2, 96, 4, 32).astype(np.float32))
+        out, lse = port_fa.flash_attention_fwd_plain(q, k, v, causal)
+        out.backward(g)
+        got = port_fa.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                                out.detach(), lse.detach(), g, causal)
+        for name, a, t in zip(("dq", "dk", "dv"), got, (q, k, v)):
+            assert a.shape == t.shape and a.dtype == t.dtype
+            np.testing.assert_allclose(a.numpy(), t.grad.numpy(), rtol=1e-5, atol=1e-5,
+                                       err_msg=name)
+
+    def test_output_carries_the_function_on_cpu(self):
+        q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv(5, 1, 64, 64, 2, 2, 32))
+        out, lse = port_fa.flash_attention_fwd_lse(q, k, v, causal=True)
+        assert out.grad_fn is not None
+        assert type(out.grad_fn).__name__ == "FlashAttentionFunctionBackward"
+        assert not lse.requires_grad
+
+    def test_backward_counters_untouched_on_cpu(self):
+        before = (port_fa.launches, port_fa.launches_bwd_dq, port_fa.launches_bwd_dkv)
+        _grads_both(5, 1, 128, 128, 2, 2, 32, True)
+        after = (port_fa.launches, port_fa.launches_bwd_dq, port_fa.launches_bwd_dkv)
+        assert after == before
+
+    def test_non_contiguous_head_dim_of_do_is_refused(self):
+        q, k, v = (torch.from_numpy(a) for a in _qkv(6, 1, 16, 16, 2, 2, 64))
+        out, lse = port_fa.flash_attention_fwd_lse(q, k, v, causal=True)
+        do = torch.zeros(1, 16, 2, 128)[..., ::2]
+        delta = port_fa._delta(out, do)
+        with pytest.raises(port_fa.FlashShapeError, match="head dim"):
+            port_fa._check_bwd_inputs(q, k, v, do, lse, delta)
 
 
 class TestLSE:

@@ -18,8 +18,10 @@ from paddle_tpu.models import LlamaConfig as JaxConfig
 from paddle_tpu.models import LlamaForCausalLM as JaxLlama
 from paddle_tpu.models.llama import _rope_cos_sin as jax_rope_cos_sin
 from paddle_tpu_torch.incubate.nn.functional import _rope_tables, fused_rotary_position_embedding
-from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM, llama_from_numpy
+from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM, llama_from_numpy,
+                                     llama_to_numpy)
 from paddle_tpu_torch.models.llama import apply_rotary_pos_emb
+from paddle_tpu_torch.nn.functional import cross_entropy
 
 _CFG = dict(vocab_size=64, intermediate_size=64, num_hidden_layers=2,
             num_attention_heads=4, max_position_embeddings=32)
@@ -40,6 +42,68 @@ def _pair(kv=2, hidden=32, tied=False, seed=0):
 
 def _ids(seed, shape):
     return np.random.RandomState(seed).randint(0, 64, shape).astype("int64")
+
+
+def _labels(seed, shape):
+    """Token labels with about a quarter of them ignored (-100)."""
+    r = np.random.RandomState(seed)
+    lab = r.randint(0, 64, shape).astype("int64")
+    lab[r.rand(*shape) < 0.25] = -100
+    return lab
+
+
+def _jax_loss_and_grads(jm, ids, labels):
+    jm.train()
+    loss, _ = jm(paddle.to_tensor(ids), labels=paddle.to_tensor(labels))
+    loss.backward()
+    grads = {n: np.asarray(p.grad.numpy()) for n, p in jm.named_parameters()}
+    return float(loss.numpy()), grads
+
+
+def _port_loss_and_grads(tm, ids, labels):
+    tm.train()
+    loss, logits = tm(torch.from_numpy(ids), labels=torch.from_numpy(labels))
+    loss.backward()
+    return loss.item(), llama_to_numpy(tm, grads=True), logits
+
+
+class TestLossAndGradientParity:
+    # loss and every gradient of the JAX model (math attention path) against
+    # the port's (plain versions) at 1e-4, fp32
+    @pytest.mark.parametrize("kv,hidden,tied", [
+        (1, 32, False), (2, 32, False), (4, 64, False), (2, 64, True),
+    ])
+    def test_loss_and_every_gradient_match(self, kv, hidden, tied):
+        jm, tm, _, _ = _pair(kv=kv, hidden=hidden, tied=tied)
+        ids, labels = _ids(kv, (2, 7)), _labels(kv + 10, (2, 7))
+        ref_loss, ref_grads = _jax_loss_and_grads(jm, ids, labels)
+        loss, grads, logits = _port_loss_and_grads(tm, ids, labels)
+        assert logits.shape == (2, 7, 64)
+        np.testing.assert_allclose(loss, ref_loss, rtol=1e-4, atol=1e-4)
+        assert set(grads) == set(ref_grads)
+        for name, ref in ref_grads.items():
+            assert grads[name] is not None, name
+            np.testing.assert_allclose(grads[name], ref, rtol=1e-4, atol=1e-4,
+                                       err_msg=name)
+
+    def test_labels_with_trailing_unit_axis(self):
+        jm, tm, _, _ = _pair(kv=2)
+        ids, labels = _ids(3, (2, 5)), _labels(4, (2, 5))[..., None]
+        ref_loss, _ = _jax_loss_and_grads(jm, ids, labels)
+        loss, _, _ = _port_loss_and_grads(tm, ids, labels)
+        np.testing.assert_allclose(loss, ref_loss, rtol=1e-4, atol=1e-4)
+
+    def test_recompute_gives_the_same_loss_and_gradients(self):
+        _, _, state, cfg = _pair(kv=2)
+        rcfg = LlamaConfig(hidden_size=32, num_key_value_heads=2, recompute=True, **_CFG)
+        plain = llama_from_numpy(state, cfg, device="cpu")
+        remat = llama_from_numpy(state, rcfg, device="cpu")
+        ids, labels = _ids(5, (2, 9)), _labels(6, (2, 9))
+        loss0, grads0, _ = _port_loss_and_grads(plain, ids, labels)
+        loss1, grads1, _ = _port_loss_and_grads(remat, ids, labels)
+        np.testing.assert_allclose(loss1, loss0, rtol=1e-6, atol=1e-6)
+        for name, g in grads0.items():
+            np.testing.assert_allclose(grads1[name], g, rtol=1e-5, atol=1e-6, err_msg=name)
 
 
 class TestForwardParity:
@@ -159,7 +223,8 @@ class TestUnportedOptions:
     @pytest.mark.parametrize("kw", [
         dict(tensor_parallel_degree=2), dict(sequence_parallel=True),
         dict(pipeline_parallel_degree=2), dict(num_experts=4),
-        dict(use_ring_attention=True), dict(recompute=True),
+        dict(use_ring_attention=True),
+        dict(recompute=True, recompute_granularity="core_attn"),
         dict(fused_head_ce=True),
     ])
     def test_raises_not_implemented(self, kw):
@@ -168,11 +233,14 @@ class TestUnportedOptions:
             LlamaForCausalLM(cfg, device="cpu")
 
     def test_labels_raise(self):
-        cfg = LlamaConfig(hidden_size=32, **_CFG)
-        m = LlamaForCausalLM(cfg, device="cpu")
-        ids = torch.from_numpy(_ids(0, (1, 4)))
-        with pytest.raises(NotImplementedError, match="training slice"):
-            m(ids, labels=ids)
+        # hard labels train (TestLossAndGradientParity); soft labels, class
+        # weights and label smoothing are not ported
+        logits = torch.zeros(2, 3, 8)
+        labels = torch.zeros(2, 3, dtype=torch.long)
+        for kw in (dict(soft_label=True), dict(weight=torch.ones(8)),
+                   dict(label_smoothing=0.1)):
+            with pytest.raises(NotImplementedError, match="slice"):
+                cross_entropy(logits, labels, **kw)
 
     def test_bfloat16_config_builds_bfloat16_parameters(self):
         cfg = LlamaConfig(hidden_size=32, dtype="bfloat16", **_CFG)

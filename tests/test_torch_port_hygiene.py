@@ -36,7 +36,8 @@ def test_no_jax_or_paddle_tpu_import(path):
 
 def test_import_leaves_jax_and_paddle_tpu_unloaded():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.models, "
-            "paddle_tpu_torch.ops.cuda.flash_attention, paddle_tpu_torch.nn.functional; "
+            "paddle_tpu_torch.ops.cuda.flash_attention, paddle_tpu_torch.nn.functional, "
+            "paddle_tpu_torch.optimizer, paddle_tpu_torch.distributed.fleet; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -74,7 +75,26 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
         fa.flash_attention_fwd(q, q, q, causal=True)
 
 
+def test_cuda_backward_never_takes_the_plain_version(monkeypatch):
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    def launched(*a):
+        raise RuntimeError("kernel launch")
+
+    def plain(*a):
+        raise AssertionError("plain version taken for a CUDA tensor")
+
+    monkeypatch.setattr(fa, "_launch_bwd_dq", launched)
+    monkeypatch.setattr(fa, "flash_attention_bwd_plain", plain)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    q = torch.zeros(1, 4, 2, 64)
+    lse = torch.zeros(1, 2, 4)
+    with pytest.raises(RuntimeError, match="kernel launch"):
+        fa.flash_attention_bwd(q, q, q, q, lse, q, causal=True)
+
+
 def test_kernel_source_present_and_build_ignored():
     assert (PORT / "csrc" / "flash_attention_fwd.cu").is_file()
+    assert (PORT / "csrc" / "flash_attention_bwd.cu").is_file()
     ignored = (ROOT / ".gitignore").read_text().split()
     assert "paddle_tpu_torch/_build/" in ignored

@@ -1,0 +1,182 @@
+"""Training with the PyTorch port against the JAX package: cross-entropy,
+and AdamW steps on the tiny LLaMA from the same weights and batches.
+
+The JAX side trains eagerly (``loss.backward()``, ``opt.step()``,
+``opt.clear_grad()``) on its CPU math path; the port runs its plain versions
+on the CPU. Inputs come from numpy seeds; weights go through numpy.
+"""
+import numpy as np
+import pytest
+
+import torch
+
+import paddle_tpu as paddle
+from paddle_tpu.models import LlamaConfig as JaxConfig
+from paddle_tpu.models import LlamaForCausalLM as JaxLlama
+from paddle_tpu.nn.functional import cross_entropy as jax_ce
+from paddle_tpu.nn.functional import softmax_with_cross_entropy as jax_swce
+from paddle_tpu_torch.models import LlamaConfig, llama_from_numpy, llama_to_numpy
+from paddle_tpu_torch.nn.functional import cross_entropy, softmax_with_cross_entropy
+from paddle_tpu_torch.optimizer import Adam, AdamW
+
+_CFG = dict(vocab_size=64, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+            num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=32)
+_STEPS = 3
+
+
+def _batch(seed, shape=(2, 8)):
+    r = np.random.RandomState(seed)
+    ids = r.randint(0, 64, shape).astype("int64")
+    labels = r.randint(0, 64, shape).astype("int64")
+    labels[r.rand(*shape) < 0.25] = -100
+    return ids, labels
+
+
+def _models(dtype="float32", seed=0):
+    paddle.seed(seed)
+    jm = JaxLlama(JaxConfig(**_CFG))
+    if dtype != "float32":
+        jm.to(dtype=dtype)
+    jm.train()
+    state = {k: np.asarray(v.numpy()).astype(np.float32) for k, v in jm.state_dict().items()}
+    tm = llama_from_numpy(state, LlamaConfig(dtype=dtype, **_CFG), device="cpu")
+    tm.train()
+    return jm, tm
+
+
+def _train(jm, tm, jopt, topt, batches):
+    """Run both; return (JAX losses, port losses)."""
+    jl, tl = [], []
+    for ids, labels in batches:
+        loss, _ = jm(paddle.to_tensor(ids), labels=paddle.to_tensor(labels))
+        loss.backward()
+        jopt.step()
+        jopt.clear_grad()
+        jl.append(float(np.asarray(loss.numpy(), np.float32)))
+        loss, _ = tm(torch.from_numpy(ids), labels=torch.from_numpy(labels))
+        loss.backward()
+        topt.step()
+        topt.clear_grad()
+        tl.append(loss.item())
+    return jl, tl
+
+
+def _jax_params(jm):
+    return {n: np.asarray(p.numpy()).astype(np.float32) for n, p in jm.named_parameters()}
+
+
+class TestCrossEntropy:
+    @pytest.mark.parametrize("reduction", ["mean", "sum", "none"])
+    def test_matches_jax(self, reduction):
+        r = np.random.RandomState(0)
+        logits = r.randn(3, 5, 11).astype(np.float32)
+        labels = r.randint(0, 11, (3, 5)).astype("int64")
+        labels[0, :2] = -100
+        ref = np.asarray(jax_ce(paddle.to_tensor(logits), paddle.to_tensor(labels),
+                                reduction=reduction).numpy())
+        out = cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels),
+                            reduction=reduction).numpy()
+        np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
+
+    def test_all_ignored_mean_is_zero(self):
+        logits = torch.randn(2, 4, 7)
+        labels = torch.full((2, 4), -100)
+        assert cross_entropy(logits, labels).item() == 0.0
+
+    def test_softmax_with_cross_entropy_keeps_a_unit_axis(self):
+        r = np.random.RandomState(1)
+        logits = r.randn(2, 6, 9).astype(np.float32)
+        labels = r.randint(0, 9, (2, 6, 1)).astype("int64")
+        labels[1, 2, 0] = -100
+        ref = np.asarray(jax_swce(paddle.to_tensor(logits), paddle.to_tensor(labels)).numpy())
+        out = softmax_with_cross_entropy(torch.from_numpy(logits),
+                                         torch.from_numpy(labels)).numpy()
+        assert out.shape == ref.shape == (2, 6, 1)
+        np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
+
+
+class TestAdamWMatchesJax:
+    # fp32 on both sides; tolerance 1e-4 on the loss at every step and every
+    # parameter after the last step
+    def _run(self, jax_kw=lambda jm: {}, port_kw=None, named=False):
+        jm, tm = _models()
+        jopt = paddle.optimizer.AdamW(learning_rate=1e-3, parameters=jm.parameters(),
+                                      **jax_kw(jm))
+        params = tm.named_parameters() if named else tm.parameters()
+        topt = AdamW(learning_rate=1e-3, parameters=params, **(port_kw or {}))
+        jl, tl = _train(jm, tm, jopt, topt, [_batch(s) for s in range(_STEPS)])
+        np.testing.assert_allclose(tl, jl, rtol=1e-4, atol=1e-4)
+        ref, out = _jax_params(jm), llama_to_numpy(tm)
+        for name, p in ref.items():
+            np.testing.assert_allclose(out[name], p, rtol=1e-4, atol=1e-4, err_msg=name)
+
+    def test_three_steps(self):
+        self._run()
+
+    def test_decay_excluding_the_norms(self):
+        # weight_decay 0.5 moves a norm weight (1.0) by lr * wd = 5e-4 a step,
+        # well above the tolerance, so decaying the norms would not pass
+        def jax_kw(jm):
+            # the JAX optimizer passes each parameter's generated name
+            norms = {p.name for n, p in jm.named_parameters() if "norm" in n}
+            return dict(weight_decay=0.5, apply_decay_param_fun=lambda n: n not in norms)
+
+        self._run(jax_kw=jax_kw,
+                  port_kw=dict(weight_decay=0.5,
+                               apply_decay_param_fun=lambda n: "norm" not in n),
+                  named=True)
+
+    def test_decay_fun_needs_names(self):
+        _, tm = _models()
+        with pytest.raises(ValueError, match="named_parameters"):
+            AdamW(parameters=tm.parameters(), apply_decay_param_fun=lambda n: True)
+
+
+class TestMultiPrecision:
+    def test_bf16_masters(self):
+        jm, tm = _models(dtype="bfloat16")
+        assert {p.dtype for p in tm.parameters()} == {torch.bfloat16}
+        jopt = paddle.optimizer.AdamW(learning_rate=1e-3, parameters=jm.parameters(),
+                                      multi_precision=True)
+        topt = AdamW(learning_rate=1e-3, parameters=tm.parameters(), multi_precision=True)
+        jl, tl = _train(jm, tm, jopt, topt, [_batch(s) for s in range(_STEPS)])
+        for p in tm.parameters():
+            master = topt._master_weights[id(p)]
+            assert master.dtype == torch.float32 and master.shape == p.shape
+            assert torch.equal(p, master.to(torch.bfloat16))
+            st = topt._accumulators[id(p)]
+            assert st["moment1"].dtype == st["moment2"].dtype == torch.float32
+        # the loss is bfloat16 on both sides (the logits' dtype): a bf16 step
+        # is 2**-7 relative at most, and the two frameworks round the forward
+        # at other places, so they may land two steps apart
+        np.testing.assert_allclose(tl, jl, rtol=2 ** -6, atol=0)
+
+    def test_fp32_parameters_have_no_master(self):
+        _, tm = _models()
+        opt = AdamW(parameters=tm.parameters(), multi_precision=True)
+        loss, _ = tm(*(torch.from_numpy(a) for a in _batch(0)))
+        loss.backward()
+        opt.step()
+        assert opt._master_weights == {}
+
+
+class TestUnported:
+    def _params(self):
+        return [torch.nn.Parameter(torch.zeros(3))]
+
+    @pytest.mark.parametrize("kw", [
+        dict(learning_rate=paddle.optimizer.lr.StepDecay(1e-3, step_size=2)),
+        dict(grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0)),
+        dict(amsgrad=True),
+    ])
+    def test_optimizer_options_raise(self, kw):
+        with pytest.raises(NotImplementedError, match="slice"):
+            AdamW(parameters=self._params(), **kw)
+
+    def test_adam_coupled_decay_raises(self):
+        with pytest.raises(NotImplementedError, match="slice"):
+            Adam(parameters=self._params(), weight_decay=0.01)
+
+    def test_soft_labels_raise(self):
+        with pytest.raises(NotImplementedError, match="slice"):
+            softmax_with_cross_entropy(torch.zeros(2, 5), torch.zeros(2, 5), soft_label=True)
