@@ -37,6 +37,17 @@ Phases, each a hard check (the script exits nonzero on the first failure):
      S256 (so the fp32 kernels run), copied to a CPU twin; two AdamW steps
      on each: losses, step-1 gradients and the parameters after step 2 must
      agree within the tolerances below.
+  8. custom-op path: the y = 2x + 1 kernel (axpy) against its plain version,
+     bit for bit (NaN where the plain version gives NaN: a NaN's payload is
+     not part of the function), at the JAX test's fp32 (8,), a ragged
+     1,000,003, unaligned views, 0 elements, bf16 and fp16 with specials and
+     2^26 fp32, which is timed beside its bound. Then the op registered
+     through register_custom_op as the JAX test registers its Pallas kernel:
+     launch count set to 0 before three calls on tensors that require grad,
+     one launch per call, outputs on the card without grad_fn; the same
+     kernel registered as differentiable must raise CustomOpError. Last, a
+     cpp_extension host op (built with the system C++ compiler) on CUDA
+     tensors: values and gradients come back on the card.
 The last line is the device JSON object; the line before it the card's name
 and power limit; before that the kernels JSON object.
 
@@ -87,6 +98,24 @@ TOL_TRAIN_PARAM_ABS = 4 * TRAIN_LR
 # ... and such elements are few: the updates p2 - p0 of card and CPU must
 # agree to 1e-2 norm-relative per parameter.
 TOL_TRAIN_UPDATE = 1e-2
+
+# axpy (y = 2x + 1) is timed at 2^26 float32 elements: 512 MiB of traffic,
+# ten times the 50 MB L2, so every call streams from HBM
+AXPY_TIMED_N = 2 ** 26
+CPP_SRC = r"""
+#include <cstdint>
+#include <cmath>
+extern "C" void softsign_fwd(const float* x, float* y, int64_t n) {
+  for (int64_t i = 0; i < n; ++i) y[i] = x[i] / (1.0f + std::fabs(x[i]));
+}
+extern "C" void softsign_bwd(const float* x, const float* gy, float* gx,
+                             int64_t n) {
+  for (int64_t i = 0; i < n; ++i) {
+    float d = 1.0f + std::fabs(x[i]);
+    gx[i] = gy[i] / (d * d);
+  }
+}
+"""
 
 FLAGSHIP = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
                 num_hidden_layers=8, num_attention_heads=16, num_key_value_heads=16,
@@ -603,6 +632,156 @@ def phase_card_vs_cpu(torch, fa, models):
                 greedy_tokens_identical=True, new_tokens=new)
 
 
+def same_bits(torch, a, ref):
+    """a equals ref bit for bit, but for NaN payloads: NaN exactly where ref
+    is NaN."""
+    if a.dtype != ref.dtype or a.shape != ref.shape:
+        return False
+    ints = {4: torch.int32, 2: torch.int16}[a.element_size()]
+    an, rn = a.isnan(), ref.isnan()
+    return bool(torch.equal(an, rn)) and bool(
+        torch.equal(a.view(ints)[~an], ref.view(ints)[~rn]))
+
+
+def axpy_specials(torch, dtype):
+    """+-inf, NaN, +-max finite, +-max/2 (2x lands on max), smallest normal,
+    smallest subnormal, signed zeros, -0.5 (2x + 1 = 0) and 1."""
+    fi = torch.finfo(dtype)
+    vals = [math.inf, -math.inf, math.nan, fi.max, -fi.max, fi.max / 2, -fi.max / 2,
+            fi.tiny, -fi.tiny, fi.tiny * fi.eps, -fi.tiny * fi.eps, 0.0, -0.0, -0.5, 1.0]
+    return torch.tensor(vals, dtype=torch.float32).to(dtype)
+
+
+def phase_custom_op(torch, axpy, custom_op, cpp_extension, build_dir):
+    """The y = 2x + 1 kernel against its plain version; the op through the
+    registry (launch count set to 0 just before, read just after); a
+    cpp_extension host op on CUDA tensors."""
+    gen = torch.Generator(device="cuda").manual_seed(99)
+
+    def randn(n, dtype):
+        return (torch.randn(n, device="cuda", generator=gen) * 100).to(dtype)
+
+    def with_specials(n, dtype):
+        x = randn(n, dtype)
+        sp = axpy_specials(torch, dtype).cuda()
+        x[:sp.numel()] = sp         # in the vector body
+        x[-sp.numel():] = sp        # and in the scalar tail
+        return x
+
+    # the library call: one PyTorch call computing 1 + 2x, with the 1 a 0-dim
+    # CPU tensor (one elementwise launch, fp32 arithmetic for fp16 and bf16,
+    # rounded once to x's dtype); timed as the yardstick, never used by the port
+    one = torch.tensor(1.0)
+
+    def library(x):
+        return torch.add(one, x, alpha=2)
+
+    f32, f16, bf16 = torch.float32, torch.float16, torch.bfloat16
+    cases = [
+        ("jax_test_fp32_8", torch.arange(8, dtype=f32, device="cuda")),
+        ("ragged_fp32_1000003", randn(1_000_003, f32)),
+        ("unaligned_view_fp32", randn(1_000_004, f32)[1:]),
+        ("empty_fp32", torch.zeros(0, device="cuda")),
+        ("bf16_specials_1000003", with_specials(1_000_003, bf16)),
+        ("fp16_specials_1000003", with_specials(1_000_003, f16)),
+        ("unaligned_view_bf16", with_specials(1_000_011, bf16)[3:]),
+        ("fp16_7", randn(7, f16)),
+        ("fp32_2^26", randn(AXPY_TIMED_N, f32)),
+    ]
+    checks, timed = [], None
+    for name, x in cases:
+        before = axpy.launches
+        y = axpy.axpy(x)
+        torch.cuda.synchronize()
+        launched = axpy.launches - before
+        ref = axpy.axpy_plain(x)
+        lib = library(x)
+        both = torch.isfinite(ref) & torch.isfinite(y)
+        err = (y.float() - ref.float())[both].abs().max().item() if both.any() else 0.0
+        row = dict(name=name, numel=x.numel(), dtype=str(x.dtype).split(".")[1],
+                   aligned16=x.data_ptr() % 16 == 0, launches=launched,
+                   bit_exact=same_bits(torch, y, ref), max_abs_err=err,
+                   library_bit_exact=same_bits(torch, lib, ref),
+                   nan=int(ref.isnan().sum().item()))
+        print("axpy_check " + json.dumps(row), flush=True)
+        if launched != (1 if x.numel() else 0):
+            fail(f"axpy launched {launched} kernels for {name}")
+        if not row["bit_exact"] or y.device != x.device:
+            fail(f"axpy kernel disagrees with its plain version at {row}")
+        if not row["library_bit_exact"]:
+            fail(f"the library call does not compute the plain version at {row}")
+        if name.startswith("unaligned") and row["aligned16"]:
+            fail(f"{name} was meant to be an unaligned view")
+        if x.numel() == AXPY_TIMED_N:
+            timed = row
+            nbytes = 2 * x.numel() * x.element_size()
+            # clone: a copy of the same bytes, the bandwidth a stream reaches here
+            for key, fn in (("kernel", lambda: axpy.axpy(x)),
+                            ("plain", lambda: axpy.axpy_plain(x)),
+                            ("library", lambda: library(x)),
+                            ("clone", lambda: x.clone())):
+                row[f"{key}_ms"] = device_ms(torch, fn)
+                row[f"{key}_call_ms"] = call_ms(torch, fn)
+            # one fma (2 operations) an element, on the fp32 units
+            row["bound_ms"], row["bound_by"] = bound_ms(2.0 * x.numel(), nbytes, False)
+            row["kernel_gbps"] = nbytes / (row["kernel_ms"] * 1e-3) / 1e9
+            print("axpy_timed " + json.dumps(row), flush=True)
+        checks.append(row)
+        del x, y, ref, lib
+
+    # the main path: the kernel as a registered custom op, as the JAX test
+    # registers its Pallas kernel (differentiable=False)
+    op = axpy.register_example()
+    inputs = [torch.arange(8, dtype=f32, device="cuda").requires_grad_(),
+              randn(1_000_003, f32).requires_grad_(), randn(4096, bf16).requires_grad_()]
+    torch.cuda.synchronize()
+    axpy.launches = 0
+    outs = [op(x) for x in inputs]
+    torch.cuda.synchronize()
+    launches = axpy.launches
+    if launches != len(inputs):
+        fail(f"{len(inputs)} calls of the registered op launched the kernel {launches} times")
+    for x, y in zip(inputs, outs):
+        if y.grad_fn is not None or y.requires_grad or y.device != x.device:
+            fail(f"registered axpy gave {y.device} requires_grad={y.requires_grad}")
+        if not same_bits(torch, y, axpy.axpy_plain(x.detach())):
+            fail("registered axpy disagrees with its plain version")
+    if not torch.equal(outs[0], torch.arange(8, dtype=f32, device="cuda") * 2 + 1):
+        fail(f"registered axpy of arange(8) gave {outs[0].tolist()}")
+    # registered as differentiable, the call gives the value and the gradient
+    # raises, where returning a detached output would cut it silently
+    guarded = custom_op.register_custom_op("chip_smoke_axpy_differentiable", axpy.axpy)
+    yg = guarded(inputs[0])
+    if not torch.equal(yg.detach(), outs[0]):
+        fail(f"the differentiable registration gave {yg.tolist()}")
+    try:
+        yg.sum().backward()
+        fail("a differentiable op over the ctypes kernel cut its gradient silently")
+    except custom_op.CustomOpError:
+        pass
+
+    # cpp_extension: a host op on CUDA tensors (copied to the host and back)
+    src_dir = build_dir / "chip_smoke_cpp_extension"
+    src_dir.mkdir(parents=True, exist_ok=True)
+    (src_dir / "softsign.cc").write_text(CPP_SRC)
+    ext = cpp_extension.load("chip_smoke_softsign", [str(src_dir / "softsign.cc")],
+                             build_directory=str(src_dir))
+    soft = ext.def_op("chip_smoke_softsign", "softsign_fwd", backward_symbol="softsign_bwd")
+    xc = torch.tensor([-2.0, 0.0, 3.0, 0.25], device="cuda", requires_grad=True)
+    yc = soft(xc)
+    yc.sum().backward()
+    want_y = torch.tensor([-2 / 3, 0.0, 0.75, 0.2], device="cuda")
+    want_g = torch.tensor([1 / 9, 1.0, 1 / 16, 0.64], device="cuda")
+    yb = soft(xc.detach().to(bf16))
+    if not (yc.is_cuda and xc.grad.is_cuda and yb.is_cuda and yb.dtype == f32):
+        fail(f"cpp_extension op left the card: {yc.device} {xc.grad.device} {yb.device}")
+    if not (torch.allclose(yc, want_y, rtol=1e-6) and torch.allclose(xc.grad, want_g, rtol=1e-6)):
+        fail(f"cpp_extension op on the card: {yc.tolist()} grad {xc.grad.tolist()}")
+    return dict(checks=checks, timed=timed, launches=launches, calls=len(inputs),
+                cpp_extension=dict(values=yc.tolist(), grad=xc.grad.tolist(),
+                                   device=str(yc.device)))
+
+
 def main():
     import torch
 
@@ -614,8 +793,10 @@ def main():
     try:
         import paddle_tpu_torch.models as models
         from paddle_tpu_torch.ops.cuda import _build
+        from paddle_tpu_torch.ops.cuda import axpy
         from paddle_tpu_torch.ops.cuda import flash_attention as fa
         from paddle_tpu_torch.optimizer import AdamW
+        from paddle_tpu_torch.utils import cpp_extension, custom_op
     except ImportError as e:
         print(f"chip_smoke: the paddle_tpu_torch package is not beside this "
               f"script ({e})", file=sys.stderr)
@@ -670,6 +851,13 @@ def main():
     print("train_card_vs_cpu " + json.dumps(train_e2e), flush=True)
     print(f"phase_seconds 7 {time.perf_counter() - t0:.1f}", flush=True)
 
+    # phase 8: the custom-op path (launch count set to 0 inside, read after)
+    t0 = time.perf_counter()
+    custom = phase_custom_op(torch, axpy, custom_op, cpp_extension, _build.BUILD_DIR)
+    print("custom_op " + json.dumps(dict(launches=custom["launches"], calls=custom["calls"],
+                                         cpp_extension=custom["cpp_extension"])), flush=True)
+    print(f"phase_seconds 8 {time.perf_counter() - t0:.1f}", flush=True)
+
     kernel = dict(
         name="flash_attention_fwd", route="cuda",
         source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -702,7 +890,19 @@ def main():
                          bound_ms=b1[f"{key}_bound_ms"], library_ms=b1["library_ms"],
                          backward_ms=b1["bwd_ms"])))
     bwd_kernels[0]["checks"] = bwd_checks
-    print(json.dumps({"kernels": [kernel] + bwd_kernels}), flush=True)
+    ax = custom["timed"]
+    axpy_kernel = dict(
+        name="axpy", route="cuda", source="paddle_tpu_torch/csrc/axpy.cu",
+        replaces="tests/test_extension_points.py:57", launches=custom["launches"],
+        max_abs_err=ax["max_abs_err"], bit_exact=ax["bit_exact"], ms=ax["kernel_ms"],
+        kernel_ms=ax["kernel_ms"], call_ms=ax["kernel_call_ms"], plain_ms=ax["plain_ms"],
+        plain_call_ms=ax["plain_call_ms"], bound_ms=ax["bound_ms"], bound_by=ax["bound_by"],
+        library_ms=ax["library_ms"], library_call_ms=ax["library_call_ms"],
+        library_call="torch.add(torch.tensor(1.0), x, alpha=2)",
+        kernel_gbps=ax["kernel_gbps"], clone_ms=ax["clone_ms"], shape=[ax["numel"]],
+        dtype=ax["dtype"],
+        checks=custom["checks"])
+    print(json.dumps({"kernels": [kernel] + bwd_kernels + [axpy_kernel]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,1 +1,2 @@
-"""Operators of the port that need more than plain PyTorch."""
+"""Operators of the port: the op registry (``_apply``) and the operators that
+need more than plain PyTorch (``cuda``)."""

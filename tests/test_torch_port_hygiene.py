@@ -37,7 +37,8 @@ def test_no_jax_or_paddle_tpu_import(path):
 def test_import_leaves_jax_and_paddle_tpu_unloaded():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.models, "
             "paddle_tpu_torch.ops.cuda.flash_attention, paddle_tpu_torch.nn.functional, "
-            "paddle_tpu_torch.optimizer, paddle_tpu_torch.distributed.fleet; "
+            "paddle_tpu_torch.optimizer, paddle_tpu_torch.distributed.fleet, "
+            "paddle_tpu_torch.utils, paddle_tpu_torch.ops.cuda.axpy; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -91,6 +92,25 @@ def test_cuda_backward_never_takes_the_plain_version(monkeypatch):
     lse = torch.zeros(1, 2, 4)
     with pytest.raises(RuntimeError, match="kernel launch"):
         fa.flash_attention_bwd(q, q, q, q, lse, q, causal=True)
+
+
+def test_axpy_on_cuda_never_takes_the_plain_version(monkeypatch):
+    from paddle_tpu_torch.ops.cuda import axpy
+
+    def launched(*a):
+        raise RuntimeError("kernel launch")
+
+    def plain(*a):
+        raise AssertionError("plain version taken for a CUDA tensor")
+
+    monkeypatch.setattr(axpy, "_launch", launched)
+    monkeypatch.setattr(axpy, "axpy_plain", plain)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    with pytest.raises(RuntimeError, match="kernel launch"):
+        axpy.axpy(torch.zeros(8))
+    op = axpy.register_example(name="torch_test_hygiene_axpy")
+    with pytest.raises(RuntimeError, match="kernel launch"):
+        op(torch.zeros(8, requires_grad=True))
 
 
 def test_kernel_source_present_and_build_ignored():
