@@ -7,16 +7,19 @@ Phases, each a hard check (the script exits nonzero on the first failure):
   1. device: card name and power limit, torch/CUDA versions; build every
      kernel from csrc/ with nvcc (one process per source, in parallel).
   2. forward kernel: flash_attention_fwd (the hand-written kernel) against
-     its plain PyTorch version on the card, at the serving shapes and the
-     edge cases, with a tolerance per dtype; times of the kernel, the plain
-     version and torch's scaled_dot_product_attention (a yardstick only: the
-     port never calls it) beside the least time the card could take.
+     its plain PyTorch version on the card, at the serving, long-prompt and
+     training shapes, the edge cases, head dims 32, 64 and 128, and a view
+     TMA cannot read (the wrapper copies it and launches the same kernel),
+     with a tolerance per dtype; times of the kernel, the plain version and
+     torch's scaled_dot_product_attention (a yardstick only: the port never
+     calls it) beside the least time the card could take.
   3. serving at full width: the flagship LLaMA (vocab 32000, hidden 2048,
      8 layers, 16 heads x 128, bf16, random weights from a seed) served by
      LlamaDecodeEngine.generate (8 prompts x 128 tokens, 32 greedy new
      tokens) and LlamaForCausalLM.generate. Launch counts are set to 0 just
      before and read just after: every prefill must launch the forward kernel
-     once per layer, and serving no backward kernel.
+     once per layer, serving no backward kernel, and the wrapper must make no
+     alignment copy.
   4. card against CPU: the same width at 2 layers in fp32, copied to a CPU
      twin (which runs the plain versions); prefill logits must agree and
      greedy tokens must be identical.
@@ -29,7 +32,8 @@ Phases, each a hard check (the script exits nonzero on the first failure):
      AdamW(multi_precision) at lr 1e-4, batch 8 x 2048, the same batch every
      step. Launch counts are set to 0 before one step and read after it:
      2 forward launches per layer (recompute runs the forward again), one dq
-     and one dk/dv launch per layer. Every parameter must get a finite,
+     and one dk/dv launch per layer, no alignment copy. Every parameter must
+     get a finite,
      nonzero gradient, and the loss must fall; step time, tokens/s, MFU,
      peak memory and a profiled step's device time by kernel group are
      printed.
@@ -209,6 +213,12 @@ def backward_bounds_ms(B, Sq, Sk, Hq, Hkv, D, causal, elt, tensor_cores):
     return dq, dkv
 
 
+def unaligned(torch, shape, dtype, gen):
+    """A (B, S, H, D) view 2 bytes past a 16-byte boundary: TMA cannot read it."""
+    n = math.prod(shape)
+    return torch.randn(n + 1, device="cuda", generator=gen).to(dtype)[1:].view(shape)
+
+
 def phase_kernel(torch, fa):
     """Kernel against its plain version; times at the timed shapes."""
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -216,6 +226,7 @@ def phase_kernel(torch, fa):
         # name, B, Sq, Sk, Hq, Hkv, D, dtype, causal, timed
         ("flagship_prefill", 8, 128, 128, 16, 16, 128, "bfloat16", True, True),
         ("long_prompt", 1, 2048, 2048, 16, 16, 128, "bfloat16", True, True),
+        ("training_shape", 8, 2048, 2048, 16, 16, 128, "bfloat16", True, True),
         ("gqa_hkv4", 2, 512, 512, 16, 4, 128, "bfloat16", True, False),
         ("mqa_hkv1", 2, 512, 512, 16, 1, 128, "bfloat16", True, False),
         ("non_causal", 2, 512, 512, 16, 16, 128, "bfloat16", False, False),
@@ -225,22 +236,44 @@ def phase_kernel(torch, fa):
         ("fp16_d64", 2, 256, 256, 16, 16, 64, "float16", True, False),
         ("fp32", 2, 256, 256, 16, 16, 128, "float32", True, False),
         ("fp32_ragged_gqa_d64", 1, 300, 700, 8, 2, 64, "float32", True, False),
+        ("d32_reference_test", 1, 128, 128, 2, 2, 32, "bfloat16", False, False),
+        ("d32_bf16", 2, 512, 512, 16, 16, 32, "bfloat16", True, False),
+        ("d32_fp16", 2, 512, 512, 16, 16, 32, "float16", True, False),
+        ("d32_fp32", 2, 256, 256, 16, 16, 32, "float32", True, False),
+        ("ragged_d32_gqa", 2, 300, 700, 8, 2, 32, "bfloat16", True, False),
+        ("unaligned_view", 2, 256, 256, 16, 4, 128, "bfloat16", True, False),
     ]
-    checks, main = [], None
+    checks, rows = [], {}
     for name, B, Sq, Sk, Hq, Hkv, D, dt, causal, timed in cases:
         dtype = getattr(torch, dt)
-        q = torch.randn(B, Sq, Hq, D, device="cuda", generator=gen).to(dtype)
-        k = torch.randn(B, Sk, Hkv, D, device="cuda", generator=gen).to(dtype)
-        v = torch.randn(B, Sk, Hkv, D, device="cuda", generator=gen).to(dtype)
+        if name == "unaligned_view":
+            q = unaligned(torch, (B, Sq, Hq, D), dtype, gen)
+            k, v = (unaligned(torch, (B, Sk, Hkv, D), dtype, gen) for _ in range(2))
+            if not all(fa._needs_alignment_copy(t) for t in (q, k, v)):
+                fail("the unaligned-view case is readable by TMA as it lies")
+        else:
+            q = torch.randn(B, Sq, Hq, D, device="cuda", generator=gen).to(dtype)
+            k = torch.randn(B, Sk, Hkv, D, device="cuda", generator=gen).to(dtype)
+            v = torch.randn(B, Sk, Hkv, D, device="cuda", generator=gen).to(dtype)
+        before = (fa.launches, fa.copies_for_alignment)
         out, lse = fa.flash_attention_fwd_lse(q, k, v, causal)
         torch.cuda.synchronize()
+        launched = fa.launches - before[0]
+        copies = fa.copies_for_alignment - before[1]
+        # a view TMA cannot read is copied (q, k and v), then the same kernel
+        # runs once; everything else is read where it lies
+        want_copies = 3 if name == "unaligned_view" else 0
+        if launched != 1 or copies != want_copies:
+            fail(f"{name}: {launched} launches and {copies} alignment copies, want 1 "
+                 f"and {want_copies}")
         ref, ref_lse = fa.flash_attention_fwd_plain(q, k, v, causal)
         diff = (out.float() - ref.float()).abs()
         err = diff.max().item()
         scaled = (diff / ref.float().abs().clamp(min=1.0)).max().item()
         lse_err = (lse - ref_lse).abs().max().item()
         row = dict(name=name, shape=[B, Sq, Sk, Hq, Hkv, D], dtype=dt, causal=causal,
-                   max_abs_err=err, max_scaled_err=scaled, tol=TOL[dt], lse_err=lse_err)
+                   max_abs_err=err, max_scaled_err=scaled, tol=TOL[dt], lse_err=lse_err,
+                   launches=launched, copies_for_alignment=copies)
         if not (math.isfinite(scaled) and scaled <= TOL[dt]):
             fail(f"kernel disagrees with its plain version at {row}")
         if not (math.isfinite(lse_err) and lse_err <= TOL_LSE):
@@ -259,9 +292,11 @@ def phase_kernel(torch, fa):
                 B, Sq, Sk, Hq, Hkv, D, causal, q.element_size(), dtype != torch.float32)
         print("kernel_check " + json.dumps(row), flush=True)
         checks.append(row)
-        if name == "flagship_prefill":
-            main = row
-    return checks, main
+        if timed:
+            rows[name] = row
+        del q, k, v, out, lse, ref, ref_lse, diff
+        torch.cuda.empty_cache()
+    return checks, rows
 
 
 def phase_serving(torch, fa, models):
@@ -307,6 +342,8 @@ def phase_serving(torch, fa, models):
 
     if (fa.launches_bwd_dq, fa.launches_bwd_dkv) != (0, 0):
         fail("serving launched a backward kernel")
+    if fa.copies_for_alignment:
+        fail(f"serving made {fa.copies_for_alignment} alignment copies")
     if after_generate != L:
         fail(f"engine.generate launched the kernel {after_generate} times, want {L}")
     if after_prefill - after_generate != L:
@@ -329,7 +366,7 @@ def phase_serving(torch, fa, models):
 
 
 def reset_counts(fa):
-    fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
+    fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = fa.copies_for_alignment = 0
 
 
 def counts(fa):
@@ -485,6 +522,8 @@ def phase_training(torch, fa, models, AdamW, smi):
     if per_step != (2 * L, L, L):
         fail(f"one training step launched (fwd, dq, dk/dv) = {per_step}, "
              f"want {(2 * L, L, L)}")
+    if fa.copies_for_alignment:
+        fail(f"a training step made {fa.copies_for_alignment} alignment copies")
     bad = [n for n, p in model.named_parameters()
            if p.grad is None or not bool(torch.isfinite(p.grad).all())
            or not bool((p.grad != 0).any())]
@@ -819,7 +858,8 @@ def main():
 
     # phase 2: forward kernel against its plain version
     t0 = time.perf_counter()
-    checks, main_row = phase_kernel(torch, fa)
+    checks, fwd_rows = phase_kernel(torch, fa)
+    main_row = fwd_rows["flagship_prefill"]
     print(f"phase_seconds 2 {time.perf_counter() - t0:.1f}", flush=True)
 
     # phase 3: the serving main path (launch counts set to 0 inside, read after)
@@ -870,7 +910,11 @@ def main():
         call_ms=main_row["kernel_call_ms"],
         plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
         bound_by=main_row["bound_by"], library_ms=main_row["library_ms"],
-        shape=main_row["shape"], dtype=main_row["dtype"], checks=checks)
+        shape=main_row["shape"], dtype=main_row["dtype"],
+        **{name: dict(ms=r["kernel_ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+                      bound_ms=r["bound_ms"], bound_by=r["bound_by"], shape=r["shape"])
+           for name, r in fwd_rows.items() if name != "flagship_prefill"},
+        checks=checks)
     tr, b1 = bwd_rows["training"], bwd_rows["long_b1"]
     bwd_kernels = []
     for key, name, line, grads in (("dq", "flash_attention_bwd_dq", 130, ("dq",)),

@@ -6,32 +6,333 @@
 // softmax attention with fp32 running max / sum / accumulator, scores scaled
 // in fp32, -1e30 masking, causal mask aligned bottom-right (key t is visible
 // to query s iff t <= s + (Sk - Sq)), GQA kv head = h / (Hq / Hkv), and the
-// per-row log-sum-exp returned beside O for a backward pass.
+// per-row log-sum-exp (fp32, (B, Hq, Sq)) returned beside O for a backward.
 //
 // What bounds it on an H100: per (b, head) the kernel reads q, k, v once and
 // writes o and lse once, and does 4*D flops per visible (query, key) pair.
 // At serving prompt lengths (S=128, D=128) that is ~2 flop per byte, far
 // below the ~295 flop/byte at which bf16 tensor cores become the limit, so
 // the bound is HBM bytes; at S >= ~1k causal it is tensor-core flops.
-// The design answers both simply:
-//   * bytes: q/k/v are read straight from the caller's (B, S, H, D) layout
-//     through strides (no transposed copies), each k/v tile is staged once in
-//     shared memory per 64 query rows (cp.async, double-buffered so the next
-//     tile streams in under the current tile's math), and probabilities
-//     never leave registers (no S x S matrix in HBM).
-//   * flops: bf16/fp16 products run on tensor cores (mma.sync m16n8k16 with
-//     fp32 accumulation) fed by ldmatrix; the P tile is re-packed from the
-//     score registers as the A operand of P @ V without a trip through
-//     shared memory; the k/v loop stops at the causal diagonal; causal q
-//     tiles are issued longest first so the tail of the grid is short.
-// fp32 inputs run on CUDA cores in full fp32 (no TF32), one query row per
-// four threads. wgmma, TMA and warp specialisation are left for later work.
+//
+// bf16 / fp16 (`fa_fwd_wgmma`, head dims 32, 64, 128), designed for Hopper:
+//   * flops: both products run on wgmma, the only path to the card's full
+//     tensor-core rate. A block is 128 query rows of one (b, q head) in two
+//     warpgroups of 64 rows; each 128-key K/V tile in shared memory feeds
+//     both. S = Q K^T is m64n128k16 with Q and K from shared memory (both
+//     K-major: D contiguous). O += P V is m64nDk16 with P from registers (the
+//     fp32 score accumulator packed to 16-bit pairs: the m64 accumulator
+//     layout is the A-register layout) and V from shared memory, D
+//     contiguous, through the descriptor's transpose bit. The softmax is
+//     branch-free in registers (exp2 on the special-function unit, masking
+//     only on tiles that cross the diagonal or the end of the keys). The k/v
+//     loop stops at the causal diagonal (per warpgroup), and causal q tiles
+//     are issued longest first so the tail of the grid is short.
+//   * bytes: Q, K and V are read straight from the caller's (B, S, H, D)
+//     strides by TMA (one 4-d tensor map each, 128-byte swizzle, 64-byte at
+//     D = 32, matching the wgmma descriptors); one thread issues the copies
+//     and no thread spends registers on addresses. K/V tiles go through a
+//     ring of two stages, each with a "full" mbarrier (TMA bytes) and an
+//     "empty" one (every consumer thread past the wgmma that read it), so the
+//     next tile streams in under the current tile's math. TMA zero-fills rows
+//     past Sq and Sk; masking still gives those columns P = 0. Probabilities
+//     never leave registers.
+//   * shared memory at D = 128: Q 32 KB + 2 stages x (K + V) 64 KB = 160 KB of
+//     the 227 KB. A third stage fits (224 KB) but measured no faster: with
+//     the loads issued a tile ahead, the tile's math, not the copy, is what
+//     the next tile waits for.
+// Left for later (stage 2): a producer warp with setmaxnreg, and ping-pong of
+// the two warpgroups so one's softmax runs under the other's products; head
+// dims 96 and 256.
+//
+// fp32 (`fa_fwd_f32`) runs on CUDA cores in full fp32 (no TF32), one query
+// row per four threads, 64-row blocks.
 #include "flash_attention_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBlockM = 64;  // query rows per thread block
-constexpr int kBlockN = 64;  // keys per k/v tile
+// Number of keys the rows [q0, q0 + rows) can see (rows past Sq see none
+// beyond the last real row's).
+__device__ __forceinline__ int kv_limit(int q0, int rows, int Sq, int Sk, int causal) {
+  if (!causal) return Sk;
+  const int last_row = min(q0 + rows, Sq) - 1;
+  return min(Sk, last_row + (Sk - Sq) + 1);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 / fp16: wgmma fed by TMA
+// ---------------------------------------------------------------------------
+constexpr int kWgBlockM = 128;  // query rows per block: two warpgroups of 64
+constexpr int kWgBlockN = 128;  // keys per K/V tile
+constexpr int kWgThreads = 256;
+constexpr int kStages = 2;      // K/V stages in the ring
+
+struct WgParams {
+  CUtensorMap tq, tk, tv;  // (D, S, H, B) maps, box (atom columns, 128 rows, 1, 1)
+  void* o;
+  float* lse;              // (B, Hq, Sq) contiguous
+  int Hq, Hkv, Sq, Sk;
+  long long o_sb, o_ss, o_sh;
+  float scale;
+  int causal;
+};
+
+// Shared-memory layout of one head dim. A tile of R rows is kAtoms column
+// atoms of R rows x kRowBytes (128 B, or 64 B at D = 32), each swizzled as
+// TMA writes it and wgmma reads it.
+template <int D>
+struct WgLayout {
+  static constexpr int kAtomCols = D >= 64 ? 64 : D;
+  static constexpr int kRowBytes = kAtomCols * 2;
+  static constexpr int kAtoms = D / kAtomCols;
+  static constexpr uint32_t kSwizzle = kRowBytes == 128 ? 1 : 2;  // descriptor code
+  static constexpr int kKPerAtom = kAtomCols / 16;                // k16 steps in an atom
+  static constexpr int kQBytes = kWgBlockM * D * 2;
+  static constexpr int kKVBytes = kWgBlockN * D * 2;              // one of K, V
+  static constexpr int kBarOffset = kQBytes + kStages * 2 * kKVBytes;
+  // + 1 KB so the tiles can start on a 1024-byte boundary
+  static constexpr size_t kSmem = (size_t)kBarOffset + 8 * (2 * kStages + 1) + 1024;
+};
+
+static_assert(kWgBlockM == kWgBlockN, "Q and K/V tiles share one TMA box");
+
+// 2^x on the special-function unit (flushes subnormal results to 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two floats rounded to one 32-bit pair of T (lo in the low half)
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+fa_fwd_wgmma(const __grid_constant__ WgParams p) {
+  using L = WgLayout<D>;
+  constexpr int kNT = kWgBlockN / 8;  // n8 column groups of the score tile
+  constexpr int kDT = D / 8;          // n8 column groups of the output
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t bars = base + L::kBarOffset;
+  // full[s] = bars + 8 s, empty[s] = bars + 8 (kStages + s), Q = bars + 16 kStages
+  const uint32_t q_bar = bars + 16 * kStages;
+
+  const int n_qtiles = (p.Sq + kWgBlockM - 1) / kWgBlockM;
+  const int q0 = (n_qtiles - 1 - blockIdx.x) * kWgBlockM;  // longest first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (p.Hq / p.Hkv);
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;  // this warpgroup's rows: [q0 + 64 wg, q0 + 64 wg + 64)
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int offset = p.Sk - p.Sq;
+
+  const int n_tiles = (kv_limit(q0, kWgBlockM, p.Sq, p.Sk, p.causal) + kWgBlockN - 1) /
+                      kWgBlockN;
+  const int wq0 = q0 + 64 * wg;
+  const int wg_tiles = wq0 >= p.Sq ? 0
+      : (kv_limit(wq0, 64, p.Sq, p.Sk, p.causal) + kWgBlockN - 1) / kWgBlockN;
+
+  auto stage_k = [&](int s) { return base + L::kQBytes + s * 2 * L::kKVBytes; };
+  auto load_tile = [&](uint32_t dst, const CUtensorMap* map, int row, int head, uint32_t bar) {
+#pragma unroll
+    for (int a = 0; a < L::kAtoms; ++a)
+      tma_load_4d(dst + a * kWgBlockN * L::kRowBytes, map, bar, a * L::kAtomCols, row, head, b);
+  };
+  auto load_kv = [&](int j) {  // tile j into stage j % kStages
+    const int s = j % kStages;
+    const uint32_t full = bars + 8 * s;
+    mbar_arrive_expect_tx(full, 2 * L::kKVBytes);
+    load_tile(stage_k(s), &p.tk, j * kWgBlockN, hk, full);
+    load_tile(stage_k(s) + L::kKVBytes, &p.tv, j * kWgBlockN, hk, full);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (kStages + s), kWgThreads);
+    }
+    mbar_init(q_bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect_tx(q_bar, L::kQBytes);
+    load_tile(sQ, &p.tq, q0, h, q_bar);  // kWgBlockM == kWgBlockN rows
+    for (int j = 0; j < kStages && j < n_tiles; ++j) load_kv(j);
+  }
+  __syncwarp();
+
+  const int row[2] = {wq0 + warp * 16 + lane / 4, wq0 + warp * 16 + lane / 4 + 8};
+  const float scale_log2 = p.scale * kLog2e;
+  float m_i[2] = {kNegBig, kNegBig};  // running max, log2 units
+  float l_i[2] = {0.f, 0.f};          // this thread's share of the row sum
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float sc[kWgBlockN / 2];  // this tile's scores, then its probabilities
+#pragma unroll
+  for (int i = 0; i < kWgBlockN / 2; ++i) sc[i] = 0.f;
+  // this warpgroup's 64 rows in each Q atom
+  const uint32_t q_wg = sQ + wg * 64 * L::kRowBytes;
+
+  mbar_wait(q_bar, 0);
+  __syncwarp();
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages;
+    const uint32_t parity = (j / kStages) & 1;
+    mbar_wait(bars + 8 * s, parity);
+    __syncwarp();
+    if (j < wg_tiles) {
+      const uint32_t sK = stage_k(s);
+      const uint32_t sV = sK + L::kKVBytes;
+      // S = Q K^T: D / 16 k-steps, each 32 bytes further along a swizzled
+      // row; the first overwrites sc (scale-d 0)
+      wgmma_fence();
+      fence_regs(sc);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t a_off = (kk / L::kKPerAtom) * kWgBlockM * L::kRowBytes +
+                               (kk % L::kKPerAtom) * 32;
+        const uint32_t b_off = (kk / L::kKPerAtom) * kWgBlockN * L::kRowBytes +
+                               (kk % L::kKPerAtom) * 32;
+        wgmma_ss<T>(sc, wgmma_desc(q_wg + a_off, 16, 8 * L::kRowBytes, L::kSwizzle),
+                    wgmma_desc(sK + b_off, 16, 8 * L::kRowBytes, L::kSwizzle), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // online softmax in registers: a thread holds rows row[0], row[1] at
+      // columns 8 i + 2 (lane % 4) + {0, 1} of each n8 group i
+      const int k0 = j * kWgBlockN;
+#pragma unroll
+      for (int i = 0; i < kWgBlockN / 2; ++i) sc[i] *= scale_log2;
+      if ((k0 + kWgBlockN > p.Sk) || (p.causal && k0 + kWgBlockN - 1 > wq0 + offset)) {
+        // one uniform branch, then selects: column 8 i + (e & 1) of this
+        // thread's share is visible to row r iff it is below lim[r]
+        int lim[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          lim[r] = (p.causal ? min(p.Sk, row[r] + offset + 1) : p.Sk) - k0 - 2 * (lane % 4);
+#pragma unroll
+        for (int i = 0; i < kNT; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (8 * i + (e & 1) >= lim[e >> 1]) sc[4 * i + e] = kNegBig;
+      }
+      float mx[2] = {m_i[0], m_i[1]};
+#pragma unroll
+      for (int i = 0; i < kNT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * i + e]);
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        // the first tile gives every row a visible key (key 0, as Sq <= Sk
+        // when causal), so mx is a real score from then on and a masked
+        // score's exp2(-1e30 - mx) is 0; alpha of the first tile is 0 (O and
+        // l are still 0)
+        alpha[r] = fast_exp2(m_i[r] - mx[r]);
+        m_i[r] = mx[r];
+        l_i[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int i = 0; i < kNT; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pe = fast_exp2(sc[4 * i + e] - mx[e >> 1]);
+          sc[4 * i + e] = pe;
+          l_i[e >> 1] += pe;
+        }
+      }
+      // the previous P V has completed (wait_group 0 below): rescale O
+#pragma unroll
+      for (int i = 0; i < kDT; ++i) {
+        acc[4 * i + 0] *= alpha[0];
+        acc[4 * i + 1] *= alpha[0];
+        acc[4 * i + 2] *= alpha[1];
+        acc[4 * i + 3] *= alpha[1];
+      }
+      // P as the A operand: score groups 2 kc and 2 kc + 1 are keys
+      // 16 kc .. 16 kc + 15, in the m64k16 A-register layout
+      uint32_t pa[kWgBlockN / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < kWgBlockN / 16; ++kc) {
+        pa[kc][0] = pack2<T>(sc[8 * kc + 0], sc[8 * kc + 1]);
+        pa[kc][1] = pack2<T>(sc[8 * kc + 2], sc[8 * kc + 3]);
+        pa[kc][2] = pack2<T>(sc[8 * kc + 4], sc[8 * kc + 5]);
+        pa[kc][3] = pack2<T>(sc[8 * kc + 6], sc[8 * kc + 7]);
+      }
+      // O += P V: 16 keys a step (16 rows of every V atom); V atoms along D
+      // are kWgBlockN rows apart (the descriptor's leading byte offset)
+      wgmma_fence();
+      fence_regs(acc);
+#pragma unroll
+      for (int kc = 0; kc < kWgBlockN / 16; ++kc) {
+        wgmma_rs<T, D>(acc, pa[kc],
+                       wgmma_desc(sV + kc * 16 * L::kRowBytes, kWgBlockN * L::kRowBytes,
+                                  8 * L::kRowBytes, L::kSwizzle));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+    // this thread is done with stage s; thread 0 refills it once every
+    // consumer thread is
+    mbar_arrive(bars + 8 * (kStages + s));
+    if (tid == 0 && j + kStages < n_tiles) {
+      mbar_wait(bars + 8 * (kStages + s), parity);
+      load_kv(j + kStages);
+    }
+    __syncwarp();
+  }
+
+  // Epilogue: finish the row sums across the quad, normalise, store.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_i[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float l_safe = fmaxf(l, 1e-30f);
+    const float inv = 1.f / l_safe;
+    if (row[r] < p.Sq) {
+      T* Og = static_cast<T*>(p.o) + b * p.o_sb + (long long)row[r] * p.o_ss + h * p.o_sh;
+#pragma unroll
+      for (int i = 0; i < kDT; ++i) {
+        *reinterpret_cast<uint32_t*>(Og + i * 8 + 2 * (lane % 4)) =
+            pack2<T>(acc[4 * i + 2 * r] * inv, acc[4 * i + 2 * r + 1] * inv);
+      }
+      if (lane % 4 == 0) {
+        p.lse[((long long)b * p.Hq + h) * p.Sq + row[r]] = (m_i[r] + log2f(l_safe)) * kLn2;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32: CUDA cores, full fp32 arithmetic
+// ---------------------------------------------------------------------------
+constexpr int kF32BlockM = 64;  // query rows per block
+constexpr int kF32BlockN = 64;  // keys per k/v tile
 
 struct Params {
   const void* q;
@@ -46,209 +347,8 @@ struct Params {
   long long o_sb, o_ss, o_sh;
   float scale;
   int causal;
-  int aligned16;  // every row of q/k/v starts on a 16-byte boundary
 };
 
-// Number of keys the rows [q0, q0 + kBlockM) can see.
-__device__ __forceinline__ int kv_limit(const Params& p, int q0) {
-  if (!p.causal) return p.Sk;
-  const int last_row = min(q0 + kBlockM, p.Sq) - 1;
-  return min(p.Sk, last_row + (p.Sk - p.Sq) + 1);
-}
-
-// ---------------------------------------------------------------------------
-// bf16 / fp16: tensor cores
-// ---------------------------------------------------------------------------
-// One block = 64 query rows of one (b, q head); 4 warps x 16 rows each.
-// Fragment layouts are those of mma.sync m16n8k16 (PTX ISA): with g = lane/4
-// and t = lane%4, a thread holds A rows {g, g+8} x cols {2t, 2t+1, 2t+8,
-// 2t+9}, B (k x n) rows {2t, 2t+1, 2t+8, 2t+9} x col g, and C rows {g, g+8}
-// x cols {2t, 2t+1}. ldmatrix fills A from Q rows, B of Q @ K^T from K rows
-// (plain) and B of P @ V from V rows (.trans). K/V tiles are double-
-// buffered: tile j + 1 streams in by cp.async while tile j is computed.
-template <typename T, int D>
-__global__ void __launch_bounds__(128)
-fa_fwd_mma(const Params p) {
-  constexpr int kThreads = 128;
-  constexpr int LDS = D + 8;  // +16 bytes a row: conflict-free ldmatrix rows
-  constexpr int kDT = D / 8;  // n-tiles of the output
-  constexpr int kKC = D / 16; // k-chunks of Q @ K^T
-  constexpr int kNT = kBlockN / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // shared memory: Q | K buffer 0 | K buffer 1 | V buffer 0 | V buffer 1
-  T* sQ = reinterpret_cast<T*>(smem_raw);
-  T* const sK0 = sQ + kBlockM * LDS;
-  T* const sV0 = sK0 + 2 * kBlockN * LDS;
-
-  const int n_qtiles = (p.Sq + kBlockM - 1) / kBlockM;
-  const int q0 = (n_qtiles - 1 - blockIdx.x) * kBlockM;  // longest first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (p.Hq / p.Hkv);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int lm = lane >> 3;  // which 8x8 matrix this lane addresses
-  const int lr = lane & 7;   // which row of it
-  const bool aligned = p.aligned16 != 0;
-
-  const T* Qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* Kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* Vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-
-  const int kv_end = kv_limit(p, q0);
-  const int n_tiles = (kv_end + kBlockN - 1) / kBlockN;
-
-  load_tile<T, D, LDS, kBlockM, kThreads>(sQ, Qg, p.q_ss, q0, p.Sq, aligned);
-  load_tile<T, D, LDS, kBlockN, kThreads>(sK0, Kg, p.k_ss, 0, p.Sk, aligned);
-  load_tile<T, D, LDS, kBlockN, kThreads>(sV0, Vg, p.v_ss, 0, p.Sk, aligned);
-  cp_async_commit();
-
-  const int lr0 = warp * 16 + g;  // local rows of this thread: lr0, lr0 + 8
-  const int offset = p.Sk - p.Sq;
-  const int row[2] = {q0 + lr0, q0 + lr0 + 8};
-  const float scale_log2 = p.scale * kLog2e;
-  float m_i[2] = {kNegBig, kNegBig};  // running max, log2 units
-  float l_i[2] = {0.f, 0.f};          // this thread's share of the row sum
-  float acc[kDT][4];
-#pragma unroll
-  for (int dt = 0; dt < kDT; ++dt)
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  uint32_t qf[kKC][4];
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kBlockN;
-    const int buf = (j & 1) * kBlockN * LDS;  // offset of this tile's buffers
-    const T* sK = sK0 + buf;
-    const T* sV = sV0 + buf;
-    if (j + 1 < n_tiles) {
-      // the other buffer was last read in iteration j - 1, which ended in a
-      // barrier
-      const int next = kBlockN * LDS - buf;
-      load_tile<T, D, LDS, kBlockN, kThreads>(sK0 + next, Kg, p.k_ss, k0 + kBlockN,
-                                              p.Sk, aligned);
-      load_tile<T, D, LDS, kBlockN, kThreads>(sV0 + next, Vg, p.v_ss, k0 + kBlockN,
-                                              p.Sk, aligned);
-      cp_async_commit();
-      cp_async_wait<1>();  // everything but the tile just started
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    if (j == 0) {
-#pragma unroll
-      for (int kc = 0; kc < kKC; ++kc)
-        ldmatrix_x4(qf[kc], sQ + (warp * 16 + (lm & 1) * 8 + lr) * LDS + kc * 16 + (lm >> 1) * 8);
-    }
-
-    float s[kNT][4];
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < kKC; kc += 2) {
-        uint32_t kf[4];  // B of chunks kc (kf[0..1]) and kc + 1 (kf[2..3])
-        ldmatrix_x4(kf, sK + (nt * 8 + lr) * LDS + kc * 16 + lm * 8);
-        Mma<T>::mma(s[nt], qf[kc], kf);
-        Mma<T>::mma(s[nt], qf[kc + 1], kf + 2);
-      }
-    }
-
-    const bool need_mask =
-        (k0 + kBlockN > p.Sk) || (p.causal && k0 + kBlockN - 1 > q0 + offset);
-    float mx[2] = {m_i[0], m_i[1]};
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nt][e] * scale_log2;
-        if (need_mask) {
-          const int col = k0 + nt * 8 + 2 * t + (e & 1);
-          const bool ok = col < p.Sk && (!p.causal || col <= row[e >> 1] + offset);
-          x = ok ? x : kNegBig;
-        }
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      // m_i == mx == kNegBig (nothing visible yet) gives alpha = 1 with
-      // l = acc = 0: no NaN from a fully masked first tile
-      alpha[i] = exp2f(m_i[i] - mx[i]);
-      m_i[i] = mx[i];
-      l_i[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = s[nt][e];
-        const float pe = (x == kNegBig) ? 0.f : exp2f(x - mx[e >> 1]);
-        s[nt][e] = pe;
-        l_i[e >> 1] += pe;
-      }
-    }
-#pragma unroll
-    for (int dt = 0; dt < kDT; ++dt) {
-      acc[dt][0] *= alpha[0];
-      acc[dt][1] *= alpha[0];
-      acc[dt][2] *= alpha[1];
-      acc[dt][3] *= alpha[1];
-    }
-
-    // O += P @ V. The C layout of two adjacent score n-tiles is exactly the
-    // A layout of one 16-key chunk, so P goes from registers to the mma.
-#pragma unroll
-    for (int kc = 0; kc < kBlockN / 16; ++kc) {
-      uint32_t pa[4];
-      pa[0] = Mma<T>::pack(s[2 * kc][0], s[2 * kc][1]);
-      pa[1] = Mma<T>::pack(s[2 * kc][2], s[2 * kc][3]);
-      pa[2] = Mma<T>::pack(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      pa[3] = Mma<T>::pack(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < kDT; dt += 2) {
-        uint32_t vf[4];  // B of n-tiles dt (vf[0..1]) and dt + 1 (vf[2..3])
-        ldmatrix_x4_trans(vf, sV + (kc * 16 + (lm & 1) * 8 + lr) * LDS +
-                                  dt * 8 + (lm >> 1) * 8);
-        Mma<T>::mma(acc[dt], pa, vf);
-        Mma<T>::mma(acc[dt + 1], pa, vf + 2);
-      }
-    }
-    __syncthreads();  // every warp is done with buf before it is refilled
-  }
-
-  // Epilogue: finish the row sums across the quad, normalise, store.
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float l = l_i[i];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const float l_safe = fmaxf(l, 1e-30f);
-    const float inv = 1.f / l_safe;
-    const int r = row[i];
-    if (r < p.Sq) {
-      T* Og = static_cast<T*>(p.o) + b * p.o_sb + (long long)r * p.o_ss + h * p.o_sh;
-#pragma unroll
-      for (int dt = 0; dt < kDT; ++dt) {
-        *reinterpret_cast<uint32_t*>(Og + dt * 8 + 2 * t) =
-            Mma<T>::pack(acc[dt][2 * i] * inv, acc[dt][2 * i + 1] * inv);
-      }
-      if (t == 0) {
-        p.lse[((long long)b * p.Hq + h) * p.Sq + r] = (m_i[i] + log2f(l_safe)) * kLn2;
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// fp32: CUDA cores, full fp32 arithmetic
-// ---------------------------------------------------------------------------
 // One block = 64 query rows; 256 threads, four per row. Thread (r, c) owns
 // score columns c, c+4, ... of its row and output dims c, c+4, ...
 template <int D>
@@ -256,17 +356,17 @@ __global__ void __launch_bounds__(256)
 fa_fwd_f32(const Params p) {
   constexpr int kThreads = 256;
   constexpr int LDQ = D + 1;  // odd pitch: conflict-free column walks
-  constexpr int LDP = kBlockN + 1;
-  constexpr int kCols = kBlockN / 4;
+  constexpr int LDP = kF32BlockN + 1;
+  constexpr int kCols = kF32BlockN / 4;
   constexpr int kDims = D / 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sQ = reinterpret_cast<float*>(smem_raw);
-  float* sK = sQ + kBlockM * LDQ;
-  float* sV = sK + kBlockN * LDQ;
-  float* sP = sV + kBlockN * D;
+  float* sK = sQ + kF32BlockM * LDQ;
+  float* sV = sK + kF32BlockN * LDQ;
+  float* sP = sV + kF32BlockN * D;
 
-  const int n_qtiles = (p.Sq + kBlockM - 1) / kBlockM;
-  const int q0 = (n_qtiles - 1 - blockIdx.x) * kBlockM;
+  const int n_qtiles = (p.Sq + kF32BlockM - 1) / kF32BlockM;
+  const int q0 = (n_qtiles - 1 - blockIdx.x) * kF32BlockM;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (p.Hq / p.Hkv);
@@ -278,7 +378,7 @@ fa_fwd_f32(const Params p) {
   const float* Kg = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const float* Vg = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
-  for (int i = threadIdx.x; i < kBlockM * D; i += kThreads) {
+  for (int i = threadIdx.x; i < kF32BlockM * D; i += kThreads) {
     const int rr = i / D, d = i % D;
     const int gr = q0 + rr;
     sQ[rr * LDQ + d] = gr < p.Sq ? Qg[(long long)gr * p.q_ss + d] * p.scale : 0.f;
@@ -290,12 +390,12 @@ fa_fwd_f32(const Params p) {
 #pragma unroll
   for (int i = 0; i < kDims; ++i) acc[i] = 0.f;
 
-  const int kv_end = kv_limit(p, q0);
-  const int n_tiles = (kv_end + kBlockN - 1) / kBlockN;
+  const int kv_end = kv_limit(q0, kF32BlockM, p.Sq, p.Sk, p.causal);
+  const int n_tiles = (kv_end + kF32BlockN - 1) / kF32BlockN;
   for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kBlockN;
+    const int k0 = j * kF32BlockN;
     __syncthreads();
-    for (int i = threadIdx.x; i < kBlockN * D; i += kThreads) {
+    for (int i = threadIdx.x; i < kF32BlockN * D; i += kThreads) {
       const int rr = i / D, d = i % D;
       const int gr = k0 + rr;
       const bool in = gr < p.Sk;
@@ -335,7 +435,7 @@ fa_fwd_f32(const Params p) {
     __syncwarp();  // the row's four threads share one warp
 #pragma unroll
     for (int i = 0; i < kDims; ++i) acc[i] *= alpha;
-    for (int c = 0; c < kBlockN; ++c) {
+    for (int c = 0; c < kF32BlockN; ++c) {
       const float pe = sP[lr * LDP + c];
       const float* vr = sV + c * D + c4;
 #pragma unroll
@@ -355,36 +455,97 @@ fa_fwd_f32(const Params p) {
   }
 }
 
-// A refused launch is reported only by cudaGetLastError.
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, bool* configured, int threads, size_t smem,
-                   const Params& p, cudaStream_t stream) {
-  const cudaError_t err = grant_smem(kernel, configured, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + kBlockM - 1) / kBlockM, p.Hq, p.B);
-  kernel<<<grid, threads, smem, stream>>>(p);
-  return cudaGetLastError();
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+// cuTensorMapEncodeTiled, reached through the runtime (no link to libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult got;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &got) !=
+            cudaSuccess ||
+        got != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
+}
+
+// A (B, S, H, D) tensor with element strides (sb, ss, sh) and D contiguous,
+// as a 4-d map (D, S, H, B), box (atom columns, 128 rows, 1, 1). The caller
+// guarantees a 16-byte-aligned base and strides that are multiples of 16
+// bytes (the wrapper copies what is not).
+template <int D>
+bool encode_map(CUtensorMap* map, CUtensorMapDataType dtype, const void* ptr, int S, int H,
+                int B, long long sb, long long ss, long long sh) {
+  using L = WgLayout<D>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)L::kAtomCols, (cuuint32_t)kWgBlockN, 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return fn(map, dtype, 4, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE,
+            L::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
 }
 
 template <typename T, int D>
-cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
+cudaError_t launch_wgmma(const Params& a, CUtensorMapDataType dt, cudaStream_t stream) {
   static bool configured[kMaxDevices] = {};
-  const size_t smem = (size_t)(kBlockM + 4 * kBlockN) * (D + 8) * sizeof(T);
-  return launch(fa_fwd_mma<T, D>, configured, 128, smem, p, stream);
+  WgParams p;
+  if (!encode_map<D>(&p.tq, dt, a.q, a.Sq, a.Hq, a.B, a.q_sb, a.q_ss, a.q_sh) ||
+      !encode_map<D>(&p.tk, dt, a.k, a.Sk, a.Hkv, a.B, a.k_sb, a.k_ss, a.k_sh) ||
+      !encode_map<D>(&p.tv, dt, a.v, a.Sk, a.Hkv, a.B, a.v_sb, a.v_ss, a.v_sh))
+    return cudaErrorInvalidValue;
+  p.o = a.o;
+  p.lse = a.lse;
+  p.Hq = a.Hq; p.Hkv = a.Hkv; p.Sq = a.Sq; p.Sk = a.Sk;
+  p.o_sb = a.o_sb; p.o_ss = a.o_ss; p.o_sh = a.o_sh;
+  p.scale = a.scale;
+  p.causal = a.causal;
+  const size_t smem = WgLayout<D>::kSmem;
+  const cudaError_t err = grant_smem(fa_fwd_wgmma<T, D>, configured, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Sq + kWgBlockM - 1) / kWgBlockM, a.Hq, a.B);
+  fa_fwd_wgmma<T, D><<<grid, kWgThreads, smem, stream>>>(p);
+  return cudaGetLastError();  // a refused launch is reported only here
 }
 
 template <int D>
 cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
-  const size_t smem = ((size_t)(kBlockM + kBlockN) * (D + 1) + (size_t)kBlockN * D +
-                       (size_t)kBlockM * (kBlockN + 1)) * sizeof(float);
   static bool configured[kMaxDevices] = {};
-  return launch(fa_fwd_f32<D>, configured, 256, smem, p, stream);
+  const size_t smem = ((size_t)(kF32BlockM + kF32BlockN) * (D + 1) + (size_t)kF32BlockN * D +
+                       (size_t)kF32BlockM * (kF32BlockN + 1)) * sizeof(float);
+  const cudaError_t err = grant_smem(fa_fwd_f32<D>, configured, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Sq + kF32BlockM - 1) / kF32BlockM, p.Hq, p.B);
+  fa_fwd_f32<D><<<grid, 256, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dim(int dtype, const Params& p, cudaStream_t stream) {
+  if (dtype == 2)
+    return launch_wgmma<__nv_bfloat16, D>(p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, stream);
+  if (dtype == 1) return launch_wgmma<__half, D>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, stream);
+  if (dtype == 0) return launch_f32<D>(p, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16. Strides are in elements.
-// Returns a cudaError_t (0 on success).
+// dtype: 0 = float32, 1 = float16, 2 = bfloat16. Strides are in elements;
+// for float16 and bfloat16 the base must be 16-byte aligned and the strides
+// multiples of 16 bytes (TMA). Returns a cudaError_t (0 on success).
 extern "C" int pt_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int dtype, int B, int Hq, int Hkv, int Sq, int Sk, int D,
@@ -392,7 +553,7 @@ extern "C" int pt_flash_attention_fwd(
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
-    float scale, int causal, int aligned16, void* stream) {
+    float scale, int causal, void* stream) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o; p.lse = static_cast<float*>(lse);
   p.B = B; p.Hq = Hq; p.Hkv = Hkv; p.Sq = Sq; p.Sk = Sk;
@@ -400,14 +561,11 @@ extern "C" int pt_flash_attention_fwd(
   p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
   p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
-  p.scale = scale; p.causal = causal; p.aligned16 = aligned16;
+  p.scale = scale; p.causal = causal;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 2 && D == 128) return (int)launch_mma<__nv_bfloat16, 128>(p, s);
-  if (dtype == 2 && D == 64) return (int)launch_mma<__nv_bfloat16, 64>(p, s);
-  if (dtype == 1 && D == 128) return (int)launch_mma<__half, 128>(p, s);
-  if (dtype == 1 && D == 64) return (int)launch_mma<__half, 64>(p, s);
-  if (dtype == 0 && D == 128) return (int)launch_f32<128>(p, s);
-  if (dtype == 0 && D == 64) return (int)launch_f32<64>(p, s);
+  if (D == 128) return (int)launch_dim<128>(dtype, p, s);
+  if (D == 64) return (int)launch_dim<64>(dtype, p, s);
+  if (D == 32) return (int)launch_dim<32>(dtype, p, s);
   return (int)cudaErrorInvalidValue;
 }
 

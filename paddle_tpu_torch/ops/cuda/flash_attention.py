@@ -34,9 +34,13 @@ launches = 0
 launches_bwd_dq = 0
 #: backward dk/dv kernel launches, counted the same way
 launches_bwd_dkv = 0
+#: q, k or v tensors the forward wrapper copied because TMA cannot read them
+#: where they lie (a base or a stride that is not a multiple of 16 bytes)
+copies_for_alignment = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (32, 64, 128)
+_BWD_HEAD_DIMS = (64, 128)
 
 
 class FlashShapeError(ValueError):
@@ -110,6 +114,32 @@ def _aligned16(*tensors):
                for t in tensors)
 
 
+def _needs_alignment_copy(t):
+    """Whether TMA cannot read ``t`` where it lies: its base must be 16-byte
+    aligned and the (batch, seq, head) strides positive multiples of 16 bytes
+    (a dimension of size 1 is never stepped over, so its stride is free)."""
+    elt = t.element_size()
+    return t.data_ptr() % 16 != 0 or any(
+        n > 1 and (st <= 0 or st * elt % 16 != 0)
+        for n, st in zip(t.shape[:3], t.stride()[:3]))
+
+
+def _strides(t):
+    """(batch, seq, head) strides for the kernel; a dimension of size 1 gets
+    the head dim as its stride, which TMA takes (it is never stepped over)."""
+    return [st if n > 1 else t.shape[3] for n, st in zip(t.shape[:3], t.stride()[:3])]
+
+
+def _tma_ready(t):
+    """``t``, or an aligned contiguous copy of it where TMA cannot read it
+    (counted in ``copies_for_alignment``): the same kernel runs either way."""
+    global copies_for_alignment
+    if not _needs_alignment_copy(t):
+        return t
+    copies_for_alignment += 1
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -117,6 +147,8 @@ def _stream(t):
 def _launch(q, k, v, causal, scale):
     global launches
     _check_kernel_inputs(q, k, v)
+    if q.dtype != torch.float32:  # the 16-bit kernel reads q, k, v by TMA
+        q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
@@ -125,8 +157,8 @@ def _launch(q, k, v, causal, scale):
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                  _DTYPE_CODE[q.dtype], B, Hq, Hkv, Sq, Sk, D,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-                 scale, int(causal), int(_aligned16(q, k, v)), _stream(q))
+                 *_strides(q), *_strides(k), *_strides(v), *out.stride()[:3],
+                 scale, int(causal), _stream(q))
     if err:
         _build.check(_build.load(_NAME), err, "flash_attention_fwd launch")
     launches += 1
@@ -140,7 +172,7 @@ def _kernel():
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # every pointer and the stream as c_void_p: an undeclared argument
     # would pass as a 32-bit int and cut the address
-    fn.argtypes = [ptr] * 5 + [i32] * 7 + [i64] * 12 + [ctypes.c_float, i32, i32, ptr]
+    fn.argtypes = [ptr] * 5 + [i32] * 7 + [i64] * 12 + [ctypes.c_float, i32, ptr]
     fn.restype = ctypes.c_int
     return fn
 
@@ -162,7 +194,10 @@ def _check_bwd_inputs(q, k, v, do, lse, delta):
     """What the backward kernels take beyond the forward's rules. Raises
     ``FlashShapeError``; the wrapper never copies an input to fit."""
     _check_kernel_inputs(q, k, v)
-    B, Sq, Hq, _ = q.shape
+    B, Sq, Hq, D = q.shape
+    if D not in _BWD_HEAD_DIMS:
+        raise FlashShapeError(f"the backward kernels take head_dim in {_BWD_HEAD_DIMS}, "
+                              f"got {D}")
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise FlashShapeError(f"dO {tuple(do.shape)} {do.dtype} does not match q "
                               f"{tuple(q.shape)} {q.dtype}")
@@ -306,14 +341,19 @@ def flash_attention_fwd_lse(q, k, v, causal=False, scale=None):
 
     Raises ``FlashShapeError`` (a ValueError) for what the JAX entry rejects:
     ``Hq % Hkv != 0``, causal with ``Sq > Sk``, mismatched shapes. On the card
-    it also raises it for inputs the kernel does not take: dtypes other than
+    it also raises it for inputs the kernels do not take: dtypes other than
     float32, float16 and bfloat16 (one dtype for q, k and v), head dims other
-    than 64 and 128, and a head dim that is not contiguous.
+    than 32, 64 and 128, a head dim that is not contiguous, and a head dim of
+    32 where a gradient is wanted (the backward kernels take 64 and 128).
     """
     _check_shapes(q, k, v, causal)
     s = float(scale if scale is not None else 1.0 / math.sqrt(q.shape[-1]))
     if not q.is_cuda and q.device.type != "cpu":
         raise RuntimeError(f"flash attention runs on CUDA or the CPU, not {q.device}")
+    if (q.is_cuda and q.shape[3] not in _BWD_HEAD_DIMS and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        raise FlashShapeError(f"the backward kernels take head_dim in {_BWD_HEAD_DIMS}, "
+                              f"got {q.shape[3]} with a gradient wanted")
     return FlashAttentionFunction.apply(q, k, v, bool(causal), s)
 
 

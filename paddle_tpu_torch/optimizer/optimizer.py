@@ -108,9 +108,13 @@ class Optimizer:
 
 
 class Adam(Optimizer):
+    """The JAX package's signature, in its order. ``lazy_mode`` and
+    ``use_multi_tensor`` are accepted and ignored, as there: the update is
+    dense, and always one fused pass over the group."""
+
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8,
-                 parameters=None, weight_decay=None, grad_clip=None,
-                 multi_precision=False, amsgrad=False, name=None):
+                 parameters=None, weight_decay=None, grad_clip=None, lazy_mode=False,
+                 multi_precision=False, use_multi_tensor=False, amsgrad=False, name=None):
         if amsgrad:
             raise NotImplementedError(f"amsgrad is not ported yet: it belongs to {_LATER}")
         if weight_decay:
@@ -145,13 +149,16 @@ class Adam(Optimizer):
 
 
 class AdamW(Adam):
-    """Decoupled weight decay (reference: python/paddle/optimizer/adamw.py)."""
+    """Decoupled weight decay (reference: python/paddle/optimizer/adamw.py).
+    ``lr_ratio`` and ``lazy_mode`` are accepted and ignored, as in the JAX
+    package."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8,
-                 parameters=None, weight_decay=0.01, apply_decay_param_fun=None,
-                 grad_clip=None, multi_precision=False, amsgrad=False, name=None):
+                 parameters=None, weight_decay=0.01, lr_ratio=None, apply_decay_param_fun=None,
+                 grad_clip=None, lazy_mode=False, multi_precision=False, amsgrad=False,
+                 name=None):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters, None, grad_clip,
-                         multi_precision, amsgrad)
+                         lazy_mode, multi_precision, amsgrad=amsgrad)
         self._weight_decay = float(weight_decay) if weight_decay else 0.0
         self._apply_decay_param_fun = apply_decay_param_fun
         if apply_decay_param_fun is not None and None in self._names:

@@ -45,6 +45,7 @@ class TestPlainVersionMatchesPallas:
         (2, 256, 4, 2, 64, True),     # GQA
         (1, 128, 2, 2, 32, False),
         (1, 384, 2, 1, 64, True),     # MQA, non-pow2 seq blocks
+        (2, 256, 4, 2, 32, True),     # causal GQA at head dim 32
     ])
     def test_forward(self, B, S, Hq, Hkv, D, causal):
         out, ref = _both(*_qkv(0, B, S, S, Hq, Hkv, D), causal)
@@ -81,6 +82,7 @@ class TestBackwardMatchesPallas:
         (1, 128, 128, 2, 2, 32, False),
         (1, 384, 384, 2, 1, 64, True),     # MQA
         (1, 128, 256, 2, 2, 64, True),     # cross-length, bottom-right
+        (2, 256, 256, 4, 2, 32, True),     # causal GQA at head dim 32
     ])
     def test_gradients(self, B, Sq, Sk, Hq, Hkv, D, causal):
         out, ref = _grads_both(7, B, Sq, Sk, Hq, Hkv, D, causal)
@@ -157,6 +159,77 @@ class TestShapePolicy:
 
     def test_policy_error_is_the_dispatcher_fallback_type(self):
         assert issubclass(port_fa.FlashShapeError, ValueError)
+
+    @pytest.mark.parametrize("D", [32, 64, 128])
+    def test_kernel_head_dims(self, D):
+        q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(0, 1, 16, 16, 2, 2, D))
+        port_fa._check_kernel_inputs(q, k, v)
+
+    @pytest.mark.parametrize("D", [16, 96, 256])
+    def test_other_head_dims_raise(self, D):
+        q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(0, 1, 16, 16, 2, 2, D))
+        with pytest.raises(port_fa.FlashShapeError, match="head_dim"):
+            port_fa._check_kernel_inputs(q, k, v)
+
+    def test_backward_kernels_take_64_and_128(self):
+        # the forward kernel takes D = 32; the backward kernels do not yet
+        q, k, v = (torch.from_numpy(a) for a in _qkv(0, 1, 16, 16, 2, 2, 32))
+        out, lse = port_fa.flash_attention_fwd_lse(q, k, v, causal=True)
+        with pytest.raises(port_fa.FlashShapeError, match="backward"):
+            port_fa._check_bwd_inputs(q, k, v, q, lse, port_fa._delta(out, q))
+
+    def test_d32_with_gradient_on_the_card_takes_the_math_path(self, monkeypatch):
+        # where a gradient is wanted at D = 32 the wrapper raises the policy
+        # error before any launch, so sdpa takes the (differentiable) math path
+        def launched(*a):
+            raise AssertionError("kernel launched for a D = 32 forward with a gradient")
+
+        monkeypatch.setattr(port_fa, "_launch", launched)
+        q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv(0, 1, 16, 16, 2, 2, 32))
+        monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+        with pytest.raises(port_fa.FlashShapeError, match="backward"):
+            port_fa.flash_attention_fwd(q, k, v, causal=True)
+        out = port_F._sdpa(q, k, v, causal=True, use_kernel=True)
+        monkeypatch.undo()
+        ref = port_F._math_sdpa(q, k, v, causal=True)
+        np.testing.assert_array_equal(out.detach().numpy(), ref.detach().numpy())
+        assert out.grad_fn is not None
+
+
+class TestAlignmentCopy:
+    """TMA reads q, k and v through tensor maps: a 16-byte-aligned base and
+    strides that are multiples of 16 bytes. The wrapper copies what is not
+    (and counts it); these run on CPU tensors, where the decision is the same."""
+
+    def test_contiguous_and_strided_views_are_read_in_place(self):
+        x = torch.zeros(2, 64, 3, 4, 32, dtype=torch.bfloat16)
+        assert not port_fa._needs_alignment_copy(x[:, :, 1])             # k of a packed qkv slab
+        assert not port_fa._needs_alignment_copy(torch.zeros(2, 16, 4, 128).transpose(1, 2))
+
+    def test_misaligned_base_or_stride_needs_a_copy(self):
+        flat = torch.zeros(1 + 2 * 16 * 4 * 64, dtype=torch.bfloat16)
+        assert port_fa._needs_alignment_copy(flat[1:].view(2, 16, 4, 64))  # base + 2 bytes
+        odd = torch.zeros(2, 16, 4, 68, dtype=torch.bfloat16)[..., :64]   # 136-byte rows
+        assert port_fa._needs_alignment_copy(odd)
+        expanded = torch.zeros(1, 16, 4, 64).expand(2, 16, 4, 64)         # batch stride 0
+        assert port_fa._needs_alignment_copy(expanded)
+
+    def test_size_one_dims_have_free_strides(self):
+        # batch and head of size 1 with odd strides: never stepped over
+        t = torch.zeros(16 * 64, dtype=torch.bfloat16).as_strided((1, 16, 1, 64), (7, 64, 3, 1))
+        assert not port_fa._needs_alignment_copy(t)
+        assert port_fa._strides(t) == [64, 64, 64]
+
+    def test_copy_is_counted_and_equal(self):
+        flat = torch.arange(1 + 2 * 16 * 4 * 64, dtype=torch.float32).to(torch.bfloat16)
+        view = flat[1:].view(2, 16, 4, 64)
+        before = port_fa.copies_for_alignment
+        got = port_fa._tma_ready(view)
+        assert port_fa.copies_for_alignment == before + 1
+        assert got.data_ptr() % 16 == 0 and got.is_contiguous() and torch.equal(got, view)
+        aligned = torch.zeros(2, 16, 4, 64, dtype=torch.bfloat16)
+        assert port_fa._tma_ready(aligned) is aligned
+        assert port_fa.copies_for_alignment == before + 1
 
 
 class TestDispatcher:
