@@ -23,11 +23,15 @@ Phases, each a hard check (the script exits nonzero on the first failure):
   4. card against CPU: the same width at 2 layers in fp32, copied to a CPU
      twin (which runs the plain versions); prefill logits must agree and
      greedy tokens must be identical.
-  5. backward kernels: the dq and dk/dv kernels against the plain backward
-     on the card, at the training shapes and the edge cases, with a
-     norm-relative tolerance per dtype; times of each kernel, the whole
-     backward, the plain version and torch's flash-attention backward (a
-     yardstick only) beside the least time the card could take.
+  5. backward kernels: the dq kernel (which also computes delta =
+     rowsum(dO * O)) and the dk/dv kernel against the plain backward on the
+     card, at the training shapes and the edge cases, head dims 32, 64 and
+     128, and views TMA cannot read (q, dO: the wrapper copies them and
+     launches the same kernels once each), with a norm-relative tolerance per
+     dtype; the fused delta against the plain one at the timed shapes; times
+     of each kernel, the whole backward, the plain version and torch's
+     flash-attention backward (a yardstick only) beside the least time the
+     card could take.
   6. training at full width: the flagship in bf16 with per-layer recompute,
      AdamW(multi_precision) at lr 1e-4, batch 8 x 2048, the same batch every
      step. Launch counts are set to 0 before one step and read after it:
@@ -63,6 +67,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -82,6 +87,9 @@ TOL = {"bfloat16": 2e-2, "float16": 5e-3, "float32": 1e-4}
 TOL_LSE = 1e-3             # LSE is float32 on both sides
 TOL_E2E_LOGITS = 2e-3      # fp32 model, card vs CPU: sums in another order
 
+# the dq kernel's delta vs the plain one: both fp32 sums of the same 16-bit
+# products (exact in fp32), in another order
+TOL_DELTA = 1e-5
 # backward kernels vs the plain backward: ||kernel - plain|| / ||plain|| per
 # gradient. The kernels round P and dS to the input dtype before the dV, dK
 # and dQ products (as FA2 does) and the plain version keeps them in fp32;
@@ -203,14 +211,42 @@ def attention_bound_ms(B, Sq, Sk, Hq, Hkv, D, causal, elt, tensor_cores):
 
 def backward_bounds_ms(B, Sq, Sk, Hq, Hkv, D, causal, elt, tensor_cores):
     """(dq bound, dk/dv bound), each (ms, bound_by). dq: three D-deep products
-    (S, dP, dQ), 6 D flops per visible pair; reads q, dO, k, v, LSE, delta,
-    writes dq. dk/dv: four products (S, dP, dV, dK), 8 D flops per pair;
-    reads q, dO, k, v, LSE, delta, writes dk, dv."""
+    (S, dP, dQ), 6 D flops per visible pair (delta's D a row is negligible);
+    reads q, dO, O, k, v, LSE, writes dq and delta. dk/dv: four products (S,
+    dP, dV, dK), 8 D flops per pair; reads q, dO, k, v, LSE, delta, writes
+    dk, dv."""
     pairs = visible_pairs(Sq, Sk, causal) * B * Hq
     qsize, ksize, rows = B * Sq * Hq * D * elt, B * Sk * Hkv * D * elt, 8 * B * Hq * Sq
-    dq = bound_ms(6.0 * D * pairs, 3 * qsize + 2 * ksize + rows, tensor_cores)
+    dq = bound_ms(6.0 * D * pairs, 4 * qsize + 2 * ksize + rows, tensor_cores)
     dkv = bound_ms(8.0 * D * pairs, 2 * qsize + 4 * ksize + rows, tensor_cores)
     return dq, dkv
+
+
+def ptxas_summary(log):
+    """{kernel: {registers, stack, spill_stores, spill_loads}} from an
+    ``nvcc -Xptxas -v`` log (kernel names demangled to their template)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m:
+            out.setdefault(name, {}).update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    # _ZN..fa_bwd_dq_wgmmaI13__nv_bfloat16Li128EEEv.. -> fa_bwd_dq_wgmma<__nv_bfloat16, 128>
+    named = {}
+    for mangled, info in out.items():
+        m = re.search(r"(fa_\w+?)I(?:\d+(\w+?))?Li(\d+)EE", mangled)
+        named[f"{m.group(1)}<{m.group(2) or 'float'}, {m.group(3)}>" if m else mangled] = info
+    return named
 
 
 def unaligned(torch, shape, dtype, gen):
@@ -409,6 +445,13 @@ def phase_backward(torch, fa):
         ("fp16_d64", 2, 256, 256, 16, 16, 64, "float16", True, False),
         ("fp32", 2, 256, 256, 16, 16, 128, "float32", True, False),
         ("fp32_ragged_gqa_d64", 1, 300, 700, 8, 2, 64, "float32", True, False),
+        ("d32_reference_test", 1, 128, 128, 2, 2, 32, "bfloat16", False, False),
+        ("d32_bf16_gqa", 2, 512, 512, 16, 4, 32, "bfloat16", True, False),
+        ("d32_fp16_gqa", 2, 512, 512, 16, 4, 32, "float16", True, False),
+        ("d32_fp32_gqa", 2, 256, 256, 16, 4, 32, "float32", True, False),
+        ("ragged_d32_gqa", 2, 300, 700, 8, 2, 32, "bfloat16", True, False),
+        ("unaligned_q", 2, 256, 256, 16, 4, 128, "bfloat16", True, False),
+        ("unaligned_do", 2, 256, 256, 16, 4, 128, "bfloat16", True, False),
     ]
     checks, rows = [], {}
     for name, B, Sq, Sk, Hq, Hkv, D, dt, causal, timed in cases:
@@ -418,13 +461,26 @@ def phase_backward(torch, fa):
         k = torch.randn(B, Sk, Hkv, D, device="cuda", generator=gen).to(dtype)
         v = torch.randn(B, Sk, Hkv, D, device="cuda", generator=gen).to(dtype)
         do = torch.randn(B, Sq, Hq, D, device="cuda", generator=gen).to(dtype)
+        if name == "unaligned_q":
+            q = unaligned(torch, (B, Sq, Hq, D), dtype, gen)
+        if name == "unaligned_do":
+            do = unaligned(torch, (B, Sq, Hq, D), dtype, gen)
         with torch.no_grad():
             out, lse = fa.flash_attention_fwd_lse(q, k, v, causal)
+        before = (fa.launches_bwd_dq, fa.launches_bwd_dkv, fa.copies_for_alignment)
         got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal)
         torch.cuda.synchronize()
+        launched = (fa.launches_bwd_dq - before[0], fa.launches_bwd_dkv - before[1])
+        copies = fa.copies_for_alignment - before[2]
+        # a view TMA cannot read is copied once for both kernels; everything
+        # else is read where it lies
+        want_copies = 1 if name.startswith("unaligned") else 0
+        if launched != (1, 1) or copies != want_copies:
+            fail(f"{name}: (dq, dk/dv) launches {launched} and {copies} alignment copies, "
+                 f"want (1, 1) and {want_copies}")
         ref = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
         row = dict(name=name, shape=[B, Sq, Sk, Hq, Hkv, D], dtype=dt, causal=causal,
-                   tol=TOL_BWD[dt])
+                   tol=TOL_BWD[dt], launches=list(launched), copies_for_alignment=copies)
         for gname, a, r in zip(("dq", "dk", "dv"), got, ref):
             if a.shape != r.shape or a.dtype != r.dtype:
                 fail(f"{gname} at {name}: {tuple(a.shape)} {a.dtype}, want "
@@ -436,9 +492,14 @@ def phase_backward(torch, fa):
                    for g in ("dq", "dk", "dv")):
             fail(f"backward kernels disagree with the plain backward at {row}")
         if timed:
-            delta = fa._delta(out, do)
+            # the delta the dq kernel writes, against the plain version's
+            delta = fa._launch_bwd_dq(q, k, v, do, out, lse, causal, scale)[1]
+            row["delta_err"] = norm_rel(delta, fa._delta(out, do))
+            row["tol_delta"] = TOL_DELTA
+            if not (math.isfinite(row["delta_err"]) and row["delta_err"] <= TOL_DELTA):
+                fail(f"the dq kernel's delta disagrees with the plain one at {row}")
             fns = dict(
-                dq=lambda: fa._launch_bwd_dq(q, k, v, do, lse, delta, causal, scale),
+                dq=lambda: fa._launch_bwd_dq(q, k, v, do, out, lse, causal, scale),
                 dkv=lambda: fa._launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale),
                 bwd=lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, causal),
                 plain=lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal),
@@ -855,6 +916,9 @@ def main():
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
+    # every backward instantiation: registers, spills and stack
+    print("ptxas_bwd " + json.dumps(ptxas_summary(_build.build_log("flash_attention_bwd"))),
+          flush=True)
 
     # phase 2: forward kernel against its plain version
     t0 = time.perf_counter()
@@ -926,6 +990,7 @@ def main():
             max_abs_err=max(tr[f"{g}_max_abs_err"] for g in grads),
             norm_rel_err=max(tr[f"{g}_err"] for g in grads), tol=tr["tol"],
             ms=tr[f"{key}_ms"], kernel_ms=tr[f"{key}_ms"], call_ms=tr[f"{key}_call_ms"],
+            **({"delta_err": tr["delta_err"], "tol_delta": TOL_DELTA} if key == "dq" else {}),
             # the plain version and the library call compute dq, dk and dv together
             plain_ms=tr["plain_ms"], bound_ms=tr[f"{key}_bound_ms"],
             bound_by=tr[f"{key}_bound_by"], library_ms=tr["library_ms"],

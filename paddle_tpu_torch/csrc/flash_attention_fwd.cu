@@ -51,14 +51,6 @@
 
 namespace {
 
-// Number of keys the rows [q0, q0 + rows) can see (rows past Sq see none
-// beyond the last real row's).
-__device__ __forceinline__ int kv_limit(int q0, int rows, int Sq, int Sk, int causal) {
-  if (!causal) return Sk;
-  const int last_row = min(q0 + rows, Sq) - 1;
-  return min(Sk, last_row + (Sk - Sq) + 1);
-}
-
 // ---------------------------------------------------------------------------
 // bf16 / fp16: wgmma fed by TMA
 // ---------------------------------------------------------------------------
@@ -77,16 +69,10 @@ struct WgParams {
   int causal;
 };
 
-// Shared-memory layout of one head dim. A tile of R rows is kAtoms column
-// atoms of R rows x kRowBytes (128 B, or 64 B at D = 32), each swizzled as
-// TMA writes it and wgmma reads it.
+// Shared-memory layout of one head dim: the Q tile, then the K/V stages, each
+// tile in swizzled column atoms (SwizzleAtom, hopper.cuh).
 template <int D>
-struct WgLayout {
-  static constexpr int kAtomCols = D >= 64 ? 64 : D;
-  static constexpr int kRowBytes = kAtomCols * 2;
-  static constexpr int kAtoms = D / kAtomCols;
-  static constexpr uint32_t kSwizzle = kRowBytes == 128 ? 1 : 2;  // descriptor code
-  static constexpr int kKPerAtom = kAtomCols / 16;                // k16 steps in an atom
+struct WgLayout : SwizzleAtom<D> {
   static constexpr int kQBytes = kWgBlockM * D * 2;
   static constexpr int kKVBytes = kWgBlockN * D * 2;              // one of K, V
   static constexpr int kBarOffset = kQBytes + kStages * 2 * kKVBytes;
@@ -95,29 +81,6 @@ struct WgLayout {
 };
 
 static_assert(kWgBlockM == kWgBlockN, "Q and K/V tiles share one TMA box");
-
-// 2^x on the special-function unit (flushes subnormal results to 0)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// two floats rounded to one 32-bit pair of T (lo in the low half)
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi);
-
-template <>
-__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <>
-__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
-  __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kWgThreads, 1)
@@ -151,9 +114,7 @@ fa_fwd_wgmma(const __grid_constant__ WgParams p) {
 
   auto stage_k = [&](int s) { return base + L::kQBytes + s * 2 * L::kKVBytes; };
   auto load_tile = [&](uint32_t dst, const CUtensorMap* map, int row, int head, uint32_t bar) {
-#pragma unroll
-    for (int a = 0; a < L::kAtoms; ++a)
-      tma_load_4d(dst + a * kWgBlockN * L::kRowBytes, map, bar, a * L::kAtomCols, row, head, b);
+    tma_load_tile<D>(dst, map, kWgBlockN, kWgBlockN, row, head, b, bar);
   };
   auto load_kv = [&](int j) {  // tile j into stage j % kStages
     const int s = j % kStages;
@@ -212,7 +173,7 @@ fa_fwd_wgmma(const __grid_constant__ WgParams p) {
                                (kk % L::kKPerAtom) * 32;
         const uint32_t b_off = (kk / L::kKPerAtom) * kWgBlockN * L::kRowBytes +
                                (kk % L::kKPerAtom) * 32;
-        wgmma_ss<T>(sc, wgmma_desc(q_wg + a_off, 16, 8 * L::kRowBytes, L::kSwizzle),
+        wgmma_ss<T, kWgBlockN>(sc, wgmma_desc(q_wg + a_off, 16, 8 * L::kRowBytes, L::kSwizzle),
                     wgmma_desc(sK + b_off, 16, 8 * L::kRowBytes, L::kSwizzle), kk > 0);
       }
       wgmma_commit();
@@ -458,53 +419,13 @@ fa_fwd_f32(const Params p) {
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
-// cuTensorMapEncodeTiled, reached through the runtime (no link to libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult got;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &got) !=
-            cudaSuccess ||
-        got != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(f);
-  }();
-  return fn;
-}
-
-// A (B, S, H, D) tensor with element strides (sb, ss, sh) and D contiguous,
-// as a 4-d map (D, S, H, B), box (atom columns, 128 rows, 1, 1). The caller
-// guarantees a 16-byte-aligned base and strides that are multiples of 16
-// bytes (the wrapper copies what is not).
-template <int D>
-bool encode_map(CUtensorMap* map, CUtensorMapDataType dtype, const void* ptr, int S, int H,
-                int B, long long sb, long long ss, long long sh) {
-  using L = WgLayout<D>;
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)L::kAtomCols, (cuuint32_t)kWgBlockN, 1, 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  return fn(map, dtype, 4, const_cast<void*>(ptr), dims, strides, box, elem_strides,
-            CU_TENSOR_MAP_INTERLEAVE_NONE,
-            L::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
-}
-
 template <typename T, int D>
 cudaError_t launch_wgmma(const Params& a, CUtensorMapDataType dt, cudaStream_t stream) {
   static bool configured[kMaxDevices] = {};
   WgParams p;
-  if (!encode_map<D>(&p.tq, dt, a.q, a.Sq, a.Hq, a.B, a.q_sb, a.q_ss, a.q_sh) ||
-      !encode_map<D>(&p.tk, dt, a.k, a.Sk, a.Hkv, a.B, a.k_sb, a.k_ss, a.k_sh) ||
-      !encode_map<D>(&p.tv, dt, a.v, a.Sk, a.Hkv, a.B, a.v_sb, a.v_ss, a.v_sh))
+  if (!encode_map<D>(&p.tq, dt, a.q, a.Sq, a.Hq, a.B, a.q_sb, a.q_ss, a.q_sh, kWgBlockM) ||
+      !encode_map<D>(&p.tk, dt, a.k, a.Sk, a.Hkv, a.B, a.k_sb, a.k_ss, a.k_sh, kWgBlockN) ||
+      !encode_map<D>(&p.tv, dt, a.v, a.Sk, a.Hkv, a.B, a.v_sb, a.v_ss, a.v_sh, kWgBlockN))
     return cudaErrorInvalidValue;
   p.o = a.o;
   p.lse = a.lse;

@@ -1,13 +1,14 @@
 // Hopper building blocks for hand-written kernels (sm_90a): mbarriers, TMA
-// tile loads, wgmma shared-memory descriptors and the wgmma instructions the
-// flash-attention forward issues. Every source built by
-// paddle_tpu_torch/ops/cuda/_build.py hashes this header into its library
-// name, so an edit here rebuilds them all.
+// loads and the host-side tensor maps they read, wgmma shared-memory
+// descriptors and the wgmma shapes the flash-attention kernels issue. Every
+// source built by paddle_tpu_torch/ops/cuda/_build.py hashes this header into
+// its library name, so an edit here rebuilds them all.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (the type only; the .so links no driver library)
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
@@ -62,6 +63,40 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// One box of a 1-d tensor map starting at element c0 (zero-filled past the end).
+__device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
+      : "memory");
+}
+
+// A 16-bit (rows, D) tile in shared memory is D / kCols column atoms, each
+// rows x kRowBytes (128 B, or 64 B at D = 32), swizzled as TMA writes it and
+// wgmma reads it; atom a of a tile of R rows starts a * R * kRowBytes in.
+template <int D>
+struct SwizzleAtom {
+  static constexpr int kCols = D >= 64 ? 64 : D;
+  static constexpr int kRowBytes = kCols * 2;
+  static constexpr int kAtoms = D / kCols;
+  static constexpr uint32_t kSwizzle = kRowBytes == 128 ? 1 : 2;  // descriptor code
+  static constexpr int kKPerAtom = kCols / 16;                    // k16 steps in an atom
+};
+
+// Rows [row0, row0 + rows) of head `head`, batch `b` of a 4-d map whose box
+// is one atom of columns by `box` rows, into the tile at `dst`.
+template <int D>
+__device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* map, int rows,
+                                              int box, int row0, int head, int b, uint32_t bar) {
+  using A = SwizzleAtom<D>;
+#pragma unroll
+  for (int a = 0; a < A::kAtoms; ++a)
+    for (int r = 0; r < rows; r += box)
+      tma_load_4d(dst + (a * rows + r) * A::kRowBytes, map, bar, a * A::kCols, row0 + r, head, b);
+}
+
 // --- wgmma ------------------------------------------------------------------
 // Shared-memory matrix descriptor: start address, leading and stride byte
 // offsets (16-byte units) and the swizzle (1 = 128 B, 2 = 64 B). Tiles start
@@ -70,6 +105,25 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint
                                                uint32_t swizzle) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)swizzle << 62);
+}
+
+// K-major operand (rows of the tile, D contiguous) of k16 step kk: rows
+// [row0, row0 + 8 n) of a tile of R rows
+template <int D>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int R, int row0, int kk) {
+  using A = SwizzleAtom<D>;
+  return wgmma_desc(tile + ((kk / A::kKPerAtom) * R + row0) * A::kRowBytes +
+                        (kk % A::kKPerAtom) * 32,
+                    16, 8 * A::kRowBytes, A::kSwizzle);
+}
+
+// MN-major B operand (D contiguous, the transpose bit): rows 16 kc .. 16 kc
+// + 15 of a tile of R rows are the k16 step; D atoms are R rows apart
+template <int D>
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int R, int kc) {
+  using A = SwizzleAtom<D>;
+  return wgmma_desc(tile + kc * 16 * A::kRowBytes, R * A::kRowBytes, 8 * A::kRowBytes,
+                    A::kSwizzle);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -93,10 +147,10 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
 
-// D (m64 x n128, fp32) (+)= A (m64 x k16) B (k16 x n128), both from shared
-// memory, both K-major; scale_d = 0 overwrites D.
-template <typename T>
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d);
+// D (m64 x N, fp32) (+)= A (m64 x k16) B (k16 x N), both from shared memory,
+// both K-major; scale_d = 0 overwrites D.
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d);
 
 // D (m64 x N, fp32) += A (m64 x k16, registers) B (k16 x N, shared memory,
 // N contiguous: the descriptor's transpose bit).
@@ -104,174 +158,123 @@ template <typename T, int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t db);
 
-template <>
-__device__ __forceinline__ void wgmma_ss<__nv_bfloat16>(float (&d)[64], uint64_t da, uint64_t db,
-                                               int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63 "
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+// The accumulator registers of m64nN (N / 2 a thread) as asm operands
+#define PT_WG_D8(d, i)                                                                   \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),            \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define PT_WG_D16(d) PT_WG_D8(d, 0), PT_WG_D8(d, 8)
+#define PT_WG_D32(d) PT_WG_D16(d), PT_WG_D8(d, 16), PT_WG_D8(d, 24)
+#define PT_WG_D64(d) PT_WG_D32(d), PT_WG_D8(d, 32), PT_WG_D8(d, 40), PT_WG_D8(d, 48), \
+                     PT_WG_D8(d, 56)
+#define PT_WG_R16 "{" "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15" "}"
+#define PT_WG_R32                                                                         \
+  "{" "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "             \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" "}"
+#define PT_WG_R64                                                                         \
+  "{" "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "             \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "       \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "       \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" "}"
+
+// One specialisation of each for a type and width. REGS/OUTS are the
+// accumulator list and operands; the other operands follow them, numbered
+// from R = N / 2: ss takes (desc A, desc B, scale_d) as %R .. %R+2, rs takes
+// (a0..a3, desc B, 1) as %R .. %R+5.
+#define PT_WGMMA(TYPE, PTX, N, REGS, OUTS, SS_ARGS, SS_SCALE, RS_ARGS, RS_SCALE)          \
+  template <>                                                                           \
+  __device__ __forceinline__ void wgmma_ss<TYPE, N>(float (&d)[N / 2], uint64_t da,      \
+                                                    uint64_t db, int scale_d) {         \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " SS_SCALE ", 0;\n"                   \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." PTX "." PTX " " REGS  \
+                 ", " SS_ARGS ", p, 1, 1, 0, 0;\n}\n"                                   \
+                 : OUTS : "l"(da), "l"(db), "r"(scale_d));                              \
+  }                                                                                     \
+  template <>                                                                           \
+  __device__ __forceinline__ void wgmma_rs<TYPE, N>(float (&d)[N / 2],                   \
+                                                    const uint32_t (&a)[4], uint64_t db) { \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " RS_SCALE ", 0;\n"                   \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." PTX "." PTX " " REGS  \
+                 ", " RS_ARGS ", p, 1, 1, 1;\n}\n"                                      \
+                 : OUTS                                                                 \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));        \
+  }
+
+#define PT_WGMMA_TYPE(TYPE, PTX)                                                          \
+  PT_WGMMA(TYPE, PTX, 128, PT_WG_R64, PT_WG_D64(d), "%64, %65", "%66",                   \
+           "{%64, %65, %66, %67}, %68", "%69")                                          \
+  PT_WGMMA(TYPE, PTX, 64, PT_WG_R32, PT_WG_D32(d), "%32, %33", "%34",                    \
+           "{%32, %33, %34, %35}, %36", "%37")                                          \
+  PT_WGMMA(TYPE, PTX, 32, PT_WG_R16, PT_WG_D16(d), "%16, %17", "%18",                    \
+           "{%16, %17, %18, %19}, %20", "%21")
+
+PT_WGMMA_TYPE(__nv_bfloat16, "bf16")
+PT_WGMMA_TYPE(__half, "f16")
+
+#undef PT_WGMMA_TYPE
+#undef PT_WGMMA
+#undef PT_WG_R64
+#undef PT_WG_R32
+#undef PT_WG_R16
+#undef PT_WG_D64
+#undef PT_WG_D32
+#undef PT_WG_D16
+#undef PT_WG_D8
+
+// --- host: tensor maps --------------------------------------------------------
+// cuTensorMapEncodeTiled, reached through the runtime (no link to libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult got;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &got) !=
+            cudaSuccess ||
+        got != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
 }
 
-template <>
-__device__ __forceinline__ void wgmma_rs<__nv_bfloat16, 128>(float (&d)[64], const uint32_t (&a)[4],
-                                                     uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63 "
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+// A 16-bit (B, S, H, D) tensor with element strides (sb, ss, sh) and D
+// contiguous, as a 4-d map (D, S, H, B), box (one atom of columns, `rows`
+// rows, 1, 1), swizzled for wgmma. Rows past S read as zeros. The caller
+// guarantees a 16-byte-aligned base and strides that are multiples of 16
+// bytes (the wrapper copies what is not).
+template <int D>
+bool encode_map(CUtensorMap* map, CUtensorMapDataType dtype, const void* ptr, int S, int H,
+                int B, long long sb, long long ss, long long sh, int rows) {
+  using A = SwizzleAtom<D>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)A::kCols, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return fn(map, dtype, 4, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE,
+            A::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
 }
 
-template <>
-__device__ __forceinline__ void wgmma_rs<__nv_bfloat16, 64>(float (&d)[32], const uint32_t (&a)[4],
-                                                     uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31 "
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<__nv_bfloat16, 32>(float (&d)[16], const uint32_t (&a)[4],
-                                                     uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<__half>(float (&d)[64], uint64_t da, uint64_t db,
-                                               int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63 "
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<__half, 128>(float (&d)[64], const uint32_t (&a)[4],
-                                                     uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63 "
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<__half, 64>(float (&d)[32], const uint32_t (&a)[4],
-                                                     uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31 "
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<__half, 32>(float (&d)[16], const uint32_t (&a)[4],
-                                                     uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+// n contiguous floats (16-byte-aligned base) as a 1-d map, box `box`
+// elements; elements past n read as zeros.
+bool encode_map_f32(CUtensorMap* map, const float* ptr, long long n, int box) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {0};  // rank 1: no strides are read
+  const cuuint32_t boxes[1] = {(cuuint32_t)box};
+  const cuuint32_t elem_strides[1] = {1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(ptr), dims, strides,
+            boxes, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
 }
 
 }  // namespace

@@ -13,6 +13,9 @@ Differences from the JAX module, by design:
     the tied embedding, so both heads are one ``F.linear``.
   * Initialisation draws from a ``torch.Generator`` seeded by ``seed``; it
     can never match JAX's threefry bits, so parity goes through the converter.
+  * Every parameter is a ``framework.Parameter`` named ``param_{N}`` when it
+    is built, as the JAX package names its parameters, so ``AdamW``'s
+    ``apply_decay_param_fun`` gets the names it gets there.
 Training: ``loss, logits = model(ids, labels=labels)`` (the token-mean
 cross-entropy of ``LlamaPretrainingCriterion``), ``loss.backward()``, with
 per-layer recompute (``config.recompute``, granularity ``"full"``) in
@@ -31,6 +34,7 @@ from torch import nn
 
 from .. import resolve_device
 from ..distributed.fleet.recompute import recompute
+from ..framework import Parameter, name_parameters
 from ..incubate.nn.functional import _rotate_half, fused_rotary_position_embedding
 from ..nn import functional as F
 from ..nn.layer.norm import RMSNorm
@@ -144,10 +148,10 @@ class LlamaAttention(nn.Module):
         h = config.hidden_size
         kv = self.num_kv_heads * self.head_dim
         kw = dict(bias=False, device=device, dtype=dtype)
-        self.q_proj = nn.Linear(h, h, **kw)
-        self.k_proj = nn.Linear(h, kv, **kw)
-        self.v_proj = nn.Linear(h, kv, **kw)
-        self.o_proj = nn.Linear(h, h, **kw)
+        self.q_proj = name_parameters(nn.Linear(h, h, **kw))
+        self.k_proj = name_parameters(nn.Linear(h, kv, **kw))
+        self.v_proj = name_parameters(nn.Linear(h, kv, **kw))
+        self.o_proj = name_parameters(nn.Linear(h, h, **kw))
 
     def forward(self, hidden_states, attn_mask=None):
         B, S = hidden_states.shape[:2]
@@ -170,9 +174,9 @@ class LlamaMLP(nn.Module):
         super().__init__()
         h, m = config.hidden_size, config.intermediate_size
         kw = dict(bias=False, device=device, dtype=dtype)
-        self.gate_proj = nn.Linear(h, m, **kw)
-        self.up_proj = nn.Linear(h, m, **kw)
-        self.down_proj = nn.Linear(m, h, **kw)
+        self.gate_proj = name_parameters(nn.Linear(h, m, **kw))
+        self.up_proj = name_parameters(nn.Linear(h, m, **kw))
+        self.down_proj = name_parameters(nn.Linear(m, h, **kw))
 
     def forward(self, x):
         return self.down_proj(F.swiglu(self.gate_proj(x), self.up_proj(x)))
@@ -203,8 +207,8 @@ class LlamaModel(nn.Module):
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
         self.config = config
-        self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size,
-                                         device=device, dtype=dtype)
+        self.embed_tokens = name_parameters(nn.Embedding(
+            config.vocab_size, config.hidden_size, device=device, dtype=dtype))
         self.layers = nn.ModuleList(
             [LlamaDecoderLayer(config, device, dtype)
              for _ in range(config.num_hidden_layers)])
@@ -227,7 +231,7 @@ class LlamaLMHead(nn.Module):
         if self._tied:
             self._embedding = [embedding]  # list: not a registered submodule
         else:
-            self.weight = nn.Parameter(torch.empty(
+            self.weight = Parameter(torch.empty(
                 config.vocab_size, config.hidden_size, device=device, dtype=dtype))
 
     def forward(self, hidden_states):

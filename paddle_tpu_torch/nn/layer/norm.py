@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ...framework import Parameter
 from ..functional.norm import rms_norm
 
 
@@ -16,7 +17,7 @@ class RMSNorm(nn.Module):
             normalized_shape = [normalized_shape]
         self._normalized_shape = list(normalized_shape)
         self._epsilon = epsilon
-        self.weight = nn.Parameter(
+        self.weight = Parameter(
             torch.ones(self._normalized_shape, device=device, dtype=dtype))
 
     def forward(self, x):

@@ -40,7 +40,6 @@ copies_for_alignment = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _HEAD_DIMS = (32, 64, 128)
-_BWD_HEAD_DIMS = (64, 128)
 
 
 class FlashShapeError(ValueError):
@@ -107,13 +106,6 @@ def flash_attention_fwd_plain(q, k, v, causal=False, scale=None):
     return out.transpose(1, 2).to(q.dtype), lse
 
 
-def _aligned16(*tensors):
-    """16-byte vector loads need every (b, s, h) row 16-byte aligned."""
-    return all(t.data_ptr() % 16 == 0 and all((st * t.element_size()) % 16 == 0
-                                              for st in t.stride()[:3])
-               for t in tensors)
-
-
 def _needs_alignment_copy(t):
     """Whether TMA cannot read ``t`` where it lies: its base must be 16-byte
     aligned and the (batch, seq, head) strides positive multiples of 16 bytes
@@ -138,6 +130,16 @@ def _tma_ready(t):
         return t
     copies_for_alignment += 1
     return t.clone(memory_format=torch.contiguous_format)
+
+
+def _rows_ready(t):
+    """A contiguous float32 (B, Hq, Sq) LSE, or a copy of it where its base is
+    not 16-byte aligned (counted): the dk/dv kernel reads it by TMA."""
+    global copies_for_alignment
+    if t.data_ptr() % 16 == 0:
+        return t
+    copies_for_alignment += 1
+    return t.clone()
 
 
 def _stream(t):
@@ -183,28 +185,32 @@ def _bwd_kernels():
     lib = _build.load(_NAME_BWD)
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     dq, dkv = lib.pt_flash_attention_bwd_dq, lib.pt_flash_attention_bwd_dkv
-    # q, k, v, dO, lse, delta, then the output pointer(s)
-    dq.argtypes = [ptr] * 7 + [i32] * 7 + [i64] * 15 + [ctypes.c_float, i32, i32, ptr]
-    dkv.argtypes = [ptr] * 8 + [i32] * 7 + [i64] * 18 + [ctypes.c_float, i32, i32, ptr]
+    # dq: q, k, v, dO, O, lse, delta (written), dq; dk/dv: q, k, v, dO, lse,
+    # delta, dk, dv
+    dq.argtypes = [ptr] * 8 + [i32] * 7 + [i64] * 15 + [ctypes.c_float, i32, ptr]
+    dkv.argtypes = [ptr] * 8 + [i32] * 7 + [i64] * 12 + [ctypes.c_float, i32, ptr]
     dq.restype = dkv.restype = ctypes.c_int
     return dq, dkv
 
 
-def _check_bwd_inputs(q, k, v, do, lse, delta):
-    """What the backward kernels take beyond the forward's rules. Raises
-    ``FlashShapeError``; the wrapper never copies an input to fit."""
+def _check_bwd_inputs(q, k, v, do, lse, delta=None, out=None):
+    """What the backward kernels take beyond the forward's rules: dO (and O)
+    like q with a contiguous head dim, LSE (and delta) contiguous float32
+    (B, Hq, Sq). Raises ``FlashShapeError``."""
     _check_kernel_inputs(q, k, v)
     B, Sq, Hq, D = q.shape
-    if D not in _BWD_HEAD_DIMS:
-        raise FlashShapeError(f"the backward kernels take head_dim in {_BWD_HEAD_DIMS}, "
-                              f"got {D}")
-    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
-        raise FlashShapeError(f"dO {tuple(do.shape)} {do.dtype} does not match q "
-                              f"{tuple(q.shape)} {q.dtype}")
-    if do.stride(3) != 1:
-        raise FlashShapeError(f"kernel needs dO's head dim contiguous, strides "
-                              f"{do.stride()}")
+    for name, t in (("dO", do), ("O", out)):
+        if t is None:
+            continue
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise FlashShapeError(f"{name} {tuple(t.shape)} {t.dtype} does not match q "
+                                  f"{tuple(q.shape)} {q.dtype}")
+        if t.stride(3) != 1:
+            raise FlashShapeError(f"kernel needs {name}'s head dim contiguous, strides "
+                                  f"{t.stride()}")
     for name, t in (("lse", lse), ("delta", delta)):
+        if t is None:
+            continue
         if (t.shape != (B, Hq, Sq) or t.dtype != torch.float32 or not t.is_contiguous()
                 or t.device != q.device):
             raise FlashShapeError(f"{name} must be a contiguous float32 (B, Hq, Sq) "
@@ -212,46 +218,48 @@ def _check_bwd_inputs(q, k, v, do, lse, delta):
 
 
 def _delta(out, do):
-    """delta = rowsum(dO * O) in float32, (B, Hq, Sq): the per-row term of dS
-    (plain torch on both devices, as the JAX package leaves it to XLA)."""
+    """delta = rowsum(dO * O) in float32, (B, Hq, Sq): the per-row term of dS,
+    as the JAX package's ``_bwd`` computes it. The plain version's; on the
+    card the dq kernel computes it."""
     return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
-def _launch_bwd_dq(q, k, v, do, lse, delta, causal, scale):
+def _launch_bwd_dq(q, k, v, do, out, lse, causal, scale):
+    """(dq, delta): the dq kernel, which also writes delta = rowsum(dO * O)
+    for the dk/dv kernel. 16-bit inputs must be readable by TMA where they
+    lie (``flash_attention_bwd`` copies what is not)."""
     global launches_bwd_dq
-    _check_bwd_inputs(q, k, v, do, lse, delta)
+    _check_bwd_inputs(q, k, v, do, lse, out=out)
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
-    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dq = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     fn = _bwd_kernels()[0]
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                 delta.data_ptr(), dq.data_ptr(), _DTYPE_CODE[q.dtype],
-                 B, Hq, Hkv, Sq, Sk, D,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-                 *dq.stride()[:3], scale, int(causal), int(_aligned16(q, k, v, do)),
-                 _stream(q))
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), out.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _DTYPE_CODE[q.dtype],
+                 B, Hq, Hkv, Sq, Sk, D, *_strides(q), *_strides(k), *_strides(v),
+                 *_strides(do), *_strides(out), scale, int(causal), _stream(q))
     if err:
         _build.check(_build.load(_NAME_BWD), err, "flash_attention_bwd dq launch")
     launches_bwd_dq += 1
-    return dq
+    return dq, delta
 
 
 def _launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale):
+    """(dk, dv), each summed over its GQA group, from the dq kernel's delta."""
     global launches_bwd_dkv
     _check_bwd_inputs(q, k, v, do, lse, delta)
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
-    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
-    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    dk = torch.empty((B, Sk, Hkv, D), dtype=k.dtype, device=k.device)
+    dv = torch.empty((B, Sk, Hkv, D), dtype=v.dtype, device=v.device)
     fn = _bwd_kernels()[1]
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                  delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype],
-                 B, Hq, Hkv, Sq, Sk, D,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-                 *dk.stride()[:3], *dv.stride()[:3], scale, int(causal),
-                 int(_aligned16(q, k, v, do)), _stream(q))
+                 B, Hq, Hkv, Sq, Sk, D, *_strides(q), *_strides(k), *_strides(v),
+                 *_strides(do), scale, int(causal), _stream(q))
     if err:
         _build.check(_build.load(_NAME_BWD), err, "flash_attention_bwd dk/dv launch")
     launches_bwd_dkv += 1
@@ -281,7 +289,7 @@ def flash_attention_bwd_plain(q, k, v, out, lse, do, causal=False, scale=None):
         mask = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).tril(Sk - Sq)
         p = p.masked_fill(~mask, 0.0)
     dp = dot @ vt.transpose(-1, -2)
-    delta = (dot * out.transpose(1, 2).float()).sum(-1, keepdim=True)
+    delta = _delta(out, do)[..., None]
     ds = p * (dp - delta) * s
     dq = ds @ kt
     dk = (ds.transpose(-1, -2) @ qt).view(B, Hkv, rep, Sk, D).sum(2)
@@ -295,15 +303,20 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal=False, scale=None):
     and LSE, and the output's gradient ``do``; all (B, S, H, D) but the LSE
     (B, Hq, Sq) float32.
 
-    On the card: delta = rowsum(dO O), then the dq kernel and the dk/dv
-    kernel (which sums dk and dv over each GQA group itself). ``do`` needs a
-    contiguous head dim; anything else raises ``FlashShapeError``.
+    On the card: the dq kernel (which computes delta = rowsum(dO O) for its
+    rows and writes it), then the dk/dv kernel (which reads delta and sums dk
+    and dv over each GQA group itself). ``do`` and ``out`` need a contiguous
+    head dim; anything else raises ``FlashShapeError``.
     """
     _check_shapes(q, k, v, causal)
     s = float(scale if scale is not None else 1.0 / math.sqrt(q.shape[-1]))
     if q.is_cuda:
-        delta = _delta(out, do)
-        dq = _launch_bwd_dq(q, k, v, do, lse, delta, causal, s)
+        if q.dtype != torch.float32:
+            # the 16-bit kernels read every input by TMA: copy (and count)
+            # what it cannot read where it lies, once for both kernels
+            q, k, v, do, out = (_tma_ready(t) for t in (q, k, v, do, out))
+            lse = _rows_ready(lse)
+        dq, delta = _launch_bwd_dq(q, k, v, do, out, lse, causal, s)
         dk, dv = _launch_bwd_dkv(q, k, v, do, lse, delta, causal, s)
         return dq, dk, dv
     if q.device.type != "cpu":
@@ -343,17 +356,13 @@ def flash_attention_fwd_lse(q, k, v, causal=False, scale=None):
     ``Hq % Hkv != 0``, causal with ``Sq > Sk``, mismatched shapes. On the card
     it also raises it for inputs the kernels do not take: dtypes other than
     float32, float16 and bfloat16 (one dtype for q, k and v), head dims other
-    than 32, 64 and 128, a head dim that is not contiguous, and a head dim of
-    32 where a gradient is wanted (the backward kernels take 64 and 128).
+    than 32, 64 and 128, and a head dim that is not contiguous. The backward
+    kernels take every head dim the forward takes.
     """
     _check_shapes(q, k, v, causal)
     s = float(scale if scale is not None else 1.0 / math.sqrt(q.shape[-1]))
     if not q.is_cuda and q.device.type != "cpu":
         raise RuntimeError(f"flash attention runs on CUDA or the CPU, not {q.device}")
-    if (q.is_cuda and q.shape[3] not in _BWD_HEAD_DIMS and torch.is_grad_enabled()
-            and any(t.requires_grad for t in (q, k, v))):
-        raise FlashShapeError(f"the backward kernels take head_dim in {_BWD_HEAD_DIMS}, "
-                              f"got {q.shape[3]} with a gradient wanted")
     return FlashAttentionFunction.apply(q, k, v, bool(causal), s)
 
 

@@ -32,9 +32,11 @@ _LOW = (torch.float16, torch.bfloat16)
 class Optimizer:
     """Base: parameter groups, float32 state and the fused apply.
 
-    ``parameters`` is an iterable of tensors, or of ``(name, tensor)`` pairs
-    (``model.named_parameters()``); names are what ``apply_decay_param_fun``
-    is called with.
+    ``parameters`` is an iterable of tensors (``model.parameters()``: each
+    tensor's ``name``, the ``param_{N}`` that ``framework.Parameter`` gives
+    it, as in the JAX package) or of ``(name, tensor)`` pairs
+    (``model.named_parameters()``: the pair's name). Names are what
+    ``apply_decay_param_fun`` is called with.
     """
 
     def __init__(self, learning_rate=0.001, parameters=None, weight_decay=None,
@@ -51,7 +53,8 @@ class Optimizer:
             raise NotImplementedError(f"grad_clip is not ported yet: it belongs to {_LATER}")
         self._names, self._params = [], []
         for item in parameters:
-            name, p = item if isinstance(item, tuple) else (None, item)
+            # a plain torch tensor's ``name`` reads None
+            name, p = item if isinstance(item, tuple) else (getattr(item, "name", None), item)
             self._names.append(name)
             self._params.append(p)
         self._learning_rate = float(learning_rate)
@@ -162,8 +165,10 @@ class AdamW(Adam):
         self._weight_decay = float(weight_decay) if weight_decay else 0.0
         self._apply_decay_param_fun = apply_decay_param_fun
         if apply_decay_param_fun is not None and None in self._names:
-            raise ValueError("apply_decay_param_fun needs parameter names: pass "
-                             "model.named_parameters()")
+            raise ValueError(
+                "apply_decay_param_fun needs parameter names, and a tensor without a "
+                "name was given: pass the port's parameters (framework.Parameter, as "
+                "model.parameters() gives them) or model.named_parameters()")
 
     def _groups(self):
         if self._apply_decay_param_fun is None:

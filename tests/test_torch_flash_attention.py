@@ -172,28 +172,75 @@ class TestShapePolicy:
             port_fa._check_kernel_inputs(q, k, v)
 
     def test_backward_kernels_take_64_and_128(self):
-        # the forward kernel takes D = 32; the backward kernels do not yet
-        q, k, v = (torch.from_numpy(a) for a in _qkv(0, 1, 16, 16, 2, 2, 32))
-        out, lse = port_fa.flash_attention_fwd_lse(q, k, v, causal=True)
-        with pytest.raises(port_fa.FlashShapeError, match="backward"):
-            port_fa._check_bwd_inputs(q, k, v, q, lse, port_fa._delta(out, q))
+        # ... and 32: every head dim the forward kernel takes has a backward
+        for D in (32, 64, 128):
+            q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+                       for a in _qkv(0, 1, 16, 16, 2, 2, D))
+            out, lse = port_fa.flash_attention_fwd_lse(q, k, v, causal=True)
+            delta = port_fa._delta(out, q)
+            port_fa._check_bwd_inputs(q, k, v, q, lse, delta, out=out)
+
+    @pytest.mark.parametrize("D", [16, 96, 256])
+    def test_backward_refuses_other_head_dims(self, D):
+        q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(0, 1, 16, 16, 2, 2, D))
+        lse = torch.zeros(1, 2, 16)
+        with pytest.raises(port_fa.FlashShapeError, match="head_dim"):
+            port_fa._check_bwd_inputs(q, k, v, q, lse, out=q)
 
     def test_d32_with_gradient_on_the_card_takes_the_math_path(self, monkeypatch):
-        # where a gradient is wanted at D = 32 the wrapper raises the policy
-        # error before any launch, so sdpa takes the (differentiable) math path
-        def launched(*a):
-            raise AssertionError("kernel launched for a D = 32 forward with a gradient")
+        """No longer: at D = 32 a forward that wants a gradient on the card
+        reaches FlashAttentionFunction, whose backward runs the dq and dk/dv
+        launchers (stubbed here with the plain versions), never the math
+        path."""
+        calls = []
 
-        monkeypatch.setattr(port_fa, "_launch", launched)
-        q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv(0, 1, 16, 16, 2, 2, 32))
+        def fwd(q, k, v, causal, scale):
+            calls.append("fwd")
+            return port_fa.flash_attention_fwd_plain(q, k, v, causal, scale)
+
+        def dq(q, k, v, do, out, lse, causal, scale):
+            calls.append("dq")
+            got = port_fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal, scale)
+            return got[0], port_fa._delta(out, do)
+
+        def dkv(q, k, v, do, lse, delta, causal, scale):
+            calls.append("dkv")
+            assert delta.shape == lse.shape and delta.dtype == torch.float32
+            return saved["dk"], saved["dv"]
+
+        def math_path(*a, **kw):
+            raise AssertionError("the math path ran for a D = 32 forward with a gradient")
+
+        qn, kn, vn = _qkv(0, 1, 16, 16, 2, 2, 32)
+        g = torch.from_numpy(np.random.RandomState(1).randn(1, 16, 2, 32).astype(np.float32))
+        ref = [torch.from_numpy(a).requires_grad_() for a in (qn, kn, vn)]
+        port_fa.flash_attention_fwd_plain(*ref, True)[0].backward(g)
+        saved = dict(dk=ref[1].grad, dv=ref[2].grad)
+        monkeypatch.setattr(port_fa, "_launch", fwd)
+        monkeypatch.setattr(port_fa, "_launch_bwd_dq", dq)
+        monkeypatch.setattr(port_fa, "_launch_bwd_dkv", dkv)
+        monkeypatch.setattr(port_F, "_math_sdpa", math_path)
+        q, k, v = (torch.from_numpy(a).requires_grad_() for a in (qn, kn, vn))
         monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
-        with pytest.raises(port_fa.FlashShapeError, match="backward"):
-            port_fa.flash_attention_fwd(q, k, v, causal=True)
         out = port_F._sdpa(q, k, v, causal=True, use_kernel=True)
+        assert type(out.grad_fn).__name__ == "FlashAttentionFunctionBackward"
+        out.backward(g)
         monkeypatch.undo()
-        ref = port_F._math_sdpa(q, k, v, causal=True)
-        np.testing.assert_array_equal(out.detach().numpy(), ref.detach().numpy())
-        assert out.grad_fn is not None
+        assert calls == ["fwd", "dq", "dkv"]
+        for t, r in zip((q, k, v), ref):
+            np.testing.assert_allclose(t.grad.numpy(), r.grad.numpy(), rtol=1e-5, atol=1e-5)
+
+    def test_plain_delta_is_the_jax_delta(self):
+        # delta = rowsum(dO * O) as the JAX package's _bwd computes it in XLA,
+        # (B, Hq, Sq) beside (B, Hq, Sq, 1) there
+        r = np.random.RandomState(3)
+        out = r.randn(2, 48, 4, 32).astype(np.float32)
+        do = r.randn(2, 48, 4, 32).astype(np.float32)
+        ref = np.asarray(jnp.sum(jnp.asarray(do).astype(jnp.float32) *
+                                 jnp.asarray(out).astype(jnp.float32), axis=-1))
+        got = port_fa._delta(torch.from_numpy(out), torch.from_numpy(do))
+        assert got.shape == (2, 4, 48) and got.dtype == torch.float32 and got.is_contiguous()
+        np.testing.assert_allclose(got.numpy(), ref.transpose(0, 2, 1), rtol=2e-5, atol=2e-5)
 
 
 class TestAlignmentCopy:

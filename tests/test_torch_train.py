@@ -5,6 +5,8 @@ The JAX side trains eagerly (``loss.backward()``, ``opt.step()``,
 ``opt.clear_grad()``) on its CPU math path; the port runs its plain versions
 on the CPU. Inputs come from numpy seeds; weights go through numpy.
 """
+import copy
+
 import numpy as np
 import pytest
 
@@ -98,12 +100,12 @@ class TestCrossEntropy:
 class TestAdamWMatchesJax:
     # fp32 on both sides; tolerance 1e-4 on the loss at every step and every
     # parameter after the last step
-    def _run(self, jax_kw=lambda jm: {}, port_kw=None, named=False):
+    def _run(self, jax_kw=lambda jm: {}, port_kw=lambda tm: {}, named=False):
         jm, tm = _models()
         jopt = paddle.optimizer.AdamW(learning_rate=1e-3, parameters=jm.parameters(),
                                       **jax_kw(jm))
         params = tm.named_parameters() if named else tm.parameters()
-        topt = AdamW(learning_rate=1e-3, parameters=params, **(port_kw or {}))
+        topt = AdamW(learning_rate=1e-3, parameters=params, **port_kw(tm))
         jl, tl = _train(jm, tm, jopt, topt, [_batch(s) for s in range(_STEPS)])
         np.testing.assert_allclose(tl, jl, rtol=1e-4, atol=1e-4)
         ref, out = _jax_params(jm), llama_to_numpy(tm)
@@ -122,14 +124,54 @@ class TestAdamWMatchesJax:
             return dict(weight_decay=0.5, apply_decay_param_fun=lambda n: n not in norms)
 
         self._run(jax_kw=jax_kw,
-                  port_kw=dict(weight_decay=0.5,
-                               apply_decay_param_fun=lambda n: "norm" not in n),
+                  port_kw=lambda tm: dict(weight_decay=0.5,
+                                          apply_decay_param_fun=lambda n: "norm" not in n),
                   named=True)
 
+    def test_decay_by_generated_names(self):
+        # the paddle idiom on both sides: model.parameters(), and a function
+        # of each parameter's generated name (the norms' names excluded)
+        def kw(model):
+            norms = {p.name for n, p in model.named_parameters() if "norm" in n}
+            return dict(weight_decay=0.5, apply_decay_param_fun=lambda n: n not in norms)
+
+        self._run(jax_kw=kw, port_kw=kw)
+
     def test_decay_fun_needs_names(self):
+        # a tensor without a name (a plain torch parameter) has nothing to
+        # call the function with
+        with pytest.raises(ValueError, match="without a name"):
+            AdamW(parameters=[torch.nn.Parameter(torch.zeros(3))],
+                  apply_decay_param_fun=lambda n: True)
+
+
+class TestParameterNames:
+    def test_generated_names_survive_to_and_deepcopy(self):
         _, tm = _models()
-        with pytest.raises(ValueError, match="named_parameters"):
-            AdamW(parameters=tm.parameters(), apply_decay_param_fun=lambda n: True)
+        names = [p.name for p in tm.parameters()]
+        assert all(n.startswith("param_") and n[6:].isdigit() for n in names)
+        assert len(set(names)) == len(names)
+        # one process-wide counter: a later model's names come after
+        _, later = _models()
+        assert min(int(p.name[6:]) for p in later.parameters()) > max(int(n[6:]) for n in names)
+        tm.to(torch.float64)
+        assert [p.name for p in tm.parameters()] == names
+        assert {p.dtype for p in tm.parameters()} == {torch.float64}
+        twin = copy.deepcopy(tm)
+        assert [p.name for p in twin.parameters()] == names
+        for a, b in zip(twin.parameters(), tm.parameters()):
+            assert a.data_ptr() != b.data_ptr() and torch.equal(a, b)
+            assert isinstance(a, torch.nn.Parameter) and a.requires_grad
+
+    def test_names_change_no_tensor(self):
+        # the state dict and the gradients are the same plain tensors as
+        # before the names
+        _, tm = _models()
+        state = tm.state_dict()
+        assert all(type(t) is torch.Tensor for t in state.values())
+        loss, _ = tm(*(torch.from_numpy(a) for a in _batch(0)))
+        loss.backward()
+        assert all(type(p.grad) is torch.Tensor for p in tm.parameters())
 
 
 class TestMultiPrecision:
