@@ -49,13 +49,25 @@ Phases, each a hard check (the script exits nonzero on the first failure):
      bit for bit (NaN where the plain version gives NaN: a NaN's payload is
      not part of the function), at the JAX test's fp32 (8,), a ragged
      1,000,003, unaligned views, 0 elements, bf16 and fp16 with specials and
-     2^26 fp32, which is timed beside its bound. Then the op registered
+     2^26 fp32, which is timed beside its bound (the kernel's registers,
+     shared memory and spills are the ``ptxas_axpy`` line). Then the op registered
      through register_custom_op as the JAX test registers its Pallas kernel:
      launch count set to 0 before three calls on tensors that require grad,
      one launch per call, outputs on the card without grad_fn; the same
      kernel registered as differentiable must raise CustomOpError. Last, a
      cpp_extension host op (built with the system C++ compiler) on CUDA
      tensors: values and gradients come back on the card.
+  9. paged and int8 serving at phase 3's width, depth, batch and prompts:
+     LlamaDecodeEngine with the paged cache (block_size 64), the int8 cache
+     and both, beside the dense engine; prefill_ms, ms_per_token,
+     tokens_per_sec and the cache's bytes against the dense bf16 cache's.
+     Launch counts set to 0 before each engine's run: the bf16 prompt pass
+     launches the forward kernel once a layer, the int8 one never, decode
+     steps never. Logits against the dense engine's (tolerances below); fp32
+     greedy tokens of every form equal on the card and on a CPU twin, paged
+     equal to dense; beam search (B8 K4, 16 new tokens) on the dense and the
+     paged engine, with the paged pool's books balanced; float64 paged and
+     dense beams equal.
 The last line is the device JSON object; the line before it the card's name
 and power limit; before that the kernels JSON object.
 
@@ -110,6 +122,29 @@ TOL_TRAIN_PARAM_ABS = 4 * TRAIN_LR
 # ... and such elements are few: the updates p2 - p0 of card and CPU must
 # agree to 1e-2 norm-relative per parameter.
 TOL_TRAIN_UPDATE = 1e-2
+
+# paged and int8 serving (phase 9), relative to the largest |logit| of the
+# reference. The paged prompt pass is the dense one's function on the same
+# kernel and GEMMs (read 0.0). The paged decode step attends in fp32
+# (paged_kv.paged_attention_decode) and the dense one with bf16 products (as
+# in the JAX package), so at bf16 the paged first step is held against the
+# dense engine with its decode attention in that fp32 arithmetic. The two
+# still part where fp32 sums over 192 gathered and 129 filled slots round a
+# bf16 output of layer 0 one step apart, and a random 8-layer model carries
+# that to 0.0132 of the largest logit on the H100 (the same in two runs on two
+# cards), so this bound catches gross faults only. The tight one
+# is fp32 (2 layers, flagship width), where paged and dense first steps read
+# 0.0, and paged int8 and int8 too: TOL_PAGED_STEP_FP32 leaves room for fp32
+# summation order alone.
+TOL_PAGED_PREFILL = 1e-3
+TOL_PAGED_STEP = 2e-2
+TOL_PAGED_STEP_FP32 = 1e-5
+# int8 cache against bf16: the bound of tests/test_inference_decode.py:250
+TOL_INT8_PREFILL = 0.05
+# float64 beams, paged against dense: tests/test_paged_kv.py:258-279 holds the
+# scores to rtol 1e-5, atol 1e-6; here the absolute 1e-5, tighter for every
+# score above 0.1 in magnitude
+TOL_BEAM_SCORES = 1e-5
 
 # axpy (y = 2x + 1) is timed at 2^26 float32 elements: 512 MiB of traffic,
 # ten times the 50 MB L2, so every call streams from HBM
@@ -223,7 +258,7 @@ def backward_bounds_ms(B, Sq, Sk, Hq, Hkv, D, causal, elt, tensor_cores):
 
 
 def ptxas_summary(log):
-    """{kernel: {registers, stack, spill_stores, spill_loads}} from an
+    """{kernel: {registers, smem, stack, spill_stores, spill_loads}} from an
     ``nvcc -Xptxas -v`` log (kernel names demangled to their template)."""
     out, name = {}, None
     for line in log.splitlines():
@@ -240,12 +275,22 @@ def ptxas_summary(log):
                                             spill_loads=int(m.group(3)))
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            out.setdefault(name, {})["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.setdefault(name, {}).update(registers=int(m.group(1)),
+                                            smem=int(smem.group(1)) if smem else 0)
     # _ZN..fa_bwd_dq_wgmmaI13__nv_bfloat16Li128EEEv.. -> fa_bwd_dq_wgmma<__nv_bfloat16, 128>
+    # _ZN..axpy_vectorsI6__halfEEv.. -> axpy_vectors<__half>
     named = {}
     for mangled, info in out.items():
         m = re.search(r"(fa_\w+?)I(?:\d+(\w+?))?Li(\d+)EE", mangled)
-        named[f"{m.group(1)}<{m.group(2) or 'float'}, {m.group(3)}>" if m else mangled] = info
+        a = re.search(r"(axpy_(?:vectors|elements))I(?:\d+(\w+?)|f)EE", mangled)
+        if m:
+            key = f"{m.group(1)}<{m.group(2) or 'float'}, {m.group(3)}>"
+        elif a:
+            key = f"{a.group(1)}<{a.group(2) or 'float'}>"
+        else:
+            key = mangled
+        named[key] = info
     return named
 
 
@@ -335,6 +380,49 @@ def phase_kernel(torch, fa):
     return checks, rows
 
 
+def serve_timed(torch, fa, engine, prompts, new, sync):
+    """One engine's serving numbers: a warm-up generate, then, with the launch
+    counts set to 0, one timed generate of ``new`` tokens, one timed prefill
+    and ``new - 1`` timed decode steps. Launches are read after each part."""
+    engine.generate(prompts, max_new_tokens=2)        # warm-up: allocator, libraries
+    sync()
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    toks = engine.generate(prompts, max_new_tokens=new)
+    sync()
+    gen_s = time.perf_counter() - t0
+    after_generate = fa.launches
+
+    t0 = time.perf_counter()
+    logits, cache, pos = engine.prefill(prompts)
+    sync()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    after_prefill = fa.launches
+
+    tok = logits.argmax(-1, keepdim=True)
+    first_step = None
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(new - 1):
+        logits_d, cache = engine.decode_step(tok, cache, pos)
+        if first_step is None:
+            first_step = logits_d.clone()
+        tok = logits_d.argmax(-1, keepdim=True)
+        pos += 1
+    sync()
+    ms_per_token = (time.perf_counter() - t0) * 1e3 / (new - 1)
+    B = prompts.shape[0]
+    return dict(
+        toks=toks, logits=logits, first_step=first_step, last_step=logits_d, cache=cache,
+        tok=tok, pos=pos,
+        numbers=dict(prefill_ms=prefill_ms, ms_per_token=ms_per_token,
+                     tokens_per_sec=B * new / gen_s, generate_s=gen_s, batch=B,
+                     prompt=prompts.shape[1], new_tokens=new,
+                     launches_generate=after_generate,
+                     launches_prefill=after_prefill - after_generate,
+                     launches_decode=fa.launches - after_prefill))
+
+
 def phase_serving(torch, fa, models):
     """The port's main path at the flagship width."""
     cfg = models.LlamaConfig(**FLAGSHIP, dtype="bfloat16")
@@ -344,47 +432,24 @@ def phase_serving(torch, fa, models):
     prompts = torch.randint(0, cfg.vocab_size, (8, 128), device="cuda", generator=gen)
     new = 32
     engine = models.LlamaDecodeEngine(model, max_len=128 + new + 1)
-    engine.generate(prompts, max_new_tokens=2)        # warm-up: allocator, libraries
-    torch.cuda.synchronize()
-
-    reset_counts(fa)
-    t0 = time.perf_counter()
-    toks = engine.generate(prompts, max_new_tokens=new)
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t0
-    after_generate = fa.launches
-
-    t0 = time.perf_counter()
-    logits, cache, pos = engine.prefill(prompts)
-    torch.cuda.synchronize()
-    prefill_ms = (time.perf_counter() - t0) * 1e3
-    after_prefill = fa.launches
-
-    tok = logits.argmax(-1, keepdim=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(new - 1):
-        logits_d, cache = engine.decode_step(tok, cache, pos)
-        tok = logits_d.argmax(-1, keepdim=True)
-        pos += 1
-    torch.cuda.synchronize()
-    ms_per_token = (time.perf_counter() - t0) * 1e3 / (new - 1)
-    after_decode = fa.launches
+    run = serve_timed(torch, fa, engine, prompts, new, torch.cuda.synchronize)
+    num, toks = run["numbers"], run["toks"]
 
     steps = 3
     full = model.generate(prompts, max_new_tokens=steps)
     torch.cuda.synchronize()
     launches = fa.launches
+    after_decode = num["launches_generate"] + num["launches_prefill"] + num["launches_decode"]
 
     if (fa.launches_bwd_dq, fa.launches_bwd_dkv) != (0, 0):
         fail("serving launched a backward kernel")
     if fa.copies_for_alignment:
         fail(f"serving made {fa.copies_for_alignment} alignment copies")
-    if after_generate != L:
-        fail(f"engine.generate launched the kernel {after_generate} times, want {L}")
-    if after_prefill - after_generate != L:
-        fail(f"prefill launched the kernel {after_prefill - after_generate} times, want {L}")
-    if after_decode != after_prefill:
+    if num["launches_generate"] != L:
+        fail(f"engine.generate launched the kernel {num['launches_generate']} times, want {L}")
+    if num["launches_prefill"] != L:
+        fail(f"prefill launched the kernel {num['launches_prefill']} times, want {L}")
+    if num["launches_decode"]:
         fail("decode steps launched the flash kernel; they attend in plain torch")
     if launches - after_decode != L * steps:
         fail(f"model.generate launched {launches - after_decode} times, want {L * steps}")
@@ -392,12 +457,12 @@ def phase_serving(torch, fa, models):
         fail(f"generated tokens out of range or misshapen: {tuple(toks.shape)}")
     if full.shape != (8, 128 + steps) or full.max() >= cfg.vocab_size:
         fail(f"model.generate output misshapen: {tuple(full.shape)}")
-    if not (torch.isfinite(logits).all() and torch.isfinite(logits_d).all()):
+    if not (torch.isfinite(run["logits"]).all() and torch.isfinite(run["last_step"]).all()):
         fail("non-finite logits in the serving phase")
-    return dict(prefill_ms=prefill_ms, ms_per_token=ms_per_token,
-                tokens_per_sec=8 * new / gen_s, generate_s=gen_s, batch=8,
+    return dict(prefill_ms=num["prefill_ms"], ms_per_token=num["ms_per_token"],
+                tokens_per_sec=num["tokens_per_sec"], generate_s=num["generate_s"], batch=8,
                 prompt=128, new_tokens=new, launches=launches,
-                launches_per_prefill=after_prefill - after_generate,
+                launches_per_prefill=num["launches_prefill"],
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
@@ -532,10 +597,10 @@ _NOT_KERNELS = ("Command Buffer Full",)
 
 
 def profile_step(torch, step, step_ms):
-    """Device time of one training step by kernel group, from torch.profiler
-    (CUPTI): the device-side events only, so no time counts twice.
-    idle_share compares their sum with the median step time measured
-    without the profiler."""
+    """Device time of one step (training, or a decode step) by kernel group,
+    from torch.profiler (CUPTI): the device-side events only, so no time
+    counts twice. idle_share compares their sum with the step time measured
+    without the profiler; kernel_launches counts the device-side events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -555,6 +620,7 @@ def profile_step(torch, step, step_ms):
     device = sum(groups.values())
     kernels.sort(reverse=True)
     return dict(device_ms=device, idle_share=1.0 - device / step_ms if device else None,
+                kernel_launches=sum(n for _, n, _ in kernels),
                 by_group=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
                 top_kernels=[dict(ms=ms, launches=n, name=k) for ms, n, k in kernels[:12]])
 
@@ -815,12 +881,19 @@ def phase_custom_op(torch, axpy, custom_op, cpp_extension, build_dir):
         if x.numel() == AXPY_TIMED_N:
             timed = row
             nbytes = 2 * x.numel() * x.element_size()
-            # clone: a copy of the same bytes, the bandwidth a stream reaches here
-            for key, fn in (("kernel", lambda: axpy.axpy(x)),
-                            ("plain", lambda: axpy.axpy_plain(x)),
-                            ("library", lambda: library(x)),
-                            ("clone", lambda: x.clone())):
-                row[f"{key}_ms"] = device_ms(torch, fn)
+            # clone: a copy of the same bytes, the bandwidth a stream reaches
+            # here. Each is timed in two turns and keeps its lower reading:
+            # one reading of the kernel alone spread 0.181-0.192 ms over runs
+            # where tools/axpy_ab.py read 0.179 on the same cards.
+            fns = (("kernel", lambda: axpy.axpy(x)), ("plain", lambda: axpy.axpy_plain(x)),
+                   ("library", lambda: library(x)), ("clone", lambda: x.clone()))
+            turns = {key: [] for key, _ in fns}
+            for _ in range(2):
+                for key, fn in fns:
+                    turns[key].append(device_ms(torch, fn))
+            for key, fn in fns:
+                row[f"{key}_ms"] = min(turns[key])
+                row[f"{key}_ms_turns"] = turns[key]
                 row[f"{key}_call_ms"] = call_ms(torch, fn)
             # one fma (2 operations) an element, on the fp32 units
             row["bound_ms"], row["bound_by"] = bound_ms(2.0 * x.numel(), nbytes, False)
@@ -882,6 +955,210 @@ def phase_custom_op(torch, axpy, custom_op, cpp_extension, build_dir):
                                    device=str(yc.device)))
 
 
+def cache_bytes(cache):
+    """(bytes allocated, bytes of the blocks in use) of an engine's cache: a
+    dense cache holds max_len slots for every row; a paged one its pools, of
+    which the blocks with a reference are in use."""
+    pools = cache.pools if hasattr(cache, "pager") else cache
+    allocated = sum(a.numel() * a.element_size() for entry in pools for a in entry)
+    if not hasattr(cache, "pager"):
+        return allocated, allocated
+    pager = cache.pager
+    return allocated, allocated * int((pager._refs > 0).sum()) // pager.num_blocks
+
+
+def rel_err(a, ref):
+    """max |a - ref| over max |ref|, in float32."""
+    a, ref = a.float(), ref.float()
+    return ((a - ref).abs().max() / ref.abs().max()).item()
+
+
+def phase_paged_serving(torch, fa, models):
+    """Paged and int8 serving at the flagship width and depth (phase 3's
+    model and prompts: batch 8, prompt 128, 32 new tokens), then the fp32
+    card-vs-CPU twins, beam search (B8 K4, 16 tokens) and the float64 beam
+    twin."""
+    import copy
+
+    batch, prompt, new = 8, 128, 32
+    cfg = models.LlamaConfig(**FLAGSHIP, dtype="bfloat16")
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    model = models.LlamaForCausalLM(cfg, device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    prompts = torch.randint(0, V, (batch, prompt), device="cuda", generator=gen)
+    max_len = prompt + new + 1
+    forms = dict(dense={}, paged=dict(kv_cache_layout="paged", block_size=64),
+                 int8=dict(kv_cache_dtype="int8"),
+                 paged_int8=dict(kv_cache_dtype="int8", kv_cache_layout="paged",
+                                 block_size=64))
+    runs, out = {}, {}
+    for name, kw in forms.items():
+        engine = models.LlamaDecodeEngine(model, max_len=max_len, **kw)
+        run = serve_timed(torch, fa, engine, prompts, new, torch.cuda.synchronize)
+        num = run["numbers"]
+        num["cache_bytes"], num["cache_bytes_in_use"] = cache_bytes(run["cache"])
+        # one more decode step under the profiler: its kernels, their device
+        # time, and the share of ms_per_token the card is idle
+        prof = profile_step(torch, lambda: engine.decode_step(
+            run["tok"], run["cache"], run["pos"]), num["ms_per_token"])
+        num["decode_step_profile"] = {k: prof[k] for k in (
+            "device_ms", "idle_share", "kernel_launches", "by_group")}
+        # the bf16 prompt pass launches the forward kernel once a layer; the
+        # int8 one attends the quantized prompt in plain torch; decode steps
+        # never launch it
+        want = 0 if "int8" in name else L
+        if (num["launches_generate"], num["launches_prefill"], num["launches_decode"]) != (
+                want, want, 0):
+            fail(f"{name} serving launched the forward kernel (generate, prefill, decode) = "
+                 f"{(num['launches_generate'], num['launches_prefill'], num['launches_decode'])}"
+                 f", want ({want}, {want}, 0)")
+        if (fa.launches_bwd_dq, fa.launches_bwd_dkv, fa.copies_for_alignment) != (0, 0, 0):
+            fail(f"{name} serving launched a backward kernel or made an alignment copy")
+        toks = run["toks"]
+        if toks.shape != (batch, new) or toks.min() < 0 or toks.max() >= V:
+            fail(f"{name}: generated tokens out of range or misshapen: {tuple(toks.shape)}")
+        for key in ("logits", "first_step", "last_step"):
+            if not bool(torch.isfinite(run[key]).all()):
+                fail(f"{name}: non-finite {key}")
+        runs[name] = run
+        out[name] = num
+        del run["cache"], engine
+    dense_bytes = out["dense"]["cache_bytes"]
+    for name in forms:
+        out[name]["cache_bytes_over_dense_bf16"] = out[name]["cache_bytes"] / dense_bytes
+        out[name]["cache_bytes_in_use_over_dense_bf16"] = (
+            out[name]["cache_bytes_in_use"] / dense_bytes)
+    D = cfg.hidden_size // cfg.num_attention_heads
+    if abs(out["int8"]["cache_bytes_over_dense_bf16"] - (D + 4) / (2 * D)) > 1e-9:
+        fail(f"int8 cache is {out['int8']['cache_bytes_over_dense_bf16']} of bf16, want "
+             f"(D + 4) / 2D = {(D + 4) / (2 * D)}")
+
+    class DenseFp32Attention(models.LlamaDecodeEngine):
+        """The dense engine with its decode attention in the paged decode
+        step's arithmetic (``paged_kv.paged_attention_decode``: fp32 products,
+        scores times 1/sqrt(D), fp32 softmax) over the filled prefix: the
+        reference of the paged first step (MHA, as the flagship)."""
+
+        def _attend(self, q, ck, cv, pos_mask):
+            logits = torch.einsum("bshd,bthd->bhst", q.float(), ck.float()) * (
+                1.0 / math.sqrt(self.head_dim))
+            probs = torch.softmax(torch.where(pos_mask[:, None], logits, -1e30), dim=-1)
+            return torch.einsum("bhst,bthd->bshd", probs, cv.float()).to(q.dtype)
+
+    ref = DenseFp32Attention(model, max_len=max_len)
+    _, ref_cache, ref_pos = ref.prefill(prompts)
+    ref_step, _ = ref.decode_step(runs["paged"]["logits"].argmax(-1, keepdim=True),
+                                  ref_cache, ref_pos)
+    del ref, ref_cache
+    errs = dict(
+        paged_prefill=rel_err(runs["paged"]["logits"], runs["dense"]["logits"]),
+        paged_first_step=rel_err(runs["paged"]["first_step"], ref_step),
+        # reported, not bounded: against the dense engine's own bf16 decode step
+        paged_first_step_vs_dense_bf16=rel_err(runs["paged"]["first_step"],
+                                               runs["dense"]["first_step"]),
+        int8_prefill=rel_err(runs["int8"]["logits"], runs["dense"]["logits"]),
+        paged_int8_prefill_vs_int8=rel_err(runs["paged_int8"]["logits"],
+                                           runs["int8"]["logits"]))
+    out["errors"] = dict(errs, tol_paged_prefill=TOL_PAGED_PREFILL,
+                         tol_paged_step=TOL_PAGED_STEP, tol_int8_prefill=TOL_INT8_PREFILL)
+    print("paged_serving_errors " + json.dumps(out["errors"]), flush=True)
+    if not errs["paged_prefill"] <= TOL_PAGED_PREFILL:
+        fail(f"paged prefill logits vs dense: {errs['paged_prefill']} > {TOL_PAGED_PREFILL}")
+    if not errs["paged_first_step"] <= TOL_PAGED_STEP:
+        fail(f"paged first-step logits vs dense with fp32 decode attention: "
+             f"{errs['paged_first_step']} > {TOL_PAGED_STEP}")
+    if not errs["int8_prefill"] <= TOL_INT8_PREFILL:
+        fail(f"int8 prefill logits vs bf16: {errs['int8_prefill']} > {TOL_INT8_PREFILL}")
+    if not errs["paged_int8_prefill_vs_int8"] <= TOL_PAGED_PREFILL:
+        fail(f"paged int8 prefill logits vs dense int8: {errs['paged_int8_prefill_vs_int8']}")
+    del runs
+
+    # fp32, 2 layers at the flagship width: greedy tokens of every form on the
+    # card and on a CPU twin with the same weights; on the card, the first
+    # decode step's logits of paged against dense, where both attend in fp32
+    cfg32 = models.LlamaConfig(**dict(FLAGSHIP, num_hidden_layers=2), dtype="float32")
+    card = models.LlamaForCausalLM(cfg32, device="cuda", seed=3)
+    host = copy.deepcopy(card).to("cpu")
+    gen_cpu = torch.Generator(device="cpu").manual_seed(11)
+    p32 = torch.randint(0, V, (2, prompt), generator=gen_cpu)
+    toks, steps = {}, {}
+    for name, kw in forms.items():
+        engine = models.LlamaDecodeEngine(card, max_len=prompt + 16, **kw)
+        tg = engine.generate(p32, max_new_tokens=16).cpu()
+        logits, cache, pos = engine.prefill(p32)
+        steps[name] = engine.decode_step(logits.argmax(-1, keepdim=True), cache, pos)[0]
+        tc = models.LlamaDecodeEngine(host, max_len=prompt + 16, **kw).generate(
+            p32, max_new_tokens=16)
+        if not torch.equal(tg, tc):
+            fail(f"fp32 {name}: card vs CPU greedy tokens differ:\n{tg}\n{tc}")
+        toks[name] = tg
+        del engine, cache
+    step_errs = dict(paged_vs_dense=rel_err(steps["paged"], steps["dense"]),
+                     paged_int8_vs_int8=rel_err(steps["paged_int8"], steps["int8"]))
+    print("fp32_first_step_errors " + json.dumps(step_errs), flush=True)
+    for key, err in step_errs.items():
+        if not err <= TOL_PAGED_STEP_FP32:
+            fail(f"fp32 first-step logits, {key}: {err} > {TOL_PAGED_STEP_FP32}")
+    if not torch.equal(toks["paged"], toks["dense"]):
+        fail(f"fp32 paged vs dense greedy tokens differ:\n{toks['paged']}\n{toks['dense']}")
+    if not torch.equal(toks["paged_int8"], toks["int8"]):
+        fail(f"fp32 paged int8 vs int8 greedy tokens differ")
+    out["fp32_card_vs_cpu"] = dict(tokens_identical=True, forms=list(forms), new_tokens=16,
+                                   first_step_errors=step_errs, tol=TOL_PAGED_STEP_FP32)
+    del card, host
+
+    # beam search at bf16, full width: dense and paged
+    B, K, T = 8, 4, 16
+    out["beam"] = {}
+    for name in ("dense", "paged"):
+        engine = models.LlamaDecodeEngine(model, max_len=prompt + T + 1, **forms[name])
+        engine.beam_search(prompts[:B], beam_size=K, max_new_tokens=2)   # warm-up
+        torch.cuda.synchronize()
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        tokens, scores = engine.beam_search(prompts[:B], beam_size=K, max_new_tokens=T)
+        torch.cuda.synchronize()
+        beam_s = time.perf_counter() - t0
+        if fa.launches != L:
+            fail(f"{name} beam search launched the forward kernel {fa.launches} times, want {L}")
+        if tokens.shape != (B, K, T) or tokens.min() < 0 or tokens.max() >= V:
+            fail(f"{name} beam tokens out of range or misshapen: {tuple(tokens.shape)}")
+        if not bool(torch.isfinite(scores).all()):
+            fail(f"{name} beam scores not finite: {scores}")
+        row = dict(seconds=beam_s, ms_per_step=beam_s * 1e3 / T, batch=B, beams=K,
+                   new_tokens=T, launches=fa.launches)
+        if name == "paged":
+            pager = engine._pager
+            live = int((pager._refs > 0).sum())
+            if live + len(pager._free) != pager.num_blocks - 1:
+                fail(f"paged beam pool books: {live} live + {len(pager._free)} free != "
+                     f"{pager.num_blocks - 1}")
+            row.update(live_blocks=live, free_blocks=len(pager._free))
+        out["beam"][name] = row
+        del engine
+    del model
+
+    # float64, 2 layers, a 16-token prompt (the attention's math path): paged
+    # and dense beams are one function
+    cfg64 = models.LlamaConfig(**dict(FLAGSHIP, num_hidden_layers=2), dtype="float64")
+    m64 = models.LlamaForCausalLM(cfg64, device="cuda", seed=4)
+    p64 = prompts[:2, :16]
+    res = {}
+    for name in ("dense", "paged"):
+        kw = dict(forms[name], block_size=8) if name == "paged" else {}
+        res[name] = models.LlamaDecodeEngine(m64, max_len=32, **kw).beam_search(
+            p64, beam_size=4, max_new_tokens=8, eos_token_id=5, length_penalty=0.5)
+    if not torch.equal(res["paged"][0], res["dense"][0]):
+        fail(f"float64 paged vs dense beam tokens differ:\n{res['paged'][0]}\n"
+             f"{res['dense'][0]}")
+    score_err = (res["paged"][1] - res["dense"][1]).abs().max().item()
+    if not score_err <= TOL_BEAM_SCORES:
+        fail(f"float64 paged vs dense beam scores differ by {score_err}")
+    out["beam_float64"] = dict(tokens_identical=True, max_score_err=score_err,
+                               tol=TOL_BEAM_SCORES)
+    return out
+
+
 def main():
     import torch
 
@@ -919,6 +1196,8 @@ def main():
     # every backward instantiation: registers, spills and stack
     print("ptxas_bwd " + json.dumps(ptxas_summary(_build.build_log("flash_attention_bwd"))),
           flush=True)
+    # the axpy kernel's instantiations: registers, shared memory, spills
+    print("ptxas_axpy " + json.dumps(ptxas_summary(_build.build_log("axpy"))), flush=True)
 
     # phase 2: forward kernel against its plain version
     t0 = time.perf_counter()
@@ -962,13 +1241,21 @@ def main():
                                          cpp_extension=custom["cpp_extension"])), flush=True)
     print(f"phase_seconds 8 {time.perf_counter() - t0:.1f}", flush=True)
 
+    # phase 9: paged and int8 serving (launch counts set to 0 inside, read after)
+    t0 = time.perf_counter()
+    paged = phase_paged_serving(torch, fa, models)
+    print("paged_serving " + json.dumps(dict(paged, card=smi)), flush=True)
+    print(f"phase_seconds 9 {time.perf_counter() - t0:.1f}", flush=True)
+
     kernel = dict(
         name="flash_attention_fwd", route="cuda",
         source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
         replaces="paddle_tpu/ops/pallas/flash_attention.py:48",
         launches=serving["launches"],
         launches_by_path=dict(serving=serving["launches"],
-                              training=training["launches_per_step"]["fwd"]),
+                              training=training["launches_per_step"]["fwd"],
+                              paged_prefill=paged["paged"]["launches_prefill"],
+                              int8_prefill=paged["int8"]["launches_prefill"]),
         max_abs_err=main_row["max_abs_err"],
         tol=main_row["tol"], ms=main_row["kernel_ms"], kernel_ms=main_row["kernel_ms"],
         call_ms=main_row["kernel_call_ms"],

@@ -1,45 +1,86 @@
 """KV-cache decode engine for LLaMA serving: the port of
-paddle_tpu/models/llama_decode.py (dense cache layout).
+paddle_tpu/models/llama_decode.py.
 
-The cache is a (B, max_len, Hkv, D) pair of tensors per layer, allocated at
-prefill. The prompt pass attends causally over the prompt's own K/V through
-``F.scaled_dot_product_attention(is_causal=True)``, which runs the Hopper
-flash-attention kernel on the card. That is the JAX engine's function: at
-start_pos=0 it attends query s to cache slots t <= s, and the slots past the
-prompt are zero and masked to -1e30, so they add exactly 0. Decode steps
-attend a (B, 1) query to the cache in plain torch, as the JAX engine does in
-XLA outside any kernel.
+Three cache forms, as in the JAX engine:
 
-The int8 cache, the paged layout and beam search belong to a later slice
-and raise ``NotImplementedError``; the continuous-batching steps
-(``build_mixed_step``, ``build_decode_burst``) are not ported yet.
+- dense (the default): a (B, max_len, Hkv, D) pair of tensors per layer,
+  allocated at prefill and written in place;
+- ``kv_cache_dtype="int8"``: the same layout in int8 with one fp32 absmax
+  scale per (token, head), four tensors per layer; attention folds the
+  scales into its products and never builds a dequantized copy;
+- ``kv_cache_layout="paged"``: block pools indexed by per-sequence block
+  tables (``models/paged_kv.py``), granted on the host as decoding advances,
+  in bf16/fp16/fp32 or int8.
+
+The bf16/fp16/fp32 prompt pass, dense or paged, attends causally over the
+prompt's own K/V through ``F.scaled_dot_product_attention(is_causal=True)``,
+which runs the Hopper flash-attention kernel on the card. That is the JAX
+engine's function: at start_pos=0 it attends query s to cache slots t <= s,
+and the slots past the prompt are zero and masked to -1e30, so they add
+exactly 0. The int8 prompt pass attends the quantized prompt in plain torch
+(``_attend_int8``), as the JAX int8 engine does, so it never takes the
+kernel. Decode steps attend a (B, 1) query to the cache in plain torch, as
+the JAX engine does in XLA outside any kernel.
+
+The continuous-batching steps (``build_mixed_step``, ``build_decode_burst``)
+are not ported yet.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as tF
 
 from ..incubate.nn.functional import _rope_tables, fused_rotary_position_embedding
 from ..nn import functional as F
+from . import paged_kv as _pk
+
+
+def _row_rope_tables(positions, head_dim, theta, dtype, device):
+    """Rotate-half cos/sin (B, 1, D) at per-row absolute ``positions`` (B,)."""
+    return _rope_tables(1, head_dim, theta, dtype, device, positions[:, None])
+
+
+def _rope_at_rows(x, positions, theta):
+    """x: (B, 1, H, D) rotated at per-row absolute ``positions`` (B,): the
+    ragged-batch form (continuous batching decodes every slot at its own
+    position in one step)."""
+    cos, sin = _row_rope_tables(positions, x.shape[-1], theta, x.dtype, x.device)
+    return fused_rotary_position_embedding(x, sin=sin, cos=cos,
+                                           use_neox_rotary_style=False)[0]
+
+
+class _PagedCache:
+    """Cache value of the paged engine: the block pools (device) and their
+    pager (host allocator + tables). The pager travels with the cache, not
+    the engine, so interleaved prefills cannot cross-wire block tables."""
+
+    __slots__ = ("pager", "pools")
+
+    def __init__(self, pager, pools):
+        self.pager = pager
+        self.pools = pools
 
 
 class LlamaDecodeEngine:
-    """Greedy/temperature decoding with a per-layer KV cache on the model's
-    device. The engine holds the model's parameters, not copies."""
+    """Greedy/temperature decoding and beam search with a per-layer KV cache
+    on the model's device. The engine holds the model's parameters, not
+    copies."""
 
-    def __init__(self, model, max_len=None, kv_cache_dtype=None, kv_cache_layout=None):
+    def __init__(self, model, max_len=None, kv_cache_dtype=None,
+                 kv_cache_layout=None, block_size=64):
         cfg = model.config
         self.config = cfg
         if kv_cache_dtype not in (None, "int8"):
             raise ValueError(f"unsupported kv_cache_dtype {kv_cache_dtype!r}")
+        self.kv_int8 = kv_cache_dtype == "int8"
         if kv_cache_layout not in (None, "dense", "paged"):
             raise ValueError(f"unsupported kv_cache_layout {kv_cache_layout!r}")
-        if kv_cache_dtype == "int8" or kv_cache_layout == "paged":
-            raise NotImplementedError(
-                "the int8 and paged KV caches are not ported yet: they belong "
-                "to the paged-serving slice of the port")
+        self.paged = kv_cache_layout == "paged"
+        self.block_size = int(block_size)
+        self._pager = None   # the last prefill's pager (the cache owns it)
         self.max_len = int(max_len or cfg.max_position_embeddings)
         self.num_heads = cfg.num_attention_heads
         self.num_kv = cfg.num_key_value_heads
@@ -67,9 +108,40 @@ class LlamaDecodeEngine:
     # -- cache ---------------------------------------------------------------
     def init_cache(self, batch):
         shape = (batch, self.max_len, self.num_kv, self.head_dim)
-        return [(torch.zeros(shape, dtype=self.emb.dtype, device=self.device),
-                 torch.zeros(shape, dtype=self.emb.dtype, device=self.device))
+
+        def zeros(shp, dt):
+            return torch.zeros(shp, dtype=dt, device=self.device)
+
+        if self.kv_int8:
+            # one absmax scale per (token, kv head)
+            return [(zeros(shape, torch.int8), zeros(shape[:-1], torch.float32),
+                     zeros(shape, torch.int8), zeros(shape[:-1], torch.float32))
+                    for _ in self.layers]
+        return [(zeros(shape, self.emb.dtype), zeros(shape, self.emb.dtype))
                 for _ in self.layers]
+
+    @staticmethod
+    def _quantize_kv(x):
+        """(B, S, H, D) -> int8 values + per-(token, head) fp32 scales:
+        scale = max|x| / 127 (at least 1e-8), q = round(x / scale), round
+        half to even, clipped to [-127, 127]."""
+        xf = x.float()
+        scale = torch.clamp_min(xf.abs().amax(dim=-1) / 127.0, 1e-8)
+        q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+        return q, scale
+
+    def _init_paged(self, batch):
+        max_blocks = -(-self.max_len // self.block_size)
+        # pool sized for the worst case + the reserved null block; blocks are
+        # still granted lazily, so a short-lived batch touches few
+        pager = _pk.PagedKVCache(
+            num_layers=len(self.layers), num_blocks=batch * max_blocks + 1,
+            block_size=self.block_size, kv_heads=self.num_kv,
+            head_dim=self.head_dim, batch=batch, max_blocks_per_seq=max_blocks,
+            dtype=self.emb.dtype, quantized=self.kv_int8, device=self.device)
+        if self.kv_int8:
+            return pager, list(zip(pager.k, pager.k_scale, pager.v, pager.v_scale))
+        return pager, list(zip(pager.k, pager.v))
 
     # -- functional blocks ---------------------------------------------------
     def _attend(self, q, ck, cv, pos_mask):
@@ -84,6 +156,26 @@ class LlamaDecodeEngine:
         ct = torch.promote_types(q.dtype, torch.float32)
         probs = torch.softmax(logits.to(ct), dim=-1).to(q.dtype)
         return torch.einsum("bhst,bthd->bshd", probs, cv)
+
+    def _attend_int8(self, q, ck_q, ck_s, cv_q, cv_s, pos_mask):
+        """Attention over the int8 cache without a dequantized copy: the
+        per-(token, head) scales fold into the products,
+        logits[b,h,s,t] = (q . k_q) * ck_s[b,t,h] / sqrt(D) and
+        out = (probs * cv_s)[b,h,s,t] @ v_q[b,t,h,d]; the products run in
+        q.dtype and the scale fold in promote(q.dtype, float32), the same
+        ops as ``paged_kv.paged_attention_decode_int8``."""
+        rep = self.num_heads // self.num_kv
+        if rep > 1:
+            ck_q, cv_q, ck_s, cv_s = (a.repeat_interleave(rep, dim=2)
+                                      for a in (ck_q, cv_q, ck_s, cv_s))
+        ct = torch.promote_types(q.dtype, torch.float32)
+        logits = torch.einsum("bshd,bthd->bhst", q, ck_q.to(q.dtype))
+        logits = (logits.to(ct) * ck_s.transpose(1, 2)[:, :, None, :].to(ct)
+                  / math.sqrt(self.head_dim))
+        logits = torch.where(pos_mask[:, None, :, :], logits, -1e30)
+        probs = torch.softmax(logits, dim=-1)
+        pv = probs * cv_s.transpose(1, 2)[:, :, None, :].to(ct)
+        return torch.einsum("bhst,bthd->bshd", pv.to(q.dtype), cv_q.to(q.dtype))
 
     def _qkv_rope(self, p, x, cos, sin):
         """Shared pre-attention: rms -> q/k/v projections -> RoPE."""
@@ -105,22 +197,39 @@ class LlamaDecodeEngine:
                         p["down"])
         return x + mlp
 
+    @staticmethod
+    def _prompt_attention(q, k, v):
+        """Causal attention over the prompt's own K/V (the cache slots past
+        it would add exactly 0): the flash kernel on the card."""
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, training=False)
+
     def _block(self, p, x, cache_kv, start, rope, pos_mask):
         S = x.shape[1]
         q, k, v = self._qkv_rope(p, x, *rope)
-        ck, cv = cache_kv
+        end = start + S
         # written in place; the JAX engine returns a new cache from a donated
         # lax.dynamic_update_slice, which is the same buffer reused
-        ck[:, start:start + S] = k
-        cv[:, start:start + S] = v
-        if start == 0:
-            # prompt pass: causal attention over the prompt's own K/V (the
-            # cache slots past it would add exactly 0) -> the flash kernel
-            attn = F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                  training=False)
+        if self.kv_int8:
+            ck_q, ck_s, cv_q, cv_s = cache_kv
+            ck_q[:, start:end], ck_s[:, start:end] = self._quantize_kv(k)
+            cv_q[:, start:end], cv_s[:, start:end] = self._quantize_kv(v)
+            # the prompt pass too attends the quantized K/V, as the JAX int8
+            # engine does (so no flash kernel here)
+            attn = self._attend_int8(q, ck_q[:, :end], ck_s[:, :end], cv_q[:, :end],
+                                     cv_s[:, :end], pos_mask)
         else:
-            attn = self._attend(q, ck[:, :start + S], cv[:, :start + S], pos_mask)
+            ck, cv = cache_kv
+            ck[:, start:end] = k
+            cv[:, start:end] = v
+            if start == 0:
+                attn = self._prompt_attention(q, k, v)
+            else:
+                attn = self._attend(q, ck[:, :end], cv[:, :end], pos_mask)
         return self._post_attn(p, x, attn)
+
+    def _logits(self, x):
+        """Final norm and LM head of the last position: (B, V)."""
+        return tF.linear(F.rms_norm(x[:, -1], self.norm_w, epsilon=self.eps), self.head_w)
 
     def _forward(self, ids, cache, start_pos):
         """ids: (B, S) at absolute positions start_pos..start_pos+S-1; returns
@@ -132,15 +241,67 @@ class LlamaDecodeEngine:
         # every layer
         rope = _rope_tables(S, self.head_dim, self.theta, x.dtype, x.device, positions)
         pos_mask = None
-        if start_pos > 0:
+        if start_pos > 0 or self.kv_int8:
             # cache slots past start_pos + S are masked in the JAX engine and
             # add 0: attend only the filled prefix
             t = torch.arange(start_pos + S, device=x.device)[None, None, :]
             pos_mask = (t <= positions[None, :, None]).expand(B, S, start_pos + S)
         for p, ckv in zip(self.layers, cache):
             x = self._block(p, x, ckv, start_pos, rope, pos_mask)
-        x = F.rms_norm(x[:, -1], self.norm_w, epsilon=self.eps)
-        return tF.linear(x, self.head_w)
+        return self._logits(x)
+
+    # -- paged forward paths (models/paged_kv.py pools + tables) -------------
+    def _block_paged_prefill(self, p, x, pool, tables, lens, rope, pos_mask):
+        """Prompt pass: causal self-attention within the prompt (the history
+        is the prompt), K/V written into the sequences' blocks."""
+        q, k, v = self._qkv_rope(p, x, *rope)
+        if self.kv_int8:
+            kq, kscale = self._quantize_kv(k)
+            vq, vscale = self._quantize_kv(v)
+            _pk.paged_write_prefill_int8(*pool, tables, lens, kq, kscale, vq, vscale)
+            # attend the quantized prompt, as the dense int8 engine does
+            attn = self._attend_int8(q, kq, kscale, vq, vscale, pos_mask)
+        else:
+            _pk.paged_write_prefill(*pool, tables, lens, k, v)
+            attn = self._prompt_attention(q, k, v)
+        return self._post_attn(p, x, attn)
+
+    def _block_paged_decode(self, p, x, pool, tables, lens, rope, plan):
+        """One decode token per row at per-row position lens[b] (the write
+        and RoPE both happen there): the same block serves lockstep decoding
+        (lens = pos everywhere) and ragged batches. ``plan`` is the step's
+        write plan (``paged_kv._decode_plan``), the same for every layer."""
+        q, k, v = self._qkv_rope(p, x, *rope)
+        if self.kv_int8:
+            kq, kscale = self._quantize_kv(k)      # (B, 1, kv, D)
+            vq, vscale = self._quantize_kv(v)
+            _pk._write_planned(pool, plan, (kq[:, 0], kscale[:, 0], vq[:, 0], vscale[:, 0]))
+            attn = _pk.paged_attention_decode_int8(q[:, 0], *pool, tables, lens)
+        else:
+            _pk._write_planned(pool, plan, (k[:, 0], v[:, 0]))
+            attn = _pk.paged_attention_decode(q[:, 0], *pool, tables, lens)
+        return self._post_attn(p, x, attn[:, None])
+
+    def _prefill_paged(self, ids, pools, tables, lens):
+        """Prompt pass of every row into the pools; last position's logits."""
+        B, S = ids.shape
+        x = self.emb[ids]
+        rope = _rope_tables(S, self.head_dim, self.theta, x.dtype, x.device)
+        t = torch.arange(S, device=x.device)
+        pos_mask = (t[None, None, :] <= t[None, :, None]).expand(B, S, S)
+        for p, pool in zip(self.layers, pools):
+            x = self._block_paged_prefill(p, x, pool, tables, lens, rope, pos_mask)
+        return self._logits(x)
+
+    def _step_paged(self, token, pools, tables, pos):
+        """One lockstep decode step at position ``pos`` for every row."""
+        x = self.emb[token]
+        lens = torch.full((token.shape[0],), pos, dtype=torch.int32, device=x.device)
+        rope = _row_rope_tables(lens, self.head_dim, self.theta, x.dtype, x.device)
+        plan = _pk._decode_plan(tables, lens, self.block_size)
+        for p, pool in zip(self.layers, pools):
+            x = self._block_paged_decode(p, x, pool, tables, lens, rope, plan)
+        return self._logits(x)
 
     # -- public API ----------------------------------------------------------
     def _ids(self, input_ids):
@@ -153,6 +314,13 @@ class LlamaDecodeEngine:
         B, S = ids.shape
         if S > self.max_len:
             raise ValueError(f"prompt ({S}) exceeds the cache (max_len={self.max_len})")
+        if self.paged:
+            pager, pools = self._init_paged(B)
+            self._pager = pager   # introspection only; the cache owns it
+            pager.ensure_capacity([S] * B)
+            lens = torch.full((B,), S, dtype=torch.int32, device=self.device)
+            logits = self._prefill_paged(ids, pools, pager.block_tables, lens)
+            return logits, _PagedCache(pager, pools), S
         cache = self.init_cache(B)
         return self._forward(ids, cache, 0), cache, S
 
@@ -164,7 +332,23 @@ class LlamaDecodeEngine:
                 f"decode position {int(pos)} exceeds the cache "
                 f"(max_len={self.max_len}); build the engine with a larger "
                 "max_len")
-        return self._forward(self._ids(token), cache, int(pos)), cache
+        if not self.paged:
+            return self._forward(self._ids(token), cache, int(pos)), cache
+        if not isinstance(cache, _PagedCache):
+            raise TypeError(
+                "paged decode_step needs the cache returned by prefill() (each "
+                "prefill owns its own block tables; engine-level state would "
+                "cross-wire interleaved sequences)")
+        pager = cache.pager
+        # host-side block grant for position pos (writes land at pos), then
+        # copy-on-write for any shared tail block (beam forks; a cheap no-op
+        # when nothing is shared). The copy writes the pools in place, so on
+        # CowPoolExhausted cache.pools stay live: the JAX engine has to adopt
+        # the replacement pools the exception carries instead.
+        pager.ensure_capacity([int(pos) + 1] * pager.batch)
+        pools = pager.make_tail_exclusive(int(pos), cache.pools)
+        logits = self._step_paged(self._ids(token), pools, pager.block_tables, int(pos))
+        return logits, _PagedCache(pager, pools)
 
     def _select(self, logits, temperature, top_k, top_p, generator):
         """Greedy (temperature 0) or temperature/top-k/top-p sampling."""
@@ -226,7 +410,100 @@ class LlamaDecodeEngine:
             out.append(tok)
         return torch.cat(out, dim=1)
 
-    def beam_search(self, *args, **kwargs):
-        raise NotImplementedError(
-            "beam_search is not ported yet: it belongs to the paged-serving "
-            "slice of the port")
+    # -- beam search ---------------------------------------------------------
+    @staticmethod
+    def _top_k(x, k):
+        """(values, indices) of the k largest along the last axis, the lower
+        index first among equal values (``jax.lax.top_k``'s order, which
+        ``torch.topk`` does not promise)."""
+        values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+        return values[..., :k], idx[..., :k]
+
+    @torch.inference_mode()
+    def beam_search(self, input_ids, beam_size=4, max_new_tokens=32,
+                    length_penalty=0.0, eos_token_id=None):
+        """Beam-search decoding over the KV cache: beams ride the batch axis,
+        so every step is one decode_step at batch B*K plus a cache reorder
+        (dense: an ``index_select`` of every cache tensor; paged: the beams
+        fork the parents' block tables, copy-on-write at the next write).
+
+        Returns (tokens (B, K, T), scores (B, K) fp32), beams sorted best
+        first per batch row. ``length_penalty`` alpha divides final scores by
+        len**alpha (0 = raw log-prob sum). EOS-finished beams are frozen
+        (their score stops accumulating and the tail pads with EOS)."""
+        ids = self._ids(input_ids)
+        B, S = ids.shape
+        K, V = int(beam_size), self.head_w.shape[0]
+        if S + max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prompt ({S}) + max_new_tokens ({max_new_tokens}) exceeds "
+                f"the cache (max_len={self.max_len})")
+        if max_new_tokens <= 0:  # mirror generate(): nothing requested
+            return (torch.zeros((B, K, 0), dtype=torch.long, device=self.device),
+                    torch.zeros((B, K), dtype=torch.float32, device=self.device))
+
+        if self.paged:
+            # prefill the B prompts into rows b*K of a B*K-row pager; beams
+            # then fork the prompt blocks (refcounted sharing, copy-on-write)
+            # instead of copying the prompt KV K times
+            pager, pools = self._init_paged(B * K)
+            self._pager = pager
+            need = np.zeros(B * K, np.int64)
+            need[::K] = S
+            pager.ensure_capacity(need)
+            lens = torch.full((B,), S, dtype=torch.int32, device=self.device)
+            logits = self._prefill_paged(ids, pools, pager.block_tables[::K], lens)
+            cache = _PagedCache(pager, pools)
+            pos = S
+        else:
+            logits, cache, pos = self.prefill(ids)
+        logp = torch.log_softmax(logits.float(), dim=-1)              # (B, V)
+        scores, first = self._top_k(logp, K)                          # (B, K)
+        # expand the cache to B*K rows: beam k of row b lives at b*K + k
+        base = torch.arange(B, device=self.device).repeat_interleave(K)
+        if self.paged:
+            cache.pager.fork_rows(base.cpu().numpy() * K)
+        else:
+            cache = [tuple(a.index_select(0, base) for a in entry) for entry in cache]
+        tokens = first[:, :, None]
+        finished = (torch.zeros((B, K), dtype=torch.bool, device=self.device)
+                    if eos_token_id is None else first == eos_token_id)
+        if eos_token_id is not None:
+            # frozen beams may only extend with EOS, at zero cost
+            frozen = torch.full((V,), -math.inf, device=self.device)
+            frozen[eos_token_id] = 0.0
+
+        for _ in range(int(max_new_tokens) - 1):
+            flat_tok = tokens[:, :, -1].reshape(B * K, 1)
+            logits, cache = self.decode_step(flat_tok, cache, pos)
+            pos += 1
+            logp = torch.log_softmax(logits.float(), dim=-1).reshape(B, K, V)
+            if eos_token_id is not None:
+                logp = torch.where(finished[:, :, None], frozen, logp)
+            total = scores[:, :, None] + logp                         # (B, K, V)
+            scores, idx = self._top_k(total.reshape(B, K * V), K)
+            parent = idx // V                                         # (B, K)
+            tok = idx % V
+            # reorder histories and caches to the surviving parents
+            tokens = torch.gather(tokens, 1, parent[:, :, None].expand(-1, -1, tokens.shape[2]))
+            tokens = torch.cat([tokens, tok[:, :, None]], dim=-1)
+            flat_parent = (torch.arange(B, device=self.device)[:, None] * K + parent).reshape(-1)
+            if self.paged:
+                cache.pager.fork_rows(flat_parent.cpu().numpy())
+            else:
+                cache = [tuple(a.index_select(0, flat_parent) for a in entry)
+                         for entry in cache]
+            if eos_token_id is not None:
+                finished = torch.gather(finished, 1, parent) | (tok == eos_token_id)
+
+        if length_penalty:
+            if eos_token_id is None:
+                lens = torch.full((B, K), float(tokens.shape[-1]), device=self.device)
+            else:
+                lens = torch.clamp_min((tokens != eos_token_id).sum(-1).float(), 1.0)
+            final = scores / lens ** float(length_penalty)
+        else:
+            final = scores
+        order = torch.argsort(-final, dim=-1, stable=True)
+        tokens = torch.gather(tokens, 1, order[:, :, None].expand(-1, -1, tokens.shape[2]))
+        return tokens, torch.gather(final, 1, order)

@@ -7,7 +7,8 @@ it, so the CPU-only tests import every module without a CUDA toolkit.
 
 Libraries go to ``paddle_tpu_torch/_build/`` (git-ignored), named by a hash
 of the source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
-source never loads a stale build.
+source never loads a stale build. Each library's compiler log lies beside it
+under the same name (``.log``), so a log always describes the build it sits by.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_loaded: dict[str, Path] = {}  # name -> the library file load() opened
 
 
 def sources() -> list[str]:
@@ -72,7 +74,7 @@ def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
 def _finish(name: str, job: tuple[subprocess.Popen, Path, Path]) -> None:
     proc, tmp, so = job
     out, _ = proc.communicate()
-    (BUILD_DIR / f"{name}.log").write_text(out)
+    so.with_suffix(".log").write_text(out)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{out}")
@@ -102,8 +104,10 @@ def build_all() -> float:
 
 
 def build_log(name: str) -> str:
-    """The compiler's output (``-Xptxas -v``: registers, shared memory, spills)."""
-    path = BUILD_DIR / f"{name}.log"
+    """The compiler's output (``-Xptxas -v``: registers, shared memory, spills)
+    for the library that :func:`load` opened for ``name``, or, before any load,
+    for the one the current source and flags name."""
+    path = _loaded.get(name, _target(name)).with_suffix(".log")
     return path.read_text() if path.exists() else ""
 
 
@@ -115,7 +119,9 @@ def load(name: str) -> ctypes.CDLL:
             job = _start(name)
             if job is not None:
                 _finish(name, job)
-            lib = ctypes.CDLL(str(_target(name)))
+            so = _target(name)
+            lib = ctypes.CDLL(str(so))
+            _loaded[name] = so
             lib.pt_cuda_error_string.argtypes = [ctypes.c_int]
             lib.pt_cuda_error_string.restype = ctypes.c_char_p
             _libs[name] = lib

@@ -1,0 +1,366 @@
+"""Paged KV cache of the PyTorch port (paddle_tpu_torch/models/paged_kv.py)
+against the JAX package's (paddle_tpu/models/paged_kv.py), on the CPU.
+
+Allocator: the same call sequence on both ``PagedKVCache``s must leave the
+same tables, free list and reference counts. Pool functions: the same numpy
+pools, tables and values go to both; writes must leave every block bit for
+bit as the JAX package leaves it (padding rows and invalid lanes included),
+and attention must agree at fp32 within rtol/atol 1e-5.
+"""
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+import paddle_tpu  # noqa: F401  (the JAX package's settings: x64 on)
+from paddle_tpu.models import paged_kv as jpk
+from paddle_tpu_torch.models import paged_kv as tpk
+
+
+def _pair(num_blocks=8, block_size=4, kv_heads=2, head_dim=8, batch=2,
+          max_blocks_per_seq=4, quantized=False, layers=1):
+    kw = dict(num_layers=layers, num_blocks=num_blocks, block_size=block_size,
+              kv_heads=kv_heads, head_dim=head_dim, batch=batch,
+              max_blocks_per_seq=max_blocks_per_seq, quantized=quantized)
+    return (jpk.PagedKVCache(dtype=jnp.float32, **kw),
+            tpk.PagedKVCache(dtype=torch.float32, device="cpu", **kw))
+
+
+def _same_books(j, t):
+    np.testing.assert_array_equal(t._tables_np, j._tables_np)
+    np.testing.assert_array_equal(t.block_tables.numpy(), np.asarray(j.block_tables))
+    assert t.block_tables.dtype == torch.int32
+    assert t._free == j._free
+    np.testing.assert_array_equal(t._refs, j._refs)
+
+
+def _same_pools(jpools, tpools):
+    for je, te in zip(jpools, tpools):
+        for a, b in zip(je, te):
+            np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+
+
+def _filled(j, t, seed):
+    """Both pagers' layer-0 pools set to the same random contents (the null
+    block too, so a write that should not happen shows)."""
+    rng = np.random.RandomState(seed)
+    if j.quantized:
+        vals = [rng.randint(-127, 128, j.k[0].shape).astype(np.int8),
+                rng.rand(*j.k_scale[0].shape).astype(np.float32),
+                rng.randint(-127, 128, j.v[0].shape).astype(np.int8),
+                rng.rand(*j.v_scale[0].shape).astype(np.float32)]
+    else:
+        vals = [rng.randn(*j.k[0].shape).astype(np.float32) for _ in range(2)]
+    return ([tuple(jnp.asarray(v) for v in vals)],
+            [tuple(torch.from_numpy(v.copy()) for v in vals)])
+
+
+class TestAllocatorAgainstJax:
+    def test_grant_exhaust_and_free(self):
+        j, t = _pair(num_blocks=6)
+        for c in (j, t):
+            c.ensure_capacity([4, 9])
+        _same_books(j, t)
+        for c in (j, t):
+            with pytest.raises(RuntimeError, match="pool exhausted"):
+                c.ensure_capacity([16, 16])
+        # the grants made before the pool ran dry reached the device tables
+        _same_books(j, t)
+        for c in (j, t):
+            c.free_sequence(0)
+            c.ensure_capacity([0, 16])
+        _same_books(j, t)
+
+    def test_nothing_to_grant_keeps_the_device_tables(self):
+        _, t = _pair()
+        t.ensure_capacity([5, 2])
+        before = t.block_tables
+        t.ensure_capacity([8, 4])      # fits the blocks already owned
+        assert t.block_tables is before
+
+    def test_retain_release_adopt(self):
+        j, t = _pair()
+        for c in (j, t):
+            c.ensure_capacity([8, 0])
+            shared = [int(b) for b in c._tables_np[0] if b > 0]
+            c.retain_blocks(shared)
+            c.free_sequence(0)
+            c.adopt_blocks(1, shared)
+        _same_books(j, t)
+        for c in (j, t):
+            c.free_sequence(1)
+            assert c.release_blocks(shared) == len(shared)
+        _same_books(j, t)
+
+    @pytest.mark.parametrize("call,match", [
+        (lambda c: c.retain_blocks([3]), "free"),
+        (lambda c: c.retain_blocks([0]), "out of range"),
+        (lambda c: (c.ensure_capacity([4, 4]), c.adopt_blocks(1, [int(c._tables_np[0, 0])])),
+         "already holds"),
+        (lambda c: c.adopt_blocks(0, [5]), "cannot adopt"),
+        (lambda c: c.adopt_blocks(0, [1] * 5), "longer than"),
+        (lambda c: (c.ensure_capacity([4, 0]), c.place_blocks(0, [2])), "already holds"),
+    ])
+    def test_errors_match(self, call, match):
+        j, t = _pair()
+        for c in (j, t):
+            with pytest.raises(ValueError, match=match):
+                call(c)
+        _same_books(j, t)
+
+    def test_take_and_place_blocks(self):
+        j, t = _pair()
+        for c in (j, t):
+            c.ensure_capacity([4, 0])
+            assert c.take_blocks(100) is None
+            assert c.take_blocks(0) is None
+            blks = c.take_blocks(3)
+            c.place_blocks(1, blks)
+        _same_books(j, t)
+
+    def test_cow_under_pool_exhaustion(self):
+        j, t = _pair(num_blocks=3, kv_heads=1, head_dim=2, max_blocks_per_seq=2)
+        jpools, tpools = _filled(j, t, 0)
+        for c, pools, exc in ((j, jpools[0], jpk.CowPoolExhausted),
+                              (t, tpools[0], tpk.CowPoolExhausted)):
+            c.ensure_capacity([4, 0])
+            blk = int(c._tables_np[0, 0])
+            c.retain_blocks([blk])
+            c.ensure_capacity([4, 4])          # the last free block
+            with pytest.raises(exc, match="copy-on-write"):
+                c.make_positions_exclusive([0], [3], pools)
+            assert c._refs[blk] == 2 and not c._free
+        _same_books(j, t)
+
+    def test_cow_partial_exhaustion_applies_completed_copies(self):
+        j, t = _pair(num_blocks=5, kv_heads=1, head_dim=2, batch=3, max_blocks_per_seq=2)
+        jpools, tpools = _filled(j, t, 1)
+        got = {}
+        for key, c, pools, exc in (("jax", j, jpools[0], jpk.CowPoolExhausted),
+                                   ("torch", t, tpools[0], tpk.CowPoolExhausted)):
+            c.ensure_capacity([4, 4, 0])
+            b0, b1 = int(c._tables_np[0, 0]), int(c._tables_np[1, 0])
+            c.retain_blocks([b0, b1])
+            c.ensure_capacity([4, 4, 4])       # one free block remains
+            with pytest.raises(exc, match="copy-on-write") as ei:
+                c.make_positions_exclusive([0, 1], [3, 3], pools)
+            got[key] = ei.value.pools
+            # row 0 was remapped before the pool ran dry; row 1 is still
+            # shared and retryable
+            assert c._refs[b0] == 1 and int(c._tables_np[1, 0]) == b1 and c._refs[b1] == 2
+        _same_books(j, t)
+        _same_pools([got["jax"]], [got["torch"]])
+        # the port wrote its pools in place: the exception carries them, and
+        # row 0's private copy holds the data of the block it shared
+        assert all(a is b for a, b in zip(got["torch"], tpools[0]))
+        new0 = int(t._tables_np[0, 0])
+        np.testing.assert_array_equal(tpools[0][0][new0].numpy(), tpools[0][0][b0].numpy())
+
+    def test_positions_exclusive_copies_once_per_block(self):
+        j, t = _pair(kv_heads=1, head_dim=2)
+        jpools, tpools = _filled(j, t, 2)
+        out = {}
+        for key, c, pools in (("jax", j, jpools[0]), ("torch", t, tpools[0])):
+            c.ensure_capacity([8, 0])
+            c.retain_blocks([int(c._tables_np[0, 1])])
+            free0 = len(c._free)
+            out[key] = c.make_positions_exclusive([0, 0], [5, 6], pools)
+            assert len(c._free) == free0 - 1
+        _same_books(j, t)
+        _same_pools([out["jax"]], [out["torch"]])
+
+    def test_random_workload_books_and_pools(self):
+        """Grants, frees, forks and copy-on-write in a random order: the same
+        books on both sides after every step, and the same pool contents
+        (every copy-on-write copies the same blocks)."""
+        rng = np.random.RandomState(0)
+        B, bs, max_blocks = 6, 4, 5
+        j, t = _pair(num_blocks=B * max_blocks + 1, block_size=bs, kv_heads=1,
+                     head_dim=2, batch=B, max_blocks_per_seq=max_blocks)
+        jpools, tpools = _filled(j, t, 3)
+        jp, tp = jpools[0], tpools[0]
+        lens = np.zeros(B, np.int64)
+        for step in range(200):
+            op = rng.randint(4)
+            if op == 0:
+                b = rng.randint(B)
+                if lens[b] + 1 < bs * max_blocks:
+                    lens[b] += 1
+                    for c in (j, t):
+                        c.ensure_capacity(lens)
+            elif op == 1:
+                b = rng.randint(B)
+                for c in (j, t):
+                    c.free_sequence(b)
+                lens[b] = 0
+            elif op == 2:
+                parents = rng.randint(0, B, B)
+                for c in (j, t):
+                    c.fork_rows(parents)
+                lens = lens[parents]
+            else:
+                pos = int(lens.max()) if lens.max() > 0 else 0
+                for c in (j, t):
+                    c.ensure_capacity(np.maximum(lens, pos + 1) * (lens > 0))
+                jp = j.make_tail_exclusive(pos, jp)
+                tp = t.make_tail_exclusive(pos, tp)
+            _same_books(j, t)
+        _same_pools([jp], [tp])
+
+    def test_alloc_blocks(self):
+        assert tpk.alloc_blocks(3, 29, 8) == jpk.alloc_blocks(3, 29, 8) == 4
+
+
+def _tables(rows):
+    return np.asarray(rows, np.int32)
+
+
+# block tables of 3 sequences over a 10-block pool, block size 4; row 2 has
+# one block, so its later positions point at the null block 0
+_TABLES = _tables([[3, 7, 1], [5, 2, 9], [8, 0, 0]])
+
+
+def _pools(quantized, seed, nb=10, bs=4, kv=2, d=8):
+    rng = np.random.RandomState(seed)
+    if quantized:
+        return [rng.randint(-127, 128, (nb, bs, kv, d)).astype(np.int8),
+                rng.rand(nb, bs, kv).astype(np.float32),
+                rng.randint(-127, 128, (nb, bs, kv, d)).astype(np.int8),
+                rng.rand(nb, bs, kv).astype(np.float32)]
+    return [rng.randn(nb, bs, kv, d).astype(np.float32) for _ in range(2)]
+
+
+def _new_values(quantized, seed, lead, kv=2, d=8):
+    rng = np.random.RandomState(seed)
+    if quantized:
+        return [rng.randint(-127, 128, lead + (kv, d)).astype(np.int8),
+                rng.rand(*lead, kv).astype(np.float32),
+                rng.randint(-127, 128, lead + (kv, d)).astype(np.int8),
+                rng.rand(*lead, kv).astype(np.float32)]
+    return [rng.randn(*lead, kv, d).astype(np.float32) for _ in range(2)]
+
+
+def _both(fn_j, fn_t, pools, *args):
+    """Run a write on the same numpy inputs in both packages; the port's
+    must return the very tensors it was handed, written in place."""
+    jt = [jnp.asarray(a) for a in pools]
+    tt = [torch.from_numpy(a.copy()) for a in pools]
+    jargs = [jnp.asarray(a) for a in args]
+    targs = [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
+    if len(pools) == 4:
+        jo = fn_j(*jt, *jargs[:-4], *jargs[-4:])
+        to = fn_t(*tt, *targs[:-4], *targs[-4:])
+    else:
+        jo = fn_j(*jt, *jargs)
+        to = fn_t(*tt, *targs)
+    assert all(a is b for a, b in zip(to, tt))
+    for a, b in zip(jo, to):
+        assert b.dtype == {np.dtype(np.int8): torch.int8,
+                           np.dtype(np.float32): torch.float32}[np.asarray(a).dtype]
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    return to
+
+
+class TestPagedWritesAgainstJax:
+    @pytest.mark.parametrize("quantized", [False, True])
+    def test_decode_write(self, quantized):
+        fj = jpk.paged_write_decode_int8 if quantized else jpk.paged_write_decode
+        ft = tpk.paged_write_decode_int8 if quantized else tpk.paged_write_decode
+        lens = np.array([5, 0, 3], np.int32)
+        _both(fj, ft, _pools(quantized, 0), _TABLES, lens,
+              *_new_values(quantized, 1, (3,)))
+
+    @pytest.mark.parametrize("quantized", [False, True])
+    @pytest.mark.parametrize("lens", [[6, 9, 3], [12, 1, 0], [0, 0, 0]])
+    def test_prefill_write_padding_rows_write_nothing(self, quantized, lens):
+        """Positions at or past a row's length are padding: in the JAX
+        package the scatter drops them; here they must leave every block,
+        the null block included, as the JAX package leaves it."""
+        fj = jpk.paged_write_prefill_int8 if quantized else jpk.paged_write_prefill
+        ft = tpk.paged_write_prefill_int8 if quantized else tpk.paged_write_prefill
+        S = 12
+        _both(fj, ft, _pools(quantized, 2), _TABLES, np.array(lens, np.int32),
+              *_new_values(quantized, 3, (3, S)))
+
+    @pytest.mark.parametrize("quantized", [False, True])
+    @pytest.mark.parametrize("valid", [
+        [True, False, True, False, True, False],
+        [False, True, True, True, True, True],
+        [False] * 6,
+        [True] * 6,
+    ])
+    def test_mixed_write_invalid_lanes_write_nothing(self, quantized, valid):
+        """Invalid lanes aim at real blocks of other lanes (the same table row
+        and position as a valid lane, too): they must write nothing."""
+        fj = jpk.paged_write_mixed_int8 if quantized else jpk.paged_write_mixed
+        ft = tpk.paged_write_mixed_int8 if quantized else tpk.paged_write_mixed
+        slots = np.array([0, 0, 1, 1, 2, 1])
+        positions = np.array([4, 4, 2, 9, 1, 5], np.int32)
+        _both(fj, ft, _pools(quantized, 4), _TABLES[slots], positions,
+              np.array(valid), *_new_values(quantized, 5, (6,)))
+
+
+class TestPagedAttentionAgainstJax:
+    @pytest.mark.parametrize("n_q,n_kv", [(4, 2), (4, 4), (8, 1)])
+    @pytest.mark.parametrize("quantized", [False, True])
+    def test_decode_attention(self, n_q, n_kv, quantized):
+        rng = np.random.RandomState(n_q * 10 + n_kv)
+        pools = _pools(quantized, 6, kv=n_kv)
+        q = rng.randn(3, n_q, 8).astype(np.float32)
+        lens = np.array([10, 4, 2], np.int32)     # multi-block and ragged
+        fj = jpk.paged_attention_decode_int8 if quantized else jpk.paged_attention_decode
+        ft = tpk.paged_attention_decode_int8 if quantized else tpk.paged_attention_decode
+        for scale in (None, 0.3):
+            want = np.asarray(fj(jnp.asarray(q), *map(jnp.asarray, pools),
+                                 jnp.asarray(_TABLES), jnp.asarray(lens), scale=scale))
+            got = ft(torch.from_numpy(q), *map(torch.from_numpy, pools),
+                     torch.from_numpy(_TABLES), torch.from_numpy(lens), scale=scale)
+            assert got.dtype == torch.float32
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+    def test_float64_stays_float64(self):
+        pools = [p.astype(np.float64) for p in _pools(False, 7)]
+        q = np.random.RandomState(8).randn(3, 4, 8)
+        lens = np.array([9, 5, 1], np.int32)
+        want = np.asarray(jpk.paged_attention_decode(
+            jnp.asarray(q), *map(jnp.asarray, pools), jnp.asarray(_TABLES), jnp.asarray(lens)))
+        got = tpk.paged_attention_decode(torch.from_numpy(q), *map(torch.from_numpy, pools),
+                                         torch.from_numpy(_TABLES), torch.from_numpy(lens))
+        assert got.dtype == torch.float64
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+
+
+class TestSpillRoundTrip:
+    @pytest.mark.parametrize("quantized", [False, True])
+    def test_roundtrip_bit_exact_and_other_blocks_alone(self, quantized):
+        j, t = _pair(num_blocks=9, quantized=quantized, layers=2)
+        leaves = ((lambda c, i: (c.k[i], c.k_scale[i], c.v[i], c.v_scale[i])) if quantized
+                  else (lambda c, i: (c.k[i], c.v[i])))
+        jpools = [leaves(j, i) for i in range(2)]
+        tpools = [leaves(t, i) for i in range(2)]
+        rng = np.random.RandomState(0)
+        blks = [2, 5, 7]
+        want = []
+        for _ in range(2):
+            entry = []
+            for leaf in jpools[0]:
+                shape = (len(blks),) + tuple(leaf.shape[1:])
+                entry.append(rng.randint(-128, 128, shape).astype(np.int8)
+                             if leaf.dtype == jnp.int8 else rng.rand(*shape).astype(np.float32))
+            want.append(tuple(entry))
+        jpools = j.write_block_contents(jpools, blks, want)
+        out = t.write_block_contents(tpools, blks, want)
+        assert out is tpools
+        _same_pools(jpools, tpools)
+        got = tpk.read_blocks(tpools, blks)
+        ref = jpk.read_blocks(jpools, blks)
+        for wl, gl, rl in zip(want, got, ref):
+            assert len(gl) == len(wl)
+            for w, g, r in zip(wl, gl, rl):
+                assert g.device.type == "cpu" and g.numpy().dtype == w.dtype
+                np.testing.assert_array_equal(g.numpy(), w)
+                np.testing.assert_array_equal(g.numpy(), r)
+        others = [b for b in range(1, 9) if b not in blks]
+        for leaf in tpk.read_blocks(tpools, others)[0]:
+            assert not leaf.any()
