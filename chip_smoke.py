@@ -7,8 +7,8 @@ Phases, each a hard check (the script exits nonzero on the first failure):
   1. device: card name and power limit, torch/CUDA versions; build every
      kernel from csrc/ with nvcc (one process per source, in parallel).
   2. forward kernel: flash_attention_fwd (the hand-written kernel) against
-     its plain PyTorch version on the card, at the serving, long-prompt and
-     training shapes, the edge cases, head dims 32, 64 and 128, and a view
+     its plain PyTorch version on the card, at the serving, long-prompt,
+     training and static-engine prefill (phase 10) shapes, the edge cases, head dims 32, 64 and 128, and a view
      TMA cannot read (the wrapper copies it and launches the same kernel),
      with a tolerance per dtype; times of the kernel, the plain version and
      torch's scaled_dot_product_attention (a yardstick only: the port never
@@ -68,6 +68,29 @@ Phases, each a hard check (the script exits nonzero on the first failure):
      equal to dense; beam search (B8 K4, 16 new tokens) on the dense and the
      paged engine, with the paged pool's books balanced; float64 paged and
      dense beams equal.
+ 10. continuous-batching serving at phase 3's width and depth (bf16, random
+     weights from a seed), ContinuousBatchingEngine with both programs (the
+     mixed step and the decode burst) captured as CUDA graphs:
+     (a) each captured program against its eager function on copies of the
+     same pools (decode lanes, draft chains accepted twice then cut and
+     rejected at once, a prefill chunk; a burst with inactive rows): tokens,
+     accept flags and every pool byte equal; the burst's first tokens equal
+     the mixed step's on the same rows at other lanes;
+     (b) bench.py:663-666's serving parameters through StaticBatchEngine,
+     then the continuous engine cold, then warm (bench_common.py's
+     serving_bench, its workload generator and open-loop loop copied here):
+     tokens/s, TTFT p50/p99, prefix hit rates, speedup over static; the
+     forward kernel launches once a layer per static admission and never in
+     the continuous passes; warm tokens equal cold tokens;
+     (c) bench.py:667-670's speculative-decoding parameters: spec on and off
+     tokens/s, drafted and accepted counts; every pass's tokens equal on and
+     off;
+     (d) int8 pools: the (b) workload once (tokens/s; pool bytes over bf16
+     equal (D + 4) / 2D), and int8 speculation on against off;
+     (e) fp32, 2 layers: one add_request/step schedule on the card and on a
+     CPU twin gives the same token streams;
+     (f) one profiled replay of each program: device ms and kernels beside
+     the host ms a step of the warm pass.
 The last line is the device JSON object; the line before it the card's name
 and power limit; before that the kernels JSON object.
 
@@ -302,10 +325,16 @@ def unaligned(torch, shape, dtype, gen):
 
 def phase_kernel(torch, fa):
     """Kernel against its plain version; times at the timed shapes."""
+    import numpy as np
+
     gen = torch.Generator(device="cuda").manual_seed(1234)
+    # phase 10's static engine prefills each admission as one (1, bucket) call
+    S_static = static_bucket(serve10_workload(FLAGSHIP["vocab_size"],
+                                              np.random.RandomState(0))[0])
     cases = [
         # name, B, Sq, Sk, Hq, Hkv, D, dtype, causal, timed
         ("flagship_prefill", 8, 128, 128, 16, 16, 128, "bfloat16", True, True),
+        ("static_prefill", 1, S_static, S_static, 16, 16, 128, "bfloat16", True, True),
         ("long_prompt", 1, 2048, 2048, 16, 16, 128, "bfloat16", True, True),
         ("training_shape", 8, 2048, 2048, 16, 16, 128, "bfloat16", True, True),
         ("gqa_hkv4", 2, 512, 512, 16, 4, 128, "bfloat16", True, False),
@@ -596,7 +625,7 @@ _KERNEL_GROUPS = (  # (substring of the kernel name, group), first match wins
 _NOT_KERNELS = ("Command Buffer Full",)
 
 
-def profile_step(torch, step, step_ms):
+def profile_step(torch, step, step_ms, kernel_groups=_KERNEL_GROUPS):
     """Device time of one step (training, or a decode step) by kernel group,
     from torch.profiler (CUPTI): the device-side events only, so no time
     counts twice. idle_share compares their sum with the step time measured
@@ -606,21 +635,23 @@ def profile_step(torch, step, step_ms):
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3
     groups, kernels = {}, []
     for e in prof.key_averages():
         ms = e.self_device_time_total / 1e3
         if e.device_type != DeviceType.CUDA or ms <= 0 or e.key in _NOT_KERNELS:
             continue
         low = e.key.lower()
-        group = next((g for sub, g in _KERNEL_GROUPS if sub in low), "other")
+        group = next((g for sub, g in kernel_groups if sub in low), "other")
         groups[group] = groups.get(group, 0.0) + ms
-        kernels.append((ms, e.count, e.key[:90]))
+        kernels.append((ms, e.count, e.key[:160]))
     device = sum(groups.values())
     kernels.sort(reverse=True)
     return dict(device_ms=device, idle_share=1.0 - device / step_ms if device else None,
-                kernel_launches=sum(n for _, n, _ in kernels),
+                profiled_ms=profiled_ms, kernel_launches=sum(n for _, n, _ in kernels),
                 by_group=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
                 top_kernels=[dict(ms=ms, launches=n, name=k) for ms, n, k in kernels[:12]])
 
@@ -1159,6 +1190,537 @@ def phase_paged_serving(torch, fa, models):
     return out
 
 
+def drive_serving(eng, prompts, new_tokens, arrivals):
+    """Open-loop serving loop (a copy of bench_common.py:101 ``_drive_serving``):
+    submit request i once the wall clock passes arrivals[i], step the engine
+    whenever it has work, and collect per-request TTFT and outputs. Returns
+    (wall_s, total_tokens, ttfts_ms, outputs in submission order)."""
+    n = len(prompts)
+    outputs = [None] * n
+    ttfts = [0.0] * n
+    rid2idx = {}
+    submitted = finished = total = 0
+    t0 = time.perf_counter()
+    while finished < n:
+        now = time.perf_counter() - t0
+        while submitted < n and arrivals[submitted] <= now:
+            rid = eng.submit(prompts[submitted], max_new_tokens=int(new_tokens[submitted]))
+            rid2idx[rid] = submitted
+            submitted += 1
+        if eng.num_active or eng.num_pending:
+            for rid, toks in eng.step():
+                i = rid2idx[rid]
+                st = eng.pop_stats(rid) or {}
+                ttfts[i] = st.get("ttft_ns", 0) / 1e6
+                outputs[i] = list(toks)
+                total += len(toks)
+                finished += 1
+        elif submitted < n:
+            time.sleep(min(0.001, max(arrivals[submitted] - now, 0.0)))
+    return time.perf_counter() - t0, total, ttfts, outputs
+
+
+def poisson_prefix_workload(vocab, *, n_requests, n_groups, prefix_blocks, block_size,
+                            tail_range, new_range=None, max_new=None,
+                            mean_interarrival_s=0.002, rng=None, seed=0):
+    """The Poisson open-loop mixed-length workload with per-group shared
+    prompt prefixes (a copy of bench_common.py:132): ``(prompts, new_tokens,
+    arrivals)``, drawn per request in the order group, tail, new."""
+    import numpy as np
+
+    if rng is None:
+        rng = np.random.RandomState(seed)
+    prefix_len = prefix_blocks * block_size
+    prefixes = [rng.randint(0, vocab, (prefix_len,)).astype("int32") for _ in range(n_groups)]
+    prompts, new_tokens = [], []
+    for _ in range(n_requests):
+        g = int(rng.randint(n_groups))
+        tail = rng.randint(0, vocab, (int(rng.randint(tail_range[0], tail_range[1] + 1)),)
+                           ).astype("int32")
+        prompts.append(np.concatenate([prefixes[g], tail]))
+        if new_range is not None:
+            new_tokens.append(int(rng.randint(new_range[0], new_range[1] + 1)))
+        else:
+            new_tokens.append(max_new)
+    arrivals = np.cumsum(rng.exponential(mean_interarrival_s, n_requests)) \
+        if mean_interarrival_s > 0 else np.zeros(n_requests)
+    return prompts, new_tokens, arrivals
+
+
+def serve10_workload(vocab, rng):
+    """Phase 10's serving workload (``SERVE10``) drawn from ``rng``."""
+    P = SERVE10
+    return poisson_prefix_workload(
+        vocab, n_requests=P["n_requests"], n_groups=P["n_groups"],
+        prefix_blocks=P["prefix_blocks"], block_size=P["block_size"],
+        tail_range=P["tail_range"], new_range=P["new_range"],
+        mean_interarrival_s=P["mean_interarrival_s"], rng=rng)
+
+
+def static_bucket(prompts):
+    """The static engine's one prefill bucket: the longest prompt rounded up
+    to 32 tokens."""
+    return -(-max(len(p) for p in prompts) // 32) * 32
+
+
+def clone_pools(pools):
+    return [tuple(leaf.clone() for leaf in entry) for entry in pools]
+
+
+def copy_pools(dst, src):
+    for de, se in zip(dst, src):
+        for d, s in zip(de, se):
+            d.copy_(s)
+
+
+def same_pool_bytes(torch, a, b):
+    """Every byte of two pool lists equal."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+    return all(x.shape == y.shape and x.dtype == y.dtype
+               and torch.equal(x.view(ints[x.element_size()]), y.view(ints[y.element_size()]))
+               for ea, eb in zip(a, b) for x, y in zip(ea, eb))
+
+
+def percentile(xs, q):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(xs), q))
+
+
+class StepClock:
+    """Wall time of an engine's steps and of its two programs' calls inside
+    them (each call ends in its result's device-to-host copy): host ms a step
+    is the step time outside the program calls."""
+
+    def __init__(self, torch, eng):
+        self.steps, self.step_s = 0, 0.0
+        self.calls = {"step": [0, 0.0], "burst": [0, 0.0]}
+        step = eng.step
+
+        def timed_step(*a, **k):
+            t0 = time.perf_counter()
+            out = step(*a, **k)
+            self.step_s += time.perf_counter() - t0
+            self.steps += 1
+            return out
+
+        eng.step = timed_step
+        for key in self.calls:
+            prog = eng._step_jit() if key == "step" else eng._burst_jit()
+
+            def timed(*a, _prog=prog, _acc=self.calls[key]):
+                t0 = time.perf_counter()
+                out = _prog(*a)
+                torch.cuda.synchronize()
+                _acc[0] += 1
+                _acc[1] += time.perf_counter() - t0
+                return out
+
+            eng._jit_cache[key] = timed
+
+    def reset(self):
+        self.steps, self.step_s = 0, 0.0
+        for acc in self.calls.values():
+            acc[:] = [0, 0.0]
+
+    def summary(self):
+        prog_s = sum(s for _, s in self.calls.values())
+        return dict(steps=self.steps, step_ms=self.step_s * 1e3 / max(self.steps, 1),
+                    host_ms_per_step=(self.step_s - prog_s) * 1e3 / max(self.steps, 1),
+                    **{f"{k}_calls": n for k, (n, _) in self.calls.items()},
+                    **{f"{k}_call_ms": s * 1e3 / max(n, 1) for k, (n, s) in self.calls.items()})
+
+
+# phase 10: bench.py:663-666 (serving) and :667-670 (speculative decoding),
+# the JAX package's on-TPU parameters
+SERVE10 = dict(max_batch=16, block_size=64, chunk_size=128, max_step_tokens=None, decode_burst=8,
+               n_requests=24, n_groups=3, prefix_blocks=4, tail_range=(32, 128),
+               new_range=(32, 128), mean_interarrival_s=0.002, repeats=2)
+SPEC10 = dict(max_batch=4, block_size=64, chunk_size=64, max_step_tokens=128, decode_burst=8,
+              spec_lookahead=16, n_requests=12, n_groups=3, pattern_len=64, head_len=16,
+              max_new=256, repeats=2)
+# kernel groups of a serving step, with paged attention's parts apart
+_SERVING_GROUPS = (("vectorized_gather", "paged gather"), ("gemv", "attention products (gemv)"),
+                   ("direct_copy", "copies and casts"), ("index", "index writes")) + _KERNEL_GROUPS
+
+
+def graphs_vs_eager(torch, models, model):
+    """(a) The captured mixed step and burst against their eager functions on
+    copies of the same pools: a pack of decode lanes, two draft chains (one
+    accepted twice then cut, one rejected at once) and a prefill chunk; a
+    burst over 13 decoding rows and 3 inactive ones. Then (f): one profiled
+    replay of each."""
+    import numpy as np
+
+    P = SERVE10
+    eng = models.ContinuousBatchingEngine(
+        model, max_batch=P["max_batch"], max_len=576, block_size=P["block_size"],
+        chunk_size=P["chunk_size"], decode_burst=P["decode_burst"])
+    inner, pager, T, B, V = (eng._inner, eng._pager, eng.max_step_tokens, eng.max_batch,
+                             model.config.vocab_size)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    with torch.inference_mode():
+        for entry in eng._pools:
+            for leaf in entry:
+                leaf.copy_(torch.randn(leaf.shape, generator=gen, device="cuda") * 0.5)
+    base = clone_pools(eng._pools)
+    rng = np.random.RandomState(21)
+    lens = np.array([30 * b + 20 for b in range(B)])
+    lens[14:] = 0
+    need = lens + 6
+    need[14], need[15] = 64, 0
+    pager.ensure_capacity(need)
+    tok, pos, slot, chain, valid = (np.zeros(T, np.int32), np.zeros(T, np.int32),
+                                    np.zeros(T, np.int32), np.zeros(T, bool), np.zeros(T, bool))
+    lane, heads = 0, {}
+    for b, n in [(b, 1) for b in range(12)] + [(12, 5), (13, 3)]:
+        heads[b] = lane
+        tok[lane] = rng.randint(V)
+        slot[lane:lane + n] = b
+        pos[lane:lane + n] = lens[b] + np.arange(n)
+        chain[lane + 1:lane + n] = True
+        lane += n
+    slot[lane:lane + 64], pos[lane:lane + 64] = 14, np.arange(64)
+    tok[lane:lane + 64] = rng.randint(0, V, 64)
+    valid[:lane + 64] = True
+    fn = inner.build_mixed_step()
+    dev = lambda a: torch.from_numpy(a).cuda()   # noqa: E731
+    scratch = clone_pools(base)
+
+    def greedy():
+        with torch.inference_mode():
+            out = fn(dev(np.stack([tok, pos])), scratch, pager.block_tables, dev(slot),
+                     dev(valid), dev(np.zeros(T, bool)))
+        return out[0].cpu().numpy()
+
+    # slot 12: two drafts the model agrees with, a third it does not, a fourth
+    # continuing the third; slot 13: a first draft it does not agree with
+    h12, h13 = heads[12], heads[13]
+    tok[h12 + 1] = greedy()[h12]
+    tok[h12 + 2] = greedy()[h12 + 1]
+    tok[h12 + 3] = (greedy()[h12 + 2] + 1) % V
+    tok[h12 + 4] = greedy()[h12 + 3]
+    tok[h13 + 1] = (greedy()[h13] + 1) % V
+    tok[h13 + 2] = greedy()[h13 + 1]
+    del scratch
+    pack = np.stack([tok, pos])
+    inputs = (torch.from_numpy(pack), pager.block_tables, dev(slot), dev(valid), dev(chain))
+    eager = clone_pools(base)
+    with torch.inference_mode():
+        out_e = fn(dev(pack), eager, *inputs[1:])
+        out_g = eng._step_jit()(*inputs).clone()
+    mixed_equal = bool(torch.equal(out_g, out_e)) and same_pool_bytes(torch, eng._pools, eager)
+    accept = out_g[1].cpu().numpy()
+    accepts = dict(slot12=accept[h12 + 1:h12 + 5].tolist(), slot13=accept[h13 + 1:h13 + 3].tolist())
+    if not mixed_equal:
+        fail("the captured mixed step differs from its eager function")
+    if accepts != dict(slot12=[1, 1, 0, 0], slot13=[0, 0]) or accept[~chain].any():
+        fail(f"mixed step accept flags {accepts}, want slot12 [1, 1, 0, 0], slot13 [0, 0]")
+    del eager
+
+    # the burst: rows 0-12 decode at lens, rows 13-15 inactive (no blocks,
+    # token 0 at position 0: they write one value into the null block)
+    for b in (13, 14, 15):
+        pager.free_sequence(b)
+    bl = lens.copy()
+    bl[13:] = 0
+    pager.ensure_capacity(np.where(bl > 0, bl + P["decode_burst"], 0))
+    bpack = np.stack([np.where(bl > 0, rng.randint(0, V, B), 0), bl]).astype(np.int32)
+    copy_pools(eng._pools, base)
+    eager = clone_pools(base)
+    with torch.inference_mode():
+        bout_e = inner.build_decode_burst(P["decode_burst"], rows=eng._burst_rows)(
+            dev(bpack), eager, pager.block_tables)
+        bout_g = eng._burst_jit()(torch.from_numpy(bpack), pager.block_tables).clone()
+    burst_equal = bool(torch.equal(bout_g, bout_e)) and same_pool_bytes(torch, eng._pools, eager)
+    if not burst_equal:
+        fail("the captured burst differs from its eager function")
+    # the burst's first tokens against the mixed step's on the same rows, put
+    # at lanes 20-32 (across a lane group's edge): a decode token must not
+    # depend on the program that computes it
+    rows = np.flatnonzero(bl > 0)
+    at = 20 + np.arange(len(rows))
+    mpack, mslot, mvalid = np.zeros((2, T), np.int32), np.zeros(T, np.int32), np.zeros(T, bool)
+    mpack[:, at], mslot[at], mvalid[at] = bpack[:, rows], rows, True
+    copy_pools(eager, base)
+    with torch.inference_mode():
+        mout = fn(dev(mpack), eager, pager.block_tables, dev(mslot), dev(mvalid),
+                  dev(np.zeros(T, bool)))
+    burst_lanes_equal = bool(torch.equal(mout[0, at].cpu(), bout_e[rows, 0].cpu()))
+    if not burst_lanes_equal:
+        fail("the burst's first tokens differ from the mixed step's on the same rows")
+    del eager, base
+
+    # (f) one profiled replay of each program; device ms of a replay by CUDA
+    # events beside the profiler's sum
+    with torch.inference_mode():
+        step_prog, burst_prog = eng._jit_cache["step"], eng._jit_cache["burst"]
+        replays = dict(
+            mixed_step=lambda: step_prog(*inputs).cpu(),
+            burst=lambda: burst_prog(torch.from_numpy(bpack), pager.block_tables).cpu())
+        profiles = {}
+        for name, call in replays.items():
+            ms = call_ms(torch, call, iters=5, warmup=1)
+            prof = profile_step(torch, call, ms, kernel_groups=_SERVING_GROUPS)
+            profiles[name] = dict(call_ms=ms, **{k: prof[k] for k in (
+                "device_ms", "profiled_ms", "kernel_launches", "by_group", "top_kernels")})
+    captured = [eng._jit_cache[k].captured for k in ("step", "burst")]
+    del eng, inputs, step_prog, burst_prog, replays
+    torch.cuda.empty_cache()
+    return dict(mixed_step_equal=mixed_equal, burst_equal=burst_equal,
+                burst_lanes_equal=burst_lanes_equal, accepts=accepts,
+                captured=captured, T=T, burst_rows=T, max_len=576, profiles=profiles)
+
+
+def serving_passes(torch, fa, models, model, L):
+    """(b) bench_common.py:205 ``serving_bench`` at bench.py:663-666's on-TPU
+    parameters: the static engine, then the continuous engine cold, then warm
+    (best of ``repeats``), the kernel launches counted through each. Returns
+    the numbers and the continuous engine's pool bytes."""
+    import numpy as np
+
+    P, vocab = SERVE10, model.config.vocab_size
+    bs, new_range, repeats, n = P["block_size"], P["new_range"], P["repeats"], P["n_requests"]
+    rng = np.random.RandomState(0)
+    prompts, new_tokens, arrivals = serve10_workload(vocab, rng)
+    max_len = max(len(p) for p in prompts) + max(new_range) + bs
+    buckets = (static_bucket(prompts),)
+    warm_prompt = rng.randint(0, vocab, (bs + 1,)).astype("int32")
+    engine_kw = dict(max_batch=P["max_batch"], max_len=max_len, block_size=bs,
+                     chunk_size=P["chunk_size"], max_step_tokens=P["max_step_tokens"],
+                     decode_burst=P["decode_burst"])
+    cont = models.ContinuousBatchingEngine(model, **engine_kw)
+    # untimed: both programs captured, and the copy-on-write path (a
+    # block-aligned prompt served twice)
+    cont.add_request(warm_prompt, max_new_tokens=2 * P["decode_burst"] + 2)
+    while cont.num_active:
+        cont.step()
+    aligned = rng.randint(0, vocab, (2 * bs,)).astype("int32")
+    for _ in range(2):
+        cont.add_request(aligned, max_new_tokens=2)
+        while cont.num_active:
+            cont.step()
+    cont.prefix_cache.clear()
+    cont._stats.clear()
+
+    st = models.StaticBatchEngine(model, max_batch=P["max_batch"], max_len=max_len,
+                                  block_size=bs, prefill_buckets=buckets)
+    for b in buckets:
+        rid = st.submit(rng.randint(0, vocab, (min(b, max_len - 1),)).astype("int32"),
+                        max_new_tokens=2)
+        while st.num_active or st.num_pending:
+            st.step()
+        st.pop_stats(rid)
+    torch.cuda.synchronize()
+    reset_counts(fa)
+    static_runs = [drive_serving(st, prompts, new_tokens, arrivals) for _ in range(repeats)]
+    static_launches = fa.launches
+    if static_launches != L * n * repeats:
+        fail(f"static serving launched the forward kernel {static_launches} times over "
+             f"{n * repeats} admissions, want {L} an admission")
+    del st
+    torch.cuda.empty_cache()
+
+    pc = cont.prefix_cache
+    clock = StepClock(torch, cont)
+    reset_counts(fa)
+    h0, m0 = pc.hits, pc.misses
+    cold = drive_serving(cont, prompts, new_tokens, arrivals)
+    cold_hits, cold_misses = pc.hits - h0, pc.misses - m0
+    cold_clock = clock.summary()
+    clock.reset()
+    warm, match = None, True
+    for _ in range(repeats):
+        h0, m0 = pc.hits, pc.misses
+        run = drive_serving(cont, prompts, new_tokens, arrivals)
+        match = match and run[3] == cold[3]
+        if warm is None or run[0] < warm[0]:
+            warm, warm_hits, warm_misses = run, pc.hits - h0, pc.misses - m0
+    warm_clock = clock.summary()
+    cont_launches = fa.launches
+    if (cont_launches, fa.launches_bwd_dq, fa.launches_bwd_dkv) != (0, 0, 0):
+        fail(f"the continuous engine launched the attention kernels "
+             f"{(cont_launches, fa.launches_bwd_dq, fa.launches_bwd_dkv)} times, want 0")
+    if not match:
+        diff = [i for i, (a, b) in enumerate(zip(cold[3], run[3])) if a != b]
+        fail(f"warm tokens differ from cold tokens in requests {diff}")
+    static = min(static_runs, key=lambda r: r[0])
+    tps = lambda r: r[1] / r[0]   # noqa: E731
+    out = dict(
+        requests=n, repeats=repeats, max_len=max_len, prefill_buckets=list(buckets),
+        max_step_tokens=cont.max_step_tokens, burst_rows=cont._burst_rows,
+        total_tokens=cold[1], static_tokens_per_sec=tps(static),
+        static_ttft_ms=dict(p50=percentile(static[2], 50), p99=percentile(static[2], 99)),
+        cold_tokens_per_sec=tps(cold),
+        cold_ttft_ms=dict(p50=percentile(cold[2], 50), p99=percentile(cold[2], 99)),
+        cold_speedup_vs_static=tps(cold) / tps(static),
+        serving_tokens_per_sec=tps(warm),
+        ttft_ms=dict(p50=percentile(warm[2], 50), p99=percentile(warm[2], 99)),
+        speedup_vs_static=tps(warm) / tps(static),
+        cold_prefix_hit_rate=cold_hits / max(cold_hits + cold_misses, 1),
+        prefix_hit_rate=warm_hits / max(warm_hits + warm_misses, 1),
+        warm_tokens_match=match,
+        forward_launches_static=static_launches,
+        forward_launches_per_static_admission=static_launches / (n * repeats),
+        forward_launches_continuous=cont_launches,
+        cold_steps=cold_clock, warm_steps=warm_clock, kv_pool_bytes=cont.kv_pool_bytes)
+    del cont, clock
+    torch.cuda.empty_cache()
+    return out, (prompts, new_tokens, arrivals, engine_kw)
+
+
+def spec_passes(torch, models, model, kv_cache_dtype=None, repeats=SPEC10["repeats"]):
+    """(c) bench_common.py:534 ``spec_bench`` at bench.py:667-670's on-TPU
+    parameters: spec off and on at equal engine settings, an untimed pass
+    each, then ``repeats`` timed passes of the same requests; every pass's
+    tokens must be the same with speculation on and off."""
+    import numpy as np
+
+    P, vocab = SPEC10, model.config.vocab_size
+    bs, n, g, la = P["block_size"], P["n_requests"], P["n_groups"], P["spec_lookahead"]
+    rng = np.random.RandomState(0)
+    pats = [rng.randint(0, vocab, (P["pattern_len"],)).astype("int32") for _ in range(g)]
+    prompts = [np.concatenate([pats[i % g], rng.randint(0, vocab, (P["head_len"],)
+                                                        ).astype("int32")]) for i in range(n)]
+    new_tokens = [P["max_new"]] * n
+    arrivals = np.zeros(n)
+    plen = P["pattern_len"] + P["head_len"]
+    max_len = plen + P["max_new"] + la + 2 * bs
+    pool_blocks = n * -(-(plen + P["max_new"]) // bs) + P["max_batch"] * -(-max_len // bs) + 8
+    passes = {}
+    for key, lookahead in (("off", 0), ("on", la)):
+        eng = models.ContinuousBatchingEngine(
+            model, max_batch=P["max_batch"], max_len=max_len, block_size=bs,
+            chunk_size=P["chunk_size"], max_step_tokens=P["max_step_tokens"],
+            decode_burst=P["decode_burst"], pool_blocks=pool_blocks, spec_lookahead=lookahead,
+            kv_cache_dtype=kv_cache_dtype)
+        runs = [drive_serving(eng, prompts, new_tokens, arrivals)]   # untimed
+        # the timed passes' drafts (all passes' when none is timed)
+        d0, a0 = (eng.spec_drafted, eng.spec_accepted) if repeats else (0, 0)
+        runs += [drive_serving(eng, prompts, new_tokens, arrivals) for _ in range(repeats)]
+        passes[key] = (runs, eng.spec_drafted - d0, eng.spec_accepted - a0, eng.kv_pool_bytes)
+        del eng
+        torch.cuda.empty_cache()
+    (off, _, _, _), (on, drafted, accepted, _) = passes["off"], passes["on"]
+    match = all(a[3] == b[3] for a, b in zip(off, on))
+    if not match:
+        fail(f"{kv_cache_dtype or 'bf16'}: speculation on changed the tokens")
+    best = {k: min(v[0][1:] or v[0][:1], key=lambda r: r[0]) for k, v in passes.items()}
+    return dict(requests=n, max_new=P["max_new"], max_len=max_len, pool_blocks=pool_blocks,
+                spec_lookahead=la, repeats=repeats,
+                spec_off_tokens_per_sec=best["off"][1] / best["off"][0],
+                spec_on_tokens_per_sec=best["on"][1] / best["on"][0],
+                spec_speedup=(best["on"][1] / best["on"][0]) / (best["off"][1] / best["off"][0]),
+                spec_drafted_tokens=drafted, spec_accepted_tokens=accepted,
+                spec_accept_rate=accepted / max(drafted, 1),
+                untimed_pass_s=dict(off=off[0][0], on=on[0][0]), spec_tokens_match=match)
+
+
+def int8_serving(torch, models, model, workload, bf16_pool_bytes):
+    """(d) The (b) workload once through the int8 engine: tokens/s and pool
+    bytes over the bf16 engine's; then int8 speculation on against off over
+    one pass of the (c) workload."""
+    prompts, new_tokens, arrivals, engine_kw = workload
+    eng = models.ContinuousBatchingEngine(model, kv_cache_dtype="int8", **engine_kw)
+    drive_serving(eng, prompts[:2], [2 * SERVE10["decode_burst"] + 2] * 2, [0.0, 0.0])
+    eng.prefix_cache.clear()
+    wall, total, ttft, _ = drive_serving(eng, prompts, new_tokens, arrivals)
+    ratio = eng.kv_pool_bytes / bf16_pool_bytes
+    D = model.config.hidden_size // model.config.num_attention_heads
+    del eng
+    torch.cuda.empty_cache()
+    # D int8 values and one fp32 scale per token and head, against 2 D bytes
+    if abs(ratio - (D + 4) / (2 * D)) > 1e-9:
+        fail(f"int8 pool bytes are {ratio} of bf16, want (D + 4) / 2D = {(D + 4) / (2 * D)}")
+    spec = spec_passes(torch, models, model, kv_cache_dtype="int8", repeats=0)
+    return dict(tokens_per_sec=total / wall, ttft_ms=dict(p50=percentile(ttft, 50),
+                                                        p99=percentile(ttft, 99)),
+                pool_bytes_over_bf16=ratio, spec_tokens_match=spec["spec_tokens_match"],
+                spec_pass_s=spec["untimed_pass_s"], spec_drafted=spec["spec_drafted_tokens"],
+                spec_accepted=spec["spec_accepted_tokens"])
+
+
+def serving_card_vs_cpu(torch, models):
+    """(e) fp32, 2 layers at the flagship width: one add_request/step schedule
+    (staggered admissions, a prompt longer than a chunk, a prefix hit, a
+    block-aligned full hit, drafts) on the card and on a CPU twin; every
+    finished token stream must be the same."""
+    import copy
+
+    import numpy as np
+
+    cfg = models.LlamaConfig(**dict(FLAGSHIP, num_hidden_layers=2), dtype="float32")
+    card = models.LlamaForCausalLM(cfg, device="cuda", seed=3)
+    host = copy.deepcopy(card).to("cpu")
+    V = cfg.vocab_size
+    rng = np.random.RandomState(5)
+    pre = rng.randint(0, V, (64,)).astype("int32")
+    p0 = np.concatenate([pre, rng.randint(0, V, (20,)).astype("int32")])
+    p1 = np.concatenate([pre, rng.randint(0, V, (70,)).astype("int32")])
+    p2 = np.tile(rng.randint(0, V, (8,)).astype("int32"), 12)
+    schedule = {0: [p0], 1: [p1], 3: [p2], 6: [p0], 9: [pre]}
+    kw = dict(max_batch=5, max_len=256, block_size=64, chunk_size=64, decode_burst=4,
+              spec_lookahead=4, pool_blocks=40)
+    streams = {}
+    for name, model in (("card", card), ("cpu", host)):
+        eng = models.ContinuousBatchingEngine(model, **kw)
+        done = {}
+        for s in range(400):
+            for p in schedule.get(s, ()):
+                if eng.add_request(p, max_new_tokens=24) is None:
+                    fail("the card-vs-CPU schedule found no free slot")
+            done.update(eng.step())
+            if s > max(schedule) and not eng.num_active:
+                break
+        streams[name] = (done, eng.prefix_cache.hits, eng.spec_drafted, eng.spec_accepted)
+        del eng
+    if streams["card"][0] != streams["cpu"][0] or len(streams["card"][0]) != 5:
+        fail(f"fp32 serving, card vs CPU token streams differ:\n{streams['card'][0]}\n"
+             f"{streams['cpu'][0]}")
+    del card, host
+    torch.cuda.empty_cache()
+    return dict(streams_identical=True, requests=len(streams["card"][0]),
+                prefix_hits=streams["card"][1], drafted=streams["card"][2],
+                accepted=streams["card"][3])
+
+
+def phase_continuous(torch, fa, models, smi):
+    """Phase 10: continuous-batching serving at the flagship width."""
+    cfg = models.LlamaConfig(**FLAGSHIP, dtype="bfloat16")
+    model = models.LlamaForCausalLM(cfg, device="cuda", seed=0)
+    out = {}
+    t0 = time.perf_counter()
+    out["graphs"] = graphs_vs_eager(torch, models, model)
+    print("continuous_graphs " + json.dumps(dict(out["graphs"], card=smi)), flush=True)
+    out["serving"], workload = serving_passes(torch, fa, models, model,
+                                              cfg.num_hidden_layers)
+    print("continuous_serving " + json.dumps(dict(out["serving"], card=smi)), flush=True)
+    out["spec"] = spec_passes(torch, models, model)
+    print("continuous_spec " + json.dumps(dict(out["spec"], card=smi)), flush=True)
+    out["int8"] = int8_serving(torch, models, model, workload, out["serving"]["kv_pool_bytes"])
+    print("continuous_int8 " + json.dumps(dict(out["int8"], card=smi)), flush=True)
+    del model
+    torch.cuda.empty_cache()
+    out["fp32_card_vs_cpu"] = serving_card_vs_cpu(torch, models)
+    print("continuous_card_vs_cpu " + json.dumps(out["fp32_card_vs_cpu"]), flush=True)
+    # (f): a step's device ms (one profiled replay) against its wall time: the
+    # unprofiled program call (the replay with its copies, on the host clock)
+    # plus the host ms a step of the warm pass
+    warm = out["serving"]["warm_steps"]
+    out["steps"] = {}
+    for name in ("mixed_step", "burst"):
+        prof = out["graphs"]["profiles"][name]
+        step_ms = prof["call_ms"] + warm["host_ms_per_step"]
+        out["steps"][name] = dict(device_ms=prof["device_ms"], call_ms=prof["call_ms"],
+                                  kernel_launches=prof["kernel_launches"],
+                                  host_ms_per_step=warm["host_ms_per_step"],
+                                  step_ms=step_ms,
+                                  idle_share=1.0 - prof["device_ms"] / step_ms)
+    print("continuous_steps " + json.dumps(dict(out["steps"], card=smi)), flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main():
     import torch
 
@@ -1247,6 +1809,12 @@ def main():
     print("paged_serving " + json.dumps(dict(paged, card=smi)), flush=True)
     print(f"phase_seconds 9 {time.perf_counter() - t0:.1f}", flush=True)
 
+    # phase 10: continuous-batching serving (launch counts set to 0 inside,
+    # read after)
+    t0 = time.perf_counter()
+    continuous = phase_continuous(torch, fa, models, smi)
+    print(f"phase_seconds 10 {time.perf_counter() - t0:.1f}", flush=True)
+
     kernel = dict(
         name="flash_attention_fwd", route="cuda",
         source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -1255,7 +1823,10 @@ def main():
         launches_by_path=dict(serving=serving["launches"],
                               training=training["launches_per_step"]["fwd"],
                               paged_prefill=paged["paged"]["launches_prefill"],
-                              int8_prefill=paged["int8"]["launches_prefill"]),
+                              int8_prefill=paged["int8"]["launches_prefill"],
+                              static_prefill=continuous["serving"][
+                                  "forward_launches_per_static_admission"],
+                              continuous=continuous["serving"]["forward_launches_continuous"]),
         max_abs_err=main_row["max_abs_err"],
         tol=main_row["tol"], ms=main_row["kernel_ms"], kernel_ms=main_row["kernel_ms"],
         call_ms=main_row["kernel_call_ms"],
@@ -1263,9 +1834,14 @@ def main():
         bound_by=main_row["bound_by"], library_ms=main_row["library_ms"],
         shape=main_row["shape"], dtype=main_row["dtype"],
         **{name: dict(ms=r["kernel_ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"],
-                      bound_ms=r["bound_ms"], bound_by=r["bound_by"], shape=r["shape"])
+                      bound_ms=r["bound_ms"], bound_by=r["bound_by"], shape=r["shape"],
+                      max_abs_err=r["max_abs_err"], max_scaled_err=r["max_scaled_err"],
+                      tol=r["tol"])
            for name, r in fwd_rows.items() if name != "flagship_prefill"},
         checks=checks)
+    kernel["static_prefill"].update(
+        launches=continuous["serving"]["forward_launches_static"],
+        launches_per_admission=continuous["serving"]["forward_launches_per_static_admission"])
     tr, b1 = bwd_rows["training"], bwd_rows["long_b1"]
     bwd_kernels = []
     for key, name, line, grads in (("dq", "flash_attention_bwd_dq", 130, ("dq",)),

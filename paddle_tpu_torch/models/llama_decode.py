@@ -22,8 +22,17 @@ exactly 0. The int8 prompt pass attends the quantized prompt in plain torch
 kernel. Decode steps attend a (B, 1) query to the cache in plain torch, as
 the JAX engine does in XLA outside any kernel.
 
-The continuous-batching steps (``build_mixed_step``, ``build_decode_burst``)
-are not ported yet.
+The continuous-batching engine (``models/serving.py``) runs two programs
+built here: ``build_mixed_step`` (one token a lane at a per-lane position
+and table row: decode lanes, draft-verify lanes and prefill chunks in one
+fixed-size pack) and ``build_decode_burst`` (k fused decode iterations over
+every slot). Both are plain functions of tensors with no host sync and no
+data-dependent shape, written to the pools in place: the engine runs them
+eagerly on the CPU and captures each once as a CUDA graph on the card. A
+lane's token must not depend on the program that computes it, so both
+compute every lane with the same shapes: the burst runs at the mixed step's
+lane count, and both attend in groups of ``LANE_GROUP`` lanes, the burst
+only the groups that hold its rows (``_attend_lane_groups``).
 """
 from __future__ import annotations
 
@@ -36,6 +45,32 @@ import torch.nn.functional as tF
 from ..incubate.nn.functional import _rope_tables, fused_rotary_position_embedding
 from ..nn import functional as F
 from . import paged_kv as _pk
+
+
+# lanes the serving programs attend at once: a lane's attention has the same
+# shapes (so the same library kernels and rounding) in the mixed step and in
+# the burst, while the burst reads only the groups that hold its rows
+LANE_GROUP = 16
+
+
+def _attend_lane_groups(attend, q, tables, lens, live):
+    """``attend(q, tables, lens)`` over the first ``live`` of q's lanes, one
+    group of LANE_GROUP lanes at a time (a short last group padded with lanes
+    that read the null block); the lanes after the last group get zeros."""
+    n, outs = q.shape[0], []
+    for s in range(0, live, LANE_GROUP):
+        e = min(s + LANE_GROUP, n)
+        qg, tg, lg = q[s:e], tables[s:e], lens[s:e]
+        pad = LANE_GROUP - (e - s)
+        if pad:
+            qg = torch.cat([qg, qg.new_zeros((pad,) + qg.shape[1:])])
+            tg = torch.cat([tg, tg.new_zeros((pad, tg.shape[1]))])
+            lg = torch.cat([lg, lg.new_zeros(pad)])
+        outs.append(attend(qg, tg, lg)[:e - s])
+    out = torch.cat(outs)
+    if out.shape[0] < n:
+        out = torch.cat([out, out.new_zeros((n - out.shape[0],) + out.shape[1:])])
+    return out
 
 
 def _row_rope_tables(positions, head_dim, theta, dtype, device):
@@ -266,21 +301,113 @@ class LlamaDecodeEngine:
             attn = self._prompt_attention(q, k, v)
         return self._post_attn(p, x, attn)
 
-    def _block_paged_decode(self, p, x, pool, tables, lens, rope, plan):
+    def _block_paged_decode(self, p, x, pool, tables, lens, rope, plan, live=None):
         """One decode token per row at per-row position lens[b] (the write
         and RoPE both happen there): the same block serves lockstep decoding
         (lens = pos everywhere) and ragged batches. ``plan`` is the step's
-        write plan (``paged_kv._decode_plan``), the same for every layer."""
+        write plan (``paged_kv._decode_plan``), the same for every layer.
+        The serving programs pass ``live``: attention then runs in lane
+        groups over the first ``live`` rows (``_attend_lane_groups``)."""
         q, k, v = self._qkv_rope(p, x, *rope)
         if self.kv_int8:
             kq, kscale = self._quantize_kv(k)      # (B, 1, kv, D)
             vq, vscale = self._quantize_kv(v)
             _pk._write_planned(pool, plan, (kq[:, 0], kscale[:, 0], vq[:, 0], vscale[:, 0]))
-            attn = _pk.paged_attention_decode_int8(q[:, 0], *pool, tables, lens)
+            attend = _pk.paged_attention_decode_int8
         else:
             _pk._write_planned(pool, plan, (k[:, 0], v[:, 0]))
-            attn = _pk.paged_attention_decode(q[:, 0], *pool, tables, lens)
+            attend = _pk.paged_attention_decode
+        if live is None:
+            attn = attend(q[:, 0], *pool, tables, lens)
+        else:
+            attn = _attend_lane_groups(lambda q, t, s: attend(q, *pool, t, s), q[:, 0],
+                                       tables, lens, live)
         return self._post_attn(p, x, attn[:, None])
+
+    def build_mixed_step(self):
+        """The continuous-batching mixed step as a function for the serving
+        engine: ``run(pack, pools, tables, slot_ids, valid, chain)``.
+
+        ``pack`` is (2, T) int32: row 0 the lanes' token ids, row 1 their
+        positions; ``slot_ids``, ``valid`` and ``chain`` are (T,). One
+        forward writes every valid lane's K/V into its slot's blocks, in
+        place in ``pools``, and returns (2, T) int32: each lane's greedy
+        token and its accept flag.
+
+        ``chain[i]`` marks lane i as a draft token continuing lane i-1's
+        sequence (self-speculative decoding). Draft lane i is accepted iff
+        lane i-1's greedy token equals the draft it carries and every draft
+        before it in its chain was accepted: a segmented running AND,
+        computed on the device from a running count of disagreements and
+        that count at the segment's start. With ``chain`` all False every
+        flag is 0 and row 0 is the plain mixed step.
+
+        The JAX step's block (``_block_paged_mixed``) is the decode block
+        over each lane's own table row and position; here its write plan
+        (``paged_kv._write_plan`` with ``valid``) makes invalid lanes write
+        nothing. Writes land before the attention gather, so the lanes of
+        one prefill chunk see each other through the pool."""
+        def run(pack, pools, tables, slot_ids, valid, chain):
+            token_ids, positions = pack[0], pack[1]
+            x = self.emb[token_ids.long()][:, None]          # (T, 1, hidden)
+            row_tables = tables[slot_ids.long()]             # (T, max_blocks)
+            rope = _row_rope_tables(positions, self.head_dim, self.theta, x.dtype,
+                                    x.device)
+            plan = _pk._write_plan(*_pk._decode_scatter_idx(row_tables, positions,
+                                                            self.block_size), valid)
+            for p, pool in zip(self.layers, pools):
+                x = self._block_paged_decode(p, x, pool, row_tables, positions, rope, plan,
+                                             live=x.shape[0])
+            nt = torch.argmax(self._logits(x), dim=-1).to(torch.int32)
+            agree = torch.where(chain, torch.roll(nt, 1) == token_ids, True)
+            # disagreements so far, and that count at each lane's segment start
+            # (the last lane with chain False; lanes before any start count
+            # from lane 0, as the JAX scan does)
+            bad = torch.cumsum((~agree).to(torch.int32), 0)
+            at_start = torch.cummax(torch.where(chain, 0, bad), 0).values
+            accept = chain & (bad == at_start)
+            return torch.stack([nt, accept.to(torch.int32)])
+
+        return run
+
+    def build_decode_burst(self, k, rows=None):
+        """``k`` ragged decode iterations fused into one function,
+        ``run(pack, pools, tables)``: ``pack`` is (2, B) int32 (each row's
+        current token and position), ``tables`` the (B, max_blocks) block
+        tables. Returns (B, k) int32, the greedy tokens; the pools are
+        written in place. Inactive rows (table rows of zeros) write into the
+        reserved null block, as in the JAX engine.
+
+        ``rows`` > B runs every iteration at ``rows`` lanes: the B rows plus
+        lanes that read the null block, write nothing and are dropped. The
+        serving engine passes its mixed step's T, so a decode token is
+        computed with the same GEMM shapes in either program (a library may
+        pick another kernel, and another rounding, for another row count).
+        Attention runs in the mixed step's lane groups, and only over the
+        groups that hold the B rows."""
+        def run(pack, pools, tables):
+            B = pack.shape[1]
+            n = B if rows is None else int(rows)
+            toks = torch.zeros(n, dtype=torch.int32, device=pack.device)
+            lens = torch.zeros(n, dtype=torch.int32, device=pack.device)
+            toks[:B], lens[:B] = pack[0], pack[1]
+            if n > B:
+                tables = torch.cat([tables, tables.new_zeros((n - B, tables.shape[1]))])
+            valid = None if n == B else torch.arange(n, device=pack.device) < B
+            outs = []
+            for i in range(k):
+                x = self.emb[toks.long()][:, None]
+                rope = _row_rope_tables(lens, self.head_dim, self.theta, x.dtype, x.device)
+                plan = _pk._write_plan(*_pk._decode_scatter_idx(tables, lens,
+                                                                self.block_size), valid)
+                for p, pool in zip(self.layers, pools):
+                    x = self._block_paged_decode(p, x, pool, tables, lens, rope, plan, live=B)
+                toks = torch.argmax(self._logits(x), dim=-1).to(torch.int32)
+                lens = lens + 1
+                outs.append(toks[:B])
+            return torch.stack(outs, dim=1)
+
+        return run
 
     def _prefill_paged(self, ids, pools, tables, lens):
         """Prompt pass of every row into the pools; last position's logits."""

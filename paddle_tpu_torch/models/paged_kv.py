@@ -20,9 +20,11 @@ What differs from the JAX package:
   nothing here either, without a host sync: it repeats the first valid
   row's write (the same value to the same slot), or, when no row is valid,
   writes its own slot's current value back (``_write_plan``).
-- The block tables are int32 on the device, uploaded from the host mirror
-  only when a grant, a free or a fork changed it; gathers index with them
-  directly.
+- The block tables are one persistent int32 device tensor,
+  ``block_tables``, overwritten in place from the host mirror only when a
+  grant, a free, an adoption, a fork or a copy-on-write changed it; gathers
+  index with it directly, and a captured CUDA graph that reads it keeps
+  reading the current tables.
 - ``read_blocks`` returns host (CPU) tensors: numpy has no bfloat16.
 - The allocator's fault-injection point and monitor gauges are not ported
   (the port has no ``analysis/faultinject`` and no ``monitor``).
@@ -87,15 +89,19 @@ class PagedKVCache:
         self._free = list(range(num_blocks - 1, 0, -1))
         self.batch = int(batch)
         self._tables_np = np.zeros((batch, max_blocks_per_seq), np.int32)
-        self._upload()
+        self.block_tables = torch.zeros((batch, max_blocks_per_seq), dtype=torch.int32,
+                                        device=self.device)
         # per-block reference counts: > 1 after fork_rows (beam search shares
         # prompt blocks); writes go copy-on-write via make_tail_exclusive
         self._refs = np.zeros(num_blocks, np.int32)
 
     def _upload(self):
-        # torch.tensor copies, so the host mirror may change right after
-        self.block_tables = torch.tensor(self._tables_np, dtype=torch.int32,
-                                         device=self.device)
+        """Overwrite the device tables in place from the host mirror. The
+        copy is taken from a private snapshot and is blocking, so the mirror
+        may change right after; ``inference_mode`` lets it update tables
+        made under inference mode too."""
+        with torch.inference_mode():
+            self.block_tables.copy_(torch.from_numpy(self._tables_np.copy()))
 
     # -- host-side allocator -------------------------------------------------
     def ensure_capacity(self, seq_lens_next):

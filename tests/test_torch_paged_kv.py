@@ -72,12 +72,14 @@ class TestAllocatorAgainstJax:
             c.ensure_capacity([0, 16])
         _same_books(j, t)
 
-    def test_nothing_to_grant_keeps_the_device_tables(self):
+    def test_nothing_to_grant_keeps_the_device_tables(self, monkeypatch):
         _, t = _pair()
         t.ensure_capacity([5, 2])
-        before = t.block_tables
+        before = t.block_tables.clone()
+        uploads = []
+        monkeypatch.setattr(t, "_upload", lambda: uploads.append(1))
         t.ensure_capacity([8, 4])      # fits the blocks already owned
-        assert t.block_tables is before
+        assert uploads == [] and torch.equal(t.block_tables, before)
 
     def test_retain_release_adopt(self):
         j, t = _pair()
@@ -210,6 +212,52 @@ class TestAllocatorAgainstJax:
 
     def test_alloc_blocks(self):
         assert tpk.alloc_blocks(3, 29, 8) == jpk.alloc_blocks(3, 29, 8) == 4
+
+    @pytest.mark.parametrize("under_inference_mode", [False, True])
+    def test_device_tables_keep_their_identity(self, under_inference_mode):
+        """``block_tables`` is one tensor for the pager's life, overwritten in
+        place (a captured CUDA graph reads it by address): after grants,
+        exhaustion, frees, retain/adopt, take/place, forks and copy-on-write
+        it is the same tensor at the same address, and its values are the
+        JAX pager's. A pager built under inference mode updates outside it
+        too."""
+        if under_inference_mode:
+            with torch.inference_mode():
+                j, t = _pair(num_blocks=12, batch=3, kv_heads=1, head_dim=2)
+        else:
+            j, t = _pair(num_blocks=12, batch=3, kv_heads=1, head_dim=2)
+        jpools, tpools = _filled(j, t, 4)
+        tables, ptr = t.block_tables, t.block_tables.data_ptr()
+        host = {}
+
+        def check():
+            assert t.block_tables is tables and tables.data_ptr() == ptr
+            _same_books(j, t)
+
+        for key, c, pools in (("jax", j, jpools[0]), ("torch", t, tpools[0])):
+            c.ensure_capacity([5, 9, 0])
+            with pytest.raises(RuntimeError, match="pool exhausted"):
+                c.ensure_capacity([16, 16, 16])
+            c.free_sequence(2)
+            c.free_sequence(1)
+            shared = [int(b) for b in c._tables_np[0] if b > 0]
+            c.retain_blocks(shared)
+            c.free_sequence(0)
+            c.adopt_blocks(2, shared)
+            blks = c.take_blocks(2)
+            c.place_blocks(0, blks)
+            host[key] = c.make_positions_exclusive([2, 2], [1, 5], pools)
+            c.fork_rows([1, 1, 2])
+            c.ensure_capacity([9, 1, 8])
+            host[key] = c.make_tail_exclusive(8, host[key])
+            if key == "torch":
+                check()
+        _same_pools([host["jax"]], [host["torch"]])
+        # the host mirror may change right after an upload: the device copy
+        # was taken from a snapshot
+        t._tables_np[:] = 0
+        assert tables.numpy().any()
+        np.testing.assert_array_equal(tables.numpy(), np.asarray(j.block_tables))
 
 
 def _tables(rows):

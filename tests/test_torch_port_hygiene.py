@@ -1,5 +1,6 @@
-"""Rules the PyTorch port keeps: no JAX and no paddle_tpu inside it, no quiet
-CPU fallback, and its kernel sources in the repo with the build git-ignored."""
+"""Rules the PyTorch port keeps: no JAX, no paddle_tpu and no bench_common
+inside it, no quiet CPU or eager fallback, and its kernel sources in the repo
+with the build git-ignored."""
 import ast
 import os
 import subprocess
@@ -11,7 +12,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "paddle_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+FORBIDDEN = ("jax", "jaxlib", "paddle_tpu", "bench_common")
 
 
 def _port_files():
@@ -111,6 +112,24 @@ def test_axpy_on_cuda_never_takes_the_plain_version(monkeypatch):
     op = axpy.register_example(name="torch_test_hygiene_axpy")
     with pytest.raises(RuntimeError, match="kernel launch"):
         op(torch.zeros(8, requires_grad=True))
+
+
+def test_serving_programs_on_cuda_capture_or_raise():
+    """On a CUDA device a serving program is captured as a CUDA graph or the
+    call raises: it never runs its function eagerly instead."""
+    from paddle_tpu_torch.models import serving
+
+    class OnCard:
+        device = torch.device("cuda", 0)
+
+    calls = []
+    prog = serving._Program(lambda *a: calls.append(a), pools=[(OnCard(),)])
+    with pytest.raises(Exception):
+        prog(torch.zeros(2, dtype=torch.int32), torch.zeros(2))
+    assert calls == [] and not prog.captured
+    on_cpu = serving._Program(lambda *a: calls.append(a), pools=[(torch.zeros(2),)])
+    on_cpu(torch.zeros(2, dtype=torch.int32), torch.zeros(2))
+    assert len(calls) == 1 and not on_cpu.captured
 
 
 def test_kernel_source_present_and_build_ignored():
