@@ -91,6 +91,28 @@ Phases, each a hard check (the script exits nonzero on the first failure):
      CPU twin gives the same token streams;
      (f) one profiled replay of each program: device ms and kernels beside
      the host ms a step of the warm pass.
+ 11. serving resilience and the fleet at phase 3's width and depth (bf16),
+     through paddle_tpu_torch's own fault-injection harness and watchdog, no
+     check caught: (a) bench_suite.py:470-476's fleet drill (3 replicas, 24
+     Poisson requests in 3 prefix groups, 64 new tokens): a reference
+     fleet, a fleet whose replica loop dies at fleet.replica_step (nth 12),
+     then replica 1 drained mid-stream on the reference fleet; every request
+     completes with the reference's tokens, no graph is captured after
+     warmup (each replica captures its two programs then, side by side), the
+     drain loses none; per-replica steps, tokens/s, failovers, recovery ms;
+     (b) bench_suite.py:339-343's engine drill: the driving thread killed at
+     serving.drive (nth 9), aborted requests resubmitted, a warm relaunch
+     (re-admissions hit the radix cache, no program captured again) and the
+     reference's tokens; then gold against a bronze flood on a
+     strict-priority engine (gold goodput over isolated, typed sheds); (c)
+     kv_spill on a pool too small for its batch (preemptions, restores,
+     spilled bytes; streams equal an ample pool's), kv_spill with the radix
+     cache on (evicted prefixes spill to host RAM and a re-admission
+     restores them on the card; streams equal a run without spill) and a
+     serving.step delay
+     past hang_timeout on one replica of a fleet, recovered by its
+     watchdog with the reference's tokens; (d) block_multihead_attention,
+     prefill then decode, card against CPU at fp32 within 1e-5.
 The last line is the device JSON object; the line before it the card's name
 and power limit; before that the kernels JSON object.
 
@@ -1721,6 +1743,558 @@ def phase_continuous(torch, fa, models, smi):
     return out
 
 
+# phase 11: bench_suite.py:470-476 (the fleet drill) and :339-343 (the engine
+# chaos drill), the JAX package's on-TPU parameters; max_len sized to each
+# workload (the JAX engines default to max_position_embeddings)
+FLEET11 = dict(replicas=3, max_batch=8, block_size=64, chunk_size=128, decode_burst=8,
+               n_requests=24, n_groups=3, prefix_blocks=4, tail_range=(32, 96), max_new=64,
+               kill_nth=12, mean_interarrival_s=0.002, max_len=448)
+CHAOS11 = dict(max_batch=8, block_size=64, chunk_size=128, decode_burst=8, max_queue=12,
+               n_requests=12, n_bronze=48, prompt_len=96, max_new=64, kill_nth=9, max_len=192,
+               repeats=3)
+# a pool of 15 usable blocks for 8 requests of 200-400 tokens that grow by 64
+# (the ample pool holds 4 x 8); the JAX engine preempts only a request that is
+# not decoding, so these sizes are ones whose schedule never finds every slot
+# decoding on a dry pool (the schedule depends on the lengths alone)
+SPILL11 = dict(max_batch=4, block_size=64, chunk_size=128, decode_burst=8, max_len=512,
+               n_requests=8, prompt_range=(200, 400), max_new=64, pool_blocks=16)
+# three waves of 4 prompts (4 full blocks and a 32-token tail each) through
+# one engine: wave 2's grants evict wave 1's cached prefixes, which spill to
+# host RAM, and wave 3 (wave 1's prompts again) restores them from there. The
+# pool (29 usable blocks) holds one wave (4 x 6 blocks) and what the cache
+# keeps of the last; the reference's pool (63 usable) holds all three waves
+RSPILL11 = dict(max_batch=4, block_size=64, chunk_size=128, decode_burst=8, max_len=512,
+                per_wave=4, prompt_len=288, max_new=64, pool_blocks=30,
+                reference_pool_blocks=64)
+HANG11 = dict(replicas=2, n_requests=8, hang_timeout=1.0, delay_s=3.0, nth=5)
+
+
+def drive_fleet(fl, prompts, new_tokens, arrivals, deadline_s=90.0, on_submitted=None):
+    """Open-loop fleet driver (a copy of bench_common.py:340 ``_drive_fleet``):
+    submit request i once the wall clock passes arrivals[i], collect results
+    and merged stats. Returns (wall_s, outputs, ttfts_ms, n_complete)."""
+    n = len(prompts)
+    outputs, ttfts, frid2idx = [None] * n, [0.0] * n, {}
+    submitted = done = 0
+    t0 = time.perf_counter()
+    while done < n and time.perf_counter() - t0 < deadline_s:
+        now = time.perf_counter() - t0
+        while submitted < n and arrivals[submitted] <= now:
+            frid = fl.submit(prompts[submitted], max_new_tokens=int(new_tokens[submitted]))
+            frid2idx[frid] = submitted
+            submitted += 1
+            if on_submitted is not None:
+                on_submitted(submitted - 1)
+        for frid, toks in fl.pop_results():
+            i = frid2idx.get(frid)
+            if i is None:
+                continue
+            st = fl.pop_stats(frid) or {}
+            ttfts[i] = st.get("ttft_ns", 0) / 1e6
+            outputs[i] = [int(t) for t in toks]
+            done += 1
+        time.sleep(0.0005)
+    return time.perf_counter() - t0, outputs, ttfts, done
+
+
+def drive_until_done(eng, rid2work, deadline_s=90.0, tenant=""):
+    """Driver-mode collector (a copy of bench_common.py:669
+    ``_drive_until_done``): poll the engine's results and aborts until every
+    tracked request resolves, resubmitting each aborted one. Returns
+    ({original rid: tokens}, number of aborts)."""
+    remap = {rid: rid for rid in rid2work}
+    results, aborted = {}, 0
+    t0 = time.perf_counter()
+    while any(cur not in results for cur in remap.values()) \
+            and time.perf_counter() - t0 < deadline_s:
+        for rid, toks in eng.pop_results():
+            results[rid] = [int(t) for t in toks]
+        for err in eng.pop_aborted():
+            orig = next((o for o, cur in remap.items() if cur == err.rid), None)
+            if orig is None:
+                continue
+            aborted += 1
+            prompt, max_new = rid2work[orig]
+            remap[orig] = eng.submit(prompt, max_new_tokens=max_new, timeout=deadline_s,
+                                     tenant=tenant)
+        time.sleep(0.001)
+    return {orig: results.get(cur) for orig, cur in remap.items()}, aborted
+
+
+def first_difference(torch, model, prompts, want, got):
+    """The first request and token where two passes differ, and the top-2 gap
+    of the reference's logits there (a dense forward of the prompt and the
+    reference tokens before it): a near-tie says rounding flipped it."""
+    import numpy as np
+
+    for i, (a, b) in enumerate(zip(want, got)):
+        if a == b:
+            continue
+        a, b = a or [], b or []
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        ids = np.concatenate([prompts[i], np.asarray(a[:j], np.int32)]).astype(np.int64)
+        with torch.inference_mode():
+            logits = model(torch.from_numpy(ids[None]).cuda())[0, -1].float()
+        top = torch.topk(logits, 2).values
+        return dict(request=i, token=j, want=a[j] if j < len(a) else None,
+                    got=b[j] if j < len(b) else None, top2_gap=float(top[0] - top[1]))
+    return None
+
+
+def fleet11_workload(vocab, rng):
+    P = FLEET11
+    return poisson_prefix_workload(
+        vocab, n_requests=P["n_requests"], n_groups=P["n_groups"],
+        prefix_blocks=P["prefix_blocks"], block_size=P["block_size"],
+        tail_range=P["tail_range"], max_new=P["max_new"],
+        mean_interarrival_s=P["mean_interarrival_s"], rng=rng)
+
+
+def fleet_drills(torch, fleet, fi, serving_mod, model, dev="cuda"):
+    """(a) bench_common.py:374 ``fleet_bench`` on the port: a reference fleet,
+    a fleet whose replica loop dies at ``fleet.replica_step`` (nth
+    ``kill_nth``), then a drain of replica 1 mid-stream on the reference fleet.
+    Warmup runs one request through every replica at once (long enough to
+    burst), so each engine captures both programs then, side by side; the
+    failover must capture nothing after it."""
+    import numpy as np
+
+    P, vocab = FLEET11, model.config.vocab_size
+    rng = np.random.RandomState(0)
+    prompts, new_tokens, arrivals = fleet11_workload(vocab, rng)
+    warm_prompt = rng.randint(0, vocab, (6,)).astype("int32")
+    n = P["n_requests"]
+
+    def fleet_():
+        return fleet.FleetRouter(
+            model, replicas=P["replicas"], max_new_tokens=P["max_new"],
+            engine_kwargs=dict(max_batch=P["max_batch"], max_len=P["max_len"],
+                               block_size=P["block_size"], chunk_size=P["chunk_size"],
+                               decode_burst=P["decode_burst"]))
+
+    def warm(fl):
+        c0 = serving_mod._Program.captures
+        t0 = time.perf_counter()
+        ok = fl.warmup(warm_prompt, max_new_tokens=2 * P["decode_burst"] + 2, timeout=300)
+        captured = serving_mod._Program.captures - c0
+        if not ok or captured != 2 * P["replicas"]:
+            fail(f"fleet warmup: done {ok}, {captured} graphs captured, want "
+                 f"{2 * P['replicas']} (two per replica)")
+        return time.perf_counter() - t0
+
+    def tps(wall, outs):
+        return sum(len(t) for t in outs if t) / wall
+
+    fi.reset()
+    f_ref = f_kill = None
+    try:
+        f_ref = fleet_()
+        warm_s = warm(f_ref)
+        ref_wall, ref_out, ref_ttft, ref_done = drive_fleet(f_ref, prompts, new_tokens, arrivals)
+        if ref_done != n:
+            fail(f"fleet reference pass completed {ref_done} of {n} requests")
+        ref_steps = [r["steps"] for r in f_ref.replica_snapshot()]
+
+        f_kill = fleet_()
+        warm(f_kill)
+        c0 = serving_mod._Program.captures
+        fi.arm("fleet.replica_step", action="raise", nth=P["kill_nth"])
+        kill_wall, kill_out, _ttft, kill_done = drive_fleet(f_kill, prompts, new_tokens,
+                                                            arrivals)
+        captured_after = serving_mod._Program.captures - c0
+        trips = fi.trips()
+        fi.reset()
+        recs = [(r, rec) for r in f_kill.replicas for rec in r.engine.recovery_stats]
+        kill = dict(killed=trips == [("fleet.replica_step", "raise")],
+                    all_complete=kill_done == n, tokens_match_reference=kill_out == ref_out,
+                    failovers=f_kill.failovers, recoveries=len(recs),
+                    recovery_ms=recs[0][1]["ms"] if recs else None,
+                    down_replica=recs[0][0].tag if recs else None,
+                    graphs_captured_after_warmup=captured_after,
+                    reference_wall_s=ref_wall, reference_tokens_per_sec=tps(ref_wall, ref_out),
+                    reference_ttft_ms=dict(p50=percentile(ref_ttft, 50),
+                                           p99=percentile(ref_ttft, 99)),
+                    reference_replica_steps=ref_steps, warmup_s=warm_s,
+                    kill_wall_s=kill_wall, kill_tokens_per_sec=tps(kill_wall, kill_out),
+                    kill_replica_steps=[r["steps"] for r in f_kill.replica_snapshot()],
+                    states=f_kill.states())
+        if not (kill["killed"] and kill["all_complete"] and kill["recoveries"] == 1
+                and kill["failovers"] >= 1):
+            fail(f"fleet kill drill: {kill}")
+        if not kill["tokens_match_reference"]:
+            fail("fleet kill drill: tokens differ from the reference fleet's: "
+                 f"{first_difference(torch, model, prompts, ref_out, kill_out)}")
+        if captured_after:
+            fail(f"fleet kill drill captured {captured_after} graphs after warmup, want 0")
+        f_kill.stop()
+        del f_kill
+        f_kill = None
+
+        drained = {}
+
+        def on_submitted(i):
+            if i == n // 2 and not drained:
+                drained.update(f_ref.drain(1, timeout=90.0))
+
+        c0 = serving_mod._Program.captures
+        drain_wall, drain_out, _d, drain_done = drive_fleet(f_ref, prompts, new_tokens,
+                                                            arrivals, on_submitted=on_submitted)
+        if not drained:
+            drained.update(f_ref.drain(1, timeout=90.0))
+        drain = dict(migrated=drained.get("migrated"), parked=bool(drained.get("parked")),
+                     all_complete=drain_done == n, lost=n - drain_done,
+                     tokens_match_reference=drain_out == ref_out,
+                     drained_replica=drained.get("replica"), states=f_ref.states(),
+                     graphs_captured=serving_mod._Program.captures - c0,
+                     wall_s=drain_wall, tokens_per_sec=tps(drain_wall, drain_out),
+                     replica_steps=[r["steps"] for r in f_ref.replica_snapshot()])
+        if drain["lost"] or not drain["parked"] or drain["graphs_captured"]:
+            fail(f"fleet drain drill: {drain}")
+        if not drain["tokens_match_reference"]:
+            fail("fleet drain drill: tokens differ from the reference pass: "
+                 f"{first_difference(torch, model, prompts, ref_out, drain_out)}")
+    finally:
+        fi.reset()
+        for f in (f_ref, f_kill):
+            if f is not None:
+                f.stop()
+    del f_ref
+    return kill, drain, (prompts, new_tokens, ref_out)
+
+
+def hang_drill(fleet, fi, model, workload):
+    """(c) A ``serving.step`` delay past ``hang_timeout`` on one replica of a
+    fleet with per-replica watchdogs: the scanner recovers the stuck engine,
+    its requests move to the other replica, and the outputs equal the
+    reference fleet's."""
+    P, H = FLEET11, HANG11
+    prompts, new_tokens, ref_out = workload
+    prompts, ref_out = prompts[:H["n_requests"]], ref_out[:H["n_requests"]]
+    fl = fleet.FleetRouter(
+        model, replicas=H["replicas"], max_new_tokens=P["max_new"],
+        hang_timeout=H["hang_timeout"],
+        engine_kwargs=dict(max_batch=P["max_batch"], max_len=P["max_len"],
+                           block_size=P["block_size"], chunk_size=P["chunk_size"],
+                           decode_burst=P["decode_burst"]))
+    fi.reset()
+    try:
+        if not fl.warmup(prompts[0][:6], max_new_tokens=2 * P["decode_burst"] + 2, timeout=300):
+            fail("hang drill: warmup did not finish")
+        fi.arm("serving.step", action="delay", delay_s=H["delay_s"], nth=H["nth"])
+        wall, out, _t, done = drive_fleet(fl, prompts, new_tokens[:len(prompts)],
+                                          [0.0] * len(prompts))
+        trips = fi.trips()
+        recs = [rec for r in fl.replicas for rec in r.engine.recovery_stats]
+        res = dict(delayed=trips == [("serving.step", "delay")], all_complete=done == len(out),
+                   tokens_match_reference=out == ref_out, recoveries=len(recs),
+                   recovered_hang=any("hang" in r["reason"] for r in recs),
+                   recovery_ms=recs[0]["ms"] if recs else None, failovers=fl.failovers,
+                   wall_s=wall, hang_timeout_s=H["hang_timeout"], delay_s=H["delay_s"],
+                   states=fl.states())
+    finally:
+        fi.reset()
+        fl.stop()
+    if not (res["delayed"] and res["all_complete"] and res["tokens_match_reference"]
+            and res["recovered_hang"]):
+        fail(f"hang drill: {res}")
+    return res
+
+
+def chaos_drill(models, fi, serving_mod, model):
+    """(b) bench_common.py:1019 ``chaos_bench`` on the port: a reference pass
+    through the driving thread, a pass whose driving thread dies at
+    ``serving.drive`` (nth ``kill_nth``) with the aborted requests resubmitted,
+    then the gold/bronze overload on a strict-priority engine."""
+    import threading
+
+    import numpy as np
+
+    P, vocab = CHAOS11, model.config.vocab_size
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, vocab, (P["prompt_len"],)).astype("int32")
+               for _ in range(P["n_requests"])]
+    work = {i: (p, P["max_new"]) for i, p in enumerate(prompts)}
+
+    def engine(**kw):
+        return models.ContinuousBatchingEngine(
+            model, max_batch=P["max_batch"], max_len=P["max_len"], block_size=P["block_size"],
+            chunk_size=P["chunk_size"], decode_burst=P["decode_burst"],
+            max_queue=P["max_queue"], **kw)
+
+    def submit_all(eng, tenant=""):
+        return {i: eng.submit(p, max_new_tokens=mn, timeout=90.0, tenant=tenant)
+                for i, (p, mn) in work.items()}
+
+    fi.reset()
+    e1 = engine()
+    e1.start_driver()
+    rids = submit_all(e1)
+    t0 = time.perf_counter()
+    ref, _ = drive_until_done(e1, {rids[i]: work[i] for i in work})
+    ref_wall = time.perf_counter() - t0
+    e1.stop_driver()
+    ref = {i: ref[rids[i]] for i in work}
+    del e1
+
+    e2 = engine()
+    pc = e2.prefix_cache
+    c0 = serving_mod._Program.captures
+    fi.arm("serving.drive", action="raise", nth=P["kill_nth"])
+    e2.start_driver()
+    try:
+        rids = submit_all(e2)
+        hits0 = pc.hits
+        t0 = time.perf_counter()
+        out, aborted = drive_until_done(e2, {rids[i]: work[i] for i in work})
+        chaos_wall = time.perf_counter() - t0
+    finally:
+        e2.stop_driver()
+        trips = fi.trips()
+        fi.reset()
+    out = {i: out[rids[i]] for i in work}
+    rec = e2.recovery_stats[0] if e2.recovery_stats else {}
+    kill = dict(killed=trips == [("serving.drive", "raise")], recoveries=len(e2.recovery_stats),
+                recovery_ms=rec.get("ms"), aborted=aborted, recovered_warm=pc.hits > hits0,
+                cold=rec.get("cold"), tokens_match_reference=out == ref,
+                graphs_captured=serving_mod._Program.captures - c0,
+                programs=len(e2._jit_cache), reference_wall_s=ref_wall, chaos_wall_s=chaos_wall,
+                tokens=sum(len(t) for t in out.values() if t))
+    del e2
+    if not (kill["killed"] and kill["recoveries"] == 1 and kill["aborted"] >= 1
+            and kill["recovered_warm"] and kill["tokens_match_reference"]
+            and kill["graphs_captured"] == kill["programs"] == 2):
+        fail(f"engine chaos kill drill: {kill}")
+
+    # the gold/bronze overload: strict priority keeps the bronze flood out of
+    # gold batches; bronze sheds with typed RequestShed
+    e3 = engine(strict_priority=True)
+    e3.set_tenant("gold", weight=2.0, priority=1)
+    e3.set_tenant("bronze", weight=1.0, priority=0)
+    e3.start_driver()
+    shed, submitted = [0], [0]
+    try:
+        warm_rids = submit_all(e3, "gold")
+        drive_until_done(e3, {warm_rids[i]: work[i] for i in work}, tenant="gold")
+
+        def gold_pass():
+            rids = submit_all(e3, "gold")
+            t0 = time.perf_counter()
+            got, _ = drive_until_done(e3, {rids[i]: work[i] for i in work}, tenant="gold")
+            return {i: got[rids[i]] for i in work}, time.perf_counter() - t0
+
+        iso = min((gold_pass() for _ in range(P["repeats"])), key=lambda r: r[1])
+        bronze = [rng.randint(0, vocab, (P["prompt_len"],)).astype("int32")
+                  for _ in range(P["n_bronze"])]
+        over = None
+        for _ in range(P["repeats"]):
+            stop = threading.Event()
+
+            def flood():
+                for p in bronze:
+                    if stop.is_set():
+                        return
+                    submitted[0] += 1
+                    try:
+                        e3.submit(p, max_new_tokens=P["max_new"], tenant="bronze")
+                    except models.RequestShed:
+                        shed[0] += 1
+                    time.sleep(0.003)
+
+            th = threading.Thread(target=flood, daemon=True)
+            th.start()
+            run = gold_pass()
+            stop.set()
+            th.join(timeout=10)
+            if over is None or run[1] < over[1]:
+                over = run
+        t0 = time.perf_counter()
+        while (e3.num_active or e3.num_pending) and time.perf_counter() - t0 < 90:
+            e3.pop_results()
+            time.sleep(0.001)
+    finally:
+        e3.stop_driver()
+    shed[0] += len(e3.pop_shed())
+    del e3
+
+    def goodput(run):
+        return sum(len(t) for t in run[0].values() if t) / run[1]
+
+    overload = dict(gold_isolated_tokens_per_sec=goodput(iso),
+                    gold_overload_tokens_per_sec=goodput(over),
+                    gold_goodput_ratio=goodput(over) / goodput(iso),
+                    gold_tokens_match_isolated=over[0] == iso[0],
+                    gold_tokens_match_reference=iso[0] == ref, bronze_submitted=submitted[0],
+                    bronze_shed=shed[0], repeats=P["repeats"])
+    if not (overload["gold_tokens_match_isolated"] and overload["gold_tokens_match_reference"]
+            and overload["bronze_shed"] >= 1):
+        fail(f"engine chaos overload drill: {overload}")
+    return dict(kill=kill, overload=overload, requests=P["n_requests"], max_new=P["max_new"])
+
+
+def spill_workload(vocab, rng):
+    """SPILL11's prompts: every length drawn first, then the tokens, so the
+    schedule (which depends on the lengths alone) does not depend on the
+    vocabulary."""
+    P = SPILL11
+    lens = rng.randint(P["prompt_range"][0], P["prompt_range"][1] + 1, P["n_requests"])
+    return [rng.randint(0, vocab, (int(n),)).astype("int32") for n in lens]
+
+
+def spill_drill(models, model):
+    """(c) kv_spill on a pool too small for the batch: preemptions spill the
+    K/V of requests mid-prefill to host RAM and restore them; every stream
+    must equal the ample-pool engine's."""
+    import numpy as np
+
+    P = SPILL11
+    prompts = spill_workload(model.config.vocab_size, np.random.RandomState(0))
+    runs = {}
+    for name, pool in (("ample", None), ("small", P["pool_blocks"])):
+        eng = models.ContinuousBatchingEngine(
+            model, max_batch=P["max_batch"], max_len=P["max_len"], block_size=P["block_size"],
+            chunk_size=P["chunk_size"], decode_burst=P["decode_burst"], kv_spill=True,
+            prefix_cache=False, pool_blocks=pool)
+        rids = [eng.submit(p, max_new_tokens=P["max_new"]) for p in prompts]
+        done, steps = {}, 0
+        t0 = time.perf_counter()
+        while (eng.num_active or eng.num_pending) and steps < 5000:
+            done.update(eng.step())
+            steps += 1
+        runs[name] = dict(out=[[int(t) for t in done.get(r, [])] for r in rids],
+                          wall_s=time.perf_counter() - t0, steps=steps,
+                          pool_blocks=eng._pager.num_blocks, preemptions=eng.preemptions,
+                          restores=eng.preempt_restores, spilled_bytes=eng.spilled_bytes)
+        del eng
+    small, ample = runs["small"], runs["ample"]
+    res = dict(streams_match=small["out"] == ample["out"],
+               complete=all(len(o) == P["max_new"] for o in small["out"]),
+               **{k: small[k] for k in ("preemptions", "restores", "spilled_bytes",
+                                        "pool_blocks", "steps", "wall_s")},
+               ample_pool_blocks=ample["pool_blocks"], ample_steps=ample["steps"],
+               ample_wall_s=ample["wall_s"], ample_preemptions=ample["preemptions"],
+               requests=P["n_requests"], max_new=P["max_new"])
+    if not (res["streams_match"] and res["complete"] and res["preemptions"] >= 1
+            and res["restores"] == res["preemptions"]):
+        fail(f"spill drill: {res}")
+    return res
+
+
+def radix_spill_drill(models, model):
+    """(c) kv_spill with the radix prefix cache on: three waves (RSPILL11)
+    through one engine whose pool holds one wave, so wave 2's grants spill
+    wave 1's cached prefixes to host RAM and wave 3, wave 1's prompts again,
+    restores them into the card's pools (restore_chain). Every stream must
+    equal an engine without spill whose pool keeps every prefix."""
+    import numpy as np
+
+    P = RSPILL11
+    rng = np.random.RandomState(1)
+    vocab = model.config.vocab_size
+    first, second = ([rng.randint(0, vocab, (P["prompt_len"],)).astype("int32")
+                      for _ in range(P["per_wave"])] for _ in range(2))
+    runs = {}
+    for name, spill, pool in (("reference", False, P["reference_pool_blocks"]),
+                              ("spill", True, P["pool_blocks"])):
+        eng = models.ContinuousBatchingEngine(
+            model, max_batch=P["max_batch"], max_len=P["max_len"], block_size=P["block_size"],
+            chunk_size=P["chunk_size"], decode_burst=P["decode_burst"], kv_spill=spill,
+            pool_blocks=pool)
+        pc = eng.prefix_cache
+        outs, held = [], []
+        t0 = time.perf_counter()
+        for wave in (first, second, first):
+            rids = [eng.submit(p, max_new_tokens=P["max_new"]) for p in wave]
+            done, steps = {}, 0
+            while (eng.num_active or eng.num_pending) and steps < 2000:
+                done.update(eng.step())
+                steps += 1
+            outs.append([[int(t) for t in done.get(r, [])] for r in rids])
+            held.append(sum(t.numel() * t.element_size() for se in pc._spilled.values()
+                            for entry in se.payload for t in entry))
+        runs[name] = dict(out=outs, wall_s=time.perf_counter() - t0, evicted=pc.evicted,
+                          restores=pc.restores, hits=pc.hits, preemptions=eng.preemptions,
+                          pool_blocks=eng._pager.num_blocks, host_bytes_after_wave=held)
+        del eng
+    spill, ref = runs["spill"], runs["reference"]
+    res = dict(streams_match=spill["out"] == ref["out"],
+               complete=all(len(o) == P["max_new"] for w in spill["out"] for o in w),
+               **{k: spill[k] for k in ("evicted", "restores", "hits", "preemptions",
+                                        "pool_blocks", "host_bytes_after_wave", "wall_s")},
+               reference_pool_blocks=ref["pool_blocks"], reference_hits=ref["hits"],
+               reference_evicted=ref["evicted"], reference_wall_s=ref["wall_s"], waves=3, per_wave=P["per_wave"],
+               prompt_len=P["prompt_len"], max_new=P["max_new"])
+    if not (res["streams_match"] and res["complete"] and res["evicted"] >= 1
+            and res["reference_evicted"] == 0
+            and res["restores"] >= 1 and res["host_bytes_after_wave"][1] > 0):
+        fail(f"radix spill drill: {res}")
+    return res
+
+
+def block_mha_card_vs_cpu(torch, IF):
+    """(d) block_multihead_attention, prefill then one decode step, on the card
+    and on the CPU at fp32 with the flagship's heads (16 x 128) and block 64:
+    outputs and caches within 1e-5 (tests/test_paged_kv.py's tolerance). The
+    lengths go to the card too, so its checks run as device asserts."""
+    import numpy as np
+
+    B, H, D, bs, max_blocks = 4, 16, 128, 64, 4
+    enc = np.array([100, 64, 37, 200], np.int32)
+    rng = np.random.RandomState(11)
+    nb = 1 + B * max_blocks
+    tables = np.arange(1, nb).reshape(B, max_blocks)
+    qkv = rng.randn(int(enc.sum()), 3 * H * D).astype(np.float32)
+    q1 = rng.randn(B, 3 * H * D).astype(np.float32)
+    zeros, ones = np.zeros(B, np.int32), np.ones(B, np.int32)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        t = lambda a: torch.from_numpy(np.asarray(a)).to(dev)   # noqa: E731
+        kc = torch.zeros((nb, H, bs, D), device=dev)
+        vc = torch.zeros_like(kc)
+        out, _, kc, vc = IF.block_multihead_attention(
+            t(qkv), kc, vc, t(enc), t(zeros), t(enc), block_tables=t(tables), block_size=bs,
+            max_enc_len_this_time=torch.tensor([int(enc.max())]))
+        out2, _, kc, vc = IF.block_multihead_attention(
+            t(q1), kc, vc, t(zeros), t(enc), t(ones), block_tables=t(tables), block_size=bs,
+            max_enc_len_this_time=torch.tensor([0]))
+        res[dev] = [x.cpu() for x in (out, out2, kc, vc)]
+    errs = [float((a - b).abs().max()) for a, b in zip(res["cuda"], res["cpu"])]
+    out = dict(prefill_max_abs_err=errs[0], decode_max_abs_err=errs[1],
+               cache_max_abs_err=max(errs[2:]), tol=1e-5, lens=enc.tolist(), heads=H,
+               head_dim=D, block_size=bs)
+    if max(errs) > 1e-5:
+        fail(f"block_multihead_attention, card vs CPU: {out}")
+    return out
+
+
+def phase_resilience(torch, fa, models, fleet, fi, serving_mod, IF, smi):
+    """Phase 11: serving resilience and the fleet at the flagship width. The
+    attention kernels' counts are set to 0 before and read after: the
+    continuous engines launch none."""
+    cfg = models.LlamaConfig(**FLAGSHIP, dtype="bfloat16")
+    model = models.LlamaForCausalLM(cfg, device="cuda", seed=0)
+    out = {}
+    reset_counts(fa)
+    kill, drain, workload = fleet_drills(torch, fleet, fi, serving_mod, model)
+    print("fleet_kill " + json.dumps(dict(kill, card=smi)), flush=True)
+    print("fleet_drain " + json.dumps(dict(drain, card=smi)), flush=True)
+    out["fleet_kill"], out["fleet_drain"] = kill, drain
+    out["engine_chaos"] = chaos_drill(models, fi, serving_mod, model)
+    print("engine_chaos " + json.dumps(dict(out["engine_chaos"], card=smi)), flush=True)
+    out["spill_hang"] = dict(spill=spill_drill(models, model),
+                             radix_spill=radix_spill_drill(models, model),
+                             hang=hang_drill(fleet, fi, model, workload))
+    print("spill_hang " + json.dumps(dict(out["spill_hang"], card=smi)), flush=True)
+    out["launches"] = counts(fa)
+    if out["launches"] != (0, 0, 0):
+        fail(f"phase 11's engines launched the attention kernels {out['launches']} times, "
+             "want 0")
+    del model
+    torch.cuda.empty_cache()
+    out["block_mha"] = block_mha_card_vs_cpu(torch, IF)
+    print("block_mha_card_vs_cpu " + json.dumps(dict(out["block_mha"], card=smi)), flush=True)
+    return out
+
+
 def main():
     import torch
 
@@ -1736,6 +2310,10 @@ def main():
         from paddle_tpu_torch.ops.cuda import flash_attention as fa
         from paddle_tpu_torch.optimizer import AdamW
         from paddle_tpu_torch.utils import cpp_extension, custom_op
+        import paddle_tpu_torch.incubate.nn.functional as incubate_functional
+        from paddle_tpu_torch import serving as fleet
+        from paddle_tpu_torch.analysis import faultinject
+        from paddle_tpu_torch.models import serving as serving_mod
     except ImportError as e:
         print(f"chip_smoke: the paddle_tpu_torch package is not beside this "
               f"script ({e})", file=sys.stderr)
@@ -1815,6 +2393,13 @@ def main():
     continuous = phase_continuous(torch, fa, models, smi)
     print(f"phase_seconds 10 {time.perf_counter() - t0:.1f}", flush=True)
 
+    # phase 11: serving resilience and the fleet (fault points armed inside,
+    # every drill's outputs held to its undisturbed reference)
+    t0 = time.perf_counter()
+    resilience = phase_resilience(torch, fa, models, fleet, faultinject, serving_mod,
+                                  incubate_functional, smi)
+    print(f"phase_seconds 11 {time.perf_counter() - t0:.1f}", flush=True)
+
     kernel = dict(
         name="flash_attention_fwd", route="cuda",
         source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -1826,7 +2411,8 @@ def main():
                               int8_prefill=paged["int8"]["launches_prefill"],
                               static_prefill=continuous["serving"][
                                   "forward_launches_per_static_admission"],
-                              continuous=continuous["serving"]["forward_launches_continuous"]),
+                              continuous=continuous["serving"]["forward_launches_continuous"],
+                              resilience=resilience["launches"][0]),
         max_abs_err=main_row["max_abs_err"],
         tol=main_row["tol"], ms=main_row["kernel_ms"], kernel_ms=main_row["kernel_ms"],
         call_ms=main_row["kernel_call_ms"],

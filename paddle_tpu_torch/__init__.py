@@ -7,6 +7,8 @@ explicit ``torch.Generator``s. Hand-written kernels live in ``csrc/`` and
 build on first use (``ops/cuda/_build.py``).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
+Fault-injection points named in ``PADDLE_TPU_FAULTS`` are armed at import
+(``analysis/faultinject.py``), as the JAX package arms them.
 """
 from __future__ import annotations
 
@@ -26,3 +28,8 @@ def resolve_device(device=None) -> torch.device:
                 "device='cpu' to run the plain versions on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
+
+
+from .analysis import faultinject as _faultinject  # noqa: E402
+
+_faultinject.install_from_env()

@@ -1,2 +1,3 @@
-"""Distributed training of the port (counterpart of paddle_tpu.distributed);
-only the single-device recompute is ported so far."""
+"""Distributed training and serving support of the port (counterpart of
+paddle_tpu.distributed): the single-device recompute and the hang watchdog
+(``watchdog.py``) are ported so far."""

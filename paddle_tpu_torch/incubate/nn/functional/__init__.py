@@ -1,10 +1,13 @@
 """Fused functionals (counterpart of paddle_tpu/incubate/nn/functional).
 
-Only the rotate-half rotary pairing (``use_neox_rotary_style=False``), which
-the LLaMA model uses, is ported so far; the interleaved rotate-every-two
-pairing raises ``NotImplementedError``.
+Ported so far: the rotate-half rotary pairing (``use_neox_rotary_style=False``),
+which the LLaMA model uses (the interleaved rotate-every-two pairing raises
+``NotImplementedError``), and ``block_multihead_attention`` over the paged KV
+pool.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -59,3 +62,146 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
         cos_b, sin_b = cos[:, :, None, :], sin[:, :, None, :]
     return tuple(None if x is None else x * cos_b + _rotate_half(x) * sin_b
                  for x in (q, k, v))
+
+
+def _check(cond, exc, msg):
+    """A check of tensor values: raised here for CPU tensors; for tensors on
+    the card an asynchronous device assert, so the check costs no host sync
+    (the JAX package reads the values to the host)."""
+    if cond.device.type == "cpu":
+        if not bool(cond):
+            raise exc(msg)
+    else:
+        torch._assert_async(cond, msg)
+
+
+def block_multihead_attention(
+        qkv, key_cache, value_cache, seq_lens_encoder, seq_lens_decoder,
+        seq_lens_this_time, padding_offsets=None, cum_offsets=None,
+        cu_seqlens_q=None, cu_seqlens_k=None, block_tables=None,
+        pre_key_cache=None, pre_value_cache=None, cache_k_quant_scales=None,
+        cache_v_quant_scales=None, cache_k_dequant_scales=None,
+        cache_v_dequant_scales=None, qkv_out_scale=None, qkv_bias=None,
+        out_shift=None, out_smooth=None, max_enc_len_this_time=None,
+        max_dec_len_this_time=None, rope_emb=None, mask=None, tgt_mask=None,
+        max_seq_len=-1, block_size=64, use_neox_style=False,
+        use_dynamic_cachekv_quant=False, quant_round_type=1,
+        quant_max_bound=127.0, quant_min_bound=-127.0, out_scale=-1,
+        compute_dtype="default", rope_theta=10000.0, name=None):
+    """Paged-KV serving attention with the reference surface (the JAX
+    package's ``block_multihead_attention``): ``qkv`` holds varlen rows
+    ``[token_num, (q_heads + 2 * kv_heads) * head_dim]``; ``key_cache`` and
+    ``value_cache`` are ``[max_block_num, kv_heads, block_size, head_dim]``
+    pools whose rows a sequence owns through ``block_tables``. A prefill call
+    (``seq_lens_encoder`` > 0) runs causal self-attention over each prompt
+    with an fp32 softmax and writes the prompt into its blocks; a decode call
+    (``seq_lens_this_time`` == 1) appends one token a sequence at position
+    ``seq_lens_decoder`` and attends over its paged history
+    (``models/paged_kv.py``). Returns ``(out, qkv, key_cache, value_cache)``:
+    the caches are written in place and returned, ``qkv`` with its bias.
+
+    The phase comes from ``max_enc_len_this_time`` when it is given (a host
+    value, as the reference's ``blha_get_max_len`` gives it), else from the
+    lengths, which are then read once. The checks of the lengths (one phase a
+    call, no chunked prefill, one token a decode row, positions inside the
+    block tables) run on the device for tensors on the card, without a host
+    sync. Unsupported arguments raise as in the JAX package. Plain torch: the
+    JAX function has no Pallas kernel."""
+    for bad_name, bad in (
+            ("cache_k_quant_scales", cache_k_quant_scales),
+            ("cache_v_quant_scales", cache_v_quant_scales),
+            ("cache_k_dequant_scales", cache_k_dequant_scales),
+            ("cache_v_dequant_scales", cache_v_dequant_scales),
+            ("qkv_out_scale", qkv_out_scale), ("out_shift", out_shift),
+            ("out_smooth", out_smooth), ("rope_emb", rope_emb),
+            ("pre_key_cache", pre_key_cache), ("pre_value_cache", pre_value_cache)):
+        if bad is not None:
+            raise NotImplementedError(
+                f"block_multihead_attention: {bad_name} is not supported by this build "
+                "(apply rotary in the model; use LlamaDecodeEngine(kv_cache_dtype='int8') "
+                "for quantized KV)")
+    if use_dynamic_cachekv_quant or out_scale != -1:
+        raise NotImplementedError(
+            "block_multihead_attention: cache-KV quantization paths are not supported here")
+    if mask is not None or tgt_mask is not None:
+        raise NotImplementedError(
+            "block_multihead_attention: custom mask/tgt_mask are not supported; the paged "
+            "path computes causal prefill and full-history decode masking only")
+    if block_tables is None:
+        raise ValueError("block_tables is required")
+    from ....models import paged_kv as _pk
+
+    qkv = torch.as_tensor(qkv)
+    dev = qkv.device
+    tables = torch.as_tensor(block_tables).to(dev, torch.int32)
+    enc, dec, this = (torch.as_tensor(x).to(dev).reshape(-1)
+                      for x in (seq_lens_encoder, seq_lens_decoder, seq_lens_this_time))
+    n_kv, bs, hd = key_cache.shape[1], key_cache.shape[2], key_cache.shape[3]
+    n_q = qkv.shape[-1] // hd - 2 * n_kv
+    if qkv_bias is not None:
+        qkv = qkv + torch.as_tensor(qkv_bias).to(dev).reshape(-1)
+    # the reference layout [nb, kv, bs, d] seen as the pool layout [nb, bs,
+    # kv, d]: the paged writes go through these views into the caches
+    kc_p, vc_p = key_cache.transpose(1, 2), value_cache.transpose(1, 2)
+    B = tables.shape[0]
+    cap = tables.shape[1] * bs
+    if max_enc_len_this_time is not None:
+        max_enc = int(torch.as_tensor(max_enc_len_this_time).reshape(-1)[0])
+    else:
+        max_enc = None
+    is_prefill = max_enc > 0 if max_enc is not None else bool((enc > 0).any())
+    if is_prefill:
+        _check((dec == 0).all(), NotImplementedError,
+               "block_multihead_attention: mixed prefill+decode batches are not "
+               "supported; split the batch by phase")
+        _check((this == enc).all(), NotImplementedError,
+               "block_multihead_attention: chunked prefill (seq_lens_this_time != "
+               "seq_lens_encoder) is not supported")
+        _check((enc <= cap).all(), ValueError,
+               f"block_multihead_attention: a prompt is longer than its block table "
+               f"({cap} positions)")
+        n_tok = qkv.shape[0]
+        S = max_enc if max_enc is not None else min(n_tok, cap)
+        # varlen rows -> padded [B, S, ...] and back, with index vectors built
+        # on the device (no host copy of the lengths)
+        row_b = torch.repeat_interleave(torch.arange(B, device=dev), this.long(),
+                                        output_size=n_tok)
+        starts = torch.cumsum(this.long(), 0) - this.long()
+        row_t = torch.arange(n_tok, device=dev) - starts[row_b]
+        rows_all = qkv.reshape(n_tok, n_q + 2 * n_kv, hd)
+
+        def padded(part, heads):
+            pad = qkv.new_zeros((B, S, heads, hd))
+            pad[row_b, row_t] = part
+            return pad
+
+        q_pad = padded(rows_all[:, :n_q], n_q)
+        k_pad = padded(rows_all[:, n_q:n_q + n_kv], n_kv)
+        v_pad = padded(rows_all[:, n_q + n_kv:], n_kv)
+        lens = enc.to(torch.int32)
+        _pk.paged_write_prefill(kc_p, vc_p, tables, lens, k_pad, v_pad)
+        # causal self-attention over the prompt (fp32 softmax)
+        groups = n_q // n_kv
+        qg = q_pad.reshape(B, S, n_kv, groups, hd)
+        logits = torch.einsum("bshgd,bthd->bhgst", qg.float(), k_pad.float()) / math.sqrt(hd)
+        t_idx = torch.arange(S, device=dev)
+        causal = t_idx[None, :] <= t_idx[:, None]                # [S, S]
+        valid = t_idx[None, :] < lens[:, None]                   # [B, S]
+        keep = causal[None, None, None] & valid[:, None, None, None, :]
+        probs = torch.softmax(torch.where(keep, logits, -1e30), dim=-1)
+        o = torch.einsum("bhgst,bthd->bshgd", probs, v_pad.float()).to(qkv.dtype)
+        out = o.reshape(B, S, n_q * hd)[row_b, row_t]
+    else:
+        _check((this == 1).all(), NotImplementedError,
+               "block_multihead_attention decode phase expects one token per sequence "
+               "(seq_lens_this_time == 1)")
+        _check((dec < cap).all(), ValueError,
+               f"block_multihead_attention: a decode position is past its block table "
+               f"({cap} positions)")
+        rows = qkv.reshape(B, n_q + 2 * n_kv, hd)
+        lens = dec.to(torch.int32)
+        _pk.paged_write_decode(kc_p, vc_p, tables, lens, rows[:, n_q:n_q + n_kv],
+                               rows[:, n_q + n_kv:])
+        o = _pk.paged_attention_decode(rows[:, :n_q], kc_p, vc_p, tables, lens)
+        out = o.reshape(B, n_q * hd)
+    return out, qkv, key_cache, value_cache

@@ -5,5 +5,5 @@ from .llama import (LlamaConfig, LlamaForCausalLM, LlamaModel,  # noqa: F401
 from .llama_decode import LlamaDecodeEngine  # noqa: F401
 from .radix_cache import PrefixCache  # noqa: F401
 from .serving import (AdmissionTimeout, ContinuousBatchingEngine,  # noqa: F401
-                      RequestShed, StaticBatchEngine)
+                      RequestAborted, RequestShed, StaticBatchEngine)
 from .spec_decode import SuffixDrafter  # noqa: F401

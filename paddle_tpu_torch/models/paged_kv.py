@@ -26,8 +26,9 @@ What differs from the JAX package:
   index with it directly, and a captured CUDA graph that reads it keeps
   reading the current tables.
 - ``read_blocks`` returns host (CPU) tensors: numpy has no bfloat16.
-- The allocator's fault-injection point and monitor gauges are not ported
-  (the port has no ``analysis/faultinject`` and no ``monitor``).
+- The fault-injection points ``paged_kv.ensure`` and ``paged_kv.cow`` fire
+  where the JAX package fires them; the monitor gauges are not ported (they
+  belong to the observability slice, ROADMAP Queue A item 7).
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..analysis import faultinject as _fi
 
 __all__ = ["PagedKVCache", "CowPoolExhausted", "alloc_blocks",
            "read_blocks",
@@ -111,6 +113,14 @@ class PagedKVCache:
         decode steps grant nothing (blocks change once per block_size
         tokens). On exhaustion, the grants already made to earlier rows are
         uploaded before the error, so the device tables match the mirror."""
+        _sp = _fi.fire("paged_kv.ensure")
+        if _sp is not None and _sp.action == "flag":
+            # drill: the allocator's exhaustion error without touching the
+            # free list; the engine's eviction relief or preemption must
+            # absorb it
+            raise RuntimeError(
+                "paged KV pool exhausted: no free blocks (injected fault; "
+                f"pool={self.num_blocks}, block={self.block_size})")
         tables = self._tables_np
         owned = (tables > 0).sum(axis=1)
         need_arr = np.asarray(seq_lens_next)
@@ -273,6 +283,13 @@ class PagedKVCache:
         writes at ``positions[i]``, a targeted block that is shared (refs >
         1: prefix-cache hits, beam forks) is replaced by a private copy.
         Unshared pools take the cheap early exit."""
+        _sp = _fi.fire("paged_kv.cow")
+        if _sp is not None and _sp.action == "flag":
+            # drill: a real CowPoolExhausted carrying the live pools, raised
+            # before any copy
+            raise CowPoolExhausted(
+                "paged KV pool exhausted during copy-on-write (injected fault; "
+                f"pool={self.num_blocks})", pools)
         if (self._refs <= 1).all():
             return pools
         t = self._tables_np

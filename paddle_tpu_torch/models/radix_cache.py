@@ -25,11 +25,15 @@ Everything here is host-side bookkeeping (dicts and reference counts): a
 hit costs the device nothing. The digest is the JAX package's, byte for
 byte (blake2b, 16 bytes, over the parent digest and the int32 token bytes).
 
-What differs from the JAX package: the host-RAM spill store
-(``spill=True``, ``restore_chain``) belongs to the serving-resilience slice
-and raises ``NotImplementedError`` here; the fault-injection point and the
-monitor gauges are not ported (the port has no ``analysis/faultinject`` and
-no ``monitor``).
+With ``spill=True`` an evicted entry parks its exact K/V bits in host RAM
+(``read_blocks``: CPU tensors, bit for bit the pool's) instead of vanishing,
+and ``restore_chain`` writes a later match's spilled continuation back into
+fresh pool blocks in place (``PagedKVCache.write_block_contents``), so the
+pool tensors a captured CUDA graph holds stay the same tensors. The
+``radix.digest`` fault point fires where the JAX package fires it.
+
+What differs from the JAX package: the monitor gauges are not ported (they
+belong to the observability slice, ROADMAP Queue A item 7).
 """
 from __future__ import annotations
 
@@ -37,6 +41,9 @@ import collections
 import hashlib
 
 import numpy as np
+import torch
+
+from ..analysis import faultinject as _fi
 
 __all__ = ["PrefixCache"]
 
@@ -60,16 +67,25 @@ class _Entry:
         self.block = block      # physical block id in the pool
 
 
+class _SpillEntry:
+    """One evicted block parked in host RAM: the chain metadata and the
+    block's exact pool leaves per layer (``(k, v)`` or the quantized
+    ``(kq, ks, vq, vs)``, CPU tensors)."""
+
+    __slots__ = ("digest", "parent", "tokens", "payload")
+
+    def __init__(self, digest, parent, tokens, payload):
+        self.digest = digest
+        self.parent = parent
+        self.tokens = tokens
+        self.payload = payload
+
+
 class PrefixCache:
     """Content index over one :class:`PagedKVCache` pool."""
 
     def __init__(self, pager, capacity_blocks=None, spill=False,
                  spill_capacity_blocks=None):
-        if spill:
-            raise NotImplementedError(
-                "the host-RAM spill store (spill=True) belongs to the serving "
-                "resilience slice of the port and is not ported yet")
-        del spill_capacity_blocks
         self._pager = pager
         self.block_size = pager.block_size
         # digest -> _Entry; insertion order is LRU order (move_to_end on use)
@@ -82,11 +98,17 @@ class PrefixCache:
         # edges continue_tokens walks for the speculative drafter
         self._children = {}
         self.capacity = capacity_blocks
+        # host-RAM spill store: evicted entries park their exact K/V here, LRU
+        # order, and a later prefix match restores them into fresh blocks
+        self.spill = bool(spill)
+        self.spill_capacity = spill_capacity_blocks
+        self._spilled = collections.OrderedDict()   # digest -> _SpillEntry
         self.hits = 0                # lookups that matched >= 1 block
         self.misses = 0
         self.blocks_shared = 0       # blocks mapped into admitted requests
         self.collisions = 0          # digest hits with mismatched tokens
         self.evicted = 0
+        self.restores = 0            # spilled blocks restored to the pool
 
     def __len__(self):
         return len(self._entries)
@@ -106,6 +128,14 @@ class PrefixCache:
             tokens = prompt[i * bs:(i + 1) * bs]
             d = _digest(parent, tokens)
             e = self._entries.get(d)
+            # fired only on a non-empty cache, so an nth trigger is never
+            # spent on a lookup the corruption cannot touch
+            _sp = _fi.fire("radix.digest") if self._entries else None
+            if _sp is not None and _sp.action == "flag":
+                # drill: the chain hands back a wrong entry (right digest,
+                # other content); the token check below must make it a miss
+                blk = next(iter(self._entries.values())).block
+                e = _Entry(d, parent, (tokens + 1).astype(tokens.dtype), blk)
             if e is None:
                 break
             if not np.array_equal(e.tokens, tokens):
@@ -206,10 +236,9 @@ class PrefixCache:
         """Release up to ``n_blocks`` least-recently-used leaf entries whose
         block only the cache references (refs == 1): blocks mapped into live
         requests are never reclaimed, and an entry with live children is
-        skipped so chains shed from the tail. ``pools`` is accepted for the
-        JAX signature (the spill store would read them). Returns the number
-        of blocks handed back to the pool."""
-        del pools
+        skipped so chains shed from the tail. With spill on and the live
+        ``pools`` passed, each evicted block's exact K/V parks in host RAM
+        first. Returns the number of blocks handed back to the pool."""
         freed = 0
         while freed < n_blocks:
             progressed = False
@@ -219,6 +248,8 @@ class PrefixCache:
                 e = self._entries[d]
                 if self._nchildren.get(d, 0) > 0 or self._pager._refs[e.block] != 1:
                     continue
+                if self.spill and pools is not None:
+                    self._spill_entry(e, pools)
                 self._drop(e)
                 freed += 1
                 self.evicted += 1
@@ -227,11 +258,64 @@ class PrefixCache:
                 break   # everything left is live or an interior node
         return freed
 
+    def _spill_entry(self, e, pools):
+        from .paged_kv import read_blocks
+
+        # one tuple of pool leaves a layer, whatever layout the pool carries
+        payload = [tuple(leaf[0] for leaf in entry) for entry in read_blocks(pools, [e.block])]
+        self._spilled[e.digest] = _SpillEntry(e.digest, e.parent, e.tokens, payload)
+        self._spilled.move_to_end(e.digest)
+        if self.spill_capacity is not None:
+            while len(self._spilled) > self.spill_capacity:
+                self._spilled.popitem(last=False)
+
     def restore_chain(self, prompt, blocks, shared, pools):
-        """The spill store's restore (serving resilience): not ported yet."""
-        raise NotImplementedError(
-            "restore_chain belongs to the host-RAM spill store, which the port "
-            "has not ported yet (serving resilience slice)")
+        """Continue a :meth:`match` result through the spill store: every
+        spilled entry chaining past the pool-resident prefix is written back
+        into a freshly taken pool block (its exact K/V, in place) and indexed
+        again. Returns the extended ``(blocks, shared_tokens, pools)``;
+        unchanged when nothing chains on or the pool lacks the blocks (the
+        miss then recomputes, which is always correct)."""
+        if not self._spilled:
+            return blocks, shared, pools
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        bs = self.block_size
+        parent = b""
+        for i in range(shared // bs):
+            parent = _digest(parent, prompt[i * bs:(i + 1) * bs])
+        todo = []
+        for i in range(shared // bs, len(prompt) // bs):
+            tokens = prompt[i * bs:(i + 1) * bs]
+            d = _digest(parent, tokens)
+            se = self._spilled.get(d)
+            if se is None or d in self._entries or not np.array_equal(se.tokens, tokens):
+                break
+            todo.append(se)
+            parent = d
+        if not todo:
+            return blocks, shared, pools
+        blks = self._pager.take_blocks(len(todo))
+        if blks is None:
+            return blocks, shared, pools
+        contents = [tuple(torch.stack([se.payload[layer][i] for se in todo])
+                          for i in range(len(entry0)))
+                    for layer, entry0 in enumerate(todo[0].payload)]
+        pools = self._pager.write_block_contents(pools, blks, contents)
+        for se, blk in zip(todo, blks):
+            del self._spilled[se.digest]
+            self._entries[se.digest] = _Entry(se.digest, se.parent, se.tokens, blk)
+            self._by_block[blk] = se.digest
+            self._children.setdefault(se.parent, []).append(se.digest)
+            if se.parent:
+                self._nchildren[se.parent] = self._nchildren.get(se.parent, 0) + 1
+        self.restores += len(todo)
+        self.blocks_shared += len(todo)
+        if not blocks:
+            # match() missed only because the whole chain was in host RAM:
+            # the lookup did match cached K/V, so count it as a hit
+            self.hits += 1
+            self.misses -= 1
+        return blocks + blks, shared + len(todo) * bs, pools
 
     def _drop(self, e):
         del self._entries[e.digest]
@@ -254,10 +338,12 @@ class PrefixCache:
         self._pager.release_blocks([e.block])
 
     def clear(self):
-        """Drop the whole index, releasing every cache pin."""
+        """Drop the whole index and the spill store, releasing every cache
+        pin (the next pass starts cold)."""
         for e in self._entries.values():
             self._pager.release_blocks([e.block])
         self._entries.clear()
         self._by_block.clear()
         self._nchildren.clear()
         self._children.clear()
+        self._spilled.clear()

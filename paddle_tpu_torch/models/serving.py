@@ -18,36 +18,54 @@ Chunked prefill and prefix-shared paged KV over two fixed-shape programs:
 4. **Scheduler policy and backpressure.** FCFS or shortest-prefill-first,
    ``decode_priority``, tenant lanes with weighted-fair admission, priority
    shedding and a bounded ``submit()`` queue.
+5. **Resilience.** With ``kv_spill`` the radix cache parks evicted blocks in
+   host RAM and pool pressure preempts the lowest-priority request that is
+   not decoding (its K/V to host RAM, restored bit for bit on re-admission;
+   as in the JAX engine, a dry pool with every slot decoding still raises). ``recover()`` aborts
+   every in-flight request with a typed :class:`RequestAborted` carrying its
+   partial tokens and restarts warm (the radix cache and the captured
+   programs survive); ``start_driver()`` runs the engine on a driving thread
+   that recovers and relaunches itself when a step dies, and with
+   ``hang_timeout`` a watchdog recovers a step that hangs. ``cancel``,
+   ``withdraw_pending``, ``request_knobs`` and ``status`` are the surface
+   the fleet router (``serving/fleet.py``) drives.
 
 On a CUDA device each program is captured once per engine as a
 ``torch.cuda.CUDAGraph`` (the port's counterpart of the JAX engine's two
 donated ``jax.jit`` programs) over static input buffers; the pools are the
-pager's own tensors, written in place. Host work (admission, block grants,
-copy-on-write, the radix cache, routing) runs between replays; each replay is
-one host-to-device copy of the pack, device copies of the tables and lane
-vectors, the replay and one device-to-host copy of the result. A capture that
-fails raises: nothing falls back to eager execution on the card. On the CPU
-the engine calls the same functions eagerly.
+pager's own tensors, written in place, so a spill restore, a recovery or a
+copy-on-write changes what the graphs read without a new capture. Host work
+(admission, block grants, copy-on-write, the radix cache, routing) runs
+between replays; each replay is one host-to-device copy of the pack, device
+copies of the tables and lane vectors, the replay and one device-to-host
+copy of the result. A capture tolerates other threads' CUDA work (replica
+threads of a fleet capture and replay side by side) and a capture that fails
+raises: nothing falls back to eager execution on the card. On the CPU the
+engine calls the same functions eagerly.
 
 :class:`StaticBatchEngine` keeps the old architecture (batch-synchronous
 waves, one bucket-padded prefill per admission through the flash-attention
 kernel, lockstep decode) as the baseline the bench compares against. It runs
 eagerly.
 
-Not ported yet (the serving-resilience slice): the host-RAM KV spill and
-preemption (``kv_spill``), the driving thread and recovery, ``cancel``,
-``withdraw_pending``, ``request_knobs`` and ``status``; the monitor, trace,
-fault-injection and sanitizer hooks are not ported either.
+The fault points ``serving.step``, ``serving.drive``, ``serving.admission``
+and ``serving.spec_verify`` fire where the JAX package fires them. Not
+ported (the observability slice, ROADMAP Queue A item 7): the monitor
+metrics, the trace spans and flight dumps (``last_recovery_dump`` and a
+recovery's ``"dump"`` stay ``None``), the sanitizer hooks and the
+``/statusz`` registration.
 """
 from __future__ import annotations
 
 import collections
+import itertools
 import threading
 import time
 
 import numpy as np
 import torch
 
+from ..analysis import faultinject as _fi
 from ..incubate.nn.functional import _rope_tables
 from . import paged_kv as _pk
 from .llama_decode import LlamaDecodeEngine, _row_rope_tables
@@ -55,7 +73,9 @@ from .radix_cache import PrefixCache
 from .spec_decode import SuffixDrafter
 
 __all__ = ["ContinuousBatchingEngine", "StaticBatchEngine", "AdmissionTimeout",
-           "RequestShed"]
+           "RequestShed", "RequestAborted"]
+
+_ENGINE_SEQ = itertools.count()
 
 
 class AdmissionTimeout(RuntimeError):
@@ -75,12 +95,28 @@ class RequestShed(AdmissionTimeout):
         self.rid = rid
 
 
+class RequestAborted(RuntimeError):
+    """An in-flight request aborted by engine recovery (a dead or hung
+    driving thread). ``tokens`` carries the partial output, so the caller can
+    resume instead of hanging, and ``stats`` the request's partial
+    ``pop_stats`` record (``ttft_ns`` if the first token had landed, prefill
+    chunks, shared prefix tokens), so a router that re-routes the work can
+    merge them into the replacement's final stats."""
+
+    def __init__(self, message, rid=None, tokens=(), tenant="", stats=None):
+        super().__init__(message)
+        self.rid = rid
+        self.tokens = list(tokens)
+        self.tenant = tenant
+        self.stats = stats
+
+
 class _Request:
     """Host-side state of one admitted request (one slot)."""
 
     __slots__ = ("rid", "prompt", "prefill_pos", "chunks", "shared_tokens",
                  "max_new", "last_token", "outputs", "t_submit", "t_admit",
-                 "t_first", "tenant", "priority")
+                 "t_first", "tenant", "priority", "spill")
 
     def __init__(self, rid, prompt, max_new, t_submit, tenant="", priority=0):
         self.rid = rid
@@ -96,6 +132,9 @@ class _Request:
         self.t_first = 0
         self.tenant = tenant
         self.priority = priority
+        # preemption payload (tokens in KV, per-layer host K/V, decode_ready):
+        # set between a preemption and the re-admission that restores it
+        self.spill = None
 
     @property
     def prefilled(self):
@@ -141,6 +180,13 @@ def _pool_layout(pager, kv_int8):
     return pools, nbytes
 
 
+# one capture at a time in the process: replica threads of a fleet capture
+# their programs side by side (fleet warmup), and each capture is
+# thread-local, so another thread's table upload or result copy in the
+# middle of it does not invalidate it
+_CAPTURE_LOCK = threading.Lock()
+
+
 class _Program:
     """One of the engine's fixed-shape programs, ``fn(first, pools, *rest)``,
     on the pools' device.
@@ -148,9 +194,13 @@ class _Program:
     On the CPU a call runs ``fn`` eagerly. On CUDA the first call copies its
     inputs into static buffers, runs ``fn`` once on a side stream (lazy
     library set-up must not happen under capture; the run writes the same
-    K/V the replay writes again) and captures it into a CUDA graph; every
+    K/V the replay writes again) and captures it into a CUDA graph, under
+    the process-wide capture lock and in ``thread_local`` error mode; every
     call then copies its inputs into the buffers and replays. The returned
-    tensor is the graph's static output: read it before the next call."""
+    tensor is the graph's static output: read it before the next call.
+    ``_Program.captures`` counts the graphs captured in the process."""
+
+    captures = 0
 
     def __init__(self, fn, pools):
         self._fn = fn
@@ -168,18 +218,20 @@ class _Program:
         if dev.type != "cuda":
             return self._run([x.to(dev) for x in inputs])
         if self._graph is None:
-            self._static = [torch.empty_like(x, device=dev) for x in inputs]
-            for buf, x in zip(self._static, inputs):
-                buf.copy_(x)
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                self._run(self._static)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                self._out = self._run(self._static)
-            self._graph = graph
+            with _CAPTURE_LOCK:
+                static = [torch.empty_like(x, device=dev) for x in inputs]
+                for buf, x in zip(static, inputs):
+                    buf.copy_(x)
+                side = torch.cuda.Stream(dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side):
+                    self._run(static)
+                torch.cuda.current_stream(dev).wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                    out = self._run(static)
+                self._static, self._out, self._graph = static, out, graph
+                _Program.captures += 1
         for buf, x in zip(self._static, inputs):
             buf.copy_(x)
         self._graph.replay()
@@ -196,10 +248,11 @@ class ContinuousBatchingEngine:
     steady decode, the burst program); requests join and leave between
     steps, shared prompt prefixes ride the radix cache.
 
-    Threading contract: ``submit()`` is thread-safe (a pure enqueue under
-    ``_submit_lock``, where nothing blocks); ``step()`` and
-    ``add_request()`` change slot, pager and cache state and belong to one
-    driving thread."""
+    Threading contract: ``submit()``, ``cancel()``, ``request_knobs()``,
+    ``withdraw_pending()`` and ``recover()`` are thread-safe (queue and book
+    surgery under ``_submit_lock``, where nothing blocks and no CUDA work
+    runs); ``step()`` and ``add_request()`` change slot, pager and cache
+    state and belong to one driving thread (``start_driver()`` runs one)."""
 
     def __init__(self, model, max_batch=8, max_len=None, block_size=64,
                  chunk_size=32, max_step_tokens=None, policy="fcfs",
@@ -216,21 +269,18 @@ class ContinuousBatchingEngine:
         fuses up to that many decode iterations into one program when no
         prefill or admission work is pending (1 disables it). ``max_queue``
         bounds the submit() queue. ``prefill_buckets`` is accepted and
-        ignored, as in the JAX engine. ``strict_priority`` defers queued work
-        while a strictly higher-priority request is active.
-        ``kv_cache_dtype="int8"`` runs the whole engine on quantized pools.
-        ``spec_lookahead`` > 0 enables self-speculative decoding
-        (``models/spec_decode.py``) with up to that many draft lanes a
-        decode slot; ``spec_ngram`` bounds the drafter's n-gram length.
-        ``pool_blocks`` overrides the pool size (default: ``max_batch``
-        max-length requests). ``kv_spill`` and ``spill_capacity_blocks``
-        belong to the serving-resilience slice: ``kv_spill=True`` raises
-        ``NotImplementedError``."""
-        if kv_spill:
-            raise NotImplementedError(
-                "kv_spill (host-RAM KV spill and preemption) belongs to the "
-                "serving resilience slice of the port and is not ported yet")
-        del prefill_buckets, spill_capacity_blocks
+        ignored, as in the JAX engine. ``kv_spill`` turns on the host-RAM
+        resilience layer: radix evictions park their K/V in host RAM (at most
+        ``spill_capacity_blocks`` blocks, LRU) and a grant the cache cannot
+        relieve preempts the lowest-priority request that is not decoding
+        instead of failing the step. ``strict_priority`` defers queued work while a strictly
+        higher-priority request is active. ``kv_cache_dtype="int8"`` runs the
+        whole engine on quantized pools. ``spec_lookahead`` > 0 enables
+        self-speculative decoding (``models/spec_decode.py``) with up to that
+        many draft lanes a decode slot; ``spec_ngram`` bounds the drafter's
+        n-gram length. ``pool_blocks`` overrides the pool size (default:
+        ``max_batch`` max-length requests)."""
+        del prefill_buckets
         self._inner = LlamaDecodeEngine(model, max_len=max_len, kv_cache_layout="paged",
                                         block_size=block_size,
                                         kv_cache_dtype=kv_cache_dtype)
@@ -267,7 +317,10 @@ class ContinuousBatchingEngine:
             device=self.device)
         self._pools, self.kv_pool_bytes = _pool_layout(self._pager, e.kv_int8)
         self.kv_cache_dtype = kv_cache_dtype
-        self.prefix_cache = PrefixCache(self._pager) if prefix_cache else None
+        self.kv_spill = bool(kv_spill)
+        self.prefix_cache = PrefixCache(self._pager, spill=self.kv_spill,
+                                        spill_capacity_blocks=spill_capacity_blocks) \
+            if prefix_cache else None
         self.spec_lookahead = max(0, int(spec_lookahead))
         if self.spec_lookahead:
             self._drafter = SuffixDrafter(lookahead=self.spec_lookahead,
@@ -290,20 +343,50 @@ class ContinuousBatchingEngine:
         self._lane_cache = {}
         self._next_rid = 0
         # the two programs, "step" and "burst", each built (and on CUDA
-        # captured) once per engine
+        # captured) once per engine; a decode_burst knob change drops "burst"
         self._jit_cache = {}
         # the burst runs at the mixed step's T lanes (attending only the lane
         # groups that hold its B rows), so a decode token is computed with the
         # same shapes, and so the same library kernels and rounding, whichever
         # program computes it
         self._burst_rows = self.max_step_tokens
+        # the engine's tag in status() and its driving thread's name
+        self._tag = f"e{next(_ENGINE_SEQ)}"
         # submit() queues, one lane per tenant; _submit_lock guards the
         # bounded check and append only: nothing blocks under it
         self._tenants = {"": _Tenant("")}
         self._vnow = 0.0                # WFQ virtual clock (last pop)
         self._submit_lock = threading.Lock()
         self._stats = collections.OrderedDict()
+        # -- resilience state (recover, the driving thread, shedding) --------
+        self._epoch = 0                 # bumped by every recover()
+        self._recover_lock = threading.Lock()
         self._shed = collections.deque(maxlen=4096)     # RequestShed
+        self._aborted = collections.deque(maxlen=4096)  # RequestAborted
+        self._results = collections.deque(maxlen=4096)  # driver-mode results
+        self._driver = None
+        self._drive_stop = threading.Event()
+        self._drive_args = None
+        self._dog = None
+        # [{reason, ms, aborted, cold, dump}], bounded
+        self.recovery_stats = collections.deque(maxlen=256)
+        self.last_recovery_dump = None
+        # -- the fleet-facing surface -----------------------------------------
+        # knob changes staged by request_knobs() under _submit_lock and
+        # applied by the driving thread at the top of step()
+        self._pending_knobs = {}
+        # cancellations (thread-safe enqueue; the driving thread applies them
+        # at the next step boundary)
+        self._cancel_q = collections.deque()
+        self.cancelled = 0
+        # host counters of the spill path (the JAX engine's are monitor
+        # metrics): preemptions, their restores, and the bytes spilled
+        self.preemptions = 0
+        self.preempt_restores = 0
+        self.spilled_bytes = 0
+        # monotonic start of the step in flight (None between steps): the
+        # fleet health monitor's step-staleness signal
+        self.step_open_since = None
 
     # -- the two programs ----------------------------------------------------
     def _step_jit(self):
@@ -406,10 +489,10 @@ class ContinuousBatchingEngine:
         return rid
 
     def submit(self, prompt_ids, max_new_tokens=None, timeout=None, tenant=""):
-        """Always-queueing admission, the engine's one thread-safe entry
-        point: the request waits host-side until the driving thread's next
-        step() (or add_request()) assigns it a slot. With ``max_queue``, a
-        full queue first sheds the newest queued request of a strictly
+        """Always-queueing admission, the engine's thread-safe entry point:
+        the request waits host-side until the driving thread's next step()
+        (or add_request()) assigns it a slot. With ``max_queue``, a full
+        queue first sheds the newest queued request of a strictly
         lower-priority tenant (surfaced through :meth:`pop_shed`); when
         nothing is outranked it raises, at once when ``timeout`` is None,
         else after waiting up to ``timeout`` seconds: :class:`RequestShed`
@@ -479,8 +562,15 @@ class ContinuousBatchingEngine:
                 return req
             return ten.queue.popleft()
 
+    def _requeue_front(self, req):
+        """Head-of-lane requeue of a preempted request (admitted once, it
+        resumes before its tenant's new arrivals)."""
+        with self._submit_lock:
+            self._tenant_locked(req.tenant).queue.appendleft(req)
+
     def _drain_pending(self):
         """Assign queued requests to free slots (driving thread only)."""
+        _fi.fire("serving.admission")
         while True:
             slot = self._free_slot()
             if slot is None:
@@ -488,7 +578,18 @@ class ContinuousBatchingEngine:
             req = self._pop_pending()
             if req is None:
                 return
-            self._admit(slot, req)
+            if req.spill is not None:
+                if not self._restore(slot, req):
+                    # no room to restore the preempted K/V: park it at the
+                    # head of its lane and stop admitting until an eviction
+                    # frees blocks; refund the WFQ charge _pop_pending took
+                    self._requeue_front(req)
+                    with self._submit_lock:
+                        ten = self._tenant_locked(req.tenant)
+                        ten.vtime -= 1.0 / ten.weight
+                    return
+            else:
+                self._admit(slot, req)
 
     def _admit(self, slot, req):
         req.t_admit = time.perf_counter_ns()
@@ -498,6 +599,11 @@ class ContinuousBatchingEngine:
         # prompt token, whose write copies the shared tail block
         if self.prefix_cache is not None:
             blocks, shared = self.prefix_cache.match(req.prompt)
+            if self.kv_spill:
+                # evicted prefixes parked in host RAM rejoin the chain here,
+                # written back in place into fresh pool blocks
+                blocks, shared, _pools = self.prefix_cache.restore_chain(
+                    req.prompt, blocks, shared, self._pools)
             if blocks:
                 self._pager.adopt_blocks(slot, blocks)
                 req.shared_tokens = shared
@@ -522,18 +628,206 @@ class ContinuousBatchingEngine:
         with self._submit_lock:
             return self._stats.pop(rid, None)
 
+    def status(self):
+        """Host-readable state (counters, pool headroom, programs built,
+        the last recovery): no CUDA work and no lock, safe to call from any
+        thread while another drives step(). ``compiled_programs`` counts the
+        programs built; on the card each is captured at its first call."""
+        pager = self._pager
+        free = len(pager._free)
+        total = pager.num_blocks - 1          # block 0 is the null block
+        doc = {
+            "engine": self._tag,
+            "health": "ok",
+            "active": int(self._active.sum()),
+            "pending": self.num_pending,
+            "max_batch": self.max_batch,
+            "kv": {
+                "free_blocks": free,
+                "total_blocks": total,
+                "headroom": round(free / max(total, 1), 4),
+                "pool_bytes": int(self.kv_pool_bytes),
+                "dtype": self.kv_cache_dtype or "full",
+            },
+            "compiled_programs": len(self._jit_cache),
+            "epoch": self._epoch,
+            "recoveries": len(self.recovery_stats),
+            "cancelled": self.cancelled,
+            "driver_alive": bool(self._driver is not None and self._driver.is_alive()),
+            "knobs": {
+                "chunk_size": self.chunk_size,
+                "decode_burst": self.decode_burst,
+                "decode_priority": self.decode_priority,
+                "max_queue": self.max_queue,
+            },
+        }
+        if self.recovery_stats:
+            doc["last_recovery"] = dict(self.recovery_stats[-1])
+        opened = self.step_open_since
+        if opened is not None:
+            doc["step_open_s"] = round(time.monotonic() - opened, 4)
+        if self._drafter is not None:
+            doc["spec"] = {
+                "drafted": self.spec_drafted,
+                "accepted": self.spec_accepted,
+                "accept_rate": round(self.spec_accepted / max(self.spec_drafted, 1), 4),
+            }
+        if self.prefix_cache is not None:
+            doc["kv"]["prefix_cache_blocks"] = len(self.prefix_cache)
+        return doc
+
+    # -- preemption and restore (host-RAM K/V spill under pool pressure) -----
+    def _preempt_lowest(self, exclude=()):
+        """Preempt the lowest-priority active request (ties: the newest): its
+        exact K/V goes to host RAM, its blocks back to the pool, and it
+        rejoins the head of its tenant's lane, restored bit for bit by
+        :meth:`_restore` on re-admission. Returns the freed slot, or None
+        when nothing can be preempted."""
+        skip = set(int(b) for b in exclude)
+        cands = [b for b in range(self.max_batch)
+                 if self._slots[b] is not None and b not in skip]
+        if not cands:
+            return None
+        slot = min(cands, key=lambda b: (self._slots[b].priority, -self._slots[b].rid))
+        req = self._slots[slot]
+        n_tok = int(self.lens[slot])
+        nblk = -(-n_tok // self.block_size) if n_tok else 0
+        contents = None
+        if nblk:
+            blocks = [int(b) for b in self._pager._tables_np[slot][:nblk]]
+            contents = _pk.read_blocks(self._pools, blocks)
+        req.spill = (n_tok, contents, bool(self._decode_ready[slot]))
+        self._pager.free_sequence(slot)
+        self._slots[slot] = None
+        self._active[slot] = False
+        self._decode_ready[slot] = False
+        self.lens[slot] = 0
+        self._chain_cursors.pop(slot, None)
+        if self._drafter is not None:
+            self._drafter.drop(req.rid)   # _restore admits the context again
+        self._requeue_front(req)
+        self.preemptions += 1
+        self.spilled_bytes += 0 if contents is None else int(sum(
+            leaf.numel() * leaf.element_size() for entry in contents for leaf in entry))
+        return slot
+
+    def _restore(self, slot, req):
+        """Re-admit a preempted request: fresh blocks, the spilled K/V written
+        back in place at the same in-block offsets, slot state rebuilt; the
+        continuation is bit-identical to an undisturbed run. Returns False,
+        leaving the request untouched, when the pool lacks the blocks even
+        after cache relief."""
+        n_tok, contents, decode_ready = req.spill
+        nblk = -(-n_tok // self.block_size) if n_tok else 0
+        blks = []
+        if nblk:
+            blks = self._pager.take_blocks(nblk)
+            if blks is None and self.prefix_cache is not None and len(self.prefix_cache):
+                self.prefix_cache.evict(nblk, pools=self._pools)
+                blks = self._pager.take_blocks(nblk)
+            if blks is None:
+                return False
+        req.t_admit = time.perf_counter_ns()
+        if nblk:
+            self._pager.place_blocks(slot, blks)
+            self._pager.write_block_contents(self._pools, blks, contents)
+        req.spill = None
+        self.lens[slot] = n_tok
+        self._slots[slot] = req
+        self._active[slot] = True
+        self._decode_ready[slot] = decode_ready
+        self._last_tok[slot] = req.last_token
+        self._chain_cursors.pop(slot, None)
+        if self._drafter is not None:
+            # rebuild the draft context (prompt and every token emitted so
+            # far), so the restored request speculates as an undisturbed one
+            ctx = req.prompt if not req.outputs else np.concatenate(
+                [req.prompt, np.asarray(req.outputs, np.int32)])
+            self._drafter.drop(req.rid)
+            self._drafter.admit(req.rid, ctx)
+        with self._submit_lock:
+            st = self._stats.get(req.rid)
+            if st is None:
+                st = self._stats[req.rid] = {
+                    "rid": req.rid, "prompt_len": len(req.prompt), "tenant": req.tenant,
+                    "shared_tokens": req.shared_tokens, "submit_ns": req.t_submit}
+            st["slot"] = slot
+            st["restored"] = True
+        self.preempt_restores += 1
+        return True
+
+    # -- staged knob changes -------------------------------------------------
+    _KNOB_NAMES = ("chunk_size", "decode_burst", "decode_priority", "max_queue")
+
+    def request_knobs(self, **knobs):
+        """Stage serving-knob changes for the next step boundary
+        (thread-safe): ``chunk_size``, ``decode_burst``, ``decode_priority``,
+        ``max_queue``. Values are checked here; the driving thread applies
+        them at the top of :meth:`step`, so a knob never changes mid-step. A
+        ``decode_burst`` change drops the burst program: the next
+        burst-eligible step builds (on the card, captures) it once with the
+        new K."""
+        staged = {}
+        for name, v in knobs.items():
+            if name not in self._KNOB_NAMES:
+                raise ValueError(f"unknown serving knob {name!r} (known: {self._KNOB_NAMES})")
+            if name == "max_queue":
+                v = None if v is None else max(1, int(v))
+            elif name == "decode_priority":
+                v = float(v)
+                if not 0.0 <= v < 1.0:
+                    raise ValueError("decode_priority must be in [0, 1)")
+            else:
+                v = max(1, int(v))
+            staged[name] = v
+        with self._submit_lock:
+            self._pending_knobs.update(staged)
+
+    def _apply_pending_knobs(self):
+        """Apply staged knobs (driving thread, step entry)."""
+        with self._submit_lock:
+            if not self._pending_knobs:
+                return
+            knobs, self._pending_knobs = self._pending_knobs, {}
+        for name, v in knobs.items():
+            if name == "decode_burst" and v != self.decode_burst:
+                self._jit_cache.pop("burst", None)
+            setattr(self, name, v)
+
     # -- the step ------------------------------------------------------------
     def step(self, eos_token_id=None, max_new_tokens=None):
         """One step: the mixed program (every prefilled slot decodes one
         token, plus draft-verify lanes; admitted slots consume prefill chunks
         from the rest of the budget) or, in steady decode, the burst.
-        Returns the finished (request_id, tokens) pairs evicted this step."""
-        with torch.inference_mode():
-            return self._step_impl(eos_token_id, max_new_tokens)
+        Returns the finished (request_id, tokens) pairs evicted this step.
+
+        A step that a recovery superseded (its epoch moved while it was stuck
+        at the fault point, in a program call, or crashing on state the
+        recovery tore down) returns ``[]``: the new epoch owns the slots."""
+        epoch = self._epoch
+        self._apply_pending_knobs()
+        self.step_open_since = time.monotonic()
+        try:
+            _fi.fire("serving.step")
+            if epoch != self._epoch:
+                return []
+            try:
+                with torch.inference_mode():
+                    finished = self._step_impl(eos_token_id, max_new_tokens)
+            except Exception:
+                if epoch != self._epoch:
+                    return []
+                raise
+            if epoch != self._epoch:
+                return []
+            return finished
+        finally:
+            self.step_open_since = None
 
     def _ensure(self, need):
         """ensure_capacity with radix-cache relief: on pool exhaustion, evict
-        the LRU cache-only blocks the grant is short of, then retry once."""
+        the LRU cache-only blocks the grant is short of (spilling them to host
+        RAM with ``kv_spill``), then retry once."""
         try:
             self._pager.ensure_capacity(need)
             return
@@ -544,10 +838,17 @@ class ContinuousBatchingEngine:
         owned = (pager._tables_np > 0).sum(axis=1)
         want = -(-np.maximum(np.asarray(need, np.int64), 0) // self.block_size)
         shortfall = int(np.maximum(want - owned, 0).sum()) - len(pager._free)
-        self.prefix_cache.evict(max(shortfall, 1))
+        self.prefix_cache.evict(max(shortfall, 1), pools=self._pools)
         self._pager.ensure_capacity(need)
 
     def _step_impl(self, eos_token_id, max_new_tokens):
+        # the epoch fence after the program call bounds what a superseded
+        # step can touch (the microseconds of pack assembly before it are
+        # the accepted window, as in the JAX engine)
+        epoch = self._epoch
+        # cancellations first: a cancelled queued request must not be
+        # admitted below, and a cancelled active slot frees its lane
+        self._apply_cancels()
         self._drain_pending()
         if not self._active.any():
             return []
@@ -556,7 +857,12 @@ class ContinuousBatchingEngine:
         prefill_slots = np.flatnonzero(self._active & ~self._decode_ready).tolist()
         nd = len(decode_slots)
         draft_map = {}
-        spec_ok = self._drafter is not None and nd > 0
+        spec_ok = False
+        if self._drafter is not None and nd:
+            # the verify site: a flag fault degrades this step to plain
+            # one-token decode (drafts are only ever verified)
+            _sp = _fi.fire("serving.spec_verify")
+            spec_ok = _sp is None or _sp.action != "flag"
         if spec_ok and not prefill_slots:
             # steady state: the spare budget is draft-verify lanes; grant
             # their blocks before the burst gate, so a pool that cannot fund
@@ -572,17 +878,25 @@ class ContinuousBatchingEngine:
                 and self._burst_useful(decode_slots, K, max_new_tokens):
             need = np.where(self._active, self.lens, 0)
             need[decode_slots] += K
-            self._ensure(need)
-            # every position the burst writes must target an unshared block:
-            # copy-on-write runs on the host, so a shared target sends this
-            # step down the single-step path
-            t = self._pager._tables_np
-            first = self.lens[decode_slots] // self.block_size
-            last = (self.lens[decode_slots] + K - 1) // self.block_size
-            targets = np.concatenate([t[b, f:g + 1] for b, f, g in
-                                      zip(decode_slots, first, last)])
-            if not (self._pager._refs[targets] > 1).any():
-                return self._burst_impl(decode_slots, eos_token_id, max_new_tokens)
+            try:
+                self._ensure(need)
+                granted = True
+            except RuntimeError:
+                if not self.kv_spill:
+                    raise
+                granted = False   # the single-step path preempts for room
+            if granted:
+                # every position the burst writes must target an unshared
+                # block: copy-on-write runs on the host, so a shared target
+                # sends this step down the single-step path
+                t = self._pager._tables_np
+                first = self.lens[decode_slots] // self.block_size
+                last = (self.lens[decode_slots] + K - 1) // self.block_size
+                targets = np.concatenate([t[b, f:g + 1] for b, f, g in
+                                          zip(decode_slots, first, last)])
+                if not (self._pager._refs[targets] > 1).any():
+                    return self._burst_impl(decode_slots, eos_token_id, max_new_tokens,
+                                            epoch)
         if self.policy == "spf":
             prefill_slots.sort(key=lambda b: (
                 -self._slots[b].priority,
@@ -595,10 +909,23 @@ class ContinuousBatchingEngine:
             # bound the prefill share of the pack, never to zero
             budget = min(budget, max(1, int((1.0 - self.decode_priority) * T)))
         # capacity grants: decode slots must proceed; a prefill chunk that
-        # cannot get blocks waits a step
+        # cannot get blocks waits a step. With kv_spill, a grant the cache
+        # cannot relieve preempts the lowest-priority non-decoding request
         need = np.where(self._active, self.lens, 0)
         need[decode_slots] += 1
-        self._ensure(need)
+        while True:
+            try:
+                self._ensure(need)
+                break
+            except RuntimeError:
+                if not self.kv_spill:
+                    raise
+                victim = self._preempt_lowest(exclude=decode_slots)
+                if victim is None:
+                    raise
+                need[victim] = 0
+                if victim in prefill_slots:
+                    prefill_slots.remove(victim)
         need, draft_map = self._grant_drafts(need, draft_map)
         chunks = []                     # (slot, start, take)
         for b in prefill_slots:
@@ -622,6 +949,11 @@ class ContinuousBatchingEngine:
                 draft_map = self._collect_drafts(decode_slots, left, max_new_tokens)
                 need, draft_map = self._grant_drafts(need, draft_map)
         if not nd and not chunks:
+            if self.kv_spill and self._preempt_lowest() is not None:
+                # the pool is pinned and nothing can progress: one request's
+                # K/V goes to host RAM, the freed blocks unstick the rest
+                # next step and the victim resumes bit for bit later
+                return []
             raise RuntimeError("serving step cannot pack any lane: paged KV pool "
                                "exhausted with no evictable prefix-cache blocks")
         # pack assembly: decode lanes (each followed by its draft lanes, so
@@ -679,7 +1011,7 @@ class ContinuousBatchingEngine:
                 # cache-only blocks back and retry
                 if self.prefix_cache is None or not len(self.prefix_cache):
                     raise
-                self.prefix_cache.evict(n_lanes)
+                self.prefix_cache.evict(n_lanes, pools=self._pools)
                 self._pager.make_positions_exclusive(rows, positions[:n_lanes], self._pools)
         key = (decode_slots.tobytes(),
                () if dec_lanes is None else tuple(kb for _b, _l, kb in dec_lanes),
@@ -707,6 +1039,11 @@ class ContinuousBatchingEngine:
             self._lane_cache[key] = cached
         out = self._step_jit()(torch.from_numpy(pack_np), self._pager.block_tables,
                                *cached).cpu().numpy()
+        if epoch != self._epoch:
+            # a recovery superseded this step during the call: its writes
+            # went only to blocks its own lanes held, all freed by the
+            # recovery; every host-side change now belongs to the new epoch
+            return []
         toks, acc = out[0], out[1]
         t1 = time.perf_counter_ns()
         # route decode results: every slot emits its base token plus one
@@ -839,7 +1176,7 @@ class ContinuousBatchingEngine:
             useful += K if limit is None else min(K, max(limit - len(req.outputs), 0))
         return 2 * useful >= K * len(decode_slots)
 
-    def _burst_impl(self, decode_slots, eos_token_id, max_new_tokens):
+    def _burst_impl(self, decode_slots, eos_token_id, max_new_tokens, epoch):
         """Steady-state path: K fused decode iterations, one (2, B) upload,
         one (B, K) download."""
         K = self.decode_burst
@@ -848,6 +1185,8 @@ class ContinuousBatchingEngine:
         pack[1] = self.lens
         toks = self._burst_jit()(torch.from_numpy(pack),
                                  self._pager.block_tables).cpu().numpy()   # (B, K)
+        if epoch != self._epoch:
+            return []                   # superseded mid-call: as the mixed step
         finished = []
         for b in decode_slots:
             pre = int(self.lens[b])
@@ -899,6 +1238,195 @@ class ContinuousBatchingEngine:
     @property
     def num_pending(self):
         return sum(len(t.queue) for t in list(self._tenants.values()))
+
+    # -- the fleet-facing surface (cancellation, queue withdrawal) -----------
+    def cancel(self, rid):
+        """Request cancellation of one request (thread-safe, a pure enqueue).
+        The driving thread applies it at the next step boundary: a queued
+        request leaves its lane, an active one is evicted (its blocks freed)
+        without a result. A finished request is unaffected: its result
+        stands. The tail-hedging loser's exit (``serving/fleet.py``)."""
+        self._cancel_q.append(rid)
+
+    def _apply_cancels(self):
+        """Driving thread only: apply every pending cancellation."""
+        rids = set(_drain(self._cancel_q))
+        if not rids:
+            return
+        n = 0
+        with self._submit_lock:
+            for ten in self._tenants.values():
+                for req in [r for r in ten.queue if r.rid in rids]:
+                    ten.queue.remove(req)
+                    rids.discard(req.rid)
+                    self._stats.pop(req.rid, None)
+                    n += 1
+        for b in range(self.max_batch):
+            req = self._slots[b]
+            if req is not None and req.rid in rids:
+                self._evict(b)          # frees blocks; no result emitted
+                with self._submit_lock:
+                    self._stats.pop(req.rid, None)
+                n += 1
+        self.cancelled += n
+
+    def withdraw_pending(self):
+        """Pull every queued (not yet admitted) request out of the tenant
+        lanes (thread-safe: queue surgery under the submit lock; slot and
+        pager state are untouched). Returns ``{"rid", "prompt", "max_new",
+        "tenant", "outputs"}`` dicts (``outputs`` is non-empty for a
+        preempted request queued again mid-generation): what a fleet router
+        moves off a draining or failed replica."""
+        out = []
+        with self._submit_lock:
+            for ten in self._tenants.values():
+                while ten.queue:
+                    req = ten.queue.popleft()
+                    self._stats.pop(req.rid, None)
+                    out.append({"rid": req.rid, "prompt": req.prompt, "max_new": req.max_new,
+                                "tenant": req.tenant, "outputs": list(req.outputs)})
+        return out
+
+    # -- crash and hang recovery ---------------------------------------------
+    def recover(self, reason="", stuck=""):
+        """Tear down the slot state of a dead or hung epoch and restart warm:
+        every in-flight request is aborted with a typed
+        :class:`RequestAborted` carrying its partial tokens and stats
+        (drained by :meth:`pop_aborted`), slots and pager rows are freed, and
+        the radix cache survives, so re-submissions of the same prompts hit
+        it (with ``kv_spill``, spilled prefixes restore from host RAM).
+        Queued requests stay queued; the captured programs stay valid (the
+        pools and tables are the same tensors). Thread-safe: concurrent
+        observers of one failure (the dying driving thread, the hang
+        watchdog) collapse to one recovery, the loser returns None. A step
+        this recovery supersedes sees the new epoch and applies nothing.
+        ``stuck`` names the stuck section (kept for the flight dump of the
+        observability slice). Returns the number of aborted requests."""
+        del stuck
+        if not self._recover_lock.acquire(blocking=False):
+            return None
+        try:
+            t0 = time.perf_counter_ns()
+            # the epoch moves first: a step stuck at its fault point wakes,
+            # sees it, and returns without touching what this recovery owns
+            self._epoch += 1
+            aborted = 0
+            for b in range(self.max_batch):
+                req = self._slots[b]
+                if req is None:
+                    continue
+                # the partial stats ride the typed abort (popped: nobody
+                # would pop the dead rid's record again)
+                with self._submit_lock:
+                    st = self._stats.pop(req.rid, None)
+                    if st is not None:
+                        st["aborted"] = True
+                        st["tokens"] = len(req.outputs)
+                self._aborted.append(RequestAborted(
+                    f"request {req.rid} aborted by engine recovery: {reason}",
+                    rid=req.rid, tokens=req.outputs, tenant=req.tenant, stats=st))
+                aborted += 1
+                self._pager.free_sequence(b)
+                self._slots[b] = None
+                if self._drafter is not None:
+                    self._drafter.drop(req.rid)
+            self._active[:] = False
+            self._decode_ready[:] = False
+            self.lens[:] = 0
+            self._last_tok[:] = 0
+            self._lane_cache.clear()
+            self._chain_cursors.clear()
+            # kept: the programs, the admission queues, and the radix cache
+            # with its pinned blocks; that is what makes the restart warm
+            cold = self.prefix_cache is None or not len(self.prefix_cache)
+            self.recovery_stats.append({
+                "reason": reason, "ms": (time.perf_counter_ns() - t0) / 1e6,
+                "aborted": aborted, "cold": cold, "dump": None})
+            return aborted
+        finally:
+            self._recover_lock.release()
+
+    def pop_aborted(self):
+        """Drain the :class:`RequestAborted` records of requests a recovery
+        cut short (each carries the partial ``tokens``)."""
+        return _drain(self._aborted)
+
+    # -- the driving thread --------------------------------------------------
+    def start_driver(self, eos_token_id=None, max_new_tokens=None, hang_timeout=None,
+                     poll_s=0.0005):
+        """Start the engine's driving thread: it admits and steps whenever
+        work is pending and parks finished ``(rid, tokens)`` pairs for
+        :meth:`pop_results`; producers keep calling :meth:`submit` from any
+        thread. If the thread dies (anything step() raises), it runs
+        :meth:`recover` and starts a new driving thread, warm. With
+        ``hang_timeout`` a watchdog recovers a step stuck longer than that
+        many seconds from its scanner thread (the stuck step returns empty
+        when it wakes). Idempotent while the thread lives."""
+        if self._driver is not None and self._driver.is_alive():
+            return
+        self._drive_args = (eos_token_id, max_new_tokens, float(poll_s))
+        self._drive_stop.clear()
+        if hang_timeout is not None:
+            from ..distributed.watchdog import CommWatchdog
+
+            self._dog = CommWatchdog(timeout=float(hang_timeout), on_timeout=self._on_hang,
+                                     flight_key=self._tag)
+        self._spawn_driver()
+
+    def stop_driver(self, timeout=5.0):
+        """Stop the driving thread (its current step completes first)."""
+        self._drive_stop.set()
+        drv = self._driver
+        if drv is not None and drv.is_alive():
+            drv.join(timeout=timeout)
+        if self._dog is not None:
+            self._dog.stop()
+            self._dog = None
+        self._driver = None
+
+    def pop_results(self):
+        """Drain the finished ``(rid, tokens)`` pairs the driving thread
+        collected."""
+        return _drain(self._results)
+
+    def _spawn_driver(self):
+        t = threading.Thread(target=self._drive_loop, daemon=True,
+                             name=f"serving-driver-{self._tag}")
+        self._driver = t
+        t.start()
+
+    def _on_hang(self, desc, dump):
+        """Watchdog callback: a watched step exceeded the hang timeout."""
+        del dump
+        self.recover(f"watchdog-detected hang: {desc} exceeded {self._dog.timeout}s",
+                     stuck=desc)
+
+    def _drive_loop(self):
+        eos, max_new, poll = self._drive_args
+        while not self._drive_stop.is_set():
+            try:
+                if not (self._active.any() or self.num_pending):
+                    time.sleep(poll)
+                    continue
+                # the kill drill's site: before a step that has work (an idle
+                # poll never spends the trigger count)
+                _fi.fire("serving.drive")
+                if self._dog is not None:
+                    with self._dog.watch("serving.step"):
+                        finished = self.step(eos, max_new)
+                else:
+                    finished = self.step(eos, max_new)
+                self._results.extend(finished)
+            except Exception as e:  # noqa: BLE001 - any driving-thread death
+                # recovers and relaunches warm
+                if self._drive_stop.is_set():
+                    return
+                point = getattr(e, "point", "")
+                self.recover(f"driving thread died: {type(e).__name__}: {e}",
+                             stuck=point or "serving.step")
+                if not self._drive_stop.is_set():
+                    self._spawn_driver()
+                return
 
 
 class StaticBatchEngine:

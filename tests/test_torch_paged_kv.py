@@ -5,7 +5,14 @@ Allocator: the same call sequence on both ``PagedKVCache``s must leave the
 same tables, free list and reference counts. Pool functions: the same numpy
 pools, tables and values go to both; writes must leave every block bit for
 bit as the JAX package leaves it (padding rows and invalid lanes included),
-and attention must agree at fp32 within rtol/atol 1e-5.
+and attention must agree at fp32 within rtol/atol 1e-5. The allocator's fault
+points (``paged_kv.ensure``, ``paged_kv.cow``) raise the same typed errors
+and leave the same books.
+
+``block_multihead_attention`` (the reference-surface functional over the
+pool, ``incubate.nn.functional``): prefill then decode against the JAX
+function and the dense oracle of tests/test_paged_kv.py:142-230, within
+1e-5; the same unsupported arguments raise.
 """
 import numpy as np
 import pytest
@@ -13,8 +20,12 @@ import pytest
 import jax.numpy as jnp
 import torch
 
-import paddle_tpu  # noqa: F401  (the JAX package's settings: x64 on)
+import paddle_tpu as paddle
+import paddle_tpu.incubate.nn.functional as JF
+from paddle_tpu.analysis import faultinject as jfi
 from paddle_tpu.models import paged_kv as jpk
+import paddle_tpu_torch.incubate.nn.functional as TF
+from paddle_tpu_torch.analysis import faultinject as tfi
 from paddle_tpu_torch.models import paged_kv as tpk
 
 
@@ -412,3 +423,191 @@ class TestSpillRoundTrip:
         others = [b for b in range(1, 9) if b not in blks]
         for leaf in tpk.read_blocks(tpools, others)[0]:
             assert not leaf.any()
+
+
+class TestFaultPointsAgainstJax:
+    @pytest.fixture(autouse=True)
+    def _clean(self):
+        jfi.reset()
+        tfi.reset()
+        yield
+        jfi.reset()
+        tfi.reset()
+
+    def test_ensure_flag_raises_without_touching_the_free_list(self):
+        j, t = _pair()
+        for c, fi in ((j, jfi), (t, tfi)):
+            c.ensure_capacity([4, 0])
+            fi.arm("paged_kv.ensure", action="flag", nth=2)
+            c.ensure_capacity([4, 0])              # the first call: no trip
+            with pytest.raises(RuntimeError, match="injected fault"):
+                c.ensure_capacity([8, 4])
+            c.ensure_capacity([8, 4])              # nth fires once
+        assert tfi.trips() == jfi.trips() == [("paged_kv.ensure", "flag")]
+        _same_books(j, t)
+
+    def test_cow_flag_raises_with_the_live_pools(self):
+        j, t = _pair(num_blocks=6, kv_heads=1, head_dim=2, max_blocks_per_seq=2)
+        jpools, tpools = _filled(j, t, 2)
+        for c, pools, fi, exc in ((j, jpools[0], jfi, jpk.CowPoolExhausted),
+                                  (t, tpools[0], tfi, tpk.CowPoolExhausted)):
+            c.ensure_capacity([4, 0])
+            c.retain_blocks([int(c._tables_np[0, 0])])
+            fi.arm("paged_kv.cow", action="flag", nth=1)
+            with pytest.raises(exc, match="injected fault") as ei:
+                c.make_positions_exclusive([0], [3], pools)
+            assert ei.value.pools is pools
+            c.make_positions_exclusive([0], [3], pools)   # the copy runs now
+        _same_books(j, t)
+
+
+# -- block_multihead_attention -------------------------------------------------
+
+def _dense_attention(q, k, v):
+    """tests/test_paged_kv.py's oracle: one query row (heads, D) over keys
+    (T, kv, D), GQA by head groups, fp64."""
+    n_q, n_kv = q.shape[0], k.shape[1]
+    g = n_q // n_kv
+    out = np.zeros_like(q, dtype=np.float64)
+    for h in range(n_q):
+        s = k[:, h // g].astype(np.float64) @ q[h].astype(np.float64) / np.sqrt(q.shape[1])
+        w = np.exp(s - s.max())
+        out[h] = (w / w.sum()) @ v[:, h // g].astype(np.float64)
+    return out
+
+
+def _bmha_setup(B, n_kv, D, bs, max_blocks):
+    nb = 1 + B * max_blocks
+    tables = np.arange(1, nb).reshape(B, max_blocks).astype(np.int64)
+    return np.zeros((nb, n_kv, bs, D), np.float32), tables
+
+
+@pytest.mark.parametrize("n_q,n_kv,enc,bias", [
+    (4, 2, (5, 3), False), (4, 4, (7, 1, 4), True), (8, 1, (12, 9), False),
+], ids=["gqa", "mha_bias", "mqa_multiblock"])
+def test_block_multihead_attention_prefill_then_decode(n_q, n_kv, enc, bias):
+    B, D, bs, max_blocks = len(enc), 8, 4, 4
+    kc0, tables = _bmha_setup(B, n_kv, D, bs, max_blocks)
+    rng = np.random.RandomState(sum(enc))
+    enc = np.asarray(enc, np.int32)
+    width = (n_q + 2 * n_kv) * D
+    qkv = rng.randn(int(enc.sum()), width).astype(np.float32)
+    qkv_bias = rng.randn(width).astype(np.float32) * 0.1 if bias else None
+    zeros = np.zeros(B, np.int32)
+    j_out, j_qkv, jkc, jvc = JF.block_multihead_attention(
+        paddle.to_tensor(qkv), paddle.to_tensor(kc0), paddle.to_tensor(kc0),
+        paddle.to_tensor(enc), paddle.to_tensor(zeros), paddle.to_tensor(enc),
+        block_tables=paddle.to_tensor(tables), block_size=bs,
+        qkv_bias=None if qkv_bias is None else paddle.to_tensor(qkv_bias))
+    tkc, tvc = torch.from_numpy(kc0.copy()), torch.from_numpy(kc0.copy())
+    t_out, t_qkv, tkc2, tvc2 = TF.block_multihead_attention(
+        torch.from_numpy(qkv), tkc, tvc, torch.from_numpy(enc), torch.from_numpy(zeros),
+        torch.from_numpy(enc), block_tables=torch.from_numpy(tables), block_size=bs,
+        qkv_bias=None if qkv_bias is None else torch.from_numpy(qkv_bias))
+    assert tkc2 is tkc and tvc2 is tvc           # written in place
+    np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out.value), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(t_qkv.numpy(), np.asarray(j_qkv.value))
+    np.testing.assert_array_equal(tkc.numpy(), np.asarray(jkc.value))
+    np.testing.assert_array_equal(tvc.numpy(), np.asarray(jvc.value))
+    biased = qkv + (0 if qkv_bias is None else qkv_bias)
+    row = 0
+    for b in range(B):
+        L = int(enc[b])
+        rows = biased[row:row + L].reshape(L, n_q + 2 * n_kv, D)
+        for t in range(L):
+            want = _dense_attention(rows[t, :n_q], rows[:t + 1, n_q:n_q + n_kv],
+                                    rows[:t + 1, n_q + n_kv:])
+            np.testing.assert_allclose(t_out[row + t].numpy().reshape(n_q, D), want,
+                                       rtol=1e-5, atol=1e-5)
+        row += L
+    # one decode step a sequence against the written history
+    q1 = rng.randn(B, width).astype(np.float32)
+    ones = np.ones(B, np.int32)
+    j_out2, _, jkc3, _ = JF.block_multihead_attention(
+        paddle.to_tensor(q1), jkc, jvc, paddle.to_tensor(zeros), paddle.to_tensor(enc),
+        paddle.to_tensor(ones), block_tables=paddle.to_tensor(tables), block_size=bs,
+        qkv_bias=None if qkv_bias is None else paddle.to_tensor(qkv_bias))
+    t_out2, _, _, _ = TF.block_multihead_attention(
+        torch.from_numpy(q1), tkc, tvc, torch.from_numpy(zeros), torch.from_numpy(enc),
+        torch.from_numpy(ones), block_tables=torch.from_numpy(tables), block_size=bs,
+        qkv_bias=None if qkv_bias is None else torch.from_numpy(qkv_bias))
+    np.testing.assert_allclose(t_out2.numpy(), np.asarray(j_out2.value), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(tkc.numpy(), np.asarray(jkc3.value))
+    q1b = q1 + (0 if qkv_bias is None else qkv_bias)
+    row = 0
+    for b in range(B):
+        L = int(enc[b])
+        rows = biased[row:row + L].reshape(L, n_q + 2 * n_kv, D)
+        new = q1b[b].reshape(n_q + 2 * n_kv, D)
+        ks = np.concatenate([rows[:, n_q:n_q + n_kv], new[None, n_q:n_q + n_kv]])
+        vs = np.concatenate([rows[:, n_q + n_kv:], new[None, n_q + n_kv:]])
+        np.testing.assert_allclose(t_out2[b].numpy().reshape(n_q, D),
+                                   _dense_attention(new[:n_q], ks, vs), rtol=1e-5, atol=1e-5)
+        row += L
+
+
+def test_block_multihead_attention_max_enc_len_gives_the_same_result():
+    """``max_enc_len_this_time`` (the reference's host value) sets the padded
+    length; the result is the one the lengths give."""
+    kc0, tables = _bmha_setup(2, 2, 8, 4, 3)
+    enc = np.array([5, 3], np.int32)
+    qkv = torch.from_numpy(np.random.RandomState(4).randn(8, 64).astype(np.float32))
+    outs = []
+    for max_enc in (None, torch.tensor([5], dtype=torch.int32)):
+        out, *_ = TF.block_multihead_attention(
+            qkv, torch.from_numpy(kc0.copy()), torch.from_numpy(kc0.copy()), enc,
+            np.zeros(2, np.int32), enc, block_tables=tables, max_enc_len_this_time=max_enc)
+        outs.append(out)
+    np.testing.assert_allclose(outs[0].numpy(), outs[1].numpy(), rtol=1e-6, atol=1e-6)
+
+
+def _bmha_call(mod, to, **kw):
+    kc0, tables = _bmha_setup(2, 2, 8, 4, 3)
+    args = dict(qkv=np.zeros((2, 64), np.float32), key_cache=kc0, value_cache=kc0.copy(),
+                seq_lens_encoder=np.zeros(2, np.int32), seq_lens_decoder=np.ones(2, np.int32),
+                seq_lens_this_time=np.ones(2, np.int32), block_tables=tables)
+    args.update(kw)
+    return mod.block_multihead_attention(**{k: (None if v is None else to(v))
+                                            for k, v in args.items()})
+
+
+@pytest.mark.parametrize("kw,exc,match", [
+    (dict(cache_k_quant_scales=np.ones(2, np.float32)), NotImplementedError, "cache_k_quant"),
+    (dict(rope_emb=np.ones(2, np.float32)), NotImplementedError, "rope_emb"),
+    (dict(mask=np.ones(2, np.float32)), NotImplementedError, "mask"),
+    (dict(out_scale=2), NotImplementedError, "quantization"),
+    (dict(block_tables=None), ValueError, "block_tables"),
+    (dict(seq_lens_encoder=np.array([3, 0], np.int32),
+          qkv=np.zeros((3, 64), np.float32)), NotImplementedError, "mixed prefill"),
+    (dict(seq_lens_encoder=np.array([3, 2], np.int32), seq_lens_decoder=np.zeros(2, np.int32),
+          seq_lens_this_time=np.array([2, 2], np.int32), qkv=np.zeros((4, 64), np.float32)),
+     NotImplementedError, "chunked prefill"),
+    (dict(seq_lens_this_time=np.array([1, 2], np.int32)), NotImplementedError, "one token"),
+], ids=["quant", "rope", "mask", "out_scale", "no_tables", "mixed", "chunked", "decode_two"])
+def test_block_multihead_attention_rejects_as_jax(kw, exc, match):
+    def jax_to(v):
+        return v if np.isscalar(v) else paddle.to_tensor(v)
+
+    def torch_to(v):
+        return v if np.isscalar(v) else torch.from_numpy(np.asarray(v))
+
+    for mod, to in ((JF, jax_to), (TF, torch_to)):
+        with pytest.raises(exc, match=match):
+            _bmha_call(mod, to, **kw)
+
+
+@pytest.mark.parametrize("phase", ["prefill", "decode"])
+def test_block_multihead_attention_bounds_checked(phase):
+    """Positions past the block tables raise (the JAX function writes past
+    the table silently)."""
+    kc0, tables = _bmha_setup(2, 2, 8, 4, 3)                 # 12 positions a row
+    if phase == "prefill":
+        enc = np.array([13, 1], np.int32)
+        args = (np.zeros((14, 64), np.float32), enc, np.zeros(2, np.int32), enc)
+    else:
+        args = (np.zeros((2, 64), np.float32), np.zeros(2, np.int32),
+                np.array([12, 3], np.int32), np.ones(2, np.int32))
+    qkv, e, d, n = (torch.from_numpy(a) for a in args)
+    with pytest.raises(ValueError, match="block table"):
+        TF.block_multihead_attention(qkv, torch.from_numpy(kc0), torch.from_numpy(kc0.copy()),
+                                     e, d, n, block_tables=tables)

@@ -39,7 +39,9 @@ def test_import_leaves_jax_and_paddle_tpu_unloaded():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.models, "
             "paddle_tpu_torch.ops.cuda.flash_attention, paddle_tpu_torch.nn.functional, "
             "paddle_tpu_torch.optimizer, paddle_tpu_torch.distributed.fleet, "
-            "paddle_tpu_torch.utils, paddle_tpu_torch.ops.cuda.axpy; "
+            "paddle_tpu_torch.utils, paddle_tpu_torch.ops.cuda.axpy, "
+            "paddle_tpu_torch.serving, paddle_tpu_torch.analysis, "
+            "paddle_tpu_torch.distributed.watchdog; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -47,6 +49,17 @@ def test_import_leaves_jax_and_paddle_tpu_unloaded():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("kw", [dict(slo=True), dict(burn_aware_routing=True)],
+                         ids=["slo", "burn_aware_routing"])
+def test_fleet_observability_options_name_item_7(kw):
+    """The fleet's SLO inputs need the monitor, which is ROADMAP Queue A
+    item 7: the router refuses them by name instead of ignoring them."""
+    from paddle_tpu_torch.serving import FleetRouter
+
+    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+        FleetRouter(None, engines=[object()], start=False, **kw)
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

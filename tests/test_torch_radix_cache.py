@@ -5,7 +5,13 @@ The same call sequence goes through both ``PrefixCache``s, each over its own
 package's ``PagedKVCache``: every return value, the entries in LRU order
 (digest, parent, tokens, block), the child edges, the counters and the pagers'
 tables, free lists and reference counts must be equal. Digest collisions are
-forced by monkeypatching ``_digest`` in both modules.
+forced by monkeypatching ``_digest`` in both modules, and by the
+``radix.digest`` fault point armed in both packages.
+
+The host-RAM spill store (``spill=True``): the same evictions with the live
+pools, ``restore_chain`` calls and ``clear`` leave equal entries, spill
+store (order, tokens and every payload bit), counters, pager books and pool
+bits (but for the null block, where the JAX restore pads its writes).
 """
 import numpy as np
 import pytest
@@ -14,8 +20,10 @@ import jax.numpy as jnp
 import torch
 
 import paddle_tpu  # noqa: F401  (the JAX package's settings)
+from paddle_tpu.analysis import faultinject as jfi
 from paddle_tpu.models import paged_kv as jpk
 from paddle_tpu.models import radix_cache as jrc
+from paddle_tpu_torch.analysis import faultinject as tfi
 from paddle_tpu_torch.models import paged_kv as tpk
 from paddle_tpu_torch.models import radix_cache as trc
 
@@ -197,9 +205,127 @@ def test_collisions_degrade_to_misses(monkeypatch):
     assert t.collisions == 3      # one in each of the three lookups
 
 
-def test_spill_is_not_ported():
-    _, t = _pair()
-    with pytest.raises(NotImplementedError, match="resilience"):
-        trc.PrefixCache(t._pager, spill=True)
-    with pytest.raises(NotImplementedError, match="resilience"):
-        t.restore_chain(_prompt(0, 8), [], 0, None)
+def _digest_fault(pc):
+    fi = jfi if isinstance(pc, jrc.PrefixCache) else tfi
+    p = _prompt(55, 12)
+    yield pc.register(p, 12, _written(pc, 0, 12))
+    fi.arm("radix.digest", action="flag", nth=2)
+    yield pc.match(p)                       # the second block's lookup is corrupt
+    yield pc.match(p)                       # nth fires once: a full hit again
+    fi.reset()
+
+
+def test_digest_fault_degrades_to_a_collision():
+    t = _both(_digest_fault)
+    assert t.collisions == 1 and t.hits == 2
+
+
+# -- the host-RAM spill store -------------------------------------------------
+
+def _spill_pair(quantized, capacity=None, blocks=16):
+    """Both caches with spill on, each with its own copy of the same random
+    pools (two layers; the null block too)."""
+    kw = dict(num_layers=2, num_blocks=blocks, block_size=BS, kv_heads=2, head_dim=4, batch=4,
+              max_blocks_per_seq=8, quantized=quantized)
+    jp = jpk.PagedKVCache(dtype=jnp.float32, **kw)
+    tp = tpk.PagedKVCache(dtype=torch.float32, device="cpu", **kw)
+    rng = np.random.RandomState(3)
+    jpools, tpools = [], []
+    for _ in range(2):
+        if quantized:
+            leaves = [rng.randint(-127, 128, (blocks, BS, 2, 4)).astype(np.int8),
+                      rng.rand(blocks, BS, 2).astype(np.float32),
+                      rng.randint(-127, 128, (blocks, BS, 2, 4)).astype(np.int8),
+                      rng.rand(blocks, BS, 2).astype(np.float32)]
+        else:
+            leaves = [rng.randn(blocks, BS, 2, 4).astype(np.float32) for _ in range(2)]
+        jpools.append(tuple(jnp.asarray(v) for v in leaves))
+        tpools.append(tuple(torch.from_numpy(v.copy()) for v in leaves))
+    spill = dict(spill=True, spill_capacity_blocks=capacity)
+    return (jrc.PrefixCache(jp, **spill), [jpools]), (trc.PrefixCache(tp, **spill), [tpools])
+
+
+def _spill_state(pc, pools):
+    def host(x):
+        return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    spilled = [(d, se.parent, se.tokens.tolist(),
+                [[host(leaf).tolist() for leaf in entry] for entry in se.payload])
+               for d, se in pc._spilled.items()]
+    bits = [[host(leaf)[1:].tolist() for leaf in entry] for entry in pools[0]]
+    return dict(_state(pc), spilled=spilled, restores=pc.restores, pools=bits)
+
+
+def _evict_restore(pc, pools):
+    prompts = [_prompt(60 + s, 12) for s in range(3)]
+    for r, p in enumerate(prompts):
+        yield pc.register(p, 12, _written(pc, r, 12))
+    for r in range(3):
+        pc._pager.free_sequence(r)
+    yield pc.match(prompts[2])             # prompt 2 most recent
+    yield pc.evict(5, pools=pools[0])      # leaves first, LRU: spilled
+    yield pc.evict(1)                      # no pools: dropped, not spilled
+    for p in (prompts[0], prompts[1], prompts[0]):
+        blocks, shared = pc.match(p)
+        blocks, shared, pools[0] = pc.restore_chain(p, blocks, shared, pools[0])
+        yield blocks, shared
+    yield pc.match(prompts[0])             # pool-resident again
+
+
+def _capacity_and_clear(pc, pools):
+    prompts = [_prompt(70 + s, 8) for s in range(3)]
+    for r, p in enumerate(prompts):
+        yield pc.register(p, 8, _written(pc, r, 8))
+    for r in range(3):
+        pc._pager.free_sequence(r)
+    # the store keeps the newest 3 of 6 spilled blocks: each prompt's first
+    yield pc.evict(6, pools=pools[0])
+    for p in (prompts[0], prompts[2]):
+        blocks, shared = pc.match(p)
+        blocks, shared, pools[0] = pc.restore_chain(p, blocks, shared, pools[0])
+        yield blocks, shared
+    pc.clear()
+    blocks, shared, pools[0] = pc.restore_chain(prompts[1], [], 0, pools[0])
+    yield blocks, shared                   # the store is gone
+
+
+def _no_room(pc, pools):
+    p = _prompt(80, 16)
+    yield pc.register(p, 16, _written(pc, 0, 16))
+    pc._pager.free_sequence(0)
+    yield pc.evict(4, pools=pools[0])
+    taken = pc._pager.take_blocks(len(pc._pager._free) - 1)    # one block left
+    blocks, shared = pc.match(p)
+    blocks, shared, pools[0] = pc.restore_chain(p, blocks, shared, pools[0])
+    yield blocks, shared                   # unchanged: no room
+    pc._pager.release_blocks(taken)
+    blocks, shared = pc.match(p)
+    blocks, shared, pools[0] = pc.restore_chain(p, blocks, shared, pools[0])
+    yield blocks, shared
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("ops,capacity", [(_evict_restore, None), (_capacity_and_clear, 3),
+                                          (_no_room, None)],
+                         ids=lambda x: getattr(x, "__name__", str(x)))
+def test_spill_store_same_books_and_bits(ops, capacity, quantized):
+    (j, jpools), (t, tpools) = _spill_pair(quantized, capacity)
+    out_j, out_t = list(ops(j, jpools)), list(ops(t, tpools))
+    assert _norm(out_t) == _norm(out_j)
+    assert _spill_state(t, tpools) == _spill_state(j, jpools)
+    assert t.restores
+
+
+def test_spill_payload_is_host_tensors_restored_in_place():
+    """The port parks CPU tensors and restores into the same pool tensors."""
+    (_j, _jp), (t, tpools) = _spill_pair(True)
+    ids = [id(leaf) for entry in tpools[0] for leaf in entry]
+    list(_evict_restore(t, tpools))
+    assert [id(leaf) for entry in tpools[0] for leaf in entry] == ids
+    p = _prompt(60, 12)
+    t._pager.free_sequence(0)
+    t.evict(len(t), pools=tpools[0])
+    for se in t._spilled.values():
+        assert [leaf.device.type for entry in se.payload for leaf in entry] == ["cpu"] * 8
+        assert [leaf.dtype for leaf in se.payload[0]] == [torch.int8, torch.float32] * 2
+    assert t.restore_chain(p, [], 0, tpools[0])[2] is tpools[0]

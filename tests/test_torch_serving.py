@@ -12,9 +12,14 @@ The model is tests/test_serving.py's (vocab 96, hidden 64, 2 layers, 4 heads,
   within 1e-5).
 - The same request schedule goes through both engines: the ``step()``
   result, ``lens``, the block tables, the reference counts and the free list
-  equal after every step, and the radix entries, request stats, drafter
-  state, shed records and pools equal at the end. Each schedule runs once
-  per module (``_RUNS``).
+  equal after every step, and the radix entries and spill store, request
+  stats, drafter state, shed records, ``status()`` (but for the engine tag
+  and a recovery's duration) and pools equal at the end. Each schedule runs
+  once per module (``_RUNS``). The resilience schedules arm the same fault
+  point in both packages: preemption under ``paged_kv.ensure`` with a
+  bit-exact restore (fp32 and int8 pools), a radix prefix spilled to host
+  RAM and restored, ``cancel``, ``withdraw_pending``, ``request_knobs`` and
+  ``recover`` mid-schedule.
 """
 import sys
 import threading
@@ -27,12 +32,14 @@ import jax.numpy as jnp
 import torch
 
 import paddle_tpu as paddle
+from paddle_tpu.analysis import faultinject as jfi
 from paddle_tpu.models import LlamaConfig as JaxConfig
 from paddle_tpu.models import LlamaForCausalLM as JaxLlama
 from paddle_tpu.models import serving as jserving
 from paddle_tpu.models.llama_decode import LlamaDecodeEngine as JaxDecode
 from paddle_tpu_torch.models import (LlamaConfig, LlamaDecodeEngine, llama_from_numpy,
                                      serving as tserving)
+from paddle_tpu_torch.analysis import faultinject as tfi
 from paddle_tpu_torch.models import llama_decode as tdecode
 
 KW = dict(vocab_size=96, hidden_size=64, intermediate_size=176, num_hidden_layers=2,
@@ -270,14 +277,44 @@ def test_burst_computes_a_lane_as_the_mixed_step(int8):
 
 # -- the engines -------------------------------------------------------------
 
+_KEEP = ("rid", "slot", "prompt_len", "tenant", "shared_tokens", "prefill_chunks", "tokens",
+         "shed", "aborted", "restored")
+
+
 def _stats(eng, rids):
-    keep = ("rid", "slot", "prompt_len", "tenant", "shared_tokens", "prefill_chunks",
-            "tokens", "shed")
     out = {}
     for rid in rids:
         st = eng.pop_stats(rid)
-        out[rid] = None if st is None else {k: st[k] for k in keep if k in st}
+        out[rid] = None if st is None else {k: st[k] for k in _KEEP if k in st}
     return out
+
+
+def _plain(r):
+    """A call's return value in one form for both packages: arrays as lists,
+    a RequestAborted as its rid, tokens, tenant and stats (clock values
+    dropped)."""
+    if isinstance(r, np.ndarray):
+        return r.tolist()
+    if isinstance(r, (jserving.RequestAborted, tserving.RequestAborted)):
+        st = None if r.stats is None else {k: r.stats[k] for k in _KEEP if k in r.stats}
+        return ("RequestAborted", r.rid, [int(t) for t in r.tokens], r.tenant, st,
+                "ttft_ns" in (r.stats or {}))
+    if isinstance(r, dict):
+        return {k: _plain(v) for k, v in r.items()}
+    if isinstance(r, (list, tuple)):
+        return [_plain(v) for v in r]
+    return r
+
+
+def _status(eng):
+    """status() but for the engine tag and a recovery's duration."""
+    if not hasattr(eng, "status"):
+        return None
+    st = eng.status()
+    del st["engine"]
+    if "last_recovery" in st:
+        del st["last_recovery"]["ms"]
+    return st
 
 
 def _radix(eng):
@@ -286,7 +323,21 @@ def _radix(eng):
         return None
     return ([(d, e.parent, e.tokens.tolist(), int(e.block)) for d, e in pc._entries.items()],
             {k: list(v) for k, v in pc._children.items()},
-            (pc.hits, pc.misses, pc.blocks_shared, pc.collisions, pc.evicted))
+            (pc.hits, pc.misses, pc.blocks_shared, pc.collisions, pc.evicted, pc.restores),
+            [(d, se.parent, se.tokens.tolist()) for d, se in pc._spilled.items()])
+
+
+def _call(eng, name, args, kw):
+    """One schedule call: an engine method, or ``arm`` (a fault point of the
+    engine's own package) or ``evict`` (radix eviction with the live pools,
+    spilling with ``kv_spill``)."""
+    if name == "arm":
+        fi = jfi if isinstance(eng, (jserving.ContinuousBatchingEngine,
+                                     jserving.StaticBatchEngine)) else tfi
+        return fi.arm(*args, **kw)
+    if name == "evict":
+        return eng.prefix_cache.evict(*args, pools=eng._pools)
+    return getattr(eng, name)(*args, **kw)
 
 
 def _drafter(eng):
@@ -303,8 +354,8 @@ def _drive(eng, schedule, step_kw, max_steps=200):
     for s in range(max_steps):
         for name, args, kw in schedule.get(s, ()):
             try:
-                r = getattr(eng, name)(*args, **kw)
-                log.append(("call", s, name, r))
+                r = _call(eng, name, args, kw)
+                log.append(("call", s, name, _plain(r)))
                 if name in ("submit", "add_request") and r is not None:
                     rids.append(r)
             except (ValueError, RuntimeError) as e:
@@ -321,7 +372,7 @@ def _drive(eng, schedule, step_kw, max_steps=200):
     shed = [(e.rid, e.tenant) for e in eng.pop_shed()] if hasattr(eng, "pop_shed") else None
     final = dict(radix=_radix(eng) if hasattr(eng, "prefix_cache") else None,
                  drafter=_drafter(eng) if hasattr(eng, "_drafter") else None,
-                 stats=_stats(eng, rids), shed=shed,
+                 stats=_stats(eng, rids), shed=shed, status=_status(eng),
                  spec=(getattr(eng, "spec_drafted", 0), getattr(eng, "spec_accepted", 0)))
     return log, final
 
@@ -402,7 +453,64 @@ def _waves():
             4: [("submit", (_prompt(rng, 33),), dict(max_new_tokens=1))]}
 
 
+def _preempt():
+    """Slot 0 decodes, slot 1 is mid-prefill when the decode grant's pool
+    runs dry (an injected fault): slot 1 is preempted to host RAM and
+    restored on the next step (tests/test_serving.py:535)."""
+    rng = np.random.RandomState(8)
+    pa, pb = _prompt(rng, 10), _prompt(rng, 20)
+    return {0: [("add_request", (pa,), dict(max_new_tokens=8))],
+            2: [("add_request", (pb,), dict(max_new_tokens=8))],
+            3: [("arm", ("paged_kv.ensure",), dict(action="flag", nth=1))]}
+
+
+def _radix_spill():
+    """A finished prompt's chain evicted to host RAM, then restored by the
+    same prompt's admission (a block-aligned full hit), then hit in the pool."""
+    p = _prompt(np.random.RandomState(9), 24)
+    return {0: [("submit", (p,), dict(max_new_tokens=6))],
+            8: [("evict", (100,), {}), ("submit", (p,), dict(max_new_tokens=6))],
+            9: [("submit", (p,), dict(max_new_tokens=6))]}
+
+
+def _cancel():
+    rng = np.random.RandomState(12)
+    p = [_prompt(rng, n) for n in (9, 12, 7, 10)]
+    return {0: [("submit", (p[0],), dict(max_new_tokens=3)),
+                ("add_request", (p[1],), dict(max_new_tokens=20)),
+                ("submit", (p[2],), dict(max_new_tokens=3)),
+                ("submit", (p[3],), dict(max_new_tokens=4)),
+                ("cancel", (3,), {})],                        # queued
+            3: [("cancel", (1,), {}), ("cancel", (999,), {})],   # active, unknown
+            12: [("cancel", (0,), {})]}                       # finished: stands
+
+
+def _withdraw():
+    rng = np.random.RandomState(13)
+    p = [_prompt(rng, n) for n in (9, 12, 7, 10)]
+    return {0: [("submit", (q,), dict(max_new_tokens=4)) for q in p],
+            1: [("withdraw_pending", (), {}), ("submit", (p[3],), dict(max_new_tokens=4))]}
+
+
+def _knobs():
+    p = _prefix_prompts(4)
+    return {0: [("submit", (q,), {}) for q in p[:2]],
+            7: [("request_knobs", (), dict(decode_burst=2, chunk_size=4, decode_priority=0.25)),
+                ("request_knobs", (), dict(nope=1))],
+            8: [("submit", (q,), {}) for q in p[2:]]}
+
+
+def _recover():
+    p = _prefix_prompts(3)
+    return {0: [("submit", (q,), {}) for q in p],
+            4: [("recover", ("drill",), {}), ("pop_aborted", (), {})],
+            5: [("submit", (p[0],), {}), ("submit", (p[1],), {})]}
+
+
 _CB = dict(max_batch=3, max_len=64, block_size=8, chunk_size=8, decode_burst=4)
+_SPILL = dict(max_batch=2, max_len=64, block_size=8, chunk_size=8, decode_burst=1, kv_spill=True,
+              prefix_cache=False)
+_RSPILL = dict(max_batch=2, max_len=64, block_size=8, chunk_size=32, kv_spill=True)
 SCENARIOS = {
     # name: (engine, engine kwargs, schedule, step kwargs)
     "staggered_chunked": ("cont", _CB, _staggered, dict(max_new_tokens=10)),
@@ -426,6 +534,14 @@ SCENARIOS = {
     "eos": ("cont", _CB, _staggered, None),
     "static_waves": ("static", dict(max_batch=2, max_len=64, block_size=8,
                                     prefill_buckets=(16, 32)), _waves, {}),
+    "preempt_spill": ("cont", _SPILL, _preempt, {}),
+    "preempt_spill_int8": ("cont", dict(_SPILL, kv_cache_dtype="int8"), _preempt, {}),
+    "radix_spill": ("cont", _RSPILL, _radix_spill, {}),
+    "radix_spill_int8": ("cont", dict(_RSPILL, kv_cache_dtype="int8"), _radix_spill, {}),
+    "cancel": ("cont", dict(_CB, max_batch=2, decode_burst=1), _cancel, {}),
+    "withdraw": ("cont", dict(_CB, max_batch=2), _withdraw, {}),
+    "knobs": ("cont", _CB, _knobs, dict(max_new_tokens=10)),
+    "recover": ("cont", _CB, _recover, dict(max_new_tokens=10)),
 }
 
 
@@ -451,8 +567,18 @@ def _run(name):
         jm, tm = _models()
         got = {}
         for pkg, model in (("jax", jm), ("torch", tm)):
+            (jfi if pkg == "jax" else tfi).reset()
             eng = _engine(pkg, kind, kw, model)
-            got[pkg] = _drive(eng, schedule(), step_kw)
+            got[pkg + "_bursts"] = bursts = []
+            if kind == "cont":
+                build = eng._inner.build_decode_burst
+                eng._inner.build_decode_burst = lambda K, *a, **k: (bursts.append(K),
+                                                                    build(K, *a, **k))[1]
+            try:
+                got[pkg] = _drive(eng, schedule(), step_kw)
+            finally:
+                got[pkg + "_trips"] = (jfi if pkg == "jax" else tfi).trips()
+                (jfi if pkg == "jax" else tfi).reset()
             got[pkg + "_engine"] = eng
         _RUNS[name] = got
     return _RUNS[name]
@@ -467,6 +593,8 @@ def test_same_steps_and_books_as_jax(name):
     assert len(tlog) == len(jlog)
     assert any(e[0] == "step" and e[2] for e in tlog)
     assert tfinal == jfinal
+    assert run["torch_trips"] == run["jax_trips"]
+    assert run["torch_bursts"] == run["jax_bursts"]
 
 
 @pytest.mark.parametrize("name", [n for n in SCENARIOS if SCENARIOS[n][0] == "cont"])
@@ -494,6 +622,34 @@ def test_scenarios_reach_their_paths():
     assert max(st["prefill_chunks"] for st in stats.values()) >= 4
     eos_log = _run("eos")["torch"][0]
     assert any(len(toks) < 10 for e in eos_log if e[0] == "step" for _r, toks in e[2])
+
+
+def test_resilience_scenarios_reach_their_paths():
+    """Each resilience schedule exercises what it is named for (counted on
+    the port)."""
+    for name in ("preempt_spill", "preempt_spill_int8"):
+        eng = _run(name)["torch_engine"]
+        assert _run(name)["torch_trips"] == [("paged_kv.ensure", "flag")]
+        assert eng.preemptions == 1 and eng.preempt_restores == 1 and eng.spilled_bytes > 0
+        assert _run(name)["torch"][1]["stats"][1]["restored"] is True
+    for name in ("radix_spill", "radix_spill_int8"):
+        pc = _run(name)["torch_engine"].prefix_cache
+        assert pc.restores == 3 and pc.hits == 2 and not pc._spilled
+    final = _run("cancel")["torch"][1]
+    assert final["status"]["cancelled"] == 2 and set(final["stats"]) == {0, 1, 2, 3}
+    assert [rid for e in _run("cancel")["torch"][0] if e[0] == "step" for rid, _ in e[2]] \
+        == [0, 2]
+    wlog = _run("withdraw")["torch"][0]
+    withdrawn = next(e[3] for e in wlog if e[0] == "call" and e[2] == "withdraw_pending")
+    assert [w["rid"] for w in withdrawn] == [2, 3]
+    assert _run("knobs")["torch_bursts"] == [4, 2]
+    assert _run("knobs")["torch"][1]["status"]["knobs"]["chunk_size"] == 4
+    rlog, rfinal = _run("recover")["torch"]
+    aborted = next(e[3] for e in rlog if e[0] == "call" and e[2] == "pop_aborted")
+    assert len(aborted) == 3 and all(a[0] == "RequestAborted" for a in aborted)
+    assert any(a[2] for a in aborted)          # partial tokens ride the abort
+    assert rfinal["status"]["recoveries"] == 1 and rfinal["status"]["epoch"] == 1
+    assert rfinal["radix"][2][0] >= 2          # the re-admissions hit the warm cache
 
 
 def test_batching_never_changes_a_requests_tokens():
@@ -590,15 +746,6 @@ def test_pool_bytes_and_layout():
         assert t.kv_pool_bytes == j.kv_pool_bytes
         assert [len(e) for e in t._pools] == [len(e) for e in j._pools]
         assert t.max_step_tokens == j.max_step_tokens
-
-
-@pytest.mark.parametrize("kw,match", [
-    (dict(kv_spill=True), "resilience"),
-])
-def test_unported_options_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tserving.ContinuousBatchingEngine(_models()[1], max_batch=1, max_len=32,
-                                          block_size=8, **kw)
 
 
 @pytest.mark.parametrize("kw,match", [
