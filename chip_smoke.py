@@ -112,7 +112,29 @@ Phases, each a hard check (the script exits nonzero on the first failure):
      serving.step delay
      past hang_timeout on one replica of a fleet, recovered by its
      watchdog with the reference's tokens; (d) block_multihead_attention,
-     prefill then decode, card against CPU at fp32 within 1e-5.
+     prefill then decode, card against CPU at fp32 within 1e-5, after a
+     mixed batch with host lengths is rejected on the host
+     (NotImplementedError) and the process's CUDA context survives it.
+ 12. the training surface at phase 6's width, depth and batch (bf16, AdamW
+     multi_precision): (a) bench.py:879-880's knobs as five variants of the
+     step (recompute_granularity "full", "full_attn" with fused_head_ce,
+     "core_attn", recompute off, "full" with fused_head_ce): launches (2L, L,
+     L) under recompute and (L, L, L) off, no alignment copy, every gradient
+     finite and nonzero, a falling loss, step_ms, tokens/s, MFU, peak memory
+     in the orders off > core_attn > full and fused < standard, one profiled
+     step each, the same loss bit for bit after 6 steps at every granularity
+     (per head: the recompute's tensors are the forward's), the fused head's
+     first loss against the standard head's in fp32, and the matrix products
+     one layer issues on the card, every one
+     without batch dimensions kept by the selective policy; (b) LinearWarmup
+     over CosineAnnealingDecay with ClipGradByGlobalNorm(1.0), 4 steps, each
+     opt.step() under sync debug mode "error": the rates against the JAX
+     formulas in plain Python, the card's global norm against a float64 host
+     sum, the ms clipping adds; (c) at 2 layers: 6 steps, then 3 steps, an
+     async CheckpointManager save, a fresh model, optimizer and scheduler
+     restored, 3 more: losses and weights equal the uninterrupted run bit for
+     bit; bytes written, ms the save blocked, writer, restore and verify
+     seconds.
 The last line is the device JSON object; the line before it the card's name
 and power limit; before that the kernels JSON object.
 
@@ -121,6 +143,7 @@ full float32 (the CPU twins and the fp32 kernel checks depend on it).
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -2234,7 +2257,9 @@ def block_mha_card_vs_cpu(torch, IF):
     """(d) block_multihead_attention, prefill then one decode step, on the card
     and on the CPU at fp32 with the flagship's heads (16 x 128) and block 64:
     outputs and caches within 1e-5 (tests/test_paged_kv.py's tolerance). The
-    lengths go to the card too, so its checks run as device asserts."""
+    lengths go to the card too, so its checks run as device asserts. First, a
+    mixed batch with host lengths must raise NotImplementedError on the host,
+    and the valid calls after it must run in the same process."""
     import numpy as np
 
     B, H, D, bs, max_blocks = 4, 16, 128, 64, 4
@@ -2245,6 +2270,22 @@ def block_mha_card_vs_cpu(torch, IF):
     qkv = rng.randn(int(enc.sum()), 3 * H * D).astype(np.float32)
     q1 = rng.randn(B, 3 * H * D).astype(np.float32)
     zeros, ones = np.zeros(B, np.int32), np.ones(B, np.int32)
+    # a mixed prefill+decode batch with host (numpy) lengths: rejected on the
+    # host with the JAX exception, before anything reaches the card, so the
+    # process's CUDA context survives and the valid calls below still run
+    kc = torch.zeros((nb, H, bs, D), device="cuda")
+    mixed_enc, mixed_dec = np.array([100, 0, 37, 200], np.int32), np.array([0, 5, 0, 0],
+                                                                          np.int32)
+    try:
+        IF.block_multihead_attention(
+            torch.from_numpy(qkv[:337]).cuda(), kc, torch.zeros_like(kc), mixed_enc, mixed_dec,
+            mixed_enc, block_tables=tables, block_size=bs)
+    except NotImplementedError as e:
+        rejected = str(e)
+    else:
+        fail("block_multihead_attention accepted a mixed batch with host lengths")
+    torch.cuda.synchronize()   # raises here if a device assert had fired
+    del kc
     res = {}
     for dev in ("cuda", "cpu"):
         t = lambda a: torch.from_numpy(np.asarray(a)).to(dev)   # noqa: E731
@@ -2260,7 +2301,8 @@ def block_mha_card_vs_cpu(torch, IF):
     errs = [float((a - b).abs().max()) for a, b in zip(res["cuda"], res["cpu"])]
     out = dict(prefill_max_abs_err=errs[0], decode_max_abs_err=errs[1],
                cache_max_abs_err=max(errs[2:]), tol=1e-5, lens=enc.tolist(), heads=H,
-               head_dim=D, block_size=bs)
+               head_dim=D, block_size=bs, host_length_rejection=rejected,
+               valid_calls_after_rejection=True)
     if max(errs) > 1e-5:
         fail(f"block_multihead_attention, card vs CPU: {out}")
     return out
@@ -2295,6 +2337,362 @@ def phase_resilience(torch, fa, models, fleet, fi, serving_mod, IF, smi):
     return out
 
 
+# phase 12: the training surface at the flagship width and depth. The bench's
+# knobs (bench.py:879-880: BENCH_REMAT_GRAN, BENCH_FUSED_CE) as variants of
+# phase 6's step; each variant's first step is counted and checked, then 1
+# more warm step and 3 timed ones (the median is kept)
+VARIANTS12 = (
+    ("full", dict(recompute=True, recompute_granularity="full")),
+    ("full_attn_fused", dict(recompute=True, recompute_granularity="full_attn",
+                             fused_head_ce=True)),
+    ("core_attn", dict(recompute=True, recompute_granularity="core_attn")),
+    ("off", dict(recompute=False)),
+    ("full_fused", dict(recompute=True, recompute_granularity="full", fused_head_ce=True)),
+)
+# the fused head's first-step loss (fp32 log-sum-exp over bf16 logits, chunk
+# by chunk) against the standard head's loss recomputed in fp32 from its bf16
+# logits: the same function of the same hidden states; the chunked LM-head
+# GEMM may round a bf16 logit one step (2**-8 relative) apart from the
+# whole-batch one, which moves a token's loss by ~1e-2 at most and the mean
+# over 16384 tokens by far less
+TOL_FUSED_LOSS = 2e-3
+# the global gradient norm on the card (fp32 squares, fp32 sums in another
+# order) against a float64 host sum of the same bf16 gradients
+TOL_GLOBAL_NORM = 1e-4
+SCHED12 = dict(base=1e-4, T_max=8, warmup=2, start=1e-5)
+
+
+def product_ops(torch, layer, h):
+    """The aten matrix products one decoder layer issues for ``h`` (a
+    TorchDispatchMode over its forward): {op name: count}."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = {}
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = str(func)
+            if "mm" in name or "matmul" in name or "dot" in name or "linear" in name:
+                seen[name] = seen.get(name, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    with torch.no_grad(), Record():
+        layer._block(h)
+    return seen
+
+
+def fp32_loss(torch, model, ids, labels):
+    """The loss in fp32: the fused head's own, or the standard head's
+    recomputed in fp32 from its logits."""
+    with torch.no_grad():
+        loss, logits = model(ids, labels=labels)
+        if logits is None:
+            return loss.item()
+        out = model.criterion(logits.float(), labels).item()
+    del logits
+    return out
+
+
+def train_variant(torch, fa, models, optim, kw, ids, labels):
+    """One variant of the flagship step: launches and gradients of step 1,
+    then the median of 3 timed steps after 1 more warm one, the peak memory
+    of those 4 steps above what was allocated before the model was built,
+    and one profiled step (5 steps in all, as the loss check counts)."""
+    cfg = models.LlamaConfig(**FLAGSHIP, dtype="bfloat16", **kw)
+    L, (B, S) = cfg.num_hidden_layers, ids.shape
+    # what earlier phases left allocated (graph pools, caches) is not this
+    # variant's: garbage is collected first, and the peak is read above the rest
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline = torch.cuda.memory_allocated()
+    model = models.LlamaForCausalLM(cfg, device="cuda", seed=0)
+    model.train()
+    opt = optim.AdamW(learning_rate=TRAIN_LR, parameters=model.parameters(),
+                      multi_precision=True)
+    loss_first = fp32_loss(torch, model, ids, labels)
+    torch.cuda.synchronize()
+    reset_counts(fa)
+    loss, _ = model(ids, labels=labels)
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = counts(fa)
+    want = (2 * L, L, L) if cfg.recompute else (L, L, L)
+    if launches != want:
+        fail(f"phase 12 {kw}: one step launched (fwd, dq, dk/dv) = {launches}, want {want}")
+    if fa.copies_for_alignment:
+        fail(f"phase 12 {kw}: {fa.copies_for_alignment} alignment copies")
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())
+           or not bool((p.grad != 0).any())]
+    if bad:
+        fail(f"phase 12 {kw}: parameters without a finite nonzero gradient: {bad}")
+    opt.step()
+    opt.clear_grad()
+
+    def step():
+        loss, _ = model(ids, labels=labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+
+    # the peak of the steps alone (parameters, gradients, masters and
+    # moments are all live by now), not of the fp32 loss evaluations
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() - baseline
+    step_ms = sorted(times)[1]
+    prof = profile_step(torch, step, step_ms)
+    loss_last = fp32_loss(torch, model, ids, labels)
+    if not (math.isfinite(loss_first) and math.isfinite(loss_last)
+            and loss_last < loss_first):
+        fail(f"phase 12 {kw}: the loss did not fall over 6 steps: {loss_first} -> {loss_last}")
+    n_params = sum(p.numel() for p in model.parameters())
+    n_embed = model.llama.embed_tokens.weight.numel()
+    flops = 6.0 * (n_params - n_embed) * B * S + 6.0 * L * B * S * S * cfg.hidden_size
+    del model, opt, loss
+    torch.cuda.empty_cache()
+    return dict(step_ms=step_ms, step_ms_all=times, tokens_per_sec=B * S / (step_ms / 1e3),
+                mfu=flops / (step_ms / 1e3) / PEAK_TC_FLOPS, peak_mem_bytes=peak,
+                peak_mem_gb=peak / 1e9, baseline_mem_bytes=baseline,
+                launches_per_step=list(launches), loss_first_fp32=loss_first,
+                loss_last_fp32=loss_last,
+                profile={k: prof[k] for k in ("device_ms", "idle_share", "profiled_ms",
+                                              "kernel_launches", "by_group")})
+
+
+def knob_variants(torch, fa, models, optim, saved_ops, smi):
+    """(a) the bench's knobs at the flagship width and depth."""
+    B, S = 8, 2048
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ids = torch.randint(0, FLAGSHIP["vocab_size"], (B, S), device="cuda", generator=gen)
+    labels = torch.randint(0, FLAGSHIP["vocab_size"], (B, S), device="cuda", generator=gen)
+    out = {}
+    for name, kw in VARIANTS12:
+        out[name] = train_variant(torch, fa, models, optim, kw, ids, labels)
+        print(f"train_variant {name} " + json.dumps(dict(out[name], knobs=kw, card=smi)),
+              flush=True)
+    mem = {k: v["peak_mem_bytes"] for k, v in out.items()}
+    orders = [("off", "core_attn"), ("core_attn", "full"),        # granularity, standard head
+              ("core_attn", "full_attn_fused"), ("full", "full_fused")]  # fused < standard
+    broken = [(a, b) for a, b in orders if not mem[a] > mem[b]]
+    if broken:
+        fail(f"phase 12 peak memory breaks the order(s) {broken}: {mem}")
+    # recompute changes no value: the recomputed tensors are the forward's (the
+    # kernels and GEMMs are deterministic), so after the same 6 steps every
+    # granularity reaches the same loss bit for bit, with either head
+    for group in (("full", "core_attn", "off"), ("full_attn_fused", "full_fused")):
+        last = {k: out[k]["loss_last_fp32"] for k in group}
+        if len(set(last.values())) != 1:
+            fail(f"phase 12: recompute changed the trained loss: {last}")
+    fused_err = abs(out["full_attn_fused"]["loss_first_fp32"] - out["full"]["loss_first_fp32"])
+    fused_err = max(fused_err, abs(out["full_fused"]["loss_first_fp32"]
+                                   - out["full"]["loss_first_fp32"]))
+    if not fused_err <= TOL_FUSED_LOSS:
+        fail(f"phase 12 fused head's first-step loss vs the standard head's in fp32: "
+             f"{fused_err} > {TOL_FUSED_LOSS}")
+    # the products one layer issues on the card, and that the selective
+    # policy keeps every one without batch dimensions (a product it missed
+    # would be recomputed silently)
+    cfg = models.LlamaConfig(**dict(FLAGSHIP, num_hidden_layers=1), dtype="bfloat16")
+    model = models.LlamaForCausalLM(cfg, device="cuda", seed=0)
+    model.train()
+    h = torch.randn(B, S, cfg.hidden_size, device="cuda", dtype=torch.bfloat16)
+    ops = product_ops(torch, model.llama.layers[0], h)
+    saved = {str(o) for o in saved_ops["dots_with_no_batch_dims_saveable"]}
+    # products with batch dimensions (attention's, where the plain version
+    # runs) are recomputed on purpose, as under the JAX policy
+    batched = {str(o) for o in saved_ops["dots_saveable"]} - saved
+    missed = sorted(set(ops) - saved - batched)
+    del model, h
+    torch.cuda.empty_cache()
+    if missed:
+        fail(f"phase 12: the layer's products {missed} are not in the selective policy "
+             f"{sorted(saved)}")
+    return dict(variants=out, peak_mem_orders=[f"{a} > {b}" for a, b in orders],
+                same_loss_after_6_steps=[["full", "core_attn", "off"],
+                                         ["full_attn_fused", "full_fused"]],
+                fused_loss_err=fused_err, tol_fused_loss=TOL_FUSED_LOSS,
+                layer_product_ops=ops, policy_saves=sorted(saved))
+
+
+def plain_schedule(step, base, T_max, warmup, start):
+    """LinearWarmup(CosineAnnealingDecay(base, T_max), warmup, start, base)'s
+    rate after ``step`` scheduler steps, in plain Python (the JAX formulas:
+    the cosine's epoch starts once the warmup is over)."""
+    if step < warmup:
+        return start + (base - start) * step / warmup
+    return base * (1 + math.cos(math.pi * (step - warmup) / T_max)) / 2
+
+
+def schedule_and_clip(torch, models, optim, tnn, smi):
+    """(b) AdamW multi_precision under LinearWarmup(CosineAnnealingDecay) with
+    ClipGradByGlobalNorm(1.0), 4 steps at the flagship width and depth; every
+    opt.step() under sync debug mode "error"."""
+    from paddle_tpu_torch.nn.clip import global_norm
+
+    cfg = models.LlamaConfig(**FLAGSHIP, dtype="bfloat16", recompute=True)
+    B, S = 8, 2048
+    model = models.LlamaForCausalLM(cfg, device="cuda", seed=0)
+    model.train()
+    sc = SCHED12
+    sched = optim.lr.LinearWarmup(optim.lr.CosineAnnealingDecay(sc["base"], T_max=sc["T_max"]),
+                                  warmup_steps=sc["warmup"], start_lr=sc["start"],
+                                  end_lr=sc["base"])
+    clip = tnn.ClipGradByGlobalNorm(1.0)
+    opt = optim.AdamW(learning_rate=sched, parameters=model.parameters(), multi_precision=True,
+                      grad_clip=clip)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    ids = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", generator=gen)
+    labels = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", generator=gen)
+    lrs, losses, norm, clip_ms = [], [], None, []
+    for i in range(4):
+        loss, _ = model(ids, labels=labels)
+        loss.backward()
+        grads = [p.grad for p in model.parameters()]
+        if i == 0:
+            card = global_norm(grads).item()
+            host = math.sqrt(sum(float((g.cpu().double() ** 2).sum()) for g in grads))
+            norm = dict(card=card, host_fp64=host, rel_err=abs(card - host) / host)
+            if not norm["rel_err"] <= TOL_GLOBAL_NORM:
+                fail(f"phase 12 global norm on the card vs the host: {norm}")
+        # the device time clipping adds: the clip alone on this step's pairs
+        pairs = list(zip(model.parameters(), grads))
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        clip(pairs)
+        ev[1].record()
+        torch.cuda.synchronize()
+        clip_ms.append(ev[0].elapsed_time(ev[1]))
+        del pairs
+        lrs.append(opt.get_lr())
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            opt.step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        opt.clear_grad()
+        sched.step()
+        losses.append(loss.item())
+    want = [plain_schedule(i, **sc) for i in range(4)]
+    if any(abs(a - b) > 1e-15 for a, b in zip(lrs, want)):
+        fail(f"phase 12 schedule: get_lr() {lrs}, the JAX formulas give {want}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"phase 12 schedule and clipping: non-finite loss {losses}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return dict(lrs=lrs, plain_lrs=want, losses=losses, global_norm=norm,
+                tol_global_norm=TOL_GLOBAL_NORM, clip_ms=clip_ms,
+                clip_ms_median=sorted(clip_ms)[len(clip_ms) // 2],
+                sync_debug_mode="error", schedule=sc)
+
+
+def checkpoint_resume(torch, models, optim, tnn, ckpt):
+    """(c) at the flagship width with 2 layers: 6 steps uninterrupted, then 3
+    steps, an async save, a fresh model, optimizer and scheduler restored, and
+    steps 4-6: losses and final weights equal bit for bit."""
+    import shutil
+    import tempfile
+
+    cfg = models.LlamaConfig(**dict(FLAGSHIP, num_hidden_layers=2), dtype="bfloat16",
+                             recompute=True)
+    B, S = 8, 2048
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    batches = [(torch.randint(0, cfg.vocab_size, (B, S), device="cuda", generator=gen),
+                torch.randint(0, cfg.vocab_size, (B, S), device="cuda", generator=gen))
+               for _ in range(6)]
+
+    def build(seed):
+        model = models.LlamaForCausalLM(cfg, device="cuda", seed=seed)
+        model.train()
+        sc = SCHED12
+        sched = optim.lr.LinearWarmup(
+            optim.lr.CosineAnnealingDecay(sc["base"], T_max=sc["T_max"]),
+            warmup_steps=sc["warmup"], start_lr=sc["start"], end_lr=sc["base"])
+        opt = optim.AdamW(learning_rate=sched, parameters=model.named_parameters(),
+                          multi_precision=True, grad_clip=tnn.ClipGradByGlobalNorm(1.0))
+        return model, opt, sched
+
+    def train(model, opt, sched, steps):
+        out = []
+        for ids, labels in (batches[i] for i in steps):
+            loss, _ = model(ids, labels=labels)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            sched.step()
+            out.append(loss.item())
+        return out
+
+    ref = build(0)
+    ref_losses = train(*ref, range(6))
+    ref_params = {n: p.detach().clone() for n, p in ref[0].named_parameters()}
+    del ref
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        run = build(0)
+        losses = train(*run, range(3))
+        mgr = ckpt.CheckpointManager(root, keep=1)
+        arrays, meta = ckpt.training_state(run[0], run[1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(3, arrays, meta=meta)
+        blocked_ms = (time.perf_counter() - t0) * 1e3
+        mgr.wait()
+        write_s = time.perf_counter() - t0 - blocked_ms / 1e3
+        del run, arrays
+        torch.cuda.empty_cache()
+        fresh = build(123)
+        t0 = time.perf_counter()
+        rc = mgr.restore()
+        restore_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ckpt.load_training_state(rc, fresh[0], fresh[1])
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        doc = ckpt.verify_checkpoint(rc.path)
+        verify_s = time.perf_counter() - t0
+        del rc
+        losses += train(*fresh, range(3, 6))
+        same = {n: bool(torch.equal(p, ref_params[n])) for n, p in fresh[0].named_parameters()}
+        mgr.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = dict(losses=losses, ref_losses=ref_losses, losses_equal=losses == ref_losses,
+               weights_equal=all(same.values()), bytes_written=doc["total_bytes"],
+               shards=doc["n_shards"], save_blocked_ms=blocked_ms, writer_s=write_s,
+               restore_s=restore_s, load_s=load_s, verify_s=verify_s, verified=True,
+               params=sum(p.numel() for p in fresh[0].parameters()), layers=2)
+    if not (out["losses_equal"] and out["weights_equal"]):
+        fail(f"phase 12 checkpoint resume is not bit-identical: {out}, weights {same}")
+    del fresh
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_surface(torch, fa, models, optim, tnn, ckpt, saved_ops, smi):
+    """Phase 12: the training surface at the flagship width and depth."""
+    out = dict(knobs=knob_variants(torch, fa, models, optim, saved_ops, smi))
+    print("train_knobs " + json.dumps(dict({k: v for k, v in out["knobs"].items()
+                                            if k != "variants"}, card=smi)), flush=True)
+    out["schedule_clip"] = schedule_and_clip(torch, models, optim, tnn, smi)
+    print("schedule_clip " + json.dumps(dict(out["schedule_clip"], card=smi)), flush=True)
+    out["checkpoint"] = checkpoint_resume(torch, models, optim, tnn, ckpt)
+    print("checkpoint_resume " + json.dumps(dict(out["checkpoint"], card=smi)), flush=True)
+    return out
+
+
 def main():
     import torch
 
@@ -2314,6 +2712,10 @@ def main():
         from paddle_tpu_torch import serving as fleet
         from paddle_tpu_torch.analysis import faultinject
         from paddle_tpu_torch.models import serving as serving_mod
+        import paddle_tpu_torch.optimizer as optim
+        import paddle_tpu_torch.nn as tnn
+        import paddle_tpu_torch.checkpoint as ckpt
+        from paddle_tpu_torch.distributed.fleet.recompute import SAVED_OPS
     except ImportError as e:
         print(f"chip_smoke: the paddle_tpu_torch package is not beside this "
               f"script ({e})", file=sys.stderr)
@@ -2400,6 +2802,12 @@ def main():
                                   incubate_functional, smi)
     print(f"phase_seconds 11 {time.perf_counter() - t0:.1f}", flush=True)
 
+    # phase 12: the training surface (launch counts set to 0 before each
+    # variant's first step, read after it)
+    t0 = time.perf_counter()
+    surface = phase_train_surface(torch, fa, models, optim, tnn, ckpt, SAVED_OPS, smi)
+    print(f"phase_seconds 12 {time.perf_counter() - t0:.1f}", flush=True)
+
     kernel = dict(
         name="flash_attention_fwd", route="cuda",
         source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -2412,7 +2820,9 @@ def main():
                               static_prefill=continuous["serving"][
                                   "forward_launches_per_static_admission"],
                               continuous=continuous["serving"]["forward_launches_continuous"],
-                              resilience=resilience["launches"][0]),
+                              resilience=resilience["launches"][0],
+                              train_knobs={k: v["launches_per_step"][0] for k, v in
+                                           surface["knobs"]["variants"].items()}),
         max_abs_err=main_row["max_abs_err"],
         tol=main_row["tol"], ms=main_row["kernel_ms"], kernel_ms=main_row["kernel_ms"],
         call_ms=main_row["kernel_call_ms"],
@@ -2436,6 +2846,10 @@ def main():
             name=name, route="cuda", source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
             replaces=f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
             launches=training["launches_per_step"][f"bwd_{key}"],
+            launches_by_path=dict(training=training["launches_per_step"][f"bwd_{key}"],
+                                  train_knobs={k: v["launches_per_step"][1 + (key == "dkv")]
+                                               for k, v in
+                                               surface["knobs"]["variants"].items()}),
             max_abs_err=max(tr[f"{g}_max_abs_err"] for g in grads),
             norm_rel_err=max(tr[f"{g}_err"] for g in grads), tol=tr["tol"],
             ms=tr[f"{key}_ms"], kernel_ms=tr[f"{key}_ms"], call_ms=tr[f"{key}_call_ms"],

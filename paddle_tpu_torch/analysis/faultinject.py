@@ -26,7 +26,7 @@ Actions:
 
 Every trip is recorded (:func:`trips`). What differs from the JAX package:
 the catalog holds only the points the port fires (serving, fleet, paged KV,
-radix cache), and a trip is not exported to the monitor (its counter and
+radix cache, checkpoint), and a trip is not exported to the monitor (its counter and
 span belong to the observability slice, ROADMAP Queue A item 7).
 """
 from __future__ import annotations
@@ -81,6 +81,17 @@ POINTS = {
         "cache entry for the computed digest, so the verified-tokens fallback "
         "must degrade it to a collision instead of serving another prompt's "
         "KV."),
+    "ckpt.write": (
+        "The checkpoint writer thread, after the temp directory exists "
+        "and before any shard lands (checkpoint/manager.py). raise = a "
+        "torn write: the step is never committed and restore must fall "
+        "back to the previous commit; flag = one shard's on-disk bytes "
+        "are corrupted AFTER its digest was recorded, so restore's "
+        "verification must reject the checkpoint."),
+    "ckpt.restore": (
+        "Entry of CheckpointManager.restore (checkpoint/manager.py). "
+        "raise = the restore path itself dies (a recovery that cannot "
+        "reload must propagate, not loop); delay = a slow restore."),
 }
 
 ACTIONS = ("raise", "delay", "flag")

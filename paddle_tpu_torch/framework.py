@@ -10,6 +10,10 @@ in the instance's ``__dict__``, which shadows that attribute. It is the same
 tensor to every other reader (state dicts, the optimizer, autograd); it keeps
 its name through ``module.to()``, which updates a parameter in place, and
 through ``copy.deepcopy``.
+
+As the JAX package's parameters, each carries ``need_clip`` (True: gradient
+clipping applies to it) and ``optimize_attr`` (``{"learning_rate": 1.0}``,
+the multiplier of the optimizer's learning rate for this parameter).
 """
 from __future__ import annotations
 
@@ -29,6 +33,8 @@ class Parameter(nn.Parameter):
     def __new__(cls, data=None, requires_grad=True, name=None):
         p = super().__new__(cls, data, requires_grad)
         p.__dict__["_name"] = name if name is not None else f"param_{next(_counter)}"
+        p.need_clip = True
+        p.optimize_attr = {"learning_rate": 1.0}
         return p
 
     @property
@@ -41,8 +47,11 @@ class Parameter(nn.Parameter):
 
     def __deepcopy__(self, memo):
         if id(self) not in memo:
-            memo[id(self)] = type(self)(self.data.clone(memory_format=torch.preserve_format),
-                                        self.requires_grad, name=self.name)
+            twin = type(self)(self.data.clone(memory_format=torch.preserve_format),
+                              self.requires_grad, name=self.name)
+            twin.need_clip = self.need_clip
+            twin.optimize_attr = dict(self.optimize_attr)
+            memo[id(self)] = twin
         return memo[id(self)]
 
 

@@ -1,1 +1,3 @@
-"""Fused-op surface of the port (counterpart of paddle_tpu.incubate)."""
+"""Fused ops and experimental optimizers of the port (counterpart of
+paddle_tpu.incubate)."""
+from .optimizer import LookAhead, ModelAverage  # noqa: F401

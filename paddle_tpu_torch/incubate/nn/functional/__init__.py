@@ -2,13 +2,15 @@
 
 Ported so far: the rotate-half rotary pairing (``use_neox_rotary_style=False``),
 which the LLaMA model uses (the interleaved rotate-every-two pairing raises
-``NotImplementedError``), and ``block_multihead_attention`` over the paged KV
-pool.
+``NotImplementedError``; ROADMAP Queue A item 4), ``block_multihead_attention``
+over the paged KV pool, and the fused LM-head cross-entropy
+(``fused_linear_cross_entropy``).
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -49,7 +51,8 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
     if use_neox_rotary_style:
         raise NotImplementedError(
             "the rotate-every-two rotary pairing (use_neox_rotary_style=True) "
-            "is not ported yet; paddle_tpu_torch has rotate-half only")
+            "is not ported yet (ROADMAP Queue A item 4); paddle_tpu_torch has "
+            "rotate-half only")
     S, D = q.shape[1], q.shape[-1]
     if cos is None or sin is None:
         cos, sin = _rope_tables(S, D, rotary_theta, q.dtype, q.device, position_ids)
@@ -65,14 +68,46 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
 
 
 def _check(cond, exc, msg):
-    """A check of tensor values: raised here for CPU tensors; for tensors on
-    the card an asynchronous device assert, so the check costs no host sync
-    (the JAX package reads the values to the host)."""
-    if cond.device.type == "cpu":
+    """A check of length values: raised here for host values (numpy, CPU
+    tensors); for tensors on the card an asynchronous device assert, so the
+    check costs no host sync. A failed device assert is a sticky CUDA error
+    that ends the process's CUDA context, so it is kept for lengths the
+    caller already holds on the card."""
+    if not isinstance(cond, torch.Tensor) or cond.device.type == "cpu":
         if not bool(cond):
             raise exc(msg)
     else:
         torch._assert_async(cond, msg)
+
+
+def _host_lengths(*lens):
+    """The length vectors as flat numpy arrays when every one is a host value
+    (numpy, a Python sequence or number, a CPU tensor), else None."""
+    if any(isinstance(x, torch.Tensor) and x.device.type != "cpu" for x in lens):
+        return None
+    return [np.asarray(x).reshape(-1) for x in lens]
+
+
+def _check_lengths(is_prefill, enc, dec, this, cap):
+    """The JAX function's rejections (mixed, chunked, multi-token decode) and
+    the port's bounds checks, on numpy arrays or on tensors (``_check``)."""
+    if is_prefill:
+        _check((dec == 0).all(), NotImplementedError,
+               "block_multihead_attention: mixed prefill+decode batches are not "
+               "supported; split the batch by phase")
+        _check((this == enc).all(), NotImplementedError,
+               "block_multihead_attention: chunked prefill (seq_lens_this_time != "
+               "seq_lens_encoder) is not supported")
+        _check((enc <= cap).all(), ValueError,
+               f"block_multihead_attention: a prompt is longer than its block table "
+               f"({cap} positions)")
+    else:
+        _check((this == 1).all(), NotImplementedError,
+               "block_multihead_attention decode phase expects one token per sequence "
+               "(seq_lens_this_time == 1)")
+        _check((dec < cap).all(), ValueError,
+               f"block_multihead_attention: a decode position is past its block table "
+               f"({cap} positions)")
 
 
 def block_multihead_attention(
@@ -104,9 +139,14 @@ def block_multihead_attention(
     value, as the reference's ``blha_get_max_len`` gives it), else from the
     lengths, which are then read once. The checks of the lengths (one phase a
     call, no chunked prefill, one token a decode row, positions inside the
-    block tables) run on the device for tensors on the card, without a host
-    sync. Unsupported arguments raise as in the JAX package. Plain torch: the
-    JAX function has no Pallas kernel."""
+    block tables) run on the host, before anything is copied to the device,
+    when all three length vectors are host values (numpy arrays, Python
+    sequences, CPU tensors): they raise the JAX package's exception types.
+    Lengths that are already tensors on the card are checked there by device
+    asserts, without a host sync; a failed device assert ends the process's
+    CUDA context, so pass host lengths where a batch may be rejected.
+    Unsupported arguments raise as in the JAX package. Plain torch: the JAX
+    function has no Pallas kernel."""
     for bad_name, bad in (
             ("cache_k_quant_scales", cache_k_quant_scales),
             ("cache_v_quant_scales", cache_v_quant_scales),
@@ -133,33 +173,31 @@ def block_multihead_attention(
 
     qkv = torch.as_tensor(qkv)
     dev = qkv.device
+    n_kv, bs, hd = key_cache.shape[1], key_cache.shape[2], key_cache.shape[3]
+    n_q = qkv.shape[-1] // hd - 2 * n_kv
+    B, blocks_per_row = np.shape(block_tables)
+    cap = blocks_per_row * bs
+    if max_enc_len_this_time is not None:
+        max_enc = int(torch.as_tensor(max_enc_len_this_time).reshape(-1)[0])
+    else:
+        max_enc = None
+    host = _host_lengths(seq_lens_encoder, seq_lens_decoder, seq_lens_this_time)
+    if host is not None:
+        # checked before any copy to the device, with the JAX exception types
+        is_prefill = max_enc > 0 if max_enc is not None else bool((host[0] > 0).any())
+        _check_lengths(is_prefill, *host, cap)
     tables = torch.as_tensor(block_tables).to(dev, torch.int32)
     enc, dec, this = (torch.as_tensor(x).to(dev).reshape(-1)
                       for x in (seq_lens_encoder, seq_lens_decoder, seq_lens_this_time))
-    n_kv, bs, hd = key_cache.shape[1], key_cache.shape[2], key_cache.shape[3]
-    n_q = qkv.shape[-1] // hd - 2 * n_kv
+    if host is None:
+        is_prefill = max_enc > 0 if max_enc is not None else bool((enc > 0).any())
+        _check_lengths(is_prefill, enc, dec, this, cap)
     if qkv_bias is not None:
         qkv = qkv + torch.as_tensor(qkv_bias).to(dev).reshape(-1)
     # the reference layout [nb, kv, bs, d] seen as the pool layout [nb, bs,
     # kv, d]: the paged writes go through these views into the caches
     kc_p, vc_p = key_cache.transpose(1, 2), value_cache.transpose(1, 2)
-    B = tables.shape[0]
-    cap = tables.shape[1] * bs
-    if max_enc_len_this_time is not None:
-        max_enc = int(torch.as_tensor(max_enc_len_this_time).reshape(-1)[0])
-    else:
-        max_enc = None
-    is_prefill = max_enc > 0 if max_enc is not None else bool((enc > 0).any())
     if is_prefill:
-        _check((dec == 0).all(), NotImplementedError,
-               "block_multihead_attention: mixed prefill+decode batches are not "
-               "supported; split the batch by phase")
-        _check((this == enc).all(), NotImplementedError,
-               "block_multihead_attention: chunked prefill (seq_lens_this_time != "
-               "seq_lens_encoder) is not supported")
-        _check((enc <= cap).all(), ValueError,
-               f"block_multihead_attention: a prompt is longer than its block table "
-               f"({cap} positions)")
         n_tok = qkv.shape[0]
         S = max_enc if max_enc is not None else min(n_tok, cap)
         # varlen rows -> padded [B, S, ...] and back, with index vectors built
@@ -192,12 +230,6 @@ def block_multihead_attention(
         o = torch.einsum("bhgst,bthd->bshgd", probs, v_pad.float()).to(qkv.dtype)
         out = o.reshape(B, S, n_q * hd)[row_b, row_t]
     else:
-        _check((this == 1).all(), NotImplementedError,
-               "block_multihead_attention decode phase expects one token per sequence "
-               "(seq_lens_this_time == 1)")
-        _check((dec < cap).all(), ValueError,
-               f"block_multihead_attention: a decode position is past its block table "
-               f"({cap} positions)")
         rows = qkv.reshape(B, n_q + 2 * n_kv, hd)
         lens = dec.to(torch.int32)
         _pk.paged_write_decode(kc_p, vc_p, tables, lens, rows[:, n_q:n_q + n_kv],
@@ -205,3 +237,92 @@ def block_multihead_attention(
         o = _pk.paged_attention_decode(rows[:, :n_q], kc_p, vc_p, tables, lens)
         out = o.reshape(B, n_q * hd)
     return out, qkv, key_cache, value_cache
+
+
+class _FusedLinearCrossEntropy(torch.autograd.Function):
+    """Per-token loss of ``hidden @ weight`` over sequence chunks. The forward
+    keeps only ``hidden``, ``weight`` and the labels; the backward recomputes
+    each chunk's logits and their softmax, forms ``softmax - onehot`` and
+    gives that chunk's dHidden and its share of dWeight, so no more than one
+    chunk's [B, C, V] logits is ever held."""
+
+    @staticmethod
+    def forward(ctx, hidden, weight, labels, ignore_index, chunk):
+        B, Sp, _ = hidden.shape
+        tok = torch.empty((B, Sp), dtype=torch.float32, device=hidden.device)
+        for c0 in range(0, Sp, chunk):
+            lc = labels[:, c0:c0 + chunk]
+            ignored = lc == ignore_index
+            # lse - logit[label] = -log_softmax[label], in fp32 in one pass
+            logp = torch.log_softmax(torch.matmul(hidden[:, c0:c0 + chunk], weight), dim=-1,
+                                     dtype=torch.float32)
+            picked = torch.gather(logp, -1, torch.where(ignored, 0, lc).unsqueeze(-1))
+            tok[:, c0:c0 + chunk] = torch.where(ignored, 0.0, -picked.squeeze(-1))
+        ctx.save_for_backward(hidden, weight, labels)
+        ctx.ignore_index, ctx.chunk = ignore_index, chunk
+        return tok
+
+    @staticmethod
+    def backward(ctx, g_tok):
+        hidden, weight, labels = ctx.saved_tensors
+        chunk = ctx.chunk
+        d_hidden = torch.empty_like(hidden) if ctx.needs_input_grad[0] else None
+        d_weight = (torch.zeros(weight.shape, dtype=torch.float32, device=weight.device)
+                    if ctx.needs_input_grad[1] else None)
+        for c0 in range(0, hidden.shape[1], chunk):
+            hc = hidden[:, c0:c0 + chunk]
+            lc = labels[:, c0:c0 + chunk]
+            ignored = lc == ctx.ignore_index
+            probs = torch.softmax(torch.matmul(hc, weight), dim=-1, dtype=torch.float32)
+            probs.scatter_add_(-1, torch.where(ignored, 0, lc).unsqueeze(-1),
+                               torch.full_like(probs[..., :1], -1.0))
+            g = torch.where(ignored, 0.0, g_tok[:, c0:c0 + chunk].float())
+            # dlogits in fp32, rounded to the input dtype before the products
+            # (the transpose of the forward's cast to fp32): one pass
+            d_logits = torch.empty(probs.shape, dtype=hidden.dtype, device=probs.device)
+            torch.mul(probs, g.unsqueeze(-1), out=d_logits)
+            if d_hidden is not None:
+                d_hidden[:, c0:c0 + chunk] = torch.matmul(d_logits, weight.t())
+            if d_weight is not None:
+                d_weight += torch.matmul(hc.reshape(-1, hc.shape[-1]).t(),
+                                         d_logits.reshape(-1, d_logits.shape[-1])).float()
+        if d_weight is not None:
+            d_weight = d_weight.to(weight.dtype)
+        return d_hidden, d_weight, None, None, None
+
+
+def _fused_linear_cross_entropy(hidden, weight, labels, ignore_index=-100, chunk_size=512):
+    """Chunked LM-head matmul and softmax cross-entropy that never holds the
+    full [B, S, V] logits: the port of the JAX package's
+    ``_fused_linear_cross_entropy``. ``hidden`` is [B, S, H], ``weight``
+    [H, V] (paddle's layout; a transposed view is fine), ``labels`` [B, S].
+    S is padded to a multiple of ``chunk_size`` with ``ignore_index`` labels.
+    Returns the fp32 per-token loss [B, S], 0 at ignored positions.
+
+    The matmuls stay in the input dtype and the softmax runs in fp32, as in
+    JAX; the per-token loss ``lse - logit[label]`` is taken as
+    ``-log_softmax[label]`` (one fp32 pass over a chunk's logits where the
+    log-sum-exp and a subtraction take three). The backward recomputes each
+    chunk's logits (JAX's ``jax.checkpoint`` over ``lax.map``). dWeight
+    accumulates across chunks in fp32: each chunk's [H, V] product, in the
+    input dtype, is added to an fp32 sum, which is cast to ``weight``'s dtype
+    once at the end (XLA's scan carries that sum in ``weight``'s dtype; at
+    fp32 the two are the same). Plain torch: the JAX function is XLA, not a
+    Pallas kernel."""
+    B, S, _ = hidden.shape
+    C = min(int(chunk_size), S)
+    pad = (-S) % C
+    labels = labels.long()
+    if pad:
+        hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=ignore_index)
+    tok = _FusedLinearCrossEntropy.apply(hidden, weight, labels, int(ignore_index), C)
+    return tok[:, :S]
+
+
+def fused_linear_cross_entropy(hidden, weight, labels, ignore_index=-100, chunk_size=512,
+                               name=None):
+    """Per-token causal-LM loss fused with the LM-head projection; see
+    ``_fused_linear_cross_entropy``. ``weight`` is [hidden, vocab]."""
+    return _fused_linear_cross_entropy(hidden, weight, labels, ignore_index=int(ignore_index),
+                                       chunk_size=int(chunk_size))

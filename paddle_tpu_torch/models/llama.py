@@ -18,13 +18,16 @@ Differences from the JAX module, by design:
     ``apply_decay_param_fun`` gets the names it gets there.
 Training: ``loss, logits = model(ids, labels=labels)`` (the token-mean
 cross-entropy of ``LlamaPretrainingCriterion``), ``loss.backward()``, with
-per-layer recompute (``config.recompute``, granularity ``"full"``) in
-training mode (``model.train()``; a new model is in eval mode). Attention's
-backward runs the Hopper flash-attention backward kernels on the card.
-Tensor/sequence/pipeline parallelism, MoE, ring attention, selective
-recompute (``"full_attn"``/``"core_attn"``), the budget remat planner and the
-fused head + cross-entropy are later slices and raise
-``NotImplementedError``.
+per-layer recompute (``config.recompute``) in training mode
+(``model.train()``; a new model is in eval mode): granularity ``"full"``
+keeps only each layer's input, ``"full_attn"`` and ``"core_attn"`` keep the
+outputs of the matrix products without batch dimensions as well (the JAX
+model's ``dots_with_no_batch_dims_saveable``). ``config.fused_head_ce``
+fuses the LM head with the cross-entropy over sequence chunks and returns
+``(loss, None)``. Attention's backward runs the Hopper flash-attention
+backward kernels on the card. Tensor/sequence/pipeline parallelism, MoE,
+ring attention and the budget remat planner wait for the distributed slice
+(ROADMAP Queue A item 10) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -35,12 +38,12 @@ from torch import nn
 from .. import resolve_device
 from ..distributed.fleet.recompute import recompute
 from ..framework import Parameter, name_parameters
-from ..incubate.nn.functional import _rotate_half, fused_rotary_position_embedding
+from ..incubate.nn.functional import (_rotate_half, fused_linear_cross_entropy,
+                                     fused_rotary_position_embedding)
 from ..nn import functional as F
 from ..nn.layer.norm import RMSNorm
 
-_TRAINING_SLICE = "a later training slice of the port"
-_PARALLEL_SLICE = "a later (distributed) slice of the port"
+_PARALLEL_SLICE = "the distributed slice of the port (ROADMAP Queue A item 10)"
 
 
 class LlamaConfig:
@@ -117,12 +120,8 @@ def _check_supported(config):
          _PARALLEL_SLICE),
         ((config.num_experts or 0) > 1, "MoE (num_experts > 1)", _PARALLEL_SLICE),
         (getattr(config, "use_ring_attention", False), "ring attention", _PARALLEL_SLICE),
-        (config.recompute and (config.recompute_granularity or "full") != "full",
-         f"recompute_granularity={config.recompute_granularity!r} (selective recompute)",
-         _TRAINING_SLICE),
         (config.recompute_policy not in (None, "none"), "recompute_policy (remat planner)",
-         _TRAINING_SLICE),
-        (config.fused_head_ce, "fused_head_ce", _TRAINING_SLICE),
+         _PARALLEL_SLICE),
     ]
     for bad, what, where in unported:
         if bad:
@@ -192,6 +191,11 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(config.hidden_size,
                                                 config.rms_norm_eps, device, dtype)
         self._recompute = config.recompute
+        # "full_attn"/"core_attn" keep the products' outputs and recompute
+        # the rest, as the JAX model maps them onto an XLA remat policy
+        gran = config.recompute_granularity or "full"
+        self._recompute_policy = (None if gran == "full"
+                                  else "dots_with_no_batch_dims_saveable")
 
     def _block(self, hidden_states, attn_mask=None):
         h = hidden_states + self.self_attn(self.input_layernorm(hidden_states), attn_mask)
@@ -199,7 +203,8 @@ class LlamaDecoderLayer(nn.Module):
 
     def forward(self, hidden_states, attn_mask=None):
         if self._recompute and self.training:
-            return recompute(self._block, hidden_states, attn_mask)
+            return recompute(self._block, hidden_states, attn_mask,
+                             checkpoint_policy=self._recompute_policy)
         return self._block(hidden_states, attn_mask)
 
 
@@ -299,8 +304,20 @@ class LlamaForCausalLM(nn.Module):
         return self.llama.embed_tokens.weight.device
 
     def forward(self, input_ids, labels=None, attn_mask=None):
-        """Logits; with ``labels``, ``(loss, logits)``."""
-        logits = self.lm_head(self.llama(input_ids, attn_mask))
+        """Logits; with ``labels``, ``(loss, logits)``, or ``(loss, None)``
+        under ``config.fused_head_ce``, which never builds the [B, S, V]
+        logits (``fused_linear_cross_entropy``: an fp32 per-token loss)."""
+        h = self.llama(input_ids, attn_mask)
+        if labels is not None and self.config.fused_head_ce:
+            head = self.lm_head
+            # paddle's (hidden, vocab) layout: both heads store (vocab, hidden)
+            w = (head._embedding[0].weight if head._tied else head.weight).t()
+            if labels.dim() == 3:  # the reference's [B, S, 1] labels
+                labels = labels.squeeze(-1)
+            tok_loss = fused_linear_cross_entropy(
+                h, w, labels, ignore_index=self.criterion.ignore_index)
+            return self.criterion.masked_mean(tok_loss, labels), None
+        logits = self.lm_head(h)
         if labels is None:
             return logits
         return self.criterion(logits, labels), logits

@@ -224,23 +224,29 @@ class TestUnportedOptions:
         dict(tensor_parallel_degree=2), dict(sequence_parallel=True),
         dict(pipeline_parallel_degree=2), dict(num_experts=4),
         dict(use_ring_attention=True),
-        dict(recompute=True, recompute_granularity="core_attn"),
-        dict(fused_head_ce=True),
+        # selective recompute and the fused head are ported
+        # (tests/test_torch_recompute.py, tests/test_torch_fused_ce.py); the
+        # budget remat planner is not
+        dict(recompute=True, recompute_policy="auto"),
+        dict(recompute=True, recompute_granularity="core_attn", recompute_policy="auto"),
     ])
     def test_raises_not_implemented(self, kw):
         cfg = LlamaConfig(hidden_size=32, **_CFG, **kw)
-        with pytest.raises(NotImplementedError, match="slice"):
+        with pytest.raises(NotImplementedError, match="Queue A item 10"):
             LlamaForCausalLM(cfg, device="cpu")
 
     def test_labels_raise(self):
         # hard labels train (TestLossAndGradientParity); soft labels, class
-        # weights and label smoothing are not ported
-        logits = torch.zeros(2, 3, 8)
+        # weights and label smoothing are ported now and no longer raise
+        # (held to the JAX function in test_torch_train.py): a uniform
+        # weight gives the unweighted mean, smoothing 0 the plain loss
+        logits = torch.randn(2, 3, 8, generator=torch.Generator().manual_seed(0))
         labels = torch.zeros(2, 3, dtype=torch.long)
-        for kw in (dict(soft_label=True), dict(weight=torch.ones(8)),
-                   dict(label_smoothing=0.1)):
-            with pytest.raises(NotImplementedError, match="slice"):
-                cross_entropy(logits, labels, **kw)
+        plain = cross_entropy(logits, labels)
+        torch.testing.assert_close(cross_entropy(logits, labels, weight=torch.ones(8)), plain)
+        torch.testing.assert_close(cross_entropy(logits, labels, label_smoothing=0.0), plain)
+        soft = torch.nn.functional.one_hot(labels, 8).float()
+        torch.testing.assert_close(cross_entropy(logits, soft, soft_label=True), plain)
 
     def test_bfloat16_config_builds_bfloat16_parameters(self):
         cfg = LlamaConfig(hidden_size=32, dtype="bfloat16", **_CFG)

@@ -611,3 +611,32 @@ def test_block_multihead_attention_bounds_checked(phase):
     with pytest.raises(ValueError, match="block table"):
         TF.block_multihead_attention(qkv, torch.from_numpy(kc0), torch.from_numpy(kc0.copy()),
                                      e, d, n, block_tables=tables)
+
+
+@pytest.mark.parametrize("kw,exc,match", [
+    (dict(seq_lens_encoder=np.array([3, 0], np.int32),
+          qkv=np.zeros((3, 64), np.float32)), NotImplementedError, "mixed prefill"),
+    (dict(seq_lens_encoder=np.array([3, 2], np.int32), seq_lens_decoder=np.zeros(2, np.int32),
+          seq_lens_this_time=np.array([2, 2], np.int32), qkv=np.zeros((4, 64), np.float32)),
+     NotImplementedError, "chunked prefill"),
+    (dict(seq_lens_this_time=np.array([1, 2], np.int32)), NotImplementedError, "one token"),
+    (dict(seq_lens_decoder=np.array([12, 3], np.int32)), ValueError, "block table"),
+], ids=["mixed", "chunked", "decode_two", "decode_past_table"])
+def test_block_multihead_attention_checks_host_lengths_on_the_host(kw, exc, match,
+                                                                   monkeypatch):
+    """Host lengths (numpy here) are checked before anything reaches the
+    device: with qkv and the caches on the ``meta`` device the call raises the
+    JAX type, and no device assert is made (on the card a failed device
+    assert ends the process's CUDA context)."""
+    asserts = []
+    monkeypatch.setattr(torch, "_assert_async", lambda *a: asserts.append(a))
+    kc0, tables = _bmha_setup(2, 2, 8, 4, 3)
+    args = dict(qkv=np.zeros((2, 64), np.float32), seq_lens_encoder=np.zeros(2, np.int32),
+                seq_lens_decoder=np.ones(2, np.int32), seq_lens_this_time=np.ones(2, np.int32))
+    args.update(kw)
+    qkv = torch.empty(args.pop("qkv").shape, device="meta")
+    kc = torch.empty(kc0.shape, device="meta")
+    with pytest.raises(exc, match=match):
+        TF.block_multihead_attention(qkv, kc, torch.empty_like(kc), block_tables=tables,
+                                     **args)
+    assert asserts == []

@@ -41,7 +41,9 @@ def test_import_leaves_jax_and_paddle_tpu_unloaded():
             "paddle_tpu_torch.optimizer, paddle_tpu_torch.distributed.fleet, "
             "paddle_tpu_torch.utils, paddle_tpu_torch.ops.cuda.axpy, "
             "paddle_tpu_torch.serving, paddle_tpu_torch.analysis, "
-            "paddle_tpu_torch.distributed.watchdog; "
+            "paddle_tpu_torch.distributed.watchdog, paddle_tpu_torch.checkpoint, "
+            "paddle_tpu_torch.optimizer.lr, paddle_tpu_torch.nn.clip, "
+            "paddle_tpu_torch.incubate, paddle_tpu_torch.incubate.nn.functional; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -150,3 +152,52 @@ def test_kernel_source_present_and_build_ignored():
     assert (PORT / "csrc" / "flash_attention_bwd.cu").is_file()
     ignored = (ROOT / ".gitignore").read_text().split()
     assert "paddle_tpu_torch/_build/" in ignored
+
+
+def _not_ported_raises():
+    """(file, line, message) of every ``raise NotImplementedError(...)`` in
+    the port whose message says a part is not ported (or belongs to another
+    slice)."""
+    out = []
+    for path in sorted(PORT.rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if not (isinstance(node, ast.Raise) and isinstance(node.exc, ast.Call)
+                    and getattr(node.exc.func, "id", None) == "NotImplementedError"):
+                continue
+            text = " ".join(c.value for c in ast.walk(node.exc)
+                            if isinstance(c, ast.Constant) and isinstance(c.value, str))
+            names = {n.id for n in ast.walk(node.exc) if isinstance(n, ast.Name)}
+            if "not ported" in text or "slice" in text or names & {"_ITEM7", "where"}:
+                out.append((str(path.relative_to(ROOT)), node.lineno, text, names))
+    return out
+
+
+def test_every_unported_raise_names_its_roadmap_item():
+    """A part that is not ported says where its work sits in ROADMAP.md
+    (Queue A item N), directly or through the constant it formats in."""
+    sites = _not_ported_raises()
+    assert len(sites) >= 4, sites
+    consts = {"_ITEM7": "Queue A item 7",
+              "where": "Queue A item 10"}  # llama._check_supported's _PARALLEL_SLICE
+    from paddle_tpu_torch.models import llama
+
+    assert "Queue A item 10" in llama._PARALLEL_SLICE
+    for path, line, text, names in sites:
+        named = "Queue A item" in text or any(n in consts for n in names)
+        assert named, f"{path}:{line} raises NotImplementedError without a ROADMAP item"
+
+
+@pytest.mark.parametrize("call,item", [
+    (lambda: __import__("paddle_tpu_torch.incubate.nn.functional", fromlist=["x"])
+     .fused_rotary_position_embedding(torch.zeros(1, 2, 1, 4), use_neox_rotary_style=True),
+     "Queue A item 4"),
+    (lambda: __import__("paddle_tpu_torch.models", fromlist=["x"]).LlamaForCausalLM(
+        __import__("paddle_tpu_torch.models", fromlist=["x"]).LlamaConfig(
+            vocab_size=16, hidden_size=16, intermediate_size=32, num_hidden_layers=1,
+            num_attention_heads=2, tensor_parallel_degree=2), device="cpu"),
+     "Queue A item 10"),
+], ids=["rotary_every_two", "tensor_parallel"])
+def test_unported_raise_messages_name_the_item(call, item):
+    with pytest.raises(NotImplementedError, match=item):
+        call()

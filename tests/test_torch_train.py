@@ -19,7 +19,9 @@ from paddle_tpu.nn.functional import cross_entropy as jax_ce
 from paddle_tpu.nn.functional import softmax_with_cross_entropy as jax_swce
 from paddle_tpu_torch.models import LlamaConfig, llama_from_numpy, llama_to_numpy
 from paddle_tpu_torch.nn.functional import cross_entropy, softmax_with_cross_entropy
+from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch.optimizer import Adam, AdamW
+from paddle_tpu_torch.optimizer import lr as tlr
 
 _CFG = dict(vocab_size=64, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
             num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=32)
@@ -203,22 +205,128 @@ class TestMultiPrecision:
 
 
 class TestUnported:
-    def _params(self):
-        return [torch.nn.Parameter(torch.zeros(3))]
+    """The options that raised ``NotImplementedError`` before the optimizer
+    surface was ported: each now trains the tiny LLaMA as the JAX package
+    does (the names are kept from when they raised)."""
 
     @pytest.mark.parametrize("kw", [
-        dict(learning_rate=paddle.optimizer.lr.StepDecay(1e-3, step_size=2)),
-        dict(grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0)),
+        dict(learning_rate=lambda lr: lr.StepDecay(1e-3, step_size=2)),
+        dict(grad_clip=lambda nn_: nn_.ClipGradByGlobalNorm(1.0)),
         dict(amsgrad=True),
     ])
     def test_optimizer_options_raise(self, kw):
-        with pytest.raises(NotImplementedError, match="slice"):
-            AdamW(parameters=self._params(), **kw)
+        def built(mod, lr, nn_):
+            return {k: v(lr if k == "learning_rate" else nn_) if callable(v) else v
+                    for k, v in kw.items()}
+
+        kw_jax = built(paddle.optimizer, paddle.optimizer.lr, paddle.nn)
+        kw_port = built(None, tlr, tnn)
+        jm, tm = _models()
+        jopt = paddle.optimizer.AdamW(parameters=jm.parameters(), **kw_jax)
+        topt = AdamW(parameters=tm.parameters(), **kw_port)
+        jl, tl = _train(jm, tm, jopt, topt, [_batch(s) for s in range(_STEPS)])
+        np.testing.assert_allclose(tl, jl, rtol=1e-4, atol=1e-4)
 
     def test_adam_coupled_decay_raises(self):
-        with pytest.raises(NotImplementedError, match="slice"):
-            Adam(parameters=self._params(), weight_decay=0.01)
+        jm, tm = _models()
+        jopt = paddle.optimizer.Adam(learning_rate=1e-3, parameters=jm.parameters(),
+                                     weight_decay=0.5)
+        topt = Adam(learning_rate=1e-3, parameters=tm.parameters(), weight_decay=0.5)
+        jl, tl = _train(jm, tm, jopt, topt, [_batch(s) for s in range(_STEPS)])
+        np.testing.assert_allclose(tl, jl, rtol=1e-4, atol=1e-4)
+        ref, out = _jax_params(jm), llama_to_numpy(tm)
+        for name, p in ref.items():
+            np.testing.assert_allclose(out[name], p, rtol=1e-4, atol=1e-4, err_msg=name)
 
     def test_soft_labels_raise(self):
-        with pytest.raises(NotImplementedError, match="slice"):
-            softmax_with_cross_entropy(torch.zeros(2, 5), torch.zeros(2, 5), soft_label=True)
+        r = np.random.RandomState(3)
+        logits = r.randn(2, 5).astype(np.float32)
+        soft = r.dirichlet(np.ones(5), size=2).astype(np.float32)
+        ref = np.asarray(jax_swce(paddle.to_tensor(logits), paddle.to_tensor(soft),
+                                  soft_label=True).numpy())
+        out = softmax_with_cross_entropy(torch.from_numpy(logits), torch.from_numpy(soft),
+                                         soft_label=True).numpy()
+        assert out.shape == ref.shape == (2,)
+        np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
+
+
+class TestCrossEntropyOptions:
+    """The cross-entropy options against the JAX functions (as
+    tests/test_nn.py:126 exercises them): soft labels, class weights, label
+    smoothing (with hard and with soft labels), ``use_softmax=False``,
+    ``softmax_with_cross_entropy`` and ``nll_loss``; fp32 at 1e-6, and the
+    gradient of the logits at 1e-5."""
+
+    def _inputs(self, seed, soft=False):
+        r = np.random.RandomState(seed)
+        logits = r.randn(3, 5, 7).astype(np.float32)
+        if soft:
+            label = r.dirichlet(np.ones(7), size=(3, 5)).astype(np.float32)
+        else:
+            label = r.randint(0, 7, (3, 5)).astype("int64")
+            label[0, :2] = -100
+        weight = r.rand(7).astype(np.float32) + 0.5
+        return logits, label, weight
+
+    def _both(self, fn_jax, fn_port, logits, label, **kw):
+        jl = paddle.to_tensor(logits, stop_gradient=False)
+        ref = fn_jax(jl, paddle.to_tensor(label),
+                     **{k: paddle.to_tensor(v) if isinstance(v, np.ndarray) else v
+                        for k, v in kw.items()})
+        tl = torch.tensor(logits, requires_grad=True)
+        out = fn_port(tl, torch.from_numpy(label),
+                      **{k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+                         for k, v in kw.items()})
+        np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref.numpy()), rtol=1e-6,
+                                   atol=1e-6)
+        ref.sum().backward()
+        out.sum().backward()
+        np.testing.assert_allclose(tl.grad.numpy(), np.asarray(jl.grad.numpy()), rtol=1e-5,
+                                   atol=1e-6)
+
+    @pytest.mark.parametrize("reduction", ["mean", "sum", "none"])
+    @pytest.mark.parametrize("opts", [
+        dict(weight=True), dict(label_smoothing=0.1), dict(weight=True, label_smoothing=0.2),
+        dict(soft_label=True), dict(soft_label=True, label_smoothing=0.1),
+    ], ids=["weight", "smoothing", "weight_smoothing", "soft", "soft_smoothing"])
+    def test_options_match_jax(self, opts, reduction):
+        opts = dict(opts)
+        logits, label, weight = self._inputs(5, soft=opts.get("soft_label", False))
+        if opts.pop("weight", False):
+            opts["weight"] = weight
+        self._both(jax_ce, cross_entropy, logits, label, reduction=reduction, **opts)
+
+    @pytest.mark.parametrize("reduction", ["mean", "sum", "none"])
+    @pytest.mark.parametrize("weighted", [False, True], ids=["plain", "weighted"])
+    def test_probabilities_match_jax(self, weighted, reduction):
+        r = np.random.RandomState(6)
+        probs = r.dirichlet(np.ones(6), size=8).astype(np.float32)
+        label = r.randint(0, 6, 8).astype("int64")
+        label[2] = -100
+        kw = dict(use_softmax=False, reduction=reduction)
+        if weighted:
+            kw["weight"] = r.rand(6).astype(np.float32) + 0.5
+        self._both(jax_ce, cross_entropy, probs, label, **kw)
+
+    def test_nll_loss_matches_jax(self):
+        from paddle_tpu.nn.functional import nll_loss as jax_nll
+        from paddle_tpu_torch.nn.functional import nll_loss
+
+        r = np.random.RandomState(7)
+        logp = np.log(r.dirichlet(np.ones(4), size=6)).astype(np.float32)
+        label = r.randint(0, 4, 6).astype("int64")
+        self._both(jax_nll, nll_loss, logp, label, weight=r.rand(4).astype(np.float32))
+
+    def test_softmax_with_cross_entropy_soft_labels_match_jax(self):
+        logits, soft, _ = self._inputs(8, soft=True)
+        self._both(jax_swce, softmax_with_cross_entropy, logits, soft, soft_label=True)
+
+    def test_smoothing_raises_the_loss(self):
+        # tests/test_nn.py:126's check, on the port
+        r = np.random.RandomState(9)
+        logits = torch.from_numpy(r.rand(4, 5).astype(np.float32))
+        label = torch.tensor([0, -100, 2, -100])
+        p = torch.softmax(logits, -1)
+        expect = -torch.log(p[[0, 2], [0, 2]]).mean()
+        torch.testing.assert_close(cross_entropy(logits, label, ignore_index=-100), expect)
+        assert cross_entropy(logits, torch.tensor([0, 1, 2, 3]), label_smoothing=0.1) > 0
