@@ -8,8 +8,11 @@ Phases, each a hard check (the script exits nonzero on the first failure):
      kernel from csrc/ with nvcc (one process per source, in parallel).
   2. forward kernel: flash_attention_fwd (the hand-written kernel) against
      its plain PyTorch version on the card, at the serving, long-prompt,
-     training and static-engine prefill (phase 10) shapes, the edge cases, head dims 32, 64 and 128, and a view
-     TMA cannot read (the wrapper copies it and launches the same kernel),
+     training and static-engine prefill (phase 10) shapes, the edge cases,
+     head dims 32, 64, 96, 128 and 256 (phase 13's widths at their prefill
+     and training shapes), a head dim the wrapper pads (80, to 96) in bf16,
+     fp16 and fp32, and views TMA cannot read (the wrapper copies them and
+     launches the same kernel),
      with a tolerance per dtype; times of the kernel, the plain version and
      torch's scaled_dot_product_attention (a yardstick only: the port never
      calls it) beside the least time the card could take.
@@ -25,9 +28,11 @@ Phases, each a hard check (the script exits nonzero on the first failure):
      greedy tokens must be identical.
   5. backward kernels: the dq kernel (which also computes delta =
      rowsum(dO * O)) and the dk/dv kernel against the plain backward on the
-     card, at the training shapes and the edge cases, head dims 32, 64 and
-     128, and views TMA cannot read (q, dO: the wrapper copies them and
-     launches the same kernels once each), with a norm-relative tolerance per
+     card, at the training shapes and the edge cases, head dims 32, 64, 96,
+     128 and 256 (phase 13's widths at the training shape), a padded 80 in
+     bf16, fp16 and fp32, and views TMA cannot read (q, dO: the wrapper
+     copies them and launches the same kernels once each), with a
+     norm-relative tolerance per
      dtype; the fused delta against the plain one at the timed shapes; times
      of each kernel, the whole backward, the plain version and torch's
      flash-attention backward (a yardstick only) beside the least time the
@@ -135,6 +140,21 @@ Phases, each a hard check (the script exits nonzero on the first failure):
      restored, 3 more: losses and weights equal the uninterrupted run bit for
      bit; bytes written, ms the save blocked, writer, restore and verify
      seconds.
+ 13. the LLaMA architecture at Phi-3-mini's width (hidden 3072, 32 heads x
+     96, 32 layers, vocab 32064) and Gemma-2B's (hidden 2048, 8 heads and 1
+     KV head x 256, 18 layers, vocab 256000; not Gemma's GeGLU, embedding
+     scale or norm, which the JAX LlamaConfig lacks), bf16, random weights:
+     each served at full depth as phase 3 serves the flagship (forward
+     launches a prefill = layers, no pad, no copy, 0 math-path attention
+     calls); each trained 3 AdamW(multi_precision) steps at B4 S2048 cut to
+     4 layers (the Gemma width with the fused head): launches (2L, L, L) a
+     step under recompute, every gradient finite and nonzero, a falling fp32
+     loss, step_ms, MFU, peak memory and a profiled step; each at 2 layers
+     in fp32, card against a CPU twin as phases 4 and 7 (B1 S128 for the
+     training); then flash_attention launching the forward kernel once,
+     flash_attn_unpadded (3 ragged sequences, fp32) against a per-sequence
+     loop of the plain attention and its CPU twin, and every-two rotary card
+     against CPU.
 The last line is the device JSON object; the line before it the card's name
 and power limit; before that the kernels JSON object.
 
@@ -144,6 +164,7 @@ full float32 (the CPU twins and the fp32 kernel checks depend on it).
 from __future__ import annotations
 
 import gc
+import importlib
 import json
 import math
 import os
@@ -235,6 +256,44 @@ extern "C" void softsign_bwd(const float* x, const float* gy, float* gx,
 FLAGSHIP = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
                 num_hidden_layers=8, num_attention_heads=16, num_key_value_heads=16,
                 max_position_embeddings=2048)
+
+# phase 13: the LLaMA architecture at two published attention widths.
+# microsoft/Phi-3-mini-4k-instruct config.json: hidden 3072, 32 heads x 96,
+# intermediate 8192, vocab 32064, 32 layers, rope theta 10000, RMS eps 1e-5
+# (its fused qkv and gate-up weights compute the function of separate ones;
+# its 2047-token sliding window does not bind at these lengths).
+PHI3_MINI = dict(vocab_size=32064, hidden_size=3072, intermediate_size=8192,
+                 num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=32,
+                 max_position_embeddings=4096, rope_theta=10000.0, rms_norm_eps=1e-5)
+# google/gemma-2b config.json: hidden 2048, 8 query heads and 1 KV head x 256,
+# intermediate 16384, vocab 256000, 18 layers, tied embeddings, rope theta
+# 10000, RMS eps 1e-6. Gemma's GeGLU, embedding scale and (1 + w) norm are not
+# in the JAX LlamaConfig: this is the LLaMA architecture at Gemma-2B's
+# attention and MLP widths.
+GEMMA_2B = dict(vocab_size=256000, hidden_size=2048, intermediate_size=16384,
+                num_hidden_layers=18, num_attention_heads=8, num_key_value_heads=1,
+                max_position_embeddings=8192, rope_theta=10000.0, rms_norm_eps=1e-6,
+                tie_word_embeddings=True)
+# (name, width, training knobs): the Gemma-width step takes the fused head,
+# the knob for a 256000-token vocabulary ([4, 2048, 256000] logits are 4.2 GB
+# in bf16 and twice that in fp32)
+WIDTHS13 = (("phi3_mini", PHI3_MINI, {}), ("gemma_2b", GEMMA_2B, dict(fused_head_ce=True)))
+# served at full depth; trained cut to 4 layers, so that the fp32 masters and
+# moments fit beside the rest of the run (~650M parameters at Phi-3-mini's
+# width, ~10.4 GB of weights and optimizer state)
+TRAIN13 = dict(layers=4, batch=4, steps=3)
+# flash_attn_unpadded against a loop of the plain attention, in fp32: sums
+# in another order
+TOL_VARLEN = 1e-5
+# every-two rotary, card against CPU, fp32. The tables: inv_freq comes from
+# pow, which may round an ulp or two apart on the two devices (CUDA's powf
+# is within 2 ulps), and the angle pos * inv_freq carries that error times
+# the position, so a table entry may differ by four ulps (up to 2**-23
+# relative each) of the largest angle, plus the ulps of cos and sin. The
+# rotation itself, given the same tables on both devices, differs only by an
+# fma against a multiply and an add
+ROPE_ANGLE_ULPS = 4 * 2.0 ** -23
+TOL_ROPE = 1e-5
 
 
 def fail(msg):
@@ -397,11 +456,31 @@ def phase_kernel(torch, fa):
         ("d32_fp32", 2, 256, 256, 16, 16, 32, "float32", True, False),
         ("ragged_d32_gqa", 2, 300, 700, 8, 2, 32, "bfloat16", True, False),
         ("unaligned_view", 2, 256, 256, 16, 4, 128, "bfloat16", True, False),
+        # phase 13's widths: Phi-3-mini's attention (32 heads x 96) and
+        # Gemma-2B's (8 query heads, 1 KV head, x 256), at the serving
+        # prefill (B8 S128) and training (B8 S2048) shapes
+        ("phi3_prefill_d96", 8, 128, 128, 32, 32, 96, "bfloat16", True, True),
+        ("phi3_training_d96", 8, 2048, 2048, 32, 32, 96, "bfloat16", True, True),
+        ("gemma_prefill_d256", 8, 128, 128, 8, 1, 256, "bfloat16", True, True),
+        ("gemma_training_d256", 8, 2048, 2048, 8, 1, 256, "bfloat16", True, True),
+        ("d96_fp16_gqa", 2, 512, 512, 16, 4, 96, "float16", True, False),
+        ("d96_fp32", 2, 256, 256, 8, 8, 96, "float32", True, False),
+        ("d96_ragged_noncausal", 2, 333, 1000, 8, 2, 96, "bfloat16", False, False),
+        ("d96_cross_length_causal", 2, 128, 2048, 8, 8, 96, "bfloat16", True, False),
+        ("d256_fp16_gqa", 2, 512, 512, 8, 2, 256, "float16", True, False),
+        ("d256_fp32_ragged_mqa", 1, 300, 700, 4, 1, 256, "float32", True, False),
+        ("d256_ragged_noncausal", 2, 1000, 1000, 8, 8, 256, "bfloat16", False, False),
+        ("d256_cross_length_causal", 2, 128, 1024, 8, 1, 256, "bfloat16", True, False),
+        # a head dim the kernels pad (to 96): q, k and v padded, 1 launch
+        ("d80_padded_bf16_gqa", 2, 512, 512, 8, 2, 80, "bfloat16", True, False),
+        ("d80_padded_fp16", 2, 300, 300, 8, 8, 80, "float16", True, False),
+        ("d80_padded_fp32", 1, 256, 256, 4, 4, 80, "float32", True, False),
+        ("unaligned_view_d96", 2, 256, 256, 16, 4, 96, "bfloat16", True, False),
     ]
     checks, rows = [], {}
     for name, B, Sq, Sk, Hq, Hkv, D, dt, causal, timed in cases:
         dtype = getattr(torch, dt)
-        if name == "unaligned_view":
+        if name.startswith("unaligned_view"):
             q = unaligned(torch, (B, Sq, Hq, D), dtype, gen)
             k, v = (unaligned(torch, (B, Sk, Hkv, D), dtype, gen) for _ in range(2))
             if not all(fa._needs_alignment_copy(t) for t in (q, k, v)):
@@ -410,17 +489,22 @@ def phase_kernel(torch, fa):
             q = torch.randn(B, Sq, Hq, D, device="cuda", generator=gen).to(dtype)
             k = torch.randn(B, Sk, Hkv, D, device="cuda", generator=gen).to(dtype)
             v = torch.randn(B, Sk, Hkv, D, device="cuda", generator=gen).to(dtype)
-        before = (fa.launches, fa.copies_for_alignment)
+        before = (fa.launches, fa.copies_for_alignment, fa.pads_for_head_dim)
         out, lse = fa.flash_attention_fwd_lse(q, k, v, causal)
         torch.cuda.synchronize()
         launched = fa.launches - before[0]
         copies = fa.copies_for_alignment - before[1]
+        pads = fa.pads_for_head_dim - before[2]
         # a view TMA cannot read is copied (q, k and v), then the same kernel
-        # runs once; everything else is read where it lies
-        want_copies = 3 if name == "unaligned_view" else 0
-        if launched != 1 or copies != want_copies:
-            fail(f"{name}: {launched} launches and {copies} alignment copies, want 1 "
-                 f"and {want_copies}")
+        # runs once; a head dim the kernels are not built for is padded (q, k
+        # and v); everything else is read where it lies
+        want_copies = 3 if name.startswith("unaligned_view") else 0
+        want_pads = 0 if D in fa._HEAD_DIMS else 3
+        if launched != 1 or copies != want_copies or pads != want_pads:
+            fail(f"{name}: {launched} launches, {copies} alignment copies and {pads} "
+                 f"head-dim pads, want 1, {want_copies} and {want_pads}")
+        if out.shape != q.shape or out.dtype != q.dtype:
+            fail(f"{name}: output {tuple(out.shape)} {out.dtype}")
         ref, ref_lse = fa.flash_attention_fwd_plain(q, k, v, causal)
         diff = (out.float() - ref.float()).abs()
         err = diff.max().item()
@@ -428,13 +512,16 @@ def phase_kernel(torch, fa):
         lse_err = (lse - ref_lse).abs().max().item()
         row = dict(name=name, shape=[B, Sq, Sk, Hq, Hkv, D], dtype=dt, causal=causal,
                    max_abs_err=err, max_scaled_err=scaled, tol=TOL[dt], lse_err=lse_err,
-                   launches=launched, copies_for_alignment=copies)
+                   launches=launched, copies_for_alignment=copies, pads_for_head_dim=pads)
         if not (math.isfinite(scaled) and scaled <= TOL[dt]):
             fail(f"kernel disagrees with its plain version at {row}")
         if not (math.isfinite(lse_err) and lse_err <= TOL_LSE):
             fail(f"kernel LSE disagrees with the plain version at {row}")
         if timed:
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            # torch's call takes equal head counts: K and V of a GQA case are
+            # repeated to Hq heads beforehand, outside the timing
+            qt, kt, vt = (x.transpose(1, 2) for x in (
+                q, k.repeat_interleave(Hq // Hkv, dim=2), v.repeat_interleave(Hq // Hkv, dim=2)))
             fns = dict(
                 kernel=lambda: fa.flash_attention_fwd(q, k, v, causal),
                 plain=lambda: fa.flash_attention_fwd_plain(q, k, v, causal),
@@ -450,6 +537,8 @@ def phase_kernel(torch, fa):
         if timed:
             rows[name] = row
         del q, k, v, out, lse, ref, ref_lse, diff
+        if timed:
+            del qt, kt, vt, fns
         torch.cuda.empty_cache()
     return checks, rows
 
@@ -497,9 +586,9 @@ def serve_timed(torch, fa, engine, prompts, new, sync):
                      launches_decode=fa.launches - after_prefill))
 
 
-def phase_serving(torch, fa, models):
-    """The port's main path at the flagship width."""
-    cfg = models.LlamaConfig(**FLAGSHIP, dtype="bfloat16")
+def phase_serving(torch, fa, models, width=FLAGSHIP):
+    """The port's main path at the flagship width (or ``width``)."""
+    cfg = models.LlamaConfig(**width, dtype="bfloat16")
     L = cfg.num_hidden_layers
     model = models.LlamaForCausalLM(cfg, device="cuda", seed=0)
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -517,8 +606,9 @@ def phase_serving(torch, fa, models):
 
     if (fa.launches_bwd_dq, fa.launches_bwd_dkv) != (0, 0):
         fail("serving launched a backward kernel")
-    if fa.copies_for_alignment:
-        fail(f"serving made {fa.copies_for_alignment} alignment copies")
+    if fa.copies_for_alignment or fa.pads_for_head_dim:
+        fail(f"serving made {fa.copies_for_alignment} alignment copies and "
+             f"{fa.pads_for_head_dim} head-dim pads")
     if num["launches_generate"] != L:
         fail(f"engine.generate launched the kernel {num['launches_generate']} times, want {L}")
     if num["launches_prefill"] != L:
@@ -533,15 +623,18 @@ def phase_serving(torch, fa, models):
         fail(f"model.generate output misshapen: {tuple(full.shape)}")
     if not (torch.isfinite(run["logits"]).all() and torch.isfinite(run["last_step"]).all()):
         fail("non-finite logits in the serving phase")
-    return dict(prefill_ms=num["prefill_ms"], ms_per_token=num["ms_per_token"],
-                tokens_per_sec=num["tokens_per_sec"], generate_s=num["generate_s"], batch=8,
-                prompt=128, new_tokens=new, launches=launches,
-                launches_per_prefill=num["launches_prefill"],
-                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    out = dict(prefill_ms=num["prefill_ms"], ms_per_token=num["ms_per_token"],
+               tokens_per_sec=num["tokens_per_sec"], generate_s=num["generate_s"], batch=8,
+               prompt=128, new_tokens=new, launches=launches,
+               launches_per_prefill=num["launches_prefill"], layers=L,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del model, engine, run
+    return out
 
 
 def reset_counts(fa):
     fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = fa.copies_for_alignment = 0
+    fa.pads_for_head_dim = 0
 
 
 def counts(fa):
@@ -591,6 +684,22 @@ def phase_backward(torch, fa):
         ("ragged_d32_gqa", 2, 300, 700, 8, 2, 32, "bfloat16", True, False),
         ("unaligned_q", 2, 256, 256, 16, 4, 128, "bfloat16", True, False),
         ("unaligned_do", 2, 256, 256, 16, 4, 128, "bfloat16", True, False),
+        # phase 13's widths at the training shape, the edge cases at D = 96
+        # and 256, and a head dim the kernels pad (to 96)
+        ("phi3_training_d96", 8, 2048, 2048, 32, 32, 96, "bfloat16", True, True),
+        ("gemma_training_d256", 8, 2048, 2048, 8, 1, 256, "bfloat16", True, True),
+        ("d96_fp16_gqa", 2, 512, 512, 16, 4, 96, "float16", True, False),
+        ("d96_fp32", 2, 256, 256, 8, 8, 96, "float32", True, False),
+        ("d96_ragged_noncausal", 2, 333, 1000, 8, 2, 96, "bfloat16", False, False),
+        ("d96_cross_length_causal", 2, 128, 2048, 8, 8, 96, "bfloat16", True, False),
+        ("d256_fp16_gqa", 2, 512, 512, 8, 2, 256, "float16", True, False),
+        ("d256_fp32_ragged_mqa", 1, 300, 700, 4, 1, 256, "float32", True, False),
+        ("d256_ragged_noncausal", 2, 1000, 1000, 8, 8, 256, "bfloat16", False, False),
+        ("d256_cross_length_causal", 2, 128, 1024, 8, 1, 256, "bfloat16", True, False),
+        ("d80_padded_bf16_gqa", 2, 512, 512, 8, 2, 80, "bfloat16", True, False),
+        ("d80_padded_fp16", 2, 300, 300, 8, 8, 80, "float16", True, False),
+        ("d80_padded_fp32", 1, 256, 256, 4, 4, 80, "float32", True, False),
+        ("unaligned_do_d96", 2, 256, 256, 16, 4, 96, "bfloat16", True, False),
     ]
     checks, rows = [], {}
     for name, B, Sq, Sk, Hq, Hkv, D, dt, causal, timed in cases:
@@ -602,24 +711,36 @@ def phase_backward(torch, fa):
         do = torch.randn(B, Sq, Hq, D, device="cuda", generator=gen).to(dtype)
         if name == "unaligned_q":
             q = unaligned(torch, (B, Sq, Hq, D), dtype, gen)
-        if name == "unaligned_do":
+        if name.startswith("unaligned_do"):
             do = unaligned(torch, (B, Sq, Hq, D), dtype, gen)
         with torch.no_grad():
             out, lse = fa.flash_attention_fwd_lse(q, k, v, causal)
-        before = (fa.launches_bwd_dq, fa.launches_bwd_dkv, fa.copies_for_alignment)
-        got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+        before = (fa.launches_bwd_dq, fa.launches_bwd_dkv, fa.copies_for_alignment,
+                  fa.pads_for_head_dim)
+        if D in fa._HEAD_DIMS:
+            got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+        else:
+            # a head dim the kernels are not built for reaches them through
+            # autograd: the forward pads q, k and v, the backward gets them
+            # and a padded dO, and the gradients come back sliced
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            fa.flash_attention_fwd(*leaves, causal=causal).backward(do)
+            got = [t.grad for t in leaves]
         torch.cuda.synchronize()
         launched = (fa.launches_bwd_dq - before[0], fa.launches_bwd_dkv - before[1])
         copies = fa.copies_for_alignment - before[2]
+        pads = fa.pads_for_head_dim - before[3]
         # a view TMA cannot read is copied once for both kernels; everything
         # else is read where it lies
         want_copies = 1 if name.startswith("unaligned") else 0
-        if launched != (1, 1) or copies != want_copies:
-            fail(f"{name}: (dq, dk/dv) launches {launched} and {copies} alignment copies, "
-                 f"want (1, 1) and {want_copies}")
+        want_pads = 0 if D in fa._HEAD_DIMS else 3
+        if launched != (1, 1) or copies != want_copies or pads != want_pads:
+            fail(f"{name}: (dq, dk/dv) launches {launched}, {copies} alignment copies and "
+                 f"{pads} head-dim pads, want (1, 1), {want_copies} and {want_pads}")
         ref = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
         row = dict(name=name, shape=[B, Sq, Sk, Hq, Hkv, D], dtype=dt, causal=causal,
-                   tol=TOL_BWD[dt], launches=list(launched), copies_for_alignment=copies)
+                   tol=TOL_BWD[dt], launches=list(launched), copies_for_alignment=copies,
+                   pads_for_head_dim=pads)
         for gname, a, r in zip(("dq", "dk", "dv"), got, ref):
             if a.shape != r.shape or a.dtype != r.dtype:
                 fail(f"{gname} at {name}: {tuple(a.shape)} {a.dtype}, want "
@@ -642,7 +763,12 @@ def phase_backward(torch, fa):
                 dkv=lambda: fa._launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale),
                 bwd=lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, causal),
                 plain=lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal),
-                library=library_backward(torch, q, k, v, do, causal, scale))
+                # torch's backward takes equal head counts: K and V of a GQA
+                # case repeated to Hq heads beforehand (it then returns dK
+                # and dV per q head, without the group sum)
+                library=library_backward(torch, q, k.repeat_interleave(Hq // Hkv, dim=2),
+                                         v.repeat_interleave(Hq // Hkv, dim=2), do, causal,
+                                         scale))
             for key, fn in fns.items():
                 row[f"{key}_ms"] = device_ms(torch, fn)
                 row[f"{key}_call_ms"] = call_ms(torch, fn)
@@ -654,6 +780,8 @@ def phase_backward(torch, fa):
         print("backward_check " + json.dumps(row), flush=True)
         checks.append(row)
         del q, k, v, do, out, lse, got
+        if timed:
+            del delta, fns
         torch.cuda.empty_cache()
     return checks, rows
 
@@ -701,11 +829,16 @@ def profile_step(torch, step, step_ms, kernel_groups=_KERNEL_GROUPS):
                 top_kernels=[dict(ms=ms, launches=n, name=k) for ms, n, k in kernels[:12]])
 
 
-def phase_training(torch, fa, models, AdamW, smi):
-    """The training main path at the flagship width and depth."""
-    cfg = models.LlamaConfig(**FLAGSHIP, dtype="bfloat16", recompute=True,
-                             recompute_granularity="full")
-    L, B, S = cfg.num_hidden_layers, 8, 2048
+def phase_training(torch, fa, models, AdamW, smi, width=FLAGSHIP, knobs=None, batch=8,
+                   warm=1, timed=5, math_calls=None):
+    """The training main path at the flagship width and depth (or ``width``
+    with the config ``knobs``): step 1 counted and checked, ``warm`` more
+    steps, ``timed`` timed ones and one profiled, then the loss; with
+    ``math_calls`` (count_math_path), step 1 must not take sdpa's math path."""
+    cfg = models.LlamaConfig(**width, dtype="bfloat16", recompute=True,
+                             recompute_granularity="full", **(knobs or {}))
+    L, B, S = cfg.num_hidden_layers, batch, 2048
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model = models.LlamaForCausalLM(cfg, device="cuda", seed=0)
@@ -715,9 +848,19 @@ def phase_training(torch, fa, models, AdamW, smi):
     ids = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", generator=gen)
     labels = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", generator=gen)
 
+    def losses(loss, logits):
+        # (loss, its fp32 recomputation from the logits); the fused head
+        # gives no logits and an fp32 loss already
+        with torch.no_grad():
+            if logits is None:
+                return loss.item(), loss.item()
+            return loss.item(), model.criterion(logits.float(), labels).item()
+
     # step 1: counted, and every parameter's gradient checked
     torch.cuda.synchronize()
     reset_counts(fa)
+    if math_calls is not None:
+        math_calls[0] = 0
     loss, logits = model(ids, labels=labels)
     loss.backward()
     torch.cuda.synchronize()
@@ -725,15 +868,17 @@ def phase_training(torch, fa, models, AdamW, smi):
     if per_step != (2 * L, L, L):
         fail(f"one training step launched (fwd, dq, dk/dv) = {per_step}, "
              f"want {(2 * L, L, L)}")
-    if fa.copies_for_alignment:
-        fail(f"a training step made {fa.copies_for_alignment} alignment copies")
+    if math_calls is not None and math_calls[0]:
+        fail(f"a training step took sdpa's math path {math_calls[0]} times")
+    if fa.copies_for_alignment or fa.pads_for_head_dim:
+        fail(f"a training step made {fa.copies_for_alignment} alignment copies and "
+             f"{fa.pads_for_head_dim} head-dim pads")
     bad = [n for n, p in model.named_parameters()
            if p.grad is None or not bool(torch.isfinite(p.grad).all())
            or not bool((p.grad != 0).any())]
     if bad:
         fail(f"parameters without a finite nonzero gradient: {bad}")
-    with torch.no_grad():
-        first = (loss.item(), model.criterion(logits.float(), labels).item())
+    first = losses(loss, logits)
     del logits
     opt.step()
     opt.clear_grad()
@@ -745,9 +890,10 @@ def phase_training(torch, fa, models, AdamW, smi):
         opt.clear_grad()
         return loss
 
-    step()  # second warm-up
+    for _ in range(warm):
+        step()
     times = []
-    for _ in range(5):
+    for _ in range(timed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         step()
@@ -756,15 +902,13 @@ def phase_training(torch, fa, models, AdamW, smi):
     step_ms = sorted(times)[len(times) // 2]
     profile = profile_step(torch, step, step_ms)
     with torch.no_grad():
-        loss, logits = model(ids, labels=labels)
-        last = (loss.item(), model.criterion(logits.float(), labels).item())
-    del logits
+        last = losses(*model(ids, labels=labels))
     if not all(math.isfinite(x) for x in first + last):
         fail(f"non-finite training loss: first {first}, last {last}")
     # the fp32 recomputation of the loss decides: the bf16 loss rounds to
     # 2**-4 near ln(32000)
     if not last[1] < first[1]:
-        fail(f"the loss did not fall over 8 steps: {first} -> {last}")
+        fail(f"the loss did not fall over {2 + warm + timed} steps: {first} -> {last}")
     n_params = sum(p.numel() for p in model.parameters())
     n_embed = model.llama.embed_tokens.weight.numel()
     tokens = B * S
@@ -777,16 +921,17 @@ def phase_training(torch, fa, models, AdamW, smi):
         loss_first=first[0], loss_last=last[0], loss_first_fp32=first[1],
         loss_last_fp32=last[1], params=n_params, batch=B, seq=S, layers=L,
         launches_per_step=dict(fwd=per_step[0], bwd_dq=per_step[1], bwd_dkv=per_step[2]),
-        profile=profile, card=smi)
+        steps=2 + warm + timed, knobs=knobs or {}, profile=profile, card=smi)
 
 
-def phase_train_card_vs_cpu(torch, fa, models, AdamW):
-    """Two AdamW steps of an fp32 model on the card (kernels in fp32) and of
-    its CPU twin (plain versions)."""
+def phase_train_card_vs_cpu(torch, fa, models, AdamW, width=FLAGSHIP, shape=(2, 256),
+                            **knobs):
+    """Two AdamW steps of an fp32 model (``width`` at 2 layers) on the card
+    (kernels in fp32) and of its CPU twin (plain versions)."""
     import copy
 
-    cfg = models.LlamaConfig(**dict(FLAGSHIP, num_hidden_layers=2), dtype="float32",
-                             recompute=True)
+    cfg = models.LlamaConfig(**dict(width, num_hidden_layers=2), dtype="float32",
+                             recompute=True, **knobs)
     L = cfg.num_hidden_layers
     gpu = models.LlamaForCausalLM(cfg, device="cuda", seed=5)
     cpu = copy.deepcopy(gpu).to("cpu")
@@ -796,9 +941,9 @@ def phase_train_card_vs_cpu(torch, fa, models, AdamW):
     og = AdamW(learning_rate=TRAIN_LR, parameters=gpu.parameters())
     oc = AdamW(learning_rate=TRAIN_LR, parameters=cpu.parameters())
     gen = torch.Generator(device="cpu").manual_seed(13)
-    ids = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen)
-    labels = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen)
-    labels[torch.rand(2, 256, generator=gen) < 0.1] = -100
+    ids = torch.randint(0, cfg.vocab_size, shape, generator=gen)
+    labels = torch.randint(0, cfg.vocab_size, shape, generator=gen)
+    labels[torch.rand(*shape, generator=gen) < 0.1] = -100
     reset_counts(fa)
     losses, grad_err = [], {}
     for i in range(2):
@@ -838,19 +983,22 @@ def phase_train_card_vs_cpu(torch, fa, models, AdamW):
     if not update_err[worst_upd] <= TOL_TRAIN_UPDATE:
         fail(f"card vs CPU update of {worst_upd}: {update_err[worst_upd]} > "
              f"{TOL_TRAIN_UPDATE}")
-    return dict(losses=losses, tol_loss=TOL_TRAIN_LOSS,
-                worst_grad_err=[worst, grad_err[worst]], tol_grad=TOL_TRAIN_GRAD,
-                worst_param_abs=[worst_abs, param_abs[worst_abs]],
-                tol_param_abs=TOL_TRAIN_PARAM_ABS,
-                worst_update_err=[worst_upd, update_err[worst_upd]],
-                tol_update=TOL_TRAIN_UPDATE, launches=list(counts(fa)))
+    out = dict(losses=losses, tol_loss=TOL_TRAIN_LOSS,
+               worst_grad_err=[worst, grad_err[worst]], tol_grad=TOL_TRAIN_GRAD,
+               worst_param_abs=[worst_abs, param_abs[worst_abs]],
+               tol_param_abs=TOL_TRAIN_PARAM_ABS,
+               worst_update_err=[worst_upd, update_err[worst_upd]],
+               tol_update=TOL_TRAIN_UPDATE, launches=list(counts(fa)), shape=list(shape))
+    del gpu, cpu, og, oc
+    return out
 
 
-def phase_card_vs_cpu(torch, fa, models):
-    """fp32 model on the card (flash kernel in fp32) against its CPU twin."""
+def phase_card_vs_cpu(torch, fa, models, width=FLAGSHIP):
+    """fp32 model (``width`` at 2 layers) on the card (flash kernel in fp32)
+    against its CPU twin."""
     import copy
 
-    cfg = models.LlamaConfig(**dict(FLAGSHIP, num_hidden_layers=2), dtype="float32")
+    cfg = models.LlamaConfig(**dict(width, num_hidden_layers=2), dtype="float32")
     gpu = models.LlamaForCausalLM(cfg, device="cuda", seed=3)
     cpu = copy.deepcopy(gpu).to("cpu")
     gen = torch.Generator(device="cpu").manual_seed(11)
@@ -870,6 +1018,7 @@ def phase_card_vs_cpu(torch, fa, models):
     tc = ec.generate(prompts, max_new_tokens=new)
     if not torch.equal(tg, tc):
         fail(f"card vs CPU greedy tokens differ:\n{tg}\n{tc}")
+    del gpu, cpu, eg, ec
     return dict(prefill_logits_max_abs_err=err, tol=TOL_E2E_LOGITS,
                 greedy_tokens_identical=True, new_tokens=new)
 
@@ -2681,6 +2830,138 @@ def checkpoint_resume(torch, models, optim, tnn, ckpt):
     return out
 
 
+def count_math_path(port_F):
+    """Count the calls of sdpa's math path (a probe of this script: the
+    module's ``_math_sdpa`` wrapped with a counter). Returns the counter, a
+    one-element list."""
+    calls = [0]
+    inner = port_F._math_sdpa
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return inner(*a, **kw)
+
+    port_F._math_sdpa = counted
+    return calls
+
+
+def functionals_on_card(torch, fa, port_F, tF, IF, math_calls):
+    """flash_attention reaching the forward kernel, flash_attn_unpadded
+    against a per-sequence loop of the plain attention (and its CPU twin),
+    every-two rotary card against CPU."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    out = {}
+    for name, Hq, Hkv, D in (("d96", 32, 32, 96), ("d256", 8, 1, 256)):
+        q, k, v = (torch.randn(2, 256, h, D, device="cuda", generator=gen).to(torch.bfloat16)
+                   for h in (Hq, Hkv, Hkv))
+        reset_counts(fa)
+        math_calls[0] = 0
+        o, none = tF.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        if none is not None or fa.launches != 1 or math_calls[0]:
+            fail(f"phase 13 flash_attention {name}: {fa.launches} launches, "
+                 f"{math_calls[0]} math-path calls")
+        ref = fa.flash_attention_fwd_plain(q, k, v, True)[0]
+        diff = (o.float() - ref.float()).abs()
+        err = (diff / ref.float().abs().clamp(min=1.0)).max().item()
+        if not err <= TOL["bfloat16"]:
+            fail(f"phase 13 flash_attention {name} vs the plain version: {err}")
+        out[f"flash_attention_{name}"] = dict(launches=1, max_scaled_err=err,
+                                              tol=TOL["bfloat16"])
+
+        # three ragged sequences packed as one, fp32
+        cu = torch.tensor([0, 100, 357, 512], dtype=torch.int32)
+        qv, kv, vv = (torch.randn(512, h, D, device="cuda", generator=gen)
+                      for h in (Hq, Hkv, Hkv))
+        if Hq != Hkv:  # flash_attn_unpadded takes equal head counts, as in JAX
+            kv, vv = kv.repeat_interleave(Hq // Hkv, 1), vv.repeat_interleave(Hq // Hkv, 1)
+        for causal in (False, True):
+            got = tF.flash_attn_unpadded(qv, kv, vv, cu.cuda(), cu.cuda(), 257, 257,
+                                         causal=causal)[0]
+            loop = torch.cat([port_F._math_sdpa(qv[a:b][None], kv[a:b][None], vv[a:b][None],
+                                                causal=causal)[0]
+                              for a, b in zip(cu[:-1].tolist(), cu[1:].tolist())])
+            twin = tF.flash_attn_unpadded(qv.cpu(), kv.cpu(), vv.cpu(), cu, cu, 257, 257,
+                                          causal=causal)[0]
+            errs = ((got - loop).abs().max().item(), (got.cpu() - twin).abs().max().item())
+            if not max(errs) <= TOL_VARLEN:
+                fail(f"phase 13 flash_attn_unpadded {name} causal={causal}: {errs}")
+            out[f"flash_attn_unpadded_{name}_causal{int(causal)}"] = dict(
+                vs_loop=errs[0], vs_cpu=errs[1], tol=TOL_VARLEN)
+
+        # every-two rotary (the default pairing), q, k and v rotated: the
+        # tables the card generates (from positions, and from position ids)
+        # against the CPU's, then the rotation with the card's tables on both
+        x = [torch.randn(2, 256, Hq, D, device="cuda", generator=gen) for _ in range(3)]
+        pos = torch.randint(0, 4096, (2, 256), device="cuda", generator=gen)
+        for key, p in (("tables", None), ("position_ids", pos)):
+            tables = IF._rope_tables(256, D, 10000.0, torch.float32, "cuda", p)
+            twin_tables = IF._rope_tables(256, D, 10000.0, torch.float32, "cpu",
+                                          None if p is None else p.cpu())
+            table_err = max((a.cpu() - b).abs().max().item()
+                            for a, b in zip(tables, twin_tables))
+            table_tol = 1e-6 + ROPE_ANGLE_ULPS * (255 if p is None else p.max().item())
+            cos, sin = tables
+            got = IF.fused_rotary_position_embedding(*x, sin=sin, cos=cos)
+            twin = IF.fused_rotary_position_embedding(*(t.cpu() for t in x), sin=sin.cpu(),
+                                                      cos=cos.cpu())
+            err = max((a.cpu() - b).abs().max().item() for a, b in zip(got, twin))
+            if p is None:  # the default path generates the same tables itself
+                dflt = IF.fused_rotary_position_embedding(*x)
+                err = max([err] + [(a - b).abs().max().item() for a, b in zip(dflt, got)])
+            if not (table_err <= table_tol and err <= TOL_ROPE):
+                fail(f"phase 13 every-two rotary {name} {key}, card vs CPU: tables "
+                     f"{table_err} (tol {table_tol}), rotation {err} (tol {TOL_ROPE})")
+            out[f"rope_every_two_{name}_{key}"] = dict(
+                tables_card_vs_cpu=table_err, tol_tables=table_tol, card_vs_cpu=err,
+                tol=TOL_ROPE)
+        del q, k, v, o, ref, qv, kv, vv, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_widths(torch, fa, models, AdamW, port_F, tF, IF, smi):
+    """Phase 13: Phi-3-mini's and Gemma-2B's widths served (full depth) and
+    trained (4 layers), each call between counts set to 0 and read; 2-layer
+    fp32 card against CPU; the attention functionals on the card."""
+    math_calls = count_math_path(port_F)
+    out = {}
+    for name, width, knobs in WIDTHS13:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        math_calls[0] = 0
+        serving = phase_serving(torch, fa, models, width)
+        if math_calls[0]:
+            fail(f"phase 13 {name} serving took the math path {math_calls[0]} times")
+        serving.update(math_path_calls=0, seconds=time.perf_counter() - t0)
+        print(f"widths_serving_{name} " + json.dumps(dict(serving, card=smi)), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        training = phase_training(torch, fa, models, AdamW, smi,
+                                  width=dict(width, num_hidden_layers=TRAIN13["layers"]),
+                                  knobs=knobs, batch=TRAIN13["batch"], warm=0,
+                                  timed=TRAIN13["steps"] - 2, math_calls=math_calls)
+        training["seconds"] = time.perf_counter() - t0
+        print(f"widths_training_{name} " + json.dumps(training), flush=True)
+        t0 = time.perf_counter()
+        e2e = phase_card_vs_cpu(torch, fa, models, width)
+        train_e2e = phase_train_card_vs_cpu(torch, fa, models, AdamW, width, shape=(1, 128),
+                                            **knobs)
+        e2e_s = time.perf_counter() - t0
+        print(f"widths_card_vs_cpu_{name} " + json.dumps(dict(
+            serving=e2e, training=train_e2e, seconds=e2e_s)), flush=True)
+        out[name] = dict(serving=serving, training=training, card_vs_cpu=e2e,
+                         train_card_vs_cpu=train_e2e)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["functionals"] = functionals_on_card(torch, fa, port_F, tF, IF, math_calls)
+    print("widths_functionals " + json.dumps(out["functionals"]), flush=True)
+    return out
+
+
 def phase_train_surface(torch, fa, models, optim, tnn, ckpt, saved_ops, smi):
     """Phase 12: the training surface at the flagship width and depth."""
     out = dict(knobs=knob_variants(torch, fa, models, optim, saved_ops, smi))
@@ -2716,6 +2997,9 @@ def main():
         import paddle_tpu_torch.nn as tnn
         import paddle_tpu_torch.checkpoint as ckpt
         from paddle_tpu_torch.distributed.fleet.recompute import SAVED_OPS
+        import paddle_tpu_torch.nn.functional as tfunc
+        # the module (the package's attribute of that name is the function)
+        port_F = importlib.import_module("paddle_tpu_torch.nn.functional.flash_attention")
     except ImportError as e:
         print(f"chip_smoke: the paddle_tpu_torch package is not beside this "
               f"script ({e})", file=sys.stderr)
@@ -2808,6 +3092,12 @@ def main():
     surface = phase_train_surface(torch, fa, models, optim, tnn, ckpt, SAVED_OPS, smi)
     print(f"phase_seconds 12 {time.perf_counter() - t0:.1f}", flush=True)
 
+    # phase 13: Phi-3-mini's and Gemma-2B's widths (launch counts set to 0
+    # before each call, read after it)
+    t0 = time.perf_counter()
+    widths = phase_widths(torch, fa, models, AdamW, port_F, tfunc, incubate_functional, smi)
+    print(f"phase_seconds 13 {time.perf_counter() - t0:.1f}", flush=True)
+
     kernel = dict(
         name="flash_attention_fwd", route="cuda",
         source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -2874,7 +3164,44 @@ def main():
         kernel_gbps=ax["kernel_gbps"], clone_ms=ax["clone_ms"], shape=[ax["numel"]],
         dtype=ax["dtype"],
         checks=custom["checks"])
-    print(json.dumps({"kernels": [kernel] + bwd_kernels + [axpy_kernel]}), flush=True)
+    # kernels 1-3 at the head dims phase 13 runs: times at the training shape
+    # (the forward's also at the serving prefill), launches from phase 13
+    dim_kernels = []
+    for D, wname, tkey, pkey in ((96, "phi3_mini", "phi3_training_d96", "phi3_prefill_d96"),
+                                 (256, "gemma_2b", "gemma_training_d256",
+                                  "gemma_prefill_d256")):
+        w, f, pre, b = widths[wname], fwd_rows[tkey], fwd_rows[pkey], bwd_rows[tkey]
+        dim_kernels.append(dict(
+            name=f"flash_attention_fwd_d{D}", route="cuda",
+            source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+            replaces="paddle_tpu/ops/pallas/flash_attention.py:48", head_dim=D, width=wname,
+            launches=w["serving"]["launches"],
+            launches_by_path=dict(serving=w["serving"]["launches"],
+                                  per_prefill=w["serving"]["launches_per_prefill"],
+                                  training=w["training"]["launches_per_step"]["fwd"]),
+            max_abs_err=f["max_abs_err"], max_scaled_err=f["max_scaled_err"], tol=f["tol"],
+            ms=f["kernel_ms"], call_ms=f["kernel_call_ms"], plain_ms=f["plain_ms"],
+            bound_ms=f["bound_ms"], bound_by=f["bound_by"], library_ms=f["library_ms"],
+            shape=f["shape"], dtype=f["dtype"],
+            prefill=dict(ms=pre["kernel_ms"], plain_ms=pre["plain_ms"],
+                         bound_ms=pre["bound_ms"], bound_by=pre["bound_by"],
+                         library_ms=pre["library_ms"], shape=pre["shape"],
+                         max_abs_err=pre["max_abs_err"])))
+        for key, name, line, grads in (("dq", "flash_attention_bwd_dq", 130, ("dq",)),
+                                       ("dkv", "flash_attention_bwd_dkv", 171, ("dk", "dv"))):
+            dim_kernels.append(dict(
+                name=f"{name}_d{D}", route="cuda",
+                source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+                replaces=f"paddle_tpu/ops/pallas/flash_attention.py:{line}", head_dim=D,
+                width=wname, launches=w["training"]["launches_per_step"][f"bwd_{key}"],
+                max_abs_err=max(b[f"{g}_max_abs_err"] for g in grads),
+                norm_rel_err=max(b[f"{g}_err"] for g in grads), tol=b["tol"],
+                ms=b[f"{key}_ms"], call_ms=b[f"{key}_call_ms"], plain_ms=b["plain_ms"],
+                bound_ms=b[f"{key}_bound_ms"], bound_by=b[f"{key}_bound_by"],
+                library_ms=b["library_ms"], backward_ms=b["bwd_ms"], shape=b["shape"],
+                dtype=b["dtype"]))
+    print(json.dumps({"kernels": [kernel] + bwd_kernels + [axpy_kernel] + dim_kernels}),
+          flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

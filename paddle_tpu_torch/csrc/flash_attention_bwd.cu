@@ -21,8 +21,9 @@
 // or two tiles and the bound is the bytes of q, k, v, dO, O, LSE and delta
 // read and dq, dk, dv written.
 //
-// bf16 / fp16 (`fa_bwd_dq_wgmma`, `fa_bwd_dkv_wgmma`, head dims 32, 64, 128),
-// designed for Hopper on the forward's building blocks (hopper.cuh):
+// bf16 / fp16 (`fa_bwd_dq_wgmma`, `fa_bwd_dkv_wgmma`, head dims 32, 64, 96,
+// 128, 256; the wrapper zero-pads any other head dim up to 256 to the next of
+// them), designed for Hopper on the forward's building blocks (hopper.cuh):
 //   * operations: every product runs on wgmma. A block is two consumer
 //     warpgroups of 64 rows. The two score-like products (S = Q K^T and
 //     dP = dO V^T in dq; S^T = K Q^T and dP^T = V dO^T in dk/dv) read both
@@ -39,7 +40,7 @@
 //     longest first.
 //   * bytes: Q, K, V, dO and O are read straight from the caller's
 //     (B, S, H, D) strides by TMA (one 4-d tensor map each, 128-byte swizzle,
-//     64-byte at D = 32); one thread issues the copies into a ring of two
+//     64-byte at D = 32 and 96); one thread issues the copies into a ring of two
 //     stages with full/empty mbarriers, so the next tile streams in under the
 //     current one's products. The dk/dv kernel's stage also carries the
 //     tile's LSE and delta rows, by 1-d TMA maps over the (B, Hq, Sq) fp32
@@ -53,7 +54,9 @@
 //     D = 128, no spill). 128-key tiles make S and dP n128 products, which
 //     read less shared memory per flop than n64 (at n64 the two score
 //     products alone need ~128 B a cycle, the SM's rate): 14% faster than
-//     64-key tiles at B8 S2048 in a same-card A/B.
+//     64-key tiles at B8 S2048 in a same-card A/B. At D = 256 a block is 64
+//     rows (one warpgroup) and the K/V tiles 64 keys: dQ 128 registers, S and
+//     dP 32 each; Q, dO 64 KB and two stages of K, V 128 KB.
 //   * dk/dv (128 keys of one (b, kv head) a block, BQ-row Q/dO tiles): the
 //     block loops over the q heads of its GQA group and, for each, the q
 //     tiles from the causal lo, summing dK and dV over the group in fp32
@@ -61,6 +64,10 @@
 //     the result is deterministic. Registers a thread: dK and dV D / 2 each
 //     (128 at D = 128), S^T and dP^T BQ / 2 each; BQ = 64 keeps every
 //     instantiation within 255 registers with no spill (nvcc -Xptxas -v).
+//     At D = 256 a block is 64 keys: both warpgroups compute the same S^T
+//     and dP^T and each sums half of the head dim of dK and dV (64 registers
+//     each, as at D = 128), which costs the score products twice (12 D flops
+//     a pair against 8 D) but keeps the two warpgroups' work the same.
 // Measured slower and not kept: issuing the next tile's score products before
 // this tile's P and dS (dq, two register sets) or right behind its dV and dK
 // (dk/dv), both with three stages: ptxas serialized the wgmmas (C7518) around
@@ -68,17 +75,16 @@
 // Left for later: a producer warp with setmaxnreg, ping-pong of the consumer
 // warpgroups and persistent blocks; one fused kernel that accumulates dQ with
 // fp32 atomics (FA2/FA3: it drops the recompute of S and dP, 14 D to 10 D
-// flops a pair, but gives up the deterministic two-kernel split); head dims
-// 96 and 256.
+// flops a pair, but gives up the deterministic two-kernel split).
 //
-// fp32 inputs run on CUDA cores in full fp32 (no TF32), four threads per row;
-// the fp32 dq kernel computes delta for its rows too.
+// fp32 inputs run on CUDA cores in full fp32 (no TF32), four threads per row
+// (64-row tiles, 32 at D = 256); the fp32 dq kernel computes delta for its
+// rows too.
 #include "flash_attention_common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // 16-bit kernels: two warpgroups
 constexpr int kBox = 64;       // rows of a warpgroup's tile and of a TMA box
 constexpr int kStages = 2;     // K/V (dq) or Q/dO (dk/dv) stages in the ring
 constexpr float kBig = 1e30f;  // an LSE that gives P = 0 (rows past Sq)
@@ -145,28 +151,36 @@ __device__ __forceinline__ void store_rows(T* base, long long stride, const int 
 }
 
 // ---------------------------------------------------------------------------
-// dq: 128 query rows of one (b, q head) a block, 64-key K/V tiles
+// dq: 128 query rows of one (b, q head) a block (two warpgroups), 128-key K/V
+// tiles; at D = 256 64 rows (one warpgroup) and 64-key tiles
 // ---------------------------------------------------------------------------
-constexpr int kDqBlockM = 128;
-constexpr int kDqBlockN = 128;
-
 template <int D>
 struct DqLayout : SwizzleAtom<D> {
-  static constexpr int kQBytes = kDqBlockM * D * 2;   // one of Q, dO (and O)
-  static constexpr int kKVBytes = kDqBlockN * D * 2;  // one of K, V
+  // At D = 256 dQ alone is 128 registers a thread, so S and dP are m64n64
+  // (32 each); Q, dO of 128 rows (128 KB) and two stages of K, V would not
+  // fit in 227 KB, so a block is one warpgroup of 64 rows.
+  static constexpr int kBlockM = D > 128 ? 64 : 128;   // query rows
+  static constexpr int kBlockN = D > 128 ? 64 : 128;   // keys per K/V tile
+  static constexpr int kThreads = 2 * kBlockM;         // one warpgroup per 64 rows
+  static constexpr int kQBytes = kBlockM * D * 2;      // one of Q, dO (and O)
+  static constexpr int kKVBytes = kBlockN * D * 2;     // one of K, V
   static constexpr int kStageBytes = 2 * kKVBytes;
   static constexpr int kStage0 = 2 * kQBytes;
-  static constexpr int kDeltaOffset = kStage0 + kStages * kStageBytes;  // float[128]
-  static constexpr int kBarOffset = kDeltaOffset + kDqBlockM * 4;
+  static constexpr int kDeltaOffset = kStage0 + kStages * kStageBytes;  // float[kBlockM]
+  static constexpr int kBarOffset = kDeltaOffset + kBlockM * 4;
   // + 1 KB so the tiles can start on a 1024-byte boundary
   static constexpr size_t kSmem = (size_t)kBarOffset + 8 * (2 * kStages + 1) + 1024;
   static_assert(kStageBytes >= kQBytes, "O is staged in one K/V stage");
+  static_assert(kSmem <= 232448, "a block's shared memory is 227 KB");
 };
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(DqLayout<D>::kThreads, 1)
 fa_bwd_dq_wgmma(const __grid_constant__ BwdParams p) {
   using L = DqLayout<D>;
+  constexpr int kDqBlockM = L::kBlockM;
+  constexpr int kDqBlockN = L::kBlockN;
+  constexpr int kThreads = L::kThreads;
   constexpr int kNT = kDqBlockN / 8;  // n8 column groups of the S and dP tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -353,14 +367,24 @@ fa_bwd_dq_wgmma(const __grid_constant__ BwdParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// dk/dv: 128 keys of one (b, kv head) a block, BQ-row Q/dO tiles
+// dk/dv: 128 keys of one (b, kv head) a block, a warpgroup for each 64 of
+// them, BQ-row Q/dO tiles; at D = 256 64 keys, each warpgroup holding half of
+// the head dim of dK and dV
 // ---------------------------------------------------------------------------
-constexpr int kDkvBlockN = 128;
+constexpr int kDkvThreads = 256;  // two warpgroups
 
 template <int D>
 struct DkvLayout : SwizzleAtom<D> {
+  // At D = 256 dK and dV of 64 keys would be 128 registers a thread each:
+  // both warpgroups take the block's 64 keys (each recomputes S^T and dP^T)
+  // and each accumulates D / 2 columns of dK and dV, 64 registers each, as
+  // at D = 128. K and V of 128 keys (128 KB) would not fit beside two stages
+  // either.
+  static constexpr bool kSplitD = D > 128;
+  static constexpr int kKeys = kSplitD ? 64 : 128;    // keys per block
+  static constexpr int kAccN = kSplitD ? D / 2 : D;   // dK, dV columns a warpgroup
   static constexpr int kBQ = 64;                      // q rows per tile (registers, above)
-  static constexpr int kKBytes = kDkvBlockN * D * 2;  // one of K, V
+  static constexpr int kKBytes = kKeys * D * 2;       // one of K, V
   static constexpr int kQBytes = kBQ * D * 2;         // one of Q, dO
   // one of LSE, delta: a box of kBQ + 4 floats from the 16-byte-aligned
   // element at or before the tile's first row (TMA reads a box from a
@@ -373,12 +397,16 @@ struct DkvLayout : SwizzleAtom<D> {
   static constexpr int kStage0 = 2 * kKBytes;
   static constexpr int kBarOffset = kStage0 + kStages * kStageBytes;
   static constexpr size_t kSmem = (size_t)kBarOffset + 8 * (2 * kStages + 1) + 1024;
+  static_assert(kSmem <= 232448, "a block's shared memory is 227 KB");
 };
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kDkvThreads, 1)
 fa_bwd_dkv_wgmma(const __grid_constant__ BwdParams p) {
   using L = DkvLayout<D>;
+  constexpr int kThreads = kDkvThreads;
+  constexpr int kDkvBlockN = L::kKeys;
+  constexpr int kAccN = L::kAccN;
   constexpr int BQ = L::kBQ;
   constexpr int kNT = BQ / 8;  // n8 column groups (queries) of S^T and dP^T
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -395,11 +423,16 @@ fa_bwd_dkv_wgmma(const __grid_constant__ BwdParams p) {
   const int b = blockIdx.z;
   const int rep = p.Hq / p.Hkv;
   const int tid = threadIdx.x;
-  const int wg = tid / 128;  // this warpgroup's keys: [kw0, kw0 + 64)
+  // this warpgroup's keys: [kw0, kw0 + 64); its dK, dV columns [col0, col0 + kAccN)
+  const int wg = tid / 128;
   const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
   const int offset = p.Sk - p.Sq;
-  const int kw0 = k0 + kBox * wg;
+  const int kw0 = L::kSplitD ? k0 : k0 + kBox * wg;
+  const int kw_row = kw0 - k0;               // its first row in the K, V tiles
+  const int col0 = L::kSplitD ? wg * kAccN : 0;
+  // the atom of the Q and dO tiles where column col0 starts
+  const uint32_t col_off = (col0 / L::kCols) * BQ * L::kRowBytes;
 
   // q tiles from the first one with a query that sees the block's (or the
   // warpgroup's) first key; every q head of the group in turn
@@ -444,9 +477,9 @@ fa_bwd_dkv_wgmma(const __grid_constant__ BwdParams p) {
   const int key_l = warp * 16 + lane / 4;  // rows key_l, key_l + 8 of the warpgroup's 64
   const int key[2] = {kw0 + key_l, kw0 + key_l + 8};
   const float scale_log2 = p.scale * kLog2e;
-  float dk[D / 2], dv[D / 2];
+  float dk[kAccN / 2], dv[kAccN / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < kAccN / 2; ++i) dk[i] = dv[i] = 0.f;
   float st[BQ / 2], dpt[BQ / 2];  // S^T (then P^T), dP^T (then dS^T): rows keys
 #pragma unroll
   for (int i = 0; i < BQ / 2; ++i) st[i] = dpt[i] = 0.f;
@@ -477,12 +510,12 @@ fa_bwd_dkv_wgmma(const __grid_constant__ BwdParams p) {
       fence_regs(dpt);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<T, BQ>(st, kmajor_desc<D>(sK, kDkvBlockN, kBox * wg, kk),
+        wgmma_ss<T, BQ>(st, kmajor_desc<D>(sK, kDkvBlockN, kw_row, kk),
                         kmajor_desc<D>(sQ, BQ, 0, kk), kk > 0);
       wgmma_commit();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<T, BQ>(dpt, kmajor_desc<D>(sV, kDkvBlockN, kBox * wg, kk),
+        wgmma_ss<T, BQ>(dpt, kmajor_desc<D>(sV, kDkvBlockN, kw_row, kk),
                         kmajor_desc<D>(sdO, BQ, 0, kk), kk > 0);
       wgmma_commit();
       wgmma_wait<1>();
@@ -528,7 +561,7 @@ fa_bwd_dkv_wgmma(const __grid_constant__ BwdParams p) {
         for (int e = 0; e < 4; ++e)
           dpt[4 * i + e] = st[4 * i + e] * (dpt[4 * i + e] - d[e & 1]) * p.scale;
       }
-      // dV += P^T dO and dK += dS^T Q, one group
+      // dV += P^T dO and dK += dS^T Q (columns [col0, col0 + kAccN)), one group
       uint32_t pa[BQ / 16][4], da[BQ / 16][4];
       pack_a<T, BQ>(pa, st);
       pack_a<T, BQ>(da, dpt);
@@ -537,10 +570,10 @@ fa_bwd_dkv_wgmma(const __grid_constant__ BwdParams p) {
       fence_regs(dk);
 #pragma unroll
       for (int kc = 0; kc < BQ / 16; ++kc)
-        wgmma_rs<T, D>(dv, pa[kc], mnmajor_desc<D>(sdO, BQ, kc));
+        wgmma_rs<T, kAccN>(dv, pa[kc], mnmajor_desc<D>(sdO + col_off, BQ, kc));
 #pragma unroll
       for (int kc = 0; kc < BQ / 16; ++kc)
-        wgmma_rs<T, D>(dk, da[kc], mnmajor_desc<D>(sQ, BQ, kc));
+        wgmma_rs<T, kAccN>(dk, da[kc], mnmajor_desc<D>(sQ + col_off, BQ, kc));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dv);
@@ -555,16 +588,23 @@ fa_bwd_dkv_wgmma(const __grid_constant__ BwdParams p) {
   }
 
   const long long stride = (long long)p.Hkv * D;
-  const long long head = ((long long)b * p.Sk * p.Hkv + hk) * D;
-  store_rows<T, D>(static_cast<T*>(p.dk) + head, stride, key, p.Sk, dk, lane);
-  store_rows<T, D>(static_cast<T*>(p.dv) + head, stride, key, p.Sk, dv, lane);
+  const long long head = ((long long)b * p.Sk * p.Hkv + hk) * D + col0;
+  store_rows<T, kAccN>(static_cast<T*>(p.dk) + head, stride, key, p.Sk, dk, lane);
+  store_rows<T, kAccN>(static_cast<T*>(p.dv) + head, stride, key, p.Sk, dv, lane);
 }
 
 // ---------------------------------------------------------------------------
 // fp32: CUDA cores, full fp32 arithmetic
 // ---------------------------------------------------------------------------
-constexpr int kF32BlockM = 64;  // dq: query rows per block; dk/dv: keys per block
-constexpr int kF32BlockN = 64;  // dq: keys per k/v tile; dk/dv: queries per q tile
+// 64-row tiles, 256 threads (four a row); 32-row tiles and 128 threads at
+// D = 256, where 64-row tiles of Q, dO, K and V take 279,808 bytes of shared
+// memory in dq (more in dk/dv), above a block's 227 KB
+template <int D>
+struct F32Tile {
+  static constexpr int kM = D > 128 ? 32 : 64;  // dq: query rows a block; dk/dv: keys a block
+  static constexpr int kN = kM;                 // dq: keys a k/v tile; dk/dv: queries a q tile
+  static constexpr int kThreads = 4 * kM;
+};
 
 struct Params {
   const void* q;
@@ -587,14 +627,14 @@ struct Params {
   int causal;
 };
 
-// 256 threads, four per row of the block's 64 rows. Thread (r, c) owns score
+// Four threads per row of the block's kM rows. Thread (r, c) owns score
 // columns c, c+4, ... of its row and output dims c, c+4, ...; odd pitches
 // keep the column walks free of bank conflicts.
 template <int D>
 __device__ __forceinline__ void load_rows_f32(float* dst, const float* src, long long stride,
                                               int r0, int nrows, float mul) {
   constexpr int LD = D + 1;
-  for (int i = threadIdx.x; i < kF32BlockM * D; i += 256) {
+  for (int i = threadIdx.x; i < F32Tile<D>::kM * D; i += F32Tile<D>::kThreads) {
     const int rr = i / D, d = i % D;
     const int gr = r0 + rr;
     dst[rr * LD + d] = gr < nrows ? src[(long long)gr * stride + d] * mul : 0.f;
@@ -602,8 +642,10 @@ __device__ __forceinline__ void load_rows_f32(float* dst, const float* src, long
 }
 
 template <int D>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(F32Tile<D>::kThreads)
 fa_bwd_dq_f32(const Params p) {
+  constexpr int kF32BlockM = F32Tile<D>::kM;
+  constexpr int kF32BlockN = F32Tile<D>::kN;
   constexpr int LD = D + 1;
   constexpr int LDP = kF32BlockN + 1;
   constexpr int kCols = kF32BlockN / 4;
@@ -694,11 +736,13 @@ fa_bwd_dq_f32(const Params p) {
 }
 
 template <int D>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(F32Tile<D>::kThreads)
 fa_bwd_dkv_f32(const Params p) {
+  constexpr int kF32BlockM = F32Tile<D>::kM;
+  constexpr int kF32BlockN = F32Tile<D>::kN;
   constexpr int LD = D + 1;
   constexpr int LDP = kF32BlockN + 1;
-  constexpr int kCols = kF32BlockN / 4;  // queries of a 64-row q tile a thread owns
+  constexpr int kCols = kF32BlockN / 4;  // queries of a q tile a thread owns
   constexpr int kDims = D / 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sK = reinterpret_cast<float*>(smem_raw);  // pre-scaled by scale
@@ -739,7 +783,7 @@ fa_bwd_dkv_f32(const Params p) {
       __syncthreads();
       load_rows_f32<D>(sQ, Qg, p.q_ss, q0, p.Sq, 1.f);
       load_rows_f32<D>(sdO, dOg, p.do_ss, q0, p.Sq, 1.f);
-      for (int i = threadIdx.x; i < kF32BlockN; i += 256) {
+      for (int i = threadIdx.x; i < kF32BlockN; i += F32Tile<D>::kThreads) {
         const int r = q0 + i;
         const long long idx = ((long long)b * p.Hq + h) * p.Sq + r;
         sL[i] = r < p.Sq ? p.lse[idx] : 0.f;
@@ -841,9 +885,9 @@ cudaError_t launch_dq_wgmma(const Params& a, CUtensorMapDataType dt, cudaStream_
   static bool configured[kMaxDevices] = {};
   BwdParams w;
   if (!make_wg_params<D>(&w, a, dt, kBox, false)) return cudaErrorInvalidValue;
-  const dim3 grid((a.Sq + kDqBlockM - 1) / kDqBlockM, a.Hq, a.B);
-  return launch(fa_bwd_dq_wgmma<T, D>, configured, grid, kThreads, DqLayout<D>::kSmem, w,
-                stream);
+  using L = DqLayout<D>;
+  const dim3 grid((a.Sq + L::kBlockM - 1) / L::kBlockM, a.Hq, a.B);
+  return launch(fa_bwd_dq_wgmma<T, D>, configured, grid, L::kThreads, L::kSmem, w, stream);
 }
 
 template <typename T, int D>
@@ -851,28 +895,29 @@ cudaError_t launch_dkv_wgmma(const Params& a, CUtensorMapDataType dt, cudaStream
   static bool configured[kMaxDevices] = {};
   BwdParams w;
   if (!make_wg_params<D>(&w, a, dt, DkvLayout<D>::kBQ, true)) return cudaErrorInvalidValue;
-  const dim3 grid((a.Sk + kDkvBlockN - 1) / kDkvBlockN, a.Hkv, a.B);
-  return launch(fa_bwd_dkv_wgmma<T, D>, configured, grid, kThreads, DkvLayout<D>::kSmem, w,
-                stream);
+  using L = DkvLayout<D>;
+  const dim3 grid((a.Sk + L::kKeys - 1) / L::kKeys, a.Hkv, a.B);
+  return launch(fa_bwd_dkv_wgmma<T, D>, configured, grid, kDkvThreads, L::kSmem, w, stream);
 }
 
 template <int D>
 cudaError_t launch_dq_f32(const Params& p, cudaStream_t stream) {
   static bool configured[kMaxDevices] = {};
-  const size_t smem = ((size_t)(2 * kF32BlockM + 2 * kF32BlockN) * (D + 1) +
-                       (size_t)kF32BlockM * (kF32BlockN + 1)) * sizeof(float);
-  const dim3 grid((p.Sq + kF32BlockM - 1) / kF32BlockM, p.Hq, p.B);
-  return launch(fa_bwd_dq_f32<D>, configured, grid, 256, smem, p, stream);
+  using F = F32Tile<D>;
+  const size_t smem = ((size_t)(2 * F::kM + 2 * F::kN) * (D + 1) +
+                       (size_t)F::kM * (F::kN + 1)) * sizeof(float);
+  const dim3 grid((p.Sq + F::kM - 1) / F::kM, p.Hq, p.B);
+  return launch(fa_bwd_dq_f32<D>, configured, grid, F::kThreads, smem, p, stream);
 }
 
 template <int D>
 cudaError_t launch_dkv_f32(const Params& p, cudaStream_t stream) {
   static bool configured[kMaxDevices] = {};
-  const size_t smem = ((size_t)(2 * kF32BlockM + 2 * kF32BlockN) * (D + 1) +
-                       (size_t)2 * kF32BlockM * (kF32BlockN + 1) + 2 * kF32BlockN) *
-                      sizeof(float);
-  const dim3 grid((p.Sk + kF32BlockM - 1) / kF32BlockM, p.Hkv, p.B);
-  return launch(fa_bwd_dkv_f32<D>, configured, grid, 256, smem, p, stream);
+  using F = F32Tile<D>;
+  const size_t smem = ((size_t)(2 * F::kM + 2 * F::kN) * (D + 1) +
+                       (size_t)2 * F::kM * (F::kN + 1) + 2 * F::kN) * sizeof(float);
+  const dim3 grid((p.Sk + F::kM - 1) / F::kM, p.Hkv, p.B);
+  return launch(fa_bwd_dkv_f32<D>, configured, grid, F::kThreads, smem, p, stream);
 }
 
 template <int D>
@@ -892,6 +937,8 @@ int launch_bwd(bool dq, int dtype, int D, const Params& p, void* stream) {
   if (D == 128) return (int)launch_dim<128>(dq, dtype, p, s);
   if (D == 64) return (int)launch_dim<64>(dq, dtype, p, s);
   if (D == 32) return (int)launch_dim<32>(dq, dtype, p, s);
+  if (D == 96) return (int)launch_dim<96>(dq, dtype, p, s);
+  if (D == 256) return (int)launch_dim<256>(dq, dtype, p, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -14,11 +14,13 @@
 // below the ~295 flop/byte at which bf16 tensor cores become the limit, so
 // the bound is HBM bytes; at S >= ~1k causal it is tensor-core flops.
 //
-// bf16 / fp16 (`fa_fwd_wgmma`, head dims 32, 64, 128), designed for Hopper:
+// bf16 / fp16 (`fa_fwd_wgmma`, head dims 32, 64, 96, 128, 256; the wrapper
+// zero-pads any other head dim up to 256 to the next of them), designed for
+// Hopper:
 //   * flops: both products run on wgmma, the only path to the card's full
 //     tensor-core rate. A block is 128 query rows of one (b, q head) in two
-//     warpgroups of 64 rows; each 128-key K/V tile in shared memory feeds
-//     both. S = Q K^T is m64n128k16 with Q and K from shared memory (both
+//     warpgroups of 64 rows; each K/V tile in shared memory (128 keys, 64 at
+//     D = 256) feeds both. S = Q K^T is m64n128k16 with Q and K from shared memory (both
 //     K-major: D contiguous). O += P V is m64nDk16 with P from registers (the
 //     fp32 score accumulator packed to 16-bit pairs: the m64 accumulator
 //     layout is the A-register layout) and V from shared memory, D
@@ -29,7 +31,7 @@
 //     are issued longest first so the tail of the grid is short.
 //   * bytes: Q, K and V are read straight from the caller's (B, S, H, D)
 //     strides by TMA (one 4-d tensor map each, 128-byte swizzle, 64-byte at
-//     D = 32, matching the wgmma descriptors); one thread issues the copies
+//     D = 32 and 96, matching the wgmma descriptors); one thread issues the copies
 //     and no thread spends registers on addresses. K/V tiles go through a
 //     ring of two stages, each with a "full" mbarrier (TMA bytes) and an
 //     "empty" one (every consumer thread past the wgmma that read it), so the
@@ -39,13 +41,15 @@
 //   * shared memory at D = 128: Q 32 KB + 2 stages x (K + V) 64 KB = 160 KB of
 //     the 227 KB. A third stage fits (224 KB) but measured no faster: with
 //     the loads issued a tile ahead, the tile's math, not the copy, is what
-//     the next tile waits for.
+//     the next tile waits for. D = 96: Q 24 KB + 96 KB, three 32-column atoms
+//     a tile. D = 256: Q 64 KB + 2 x (K + V) 64 KB of 64-key tiles = 192 KB;
+//     registers a thread: O 128, S 32 (the m64n64 score tile), P 16.
 // Left for later (stage 2): a producer warp with setmaxnreg, and ping-pong of
-// the two warpgroups so one's softmax runs under the other's products; head
-// dims 96 and 256.
+// the two warpgroups so one's softmax runs under the other's products.
 //
 // fp32 (`fa_fwd_f32`) runs on CUDA cores in full fp32 (no TF32), one query
-// row per four threads, 64-row blocks.
+// row per four threads, 64-row blocks (213,760 bytes of shared memory at
+// D = 256).
 #include "flash_attention_common.cuh"
 #include "hopper.cuh"
 
@@ -55,12 +59,11 @@ namespace {
 // bf16 / fp16: wgmma fed by TMA
 // ---------------------------------------------------------------------------
 constexpr int kWgBlockM = 128;  // query rows per block: two warpgroups of 64
-constexpr int kWgBlockN = 128;  // keys per K/V tile
 constexpr int kWgThreads = 256;
 constexpr int kStages = 2;      // K/V stages in the ring
 
 struct WgParams {
-  CUtensorMap tq, tk, tv;  // (D, S, H, B) maps, box (atom columns, 128 rows, 1, 1)
+  CUtensorMap tq, tk, tv;  // (D, S, H, B) maps, box (atom columns, tile rows, 1, 1)
   void* o;
   float* lse;              // (B, Hq, Sq) contiguous
   int Hq, Hkv, Sq, Sk;
@@ -70,23 +73,27 @@ struct WgParams {
 };
 
 // Shared-memory layout of one head dim: the Q tile, then the K/V stages, each
-// tile in swizzled column atoms (SwizzleAtom, hopper.cuh).
+// tile in swizzled column atoms (SwizzleAtom, hopper.cuh). K/V tiles are 128
+// keys, or 64 at D = 256: there the m64n256 O accumulator is 128 registers a
+// thread (S of 64 keys adds 32, of 128 keys 64), and Q 64 KB + two stages of
+// 128-key K and V (256 KB) would not fit in a block's 227 KB.
 template <int D>
 struct WgLayout : SwizzleAtom<D> {
+  static constexpr int kBlockN = D > 128 ? 64 : 128;              // keys per K/V tile
   static constexpr int kQBytes = kWgBlockM * D * 2;
-  static constexpr int kKVBytes = kWgBlockN * D * 2;              // one of K, V
+  static constexpr int kKVBytes = kBlockN * D * 2;                // one of K, V
   static constexpr int kBarOffset = kQBytes + kStages * 2 * kKVBytes;
   // + 1 KB so the tiles can start on a 1024-byte boundary
   static constexpr size_t kSmem = (size_t)kBarOffset + 8 * (2 * kStages + 1) + 1024;
+  static_assert(kSmem <= 232448, "a block's shared memory is 227 KB");
 };
-
-static_assert(kWgBlockM == kWgBlockN, "Q and K/V tiles share one TMA box");
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kWgThreads, 1)
 fa_fwd_wgmma(const __grid_constant__ WgParams p) {
   using L = WgLayout<D>;
-  constexpr int kNT = kWgBlockN / 8;  // n8 column groups of the score tile
+  constexpr int kBlockN = L::kBlockN;
+  constexpr int kNT = kBlockN / 8;    // n8 column groups of the score tile
   constexpr int kDT = D / 8;          // n8 column groups of the output
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -106,22 +113,20 @@ fa_fwd_wgmma(const __grid_constant__ WgParams p) {
   const int lane = tid % 32;
   const int offset = p.Sk - p.Sq;
 
-  const int n_tiles = (kv_limit(q0, kWgBlockM, p.Sq, p.Sk, p.causal) + kWgBlockN - 1) /
-                      kWgBlockN;
+  const int n_tiles = (kv_limit(q0, kWgBlockM, p.Sq, p.Sk, p.causal) + kBlockN - 1) /
+                      kBlockN;
   const int wq0 = q0 + 64 * wg;
   const int wg_tiles = wq0 >= p.Sq ? 0
-      : (kv_limit(wq0, 64, p.Sq, p.Sk, p.causal) + kWgBlockN - 1) / kWgBlockN;
+      : (kv_limit(wq0, 64, p.Sq, p.Sk, p.causal) + kBlockN - 1) / kBlockN;
 
   auto stage_k = [&](int s) { return base + L::kQBytes + s * 2 * L::kKVBytes; };
-  auto load_tile = [&](uint32_t dst, const CUtensorMap* map, int row, int head, uint32_t bar) {
-    tma_load_tile<D>(dst, map, kWgBlockN, kWgBlockN, row, head, b, bar);
-  };
   auto load_kv = [&](int j) {  // tile j into stage j % kStages
     const int s = j % kStages;
     const uint32_t full = bars + 8 * s;
     mbar_arrive_expect_tx(full, 2 * L::kKVBytes);
-    load_tile(stage_k(s), &p.tk, j * kWgBlockN, hk, full);
-    load_tile(stage_k(s) + L::kKVBytes, &p.tv, j * kWgBlockN, hk, full);
+    tma_load_tile<D>(stage_k(s), &p.tk, kBlockN, kBlockN, j * kBlockN, hk, b, full);
+    tma_load_tile<D>(stage_k(s) + L::kKVBytes, &p.tv, kBlockN, kBlockN, j * kBlockN, hk, b,
+                     full);
   };
 
   if (tid == 0) {
@@ -135,7 +140,7 @@ fa_fwd_wgmma(const __grid_constant__ WgParams p) {
   __syncthreads();
   if (tid == 0) {
     mbar_arrive_expect_tx(q_bar, L::kQBytes);
-    load_tile(sQ, &p.tq, q0, h, q_bar);  // kWgBlockM == kWgBlockN rows
+    tma_load_tile<D>(sQ, &p.tq, kWgBlockM, kWgBlockM, q0, h, b, q_bar);
     for (int j = 0; j < kStages && j < n_tiles; ++j) load_kv(j);
   }
   __syncwarp();
@@ -147,9 +152,9 @@ fa_fwd_wgmma(const __grid_constant__ WgParams p) {
   float acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  float sc[kWgBlockN / 2];  // this tile's scores, then its probabilities
+  float sc[kBlockN / 2];  // this tile's scores, then its probabilities
 #pragma unroll
-  for (int i = 0; i < kWgBlockN / 2; ++i) sc[i] = 0.f;
+  for (int i = 0; i < kBlockN / 2; ++i) sc[i] = 0.f;
   // this warpgroup's 64 rows in each Q atom
   const uint32_t q_wg = sQ + wg * 64 * L::kRowBytes;
 
@@ -171,9 +176,9 @@ fa_fwd_wgmma(const __grid_constant__ WgParams p) {
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t a_off = (kk / L::kKPerAtom) * kWgBlockM * L::kRowBytes +
                                (kk % L::kKPerAtom) * 32;
-        const uint32_t b_off = (kk / L::kKPerAtom) * kWgBlockN * L::kRowBytes +
+        const uint32_t b_off = (kk / L::kKPerAtom) * kBlockN * L::kRowBytes +
                                (kk % L::kKPerAtom) * 32;
-        wgmma_ss<T, kWgBlockN>(sc, wgmma_desc(q_wg + a_off, 16, 8 * L::kRowBytes, L::kSwizzle),
+        wgmma_ss<T, kBlockN>(sc, wgmma_desc(q_wg + a_off, 16, 8 * L::kRowBytes, L::kSwizzle),
                     wgmma_desc(sK + b_off, 16, 8 * L::kRowBytes, L::kSwizzle), kk > 0);
       }
       wgmma_commit();
@@ -182,10 +187,10 @@ fa_fwd_wgmma(const __grid_constant__ WgParams p) {
 
       // online softmax in registers: a thread holds rows row[0], row[1] at
       // columns 8 i + 2 (lane % 4) + {0, 1} of each n8 group i
-      const int k0 = j * kWgBlockN;
+      const int k0 = j * kBlockN;
 #pragma unroll
-      for (int i = 0; i < kWgBlockN / 2; ++i) sc[i] *= scale_log2;
-      if ((k0 + kWgBlockN > p.Sk) || (p.causal && k0 + kWgBlockN - 1 > wq0 + offset)) {
+      for (int i = 0; i < kBlockN / 2; ++i) sc[i] *= scale_log2;
+      if ((k0 + kBlockN > p.Sk) || (p.causal && k0 + kBlockN - 1 > wq0 + offset)) {
         // one uniform branch, then selects: column 8 i + (e & 1) of this
         // thread's share is visible to row r iff it is below lim[r]
         int lim[2];
@@ -235,22 +240,22 @@ fa_fwd_wgmma(const __grid_constant__ WgParams p) {
       }
       // P as the A operand: score groups 2 kc and 2 kc + 1 are keys
       // 16 kc .. 16 kc + 15, in the m64k16 A-register layout
-      uint32_t pa[kWgBlockN / 16][4];
+      uint32_t pa[kBlockN / 16][4];
 #pragma unroll
-      for (int kc = 0; kc < kWgBlockN / 16; ++kc) {
+      for (int kc = 0; kc < kBlockN / 16; ++kc) {
         pa[kc][0] = pack2<T>(sc[8 * kc + 0], sc[8 * kc + 1]);
         pa[kc][1] = pack2<T>(sc[8 * kc + 2], sc[8 * kc + 3]);
         pa[kc][2] = pack2<T>(sc[8 * kc + 4], sc[8 * kc + 5]);
         pa[kc][3] = pack2<T>(sc[8 * kc + 6], sc[8 * kc + 7]);
       }
       // O += P V: 16 keys a step (16 rows of every V atom); V atoms along D
-      // are kWgBlockN rows apart (the descriptor's leading byte offset)
+      // are kBlockN rows apart (the descriptor's leading byte offset)
       wgmma_fence();
       fence_regs(acc);
 #pragma unroll
-      for (int kc = 0; kc < kWgBlockN / 16; ++kc) {
+      for (int kc = 0; kc < kBlockN / 16; ++kc) {
         wgmma_rs<T, D>(acc, pa[kc],
-                       wgmma_desc(sV + kc * 16 * L::kRowBytes, kWgBlockN * L::kRowBytes,
+                       wgmma_desc(sV + kc * 16 * L::kRowBytes, kBlockN * L::kRowBytes,
                                   8 * L::kRowBytes, L::kSwizzle));
       }
       wgmma_commit();
@@ -424,8 +429,10 @@ cudaError_t launch_wgmma(const Params& a, CUtensorMapDataType dt, cudaStream_t s
   static bool configured[kMaxDevices] = {};
   WgParams p;
   if (!encode_map<D>(&p.tq, dt, a.q, a.Sq, a.Hq, a.B, a.q_sb, a.q_ss, a.q_sh, kWgBlockM) ||
-      !encode_map<D>(&p.tk, dt, a.k, a.Sk, a.Hkv, a.B, a.k_sb, a.k_ss, a.k_sh, kWgBlockN) ||
-      !encode_map<D>(&p.tv, dt, a.v, a.Sk, a.Hkv, a.B, a.v_sb, a.v_ss, a.v_sh, kWgBlockN))
+      !encode_map<D>(&p.tk, dt, a.k, a.Sk, a.Hkv, a.B, a.k_sb, a.k_ss, a.k_sh,
+                     WgLayout<D>::kBlockN) ||
+      !encode_map<D>(&p.tv, dt, a.v, a.Sk, a.Hkv, a.B, a.v_sb, a.v_ss, a.v_sh,
+                     WgLayout<D>::kBlockN))
     return cudaErrorInvalidValue;
   p.o = a.o;
   p.lse = a.lse;
@@ -487,6 +494,8 @@ extern "C" int pt_flash_attention_fwd(
   if (D == 128) return (int)launch_dim<128>(dtype, p, s);
   if (D == 64) return (int)launch_dim<64>(dtype, p, s);
   if (D == 32) return (int)launch_dim<32>(dtype, p, s);
+  if (D == 96) return (int)launch_dim<96>(dtype, p, s);
+  if (D == 256) return (int)launch_dim<256>(dtype, p, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -74,15 +74,20 @@ __device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map
 }
 
 // A 16-bit (rows, D) tile in shared memory is D / kCols column atoms, each
-// rows x kRowBytes (128 B, or 64 B at D = 32), swizzled as TMA writes it and
-// wgmma reads it; atom a of a tile of R rows starts a * R * kRowBytes in.
+// rows x kRowBytes, swizzled as TMA writes it and wgmma reads it; atom a of a
+// tile of R rows starts a * R * kRowBytes in. A head dim that is a multiple
+// of 64 takes 64-column atoms (128-byte rows, 128-byte swizzle); 32 and 96
+// take 32-column atoms (64-byte rows, 64-byte swizzle): D = 96 is three of
+// them, so no column is left out of a copy or a descriptor.
 template <int D>
 struct SwizzleAtom {
-  static constexpr int kCols = D >= 64 ? 64 : D;
+  static constexpr int kCols = D % 64 == 0 ? 64 : 32;
   static constexpr int kRowBytes = kCols * 2;
   static constexpr int kAtoms = D / kCols;
   static constexpr uint32_t kSwizzle = kRowBytes == 128 ? 1 : 2;  // descriptor code
   static constexpr int kKPerAtom = kCols / 16;                    // k16 steps in an atom
+  static_assert(D >= 32 && D <= 256 && D % kCols == 0,
+                "the tile must be whole column atoms of 32 or 64 columns, at most 256");
 };
 
 // Rows [row0, row0 + rows) of head `head`, batch `b` of a 4-d map whose box
@@ -166,6 +171,10 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 #define PT_WG_D32(d) PT_WG_D16(d), PT_WG_D8(d, 16), PT_WG_D8(d, 24)
 #define PT_WG_D64(d) PT_WG_D32(d), PT_WG_D8(d, 32), PT_WG_D8(d, 40), PT_WG_D8(d, 48), \
                      PT_WG_D8(d, 56)
+#define PT_WG_D48(d) PT_WG_D32(d), PT_WG_D8(d, 32), PT_WG_D8(d, 40)
+#define PT_WG_D128(d) PT_WG_D64(d), PT_WG_D8(d, 64), PT_WG_D8(d, 72), PT_WG_D8(d, 80),   \
+                      PT_WG_D8(d, 88), PT_WG_D8(d, 96), PT_WG_D8(d, 104), PT_WG_D8(d, 112), \
+                      PT_WG_D8(d, 120)
 #define PT_WG_R16 "{" "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15" "}"
 #define PT_WG_R32                                                                         \
   "{" "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "             \
@@ -175,6 +184,24 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "       \
   "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "       \
   "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" "}"
+
+#define PT_WG_R48                                                                         \
+  "{" "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                                \
+  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "                          \
+  "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "                          \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47" "}"
+#define PT_WG_R128                                                                        \
+  "{" "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                                \
+  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "                          \
+  "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "                          \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "                          \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "                          \
+  "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "                          \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "                          \
+  "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "                          \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "                  \
+  "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "              \
+  "%120, %121, %122, %123, %124, %125, %126, %127" "}"
 
 // One specialisation of each for a type and width. REGS/OUTS are the
 // accumulator list and operands; the other operands follow them, numbered
@@ -200,8 +227,12 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   }
 
 #define PT_WGMMA_TYPE(TYPE, PTX)                                                          \
+  PT_WGMMA(TYPE, PTX, 256, PT_WG_R128, PT_WG_D128(d), "%128, %129", "%130",               \
+           "{%128, %129, %130, %131}, %132", "%133")                                    \
   PT_WGMMA(TYPE, PTX, 128, PT_WG_R64, PT_WG_D64(d), "%64, %65", "%66",                   \
            "{%64, %65, %66, %67}, %68", "%69")                                          \
+  PT_WGMMA(TYPE, PTX, 96, PT_WG_R48, PT_WG_D48(d), "%48, %49", "%50",                    \
+           "{%48, %49, %50, %51}, %52", "%53")                                          \
   PT_WGMMA(TYPE, PTX, 64, PT_WG_R32, PT_WG_D32(d), "%32, %33", "%34",                    \
            "{%32, %33, %34, %35}, %36", "%37")                                          \
   PT_WGMMA(TYPE, PTX, 32, PT_WG_R16, PT_WG_D16(d), "%16, %17", "%18",                    \
@@ -212,10 +243,14 @@ PT_WGMMA_TYPE(__half, "f16")
 
 #undef PT_WGMMA_TYPE
 #undef PT_WGMMA
+#undef PT_WG_R128
 #undef PT_WG_R64
+#undef PT_WG_R48
 #undef PT_WG_R32
 #undef PT_WG_R16
+#undef PT_WG_D128
 #undef PT_WG_D64
+#undef PT_WG_D48
 #undef PT_WG_D32
 #undef PT_WG_D16
 #undef PT_WG_D8

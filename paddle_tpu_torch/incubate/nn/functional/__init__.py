@@ -1,10 +1,10 @@
 """Fused functionals (counterpart of paddle_tpu/incubate/nn/functional).
 
-Ported so far: the rotate-half rotary pairing (``use_neox_rotary_style=False``),
-which the LLaMA model uses (the interleaved rotate-every-two pairing raises
-``NotImplementedError``; ROADMAP Queue A item 4), ``block_multihead_attention``
-over the paged KV pool, and the fused LM-head cross-entropy
-(``fused_linear_cross_entropy``).
+Ported so far: ``fused_rotary_position_embedding`` with both pairings (the
+interleaved rotate-every-two of ``use_neox_rotary_style=True``, the default,
+and the rotate-half of ``False``, which the LLaMA model uses),
+``block_multihead_attention`` over the paged KV pool, and the fused LM-head
+cross-entropy (``fused_linear_cross_entropy``).
 """
 from __future__ import annotations
 
@@ -19,9 +19,21 @@ def _rotate_half(x):
     return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
 
 
-def _rope_tables(seq_len, head_dim, theta, dtype, device, position_ids=None):
-    """Rotate-half cos/sin tables: computed in float32, cast to ``dtype``
-    before they multiply the activations (the JAX package's order)."""
+def _rotate_every_two(x):
+    # interleaved layout: rotation pairs are (2i, 2i+1)
+    x1 = x[..., ::2]
+    x2 = x[..., 1::2]
+    return torch.stack([-x2, x1], dim=-1).reshape(x.shape)
+
+
+def _rope_tables(seq_len, head_dim, theta, dtype, device, position_ids=None,
+                 every_two=True):
+    """cos/sin tables: computed in float32, cast to ``dtype`` before they
+    multiply the activations (the JAX package's order). ``every_two`` (the
+    JAX default) lays the frequencies out for the rotate-every-two pairing
+    ``[f0, f0, f1, f1, ...]``; ``every_two=False`` for rotate-half
+    ``[f0 .. f_{D/2-1}, f0 ..]``, which the LLaMA model, the decode engine
+    and the serving engine ask for by name."""
     inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
                                              device=device) / head_dim))
     if position_ids is None:
@@ -29,7 +41,10 @@ def _rope_tables(seq_len, head_dim, theta, dtype, device, position_ids=None):
     else:
         t = position_ids.to(device=device, dtype=torch.float32)
     freqs = t[..., None] * inv_freq                          # (..., S, D/2)
-    emb = torch.cat([freqs, freqs], dim=-1)                  # [f0..f_{D/2-1}, f0..]
+    if every_two:
+        emb = torch.repeat_interleave(freqs, 2, dim=-1)      # [f0, f0, f1, f1, ...]
+    else:
+        emb = torch.cat([freqs, freqs], dim=-1)              # [f0..f_{D/2-1}, f0..]
     return emb.cos().to(dtype), emb.sin().to(dtype)
 
 
@@ -46,16 +61,14 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
                                     position_ids=None, use_neox_rotary_style=True,
                                     rotary_theta=10000.0):
     """Rotary embedding of every given (B, S, H, D) input; a None input gives
-    None in its own slot. ``use_neox_rotary_style=False`` is the rotate-half
-    pairing (the reference kernel's dispatch, not the usual HF naming)."""
-    if use_neox_rotary_style:
-        raise NotImplementedError(
-            "the rotate-every-two rotary pairing (use_neox_rotary_style=True) "
-            "is not ported yet (ROADMAP Queue A item 4); paddle_tpu_torch has "
-            "rotate-half only")
+    None in its own slot. ``use_neox_rotary_style=True`` is the interleaved
+    rotate-every-two pairing, ``False`` the rotate-half pairing (the
+    reference kernel's dispatch, not the usual HF naming); generated tables
+    take the layout of the chosen pairing."""
     S, D = q.shape[1], q.shape[-1]
     if cos is None or sin is None:
-        cos, sin = _rope_tables(S, D, rotary_theta, q.dtype, q.device, position_ids)
+        cos, sin = _rope_tables(S, D, rotary_theta, q.dtype, q.device, position_ids,
+                                every_two=use_neox_rotary_style)
     else:
         cos = _normalize_rope_table(cos)
         sin = _normalize_rope_table(sin)
@@ -63,7 +76,8 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
         cos_b, sin_b = cos[None, :, None, :], sin[None, :, None, :]
     else:                                                    # (B,S,D) from position_ids
         cos_b, sin_b = cos[:, :, None, :], sin[:, :, None, :]
-    return tuple(None if x is None else x * cos_b + _rotate_half(x) * sin_b
+    rotate = _rotate_every_two if use_neox_rotary_style else _rotate_half
+    return tuple(None if x is None else x * cos_b + rotate(x) * sin_b
                  for x in (q, k, v))
 
 

@@ -75,7 +75,7 @@ def _attend_lane_groups(attend, q, tables, lens, live):
 
 def _row_rope_tables(positions, head_dim, theta, dtype, device):
     """Rotate-half cos/sin (B, 1, D) at per-row absolute ``positions`` (B,)."""
-    return _rope_tables(1, head_dim, theta, dtype, device, positions[:, None])
+    return _rope_tables(1, head_dim, theta, dtype, device, positions[:, None], every_two=False)
 
 
 def _rope_at_rows(x, positions, theta):
@@ -274,7 +274,8 @@ class LlamaDecodeEngine:
         positions = torch.arange(start_pos, start_pos + S, device=x.device)
         # rotate-half cos/sin (S, D) at the absolute positions, built once for
         # every layer
-        rope = _rope_tables(S, self.head_dim, self.theta, x.dtype, x.device, positions)
+        rope = _rope_tables(S, self.head_dim, self.theta, x.dtype, x.device, positions,
+                            every_two=False)
         pos_mask = None
         if start_pos > 0 or self.kv_int8:
             # cache slots past start_pos + S are masked in the JAX engine and
@@ -413,7 +414,7 @@ class LlamaDecodeEngine:
         """Prompt pass of every row into the pools; last position's logits."""
         B, S = ids.shape
         x = self.emb[ids]
-        rope = _rope_tables(S, self.head_dim, self.theta, x.dtype, x.device)
+        rope = _rope_tables(S, self.head_dim, self.theta, x.dtype, x.device, every_two=False)
         t = torch.arange(S, device=x.device)
         pos_mask = (t[None, None, :] <= t[None, :, None]).expand(B, S, S)
         for p, pool in zip(self.layers, pools):

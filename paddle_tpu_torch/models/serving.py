@@ -1470,7 +1470,7 @@ class StaticBatchEngine:
         e = self._inner
         S = ids.shape[1]
         x = e.emb[ids]
-        rope = _rope_tables(S, e.head_dim, e.theta, x.dtype, x.device)
+        rope = _rope_tables(S, e.head_dim, e.theta, x.dtype, x.device, every_two=False)
         lens1 = torch.full((1,), length, dtype=torch.int32, device=x.device)
         t = torch.arange(S, device=x.device)
         pos_mask = (t[None, None, :] <= t[None, :, None]).expand(1, S, S)

@@ -11,7 +11,11 @@ seq, num_heads, head_dim) at the entry, read through strides by the kernels.
 A tensor on the CPU takes the plain versions (the CPU tests and the card's
 reference); a CUDA tensor launches the kernels or raises. The TPU kernels'
 "shrink the block to a divisor or raise" rule is a TPU tiling artifact: the
-kernels mask ragged tiles, so any Sq, Sk >= 1 runs.
+kernels mask ragged tiles, so any Sq, Sk >= 1 runs. The kernels are built for
+head dims 32, 64, 96, 128 and 256; on the card any other head dim up to 256
+is zero-padded to the next of them and the result sliced back (zero columns
+of q and k leave Q K^T unchanged, zero columns of v give zero output columns,
+and the scale stays that of the true head dim), so the same kernels run.
 """
 from __future__ import annotations
 
@@ -37,9 +41,13 @@ launches_bwd_dkv = 0
 #: q, k or v tensors the forward wrapper copied because TMA cannot read them
 #: where they lie (a base or a stride that is not a multiple of 16 bytes)
 copies_for_alignment = 0
+#: q, k or v tensors zero-padded along the head dim to the kernels' next
+#: native head dim (the backward then gets a padded dO from autograd)
+pads_for_head_dim = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-_HEAD_DIMS = (32, 64, 128)
+#: the head dims the kernels are built for; any other D <= 256 is padded
+_HEAD_DIMS = (32, 64, 96, 128, 256)
 
 
 class FlashShapeError(ValueError):
@@ -66,8 +74,9 @@ def _check_shapes(q, k, v, causal):
             f"causal flash attention requires Sq<=Sk, got ({Sq},{Sk})")
 
 
-def _check_kernel_inputs(q, k, v):
-    """What the CUDA kernel takes beyond the shape rules."""
+def _check_kernel_dtypes(q, k, v):
+    """The kernels' device and dtype rules (checked before a head dim is
+    padded)."""
     if not (k.device == q.device and v.device == q.device):
         raise RuntimeError(f"q/k/v on different devices: {q.device}, "
                            f"{k.device}, {v.device}")
@@ -75,11 +84,49 @@ def _check_kernel_inputs(q, k, v):
         raise FlashShapeError(
             f"kernel takes float32/float16/bfloat16 q/k/v of one dtype, got "
             f"{q.dtype}/{k.dtype}/{v.dtype}")
+
+
+def _check_kernel_inputs(q, k, v):
+    """What the CUDA kernel takes beyond the shape rules (the wrappers pad
+    other head dims to these before they launch it)."""
+    _check_kernel_dtypes(q, k, v)
     if q.shape[3] not in _HEAD_DIMS:
         raise FlashShapeError(f"kernel takes head_dim in {_HEAD_DIMS}, got "
                               f"{q.shape[3]}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise FlashShapeError("kernel needs the head dim contiguous")
+
+
+def _native_dim(D):
+    """The smallest head dim the kernels are built for that holds ``D``;
+    ``FlashShapeError`` above 256 (sdpa then takes the math path)."""
+    for n in _HEAD_DIMS:
+        if D <= n:
+            return n
+    raise FlashShapeError(f"kernel takes head_dim up to {_HEAD_DIMS[-1]}, got {D}")
+
+
+def _pad_head_dim(ts, n):
+    """Each tensor of ``ts`` zero-padded along its last dim to ``n`` (counted
+    in ``pads_for_head_dim``); differentiable, so a gradient is sliced back."""
+    global pads_for_head_dim
+    pads_for_head_dim += len(ts)
+    return [torch.nn.functional.pad(t, (0, n - t.shape[-1])) for t in ts]
+
+
+def _at_native_dim(q, k, v, causal, scale):
+    """``FlashAttentionFunction`` at the kernels' next native head dim: q, k,
+    v zero-padded there when D is not one, O sliced back to D; the padded
+    columns' gradients are dropped by autograd (the pad's backward).
+    ``scale`` is the true head dim's. Raises ``FlashShapeError`` above 256 or
+    for a dtype the kernels do not take, before anything is padded."""
+    _check_kernel_dtypes(q, k, v)
+    D = q.shape[-1]
+    n = _native_dim(D)
+    if n == D:
+        return FlashAttentionFunction.apply(q, k, v, causal, scale)
+    out, lse = FlashAttentionFunction.apply(*_pad_head_dim((q, k, v), n), causal, scale)
+    return out[..., :D], lse
 
 
 def flash_attention_fwd_plain(q, k, v, causal=False, scale=None):
@@ -305,8 +352,10 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal=False, scale=None):
 
     On the card: the dq kernel (which computes delta = rowsum(dO O) for its
     rows and writes it), then the dk/dv kernel (which reads delta and sums dk
-    and dv over each GQA group itself). ``do`` and ``out`` need a contiguous
-    head dim; anything else raises ``FlashShapeError``.
+    and dv over each GQA group itself). The head dim must be one the kernels
+    are built for (the backward of a padded forward gets padded tensors from
+    ``FlashAttentionFunction``). ``do`` and ``out`` need a contiguous head
+    dim; anything else raises ``FlashShapeError``.
     """
     _check_shapes(q, k, v, causal)
     s = float(scale if scale is not None else 1.0 / math.sqrt(q.shape[-1]))
@@ -355,13 +404,17 @@ def flash_attention_fwd_lse(q, k, v, causal=False, scale=None):
     Raises ``FlashShapeError`` (a ValueError) for what the JAX entry rejects:
     ``Hq % Hkv != 0``, causal with ``Sq > Sk``, mismatched shapes. On the card
     it also raises it for inputs the kernels do not take: dtypes other than
-    float32, float16 and bfloat16 (one dtype for q, k and v), head dims other
-    than 32, 64 and 128, and a head dim that is not contiguous. The backward
-    kernels take every head dim the forward takes.
+    float32, float16 and bfloat16 (one dtype for q, k and v), head dims above
+    256, and a head dim that is not contiguous. Head dims 32, 64, 96, 128 and
+    256 run as they are; any other is zero-padded to the next of them
+    (``_at_native_dim``). The backward kernels take every head dim the
+    forward takes.
     """
     _check_shapes(q, k, v, causal)
     s = float(scale if scale is not None else 1.0 / math.sqrt(q.shape[-1]))
-    if not q.is_cuda and q.device.type != "cpu":
+    if q.is_cuda:
+        return _at_native_dim(q, k, v, bool(causal), s)
+    if q.device.type != "cpu":
         raise RuntimeError(f"flash attention runs on CUDA or the CPU, not {q.device}")
     return FlashAttentionFunction.apply(q, k, v, bool(causal), s)
 

@@ -6,6 +6,8 @@ does; the port side runs the wrapper on CPU tensors, which takes the plain
 PyTorch version (the CUDA kernel itself is held to that version on the card
 by chip_smoke.py). Same numpy inputs on both sides.
 """
+import importlib
+
 import numpy as np
 import pytest
 
@@ -14,8 +16,11 @@ import jax.numpy as jnp
 import torch
 
 from paddle_tpu.ops.pallas.flash_attention import flash_attention_fwd as jax_flash
-from paddle_tpu_torch.nn.functional import flash_attention as port_F
 from paddle_tpu_torch.ops.cuda import flash_attention as port_fa
+
+# the module: ``paddle_tpu_torch.nn.functional.flash_attention`` as an
+# attribute is the function of that name, as in the JAX package
+port_F = importlib.import_module("paddle_tpu_torch.nn.functional.flash_attention")
 
 
 @pytest.fixture(autouse=True)
@@ -124,6 +129,121 @@ class TestBackwardMatchesPallas:
             port_fa._check_bwd_inputs(q, k, v, do, lse, delta)
 
 
+class TestHeadDims96And256:
+    """Phi-3-mini's head dim (96), Gemma-2B's (256) and one the kernels pad
+    (80): the plain forward and backward against the Pallas kernels in
+    interpret mode, at tests/test_pallas.py's tolerances (forward 2e-5,
+    gradients 1e-3)."""
+
+    CASES = [
+        # B, Sq, Sk, Hq, Hkv, D, causal
+        (1, 128, 128, 4, 4, 96, True),
+        (2, 128, 128, 4, 2, 96, False),     # GQA 2:1
+        (1, 256, 256, 4, 1, 256, True),     # GQA 4:1, as Gemma-2B's one KV head
+        (1, 128, 256, 2, 2, 80, True),      # cross-length, bottom-right
+    ]
+
+    @pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal", CASES)
+    def test_forward(self, B, Sq, Sk, Hq, Hkv, D, causal):
+        out, ref = _both(*_qkv(11, B, Sq, Sk, Hq, Hkv, D), causal)
+        np.testing.assert_allclose(out, ref, rtol=2e-5, atol=2e-5)
+
+    @pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal", CASES)
+    def test_gradients(self, B, Sq, Sk, Hq, Hkv, D, causal):
+        out, ref = _grads_both(12, B, Sq, Sk, Hq, Hkv, D, causal)
+        for name, o, r in zip(("dq", "dk", "dv"), out, ref):
+            np.testing.assert_allclose(o, r, rtol=1e-3, atol=1e-3, err_msg=name)
+
+
+class TestPadToNativeHeadDim:
+    """On the card a head dim the kernels are not built for is zero-padded to
+    the next one they are (``_at_native_dim``), and autograd slices the
+    gradients back. Run here with the plain versions in the kernels' place:
+    the padded function equals the unpadded plain one, forward and
+    gradients, at 1e-5 (fp32; the padded columns add exact zeros)."""
+
+    @pytest.mark.parametrize("D,native", [(80, 96), (17, 32), (100, 128), (200, 256),
+                                          (96, 96)])
+    def test_forward_and_gradients_equal_the_unpadded_plain_version(self, D, native):
+        assert port_fa._native_dim(D) == native
+        qn, kn, vn = _qkv(13, 2, 40, 56, 4, 2, D)
+        g = torch.from_numpy(np.random.RandomState(14).randn(2, 40, 4, D).astype(np.float32))
+        ref = [torch.from_numpy(a).requires_grad_() for a in (qn, kn, vn)]
+        ref_out, ref_lse = port_fa.flash_attention_fwd_plain(*ref, True)
+        ref_out.backward(g)
+        got = [torch.from_numpy(a).requires_grad_() for a in (qn, kn, vn)]
+        before = port_fa.pads_for_head_dim
+        out, lse = port_fa._at_native_dim(*got, True, 1.0 / np.sqrt(D))
+        assert port_fa.pads_for_head_dim - before == (0 if D == native else 3)
+        assert out.shape == (2, 40, 4, D)
+        out.backward(g)
+        np.testing.assert_allclose(out.detach().numpy(), ref_out.detach().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(lse.numpy(), ref_lse.detach().numpy(), rtol=1e-5, atol=1e-5)
+        for name, t, r in zip(("dq", "dk", "dv"), got, ref):
+            assert t.grad.shape == r.grad.shape
+            np.testing.assert_allclose(t.grad.numpy(), r.grad.numpy(), rtol=1e-5, atol=1e-5,
+                                       err_msg=name)
+
+    def test_card_kernels_see_the_native_dim(self, monkeypatch):
+        """On the card at D = 80 the three launchers (stubbed with the plain
+        versions) get q, k, v, O and dO at D = 96; O and the gradients come
+        back at 80, equal to the plain version's."""
+        seen = []
+
+        def fwd(q, k, v, causal, scale):
+            seen.append(("fwd", q.shape[-1], scale))
+            return port_fa.flash_attention_fwd_plain(q, k, v, causal, scale)
+
+        def dq(q, k, v, do, out, lse, causal, scale):
+            seen.append(("dq", do.shape[-1], scale))
+            grads[:] = port_fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal, scale)
+            return grads[0], port_fa._delta(out, do)
+
+        def dkv(q, k, v, do, lse, delta, causal, scale):
+            seen.append(("dkv", do.shape[-1], scale))
+            return grads[1], grads[2]
+
+        grads = []
+        qn, kn, vn = _qkv(15, 1, 32, 32, 4, 2, 80)
+        g = torch.from_numpy(np.random.RandomState(16).randn(1, 32, 4, 80).astype(np.float32))
+        ref = [torch.from_numpy(a).requires_grad_() for a in (qn, kn, vn)]
+        ref_out = port_fa.flash_attention_fwd_plain(*ref, True)[0]
+        ref_out.backward(g)
+        monkeypatch.setattr(port_fa, "_launch", fwd)
+        monkeypatch.setattr(port_fa, "_launch_bwd_dq", dq)
+        monkeypatch.setattr(port_fa, "_launch_bwd_dkv", dkv)
+        monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+        got = [torch.from_numpy(a).requires_grad_() for a in (qn, kn, vn)]
+        out = port_fa.flash_attention_fwd(*got, causal=True)
+        out.backward(g)
+        monkeypatch.undo()
+        scale = 1.0 / np.sqrt(80)
+        assert [(n, d) for n, d, _ in seen] == [("fwd", 96), ("dq", 96), ("dkv", 96)]
+        assert all(abs(s - scale) < 1e-12 for _, _, s in seen)
+        assert out.shape == (1, 32, 4, 80)
+        np.testing.assert_allclose(out.detach().numpy(), ref_out.detach().numpy(), rtol=1e-5,
+                                   atol=1e-5)
+        for name, t, r in zip(("dq", "dk", "dv"), got, ref):
+            assert t.grad.shape == r.grad.shape
+            np.testing.assert_allclose(t.grad.numpy(), r.grad.numpy(), rtol=1e-5, atol=1e-5,
+                                       err_msg=name)
+
+    def test_above_256_takes_the_math_path_on_the_card(self, monkeypatch):
+        def launched(*a):
+            raise AssertionError("a kernel launched for D = 288")
+
+        monkeypatch.setattr(port_fa, "_launch", launched)
+        q, k, v = (torch.from_numpy(a) for a in _qkv(17, 1, 128, 128, 2, 2, 288))
+        ref = port_F._math_sdpa(q, k, v, causal=True)
+        monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+        with pytest.raises(port_fa.FlashShapeError, match="up to 256"):
+            port_fa.flash_attention_fwd(q, k, v, causal=True)
+        out = port_F._sdpa(q, k, v, causal=True, use_kernel=True)
+        monkeypatch.undo()
+        np.testing.assert_array_equal(out.numpy(), ref.numpy())
+
+
 class TestLSE:
     @pytest.mark.parametrize("causal", [True, False])
     def test_lse_is_logsumexp_of_math_scores(self, causal):
@@ -160,27 +280,28 @@ class TestShapePolicy:
     def test_policy_error_is_the_dispatcher_fallback_type(self):
         assert issubclass(port_fa.FlashShapeError, ValueError)
 
-    @pytest.mark.parametrize("D", [32, 64, 128])
+    @pytest.mark.parametrize("D", [32, 64, 96, 128, 256])
     def test_kernel_head_dims(self, D):
         q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(0, 1, 16, 16, 2, 2, D))
         port_fa._check_kernel_inputs(q, k, v)
 
-    @pytest.mark.parametrize("D", [16, 96, 256])
+    @pytest.mark.parametrize("D", [16, 288, 512])
     def test_other_head_dims_raise(self, D):
         q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(0, 1, 16, 16, 2, 2, D))
         with pytest.raises(port_fa.FlashShapeError, match="head_dim"):
             port_fa._check_kernel_inputs(q, k, v)
 
     def test_backward_kernels_take_64_and_128(self):
-        # ... and 32: every head dim the forward kernel takes has a backward
-        for D in (32, 64, 128):
+        # ... and 32, 96 and 256: every head dim the forward kernel takes has
+        # a backward
+        for D in (32, 64, 96, 128, 256):
             q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
                        for a in _qkv(0, 1, 16, 16, 2, 2, D))
             out, lse = port_fa.flash_attention_fwd_lse(q, k, v, causal=True)
             delta = port_fa._delta(out, q)
             port_fa._check_bwd_inputs(q, k, v, q, lse, delta, out=out)
 
-    @pytest.mark.parametrize("D", [16, 96, 256])
+    @pytest.mark.parametrize("D", [16, 288, 512])
     def test_backward_refuses_other_head_dims(self, D):
         q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(0, 1, 16, 16, 2, 2, D))
         lse = torch.zeros(1, 2, 16)

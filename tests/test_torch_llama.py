@@ -164,7 +164,7 @@ class TestRope:
     def test_half_matches_llama_apply_rotary(self):
         q, k, _ = self._qkv()
         qh, kh, _ = self._port(q, k, use_neox_rotary_style=False)
-        cos, sin = _rope_tables(8, 16, 10000.0, torch.float32, "cpu")
+        cos, sin = _rope_tables(8, 16, 10000.0, torch.float32, "cpu", every_two=False)
         q2, k2 = apply_rotary_pos_emb(torch.from_numpy(q), torch.from_numpy(k), cos, sin)
         np.testing.assert_allclose(qh, q2.numpy(), rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(kh, k2.numpy(), rtol=1e-5, atol=1e-5)
@@ -186,9 +186,55 @@ class TestRope:
         np.testing.assert_allclose(out[0], ref[0], rtol=1e-5, atol=1e-5)
 
     def test_every_two_style_is_not_ported(self):
+        """It was refused until the every-two pairing was ported; now it is
+        the JAX function's (tests/test_torch_attention_functional.py holds
+        the rest of its cases)."""
         q, k, _ = self._qkv()
-        with pytest.raises(NotImplementedError, match="rotate-every-two"):
-            self._port(q, k, use_neox_rotary_style=True)
+        ref = self._jax(q, k, use_neox_rotary_style=True)
+        out = self._port(q, k, use_neox_rotary_style=True)
+        for o, r in zip(out[:2], ref[:2]):
+            np.testing.assert_allclose(o, r, rtol=1e-5, atol=1e-5)
+
+
+class TestHeadDims96And256:
+    """Two layers at Phi-3-mini's head dim (hidden 192, 2 heads: D = 96) and
+    Gemma-2B's (hidden 512, 2 heads, 1 KV head: D = 256): logits, loss and
+    every gradient of the JAX model (math attention path) against the
+    port's (plain versions), fp32, 1e-4 as the cases above."""
+
+    @staticmethod
+    def _pair(hidden, kv, seed):
+        cfg = dict(_CFG, hidden_size=hidden, num_attention_heads=2, num_key_value_heads=kv)
+        paddle.seed(seed)
+        jm = JaxLlama(JaxConfig(**cfg))
+        jm.eval()
+        state = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
+        tm = llama_from_numpy(state, LlamaConfig(**cfg), device="cpu")
+        assert tm.config.head_dim == hidden // 2
+        return jm, tm
+
+    @pytest.mark.parametrize("hidden,kv", [(192, 2), (512, 1)], ids=["d96", "d256"])
+    def test_logits_loss_and_every_gradient_match(self, hidden, kv):
+        jm, tm = self._pair(hidden, kv, seed=hidden)
+        ids, labels = _ids(hidden, (2, 9)), _labels(hidden + 1, (2, 9))
+        ref = jm(paddle.to_tensor(ids)).numpy()
+        with torch.no_grad():
+            np.testing.assert_allclose(tm(torch.from_numpy(ids)).numpy(), ref, rtol=1e-4,
+                                       atol=1e-4)
+        ref_loss, ref_grads = _jax_loss_and_grads(jm, ids, labels)
+        loss, grads, _ = _port_loss_and_grads(tm, ids, labels)
+        np.testing.assert_allclose(loss, ref_loss, rtol=1e-4, atol=1e-4)
+        assert set(grads) == set(ref_grads)
+        for name, r in ref_grads.items():
+            np.testing.assert_allclose(grads[name], r, rtol=1e-4, atol=1e-4, err_msg=name)
+
+    @pytest.mark.parametrize("hidden,kv", [(192, 2), (512, 1)], ids=["d96", "d256"])
+    def test_greedy_generate_tokens_identical(self, hidden, kv):
+        jm, tm = self._pair(hidden, kv, seed=hidden + 2)
+        ids = _ids(hidden + 3, (2, 5))
+        ref = jm.generate(paddle.to_tensor(ids), max_new_tokens=4).numpy()
+        out = tm.generate(torch.from_numpy(ids), max_new_tokens=4).numpy()
+        np.testing.assert_array_equal(out, ref)
 
 
 class TestConverter:

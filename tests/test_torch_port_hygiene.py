@@ -189,15 +189,12 @@ def test_every_unported_raise_names_its_roadmap_item():
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda: __import__("paddle_tpu_torch.incubate.nn.functional", fromlist=["x"])
-     .fused_rotary_position_embedding(torch.zeros(1, 2, 1, 4), use_neox_rotary_style=True),
-     "Queue A item 4"),
     (lambda: __import__("paddle_tpu_torch.models", fromlist=["x"]).LlamaForCausalLM(
         __import__("paddle_tpu_torch.models", fromlist=["x"]).LlamaConfig(
             vocab_size=16, hidden_size=16, intermediate_size=32, num_hidden_layers=1,
             num_attention_heads=2, tensor_parallel_degree=2), device="cpu"),
      "Queue A item 10"),
-], ids=["rotary_every_two", "tensor_parallel"])
+], ids=["tensor_parallel"])
 def test_unported_raise_messages_name_the_item(call, item):
     with pytest.raises(NotImplementedError, match=item):
         call()

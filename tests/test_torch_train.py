@@ -147,6 +147,33 @@ class TestAdamWMatchesJax:
                   apply_decay_param_fun=lambda n: True)
 
 
+class TestHeadDims96And256:
+    """Three AdamW steps at Phi-3-mini's head dim (hidden 192, 2 heads: D =
+    96) and Gemma-2B's (hidden 512, 2 heads, 1 KV head: D = 256), the second
+    with the fused head as the Gemma-width step on the card runs it: losses
+    at every step and every parameter after the last, fp32, 1e-4 (as
+    TestAdamWMatchesJax)."""
+
+    @pytest.mark.parametrize("hidden,kv,fused", [(192, 2, False), (512, 1, True)],
+                             ids=["d96", "d256_fused_head"])
+    def test_three_steps(self, hidden, kv, fused):
+        cfg = dict(_CFG, hidden_size=hidden, num_attention_heads=2, num_key_value_heads=kv)
+        paddle.seed(hidden)
+        jm = JaxLlama(JaxConfig(fused_head_ce=fused, **cfg))
+        jm.train()
+        state = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
+        tm = llama_from_numpy(state, LlamaConfig(fused_head_ce=fused, **cfg), device="cpu")
+        tm.train()
+        assert tm.config.head_dim == hidden // 2
+        jopt = paddle.optimizer.AdamW(learning_rate=1e-3, parameters=jm.parameters())
+        topt = AdamW(learning_rate=1e-3, parameters=tm.parameters())
+        jl, tl = _train(jm, tm, jopt, topt, [_batch(s + hidden) for s in range(_STEPS)])
+        np.testing.assert_allclose(tl, jl, rtol=1e-4, atol=1e-4)
+        out = llama_to_numpy(tm)
+        for name, p in _jax_params(jm).items():
+            np.testing.assert_allclose(out[name], p, rtol=1e-4, atol=1e-4, err_msg=name)
+
+
 class TestParameterNames:
     def test_generated_names_survive_to_and_deepcopy(self):
         _, tm = _models()
