@@ -155,6 +155,33 @@ Phases, each a hard check (the script exits nonzero on the first failure):
      flash_attn_unpadded (3 ragged sequences, fp32) against a per-sequence
      loop of the plain attention and its CPU twin, and every-two rotary card
      against CPU.
+ 14. the compiled paths: (a) the decode engine's captured programs (the
+     prompt pass and the decode step as CUDA graphs) against a second
+     engine that calls the same functions without graphs at the flagship
+     width (phase 3's cell) and at Phi-3-mini's and Gemma-2B's widths at
+     full depth (phase 13's cells): prefill logits and every decode step's
+     logits equal bit for bit, equal tokens, prefill_ms, ms_per_token and
+     tokens/s of both; the forward launches credited to a replayed prefill
+     equal the layers, and at the flagship a profiled replay shows that many
+     fa_fwd_wgmma kernels; two interleaved decodes at one batch size give
+     their solo tokens; a warm generate captures no graph; what the captured
+     programs keep: the reserved device memory over 14 new prefill graphs
+     (7 prompt lengths at B8 and B1) and over 5 more batch sizes, against
+     bounds; (b) at phase 9's cell the paged, int8 and paged-int8 engines
+     captured against the same functions without graphs:
+     equal tokens, and beam search (B8 K4, dense and paged) equal tokens and
+     scores; (c) the flagship trained under jit.to_static (Inductor, the
+     kernels as torch.library ops; phase 6's cell): the cold compile
+     seconds, launches (2L, L, L) a warm step and no math-path attention,
+     every gradient finite and nonzero, a falling fp32 loss, the median
+     step_ms beside phase 6's eager median from this run, peak memory and a
+     profiled step by kernel group; then phase 7's 2-layer fp32 shape,
+     compiled against eager on the card: losses within 1e-5 relative,
+     step-1 gradients within 1e-4 norm-relative; (d) the axpy op inside a
+     full_graph=True to_static function: one launch a call, bit for bit the
+     plain version; (e) a full_graph=False function with an .item() break:
+     equal to eager, at least two compiled segments.
+Phases 3, 9 and 13 time the decode engine's default, the captured path.
 The last line is the device JSON object; the line before it the card's name
 and power limit; before that the kernels JSON object.
 
@@ -623,7 +650,7 @@ def phase_serving(torch, fa, models, width=FLAGSHIP):
         fail(f"model.generate output misshapen: {tuple(full.shape)}")
     if not (torch.isfinite(run["logits"]).all() and torch.isfinite(run["last_step"]).all()):
         fail("non-finite logits in the serving phase")
-    out = dict(prefill_ms=num["prefill_ms"], ms_per_token=num["ms_per_token"],
+    out = dict(path="captured", prefill_ms=num["prefill_ms"], ms_per_token=num["ms_per_token"],
                tokens_per_sec=num["tokens_per_sec"], generate_s=num["generate_s"], batch=8,
                prompt=128, new_tokens=new, launches=launches,
                launches_per_prefill=num["launches_prefill"], layers=L,
@@ -788,7 +815,7 @@ def phase_backward(torch, fa):
 
 _KERNEL_GROUPS = (  # (substring of the kernel name, group), first match wins
     ("fa_fwd", "attention forward kernel"), ("fa_bwd_dq", "attention dq kernel"),
-    ("fa_bwd_dkv", "attention dk/dv kernel"), ("gemm", "GEMM"), ("xmma", "GEMM"),
+    ("fa_bwd_dkv", "attention dk/dv kernel"), ("triton_", "Inductor (Triton)"), ("gemm", "GEMM"), ("xmma", "GEMM"),
     ("nvjet", "GEMM"), ("cutlass", "GEMM"), ("foreach", "optimizer (foreach)"),
     ("multi_tensor", "optimizer (foreach)"), ("softmax", "softmax / log_softmax"),
     ("reduce", "reductions"), ("elementwise", "elementwise"), ("memcpy", "memcpy / memset"),
@@ -1006,6 +1033,7 @@ def phase_card_vs_cpu(torch, fa, models, width=FLAGSHIP):
     new = 16
     eg = models.LlamaDecodeEngine(gpu, max_len=128 + new)
     ec = models.LlamaDecodeEngine(cpu, max_len=128 + new)
+    eg.prefill(prompts)          # captures the prompt pass (its warm-up run launches too)
     before = fa.launches
     lg, _, _ = eg.prefill(prompts)
     if fa.launches - before != cfg.num_hidden_layers:
@@ -1246,7 +1274,7 @@ def phase_paged_serving(torch, fa, models):
             if not bool(torch.isfinite(run[key]).all()):
                 fail(f"{name}: non-finite {key}")
         runs[name] = run
-        out[name] = num
+        out[name] = dict(num, path="captured")
         del run["cache"], engine
     dense_bytes = out["dense"]["cache_bytes"]
     for name in forms:
@@ -1350,7 +1378,7 @@ def phase_paged_serving(torch, fa, models):
             fail(f"{name} beam tokens out of range or misshapen: {tuple(tokens.shape)}")
         if not bool(torch.isfinite(scores).all()):
             fail(f"{name} beam scores not finite: {scores}")
-        row = dict(seconds=beam_s, ms_per_step=beam_s * 1e3 / T, batch=B, beams=K,
+        row = dict(path="captured", seconds=beam_s, ms_per_step=beam_s * 1e3 / T, batch=B, beams=K,
                    new_tokens=T, launches=fa.launches)
         if name == "paged":
             pager = engine._pager
@@ -2974,6 +3002,415 @@ def phase_train_surface(torch, fa, models, optim, tnn, ckpt, saved_ops, smi):
     return out
 
 
+# phase 14: the compiled paths
+# (name, width) of the captured-decode cells: phase 3's and phase 13's
+WIDTHS14 = (("flagship", FLAGSHIP), ("phi3_mini", PHI3_MINI), ("gemma_2b", GEMMA_2B))
+# to_static against eager at 2 layers fp32 (phase 7's shape): Inductor
+# fuses elementwise chains and sums in another order, in full float32
+TOL_COMPILED_LOSS = 1e-5   # relative
+TOL_COMPILED_GRAD = 1e-4   # norm-relative per parameter
+# the .item() break (e): Inductor's tanh is libdevice's, eager's ATen's
+TOL_BREAK = 1e-6
+# (a) what the captured programs keep: the engine's graphs share one memory
+# pool, so 14 new prefill graphs keep their (B, V) logits (4 MiB at the
+# flagship), not a private pool of intermediates each (tens of MiB each)
+MEM14_PROMPTS = 32 << 20   # bytes
+
+
+def uncaptured(engine):
+    """``engine`` with its programs run as plain calls of the same functions,
+    without graphs: the reference a captured engine is held to."""
+    def program(slot, key, fn):
+        pools = slot.cache
+        dev = pools[0][0].device
+        return lambda first, *rest: fn(first.to(dev), pools, *(x.to(dev) for x in rest))
+
+    engine._program = program
+    return engine
+
+
+def captured_memory(torch, models, model, gen):
+    """Phase 14 (a), what the captured programs keep: an engine warmed at the
+    longest prompt (128) at B8 and B1 serves 7 shorter prompt lengths at
+    both (14 new prefill graphs): the reserved device memory grows by at
+    most MEM14_PROMPTS. Then B2 to B6, past the free list's cap of slots:
+    it grows by at most that and the cap's worth of B8 caches, and the free
+    list holds the cap."""
+    V = model.config.vocab_size
+    engine = models.LlamaDecodeEngine(model, max_len=128 + 5)
+    ids = torch.randint(0, V, (8, 128), device="cuda", generator=gen)
+    for B in (8, 1):
+        engine.generate(ids[:B], max_new_tokens=4)
+    kv8 = sum(a.numel() * a.element_size() for e in engine._free[0].cache for a in e)
+    torch.cuda.synchronize()
+    r0, c0 = torch.cuda.memory_reserved(), models.llama_decode._Program.captures
+    for S in (16, 32, 48, 64, 80, 96, 112):
+        for B in (8, 1):
+            engine.generate(ids[:B, :S], max_new_tokens=4)
+    torch.cuda.synchronize()
+    r1, graphs = torch.cuda.memory_reserved(), models.llama_decode._Program.captures - c0
+    for B in (2, 3, 4, 5, 6):
+        engine.generate(ids[:B], max_new_tokens=4)
+    torch.cuda.synchronize()
+    r2, free = torch.cuda.memory_reserved(), len(engine._free)
+    cap = engine.max_free_slots
+    out = dict(prompt_graphs=graphs, reserved_growth_prompts=r1 - r0,
+               bound_prompts=MEM14_PROMPTS, reserved_growth_batches=r2 - r0,
+               bound_batches=MEM14_PROMPTS + cap * kv8, kv_bytes_b8=kv8, free_slots=free,
+               max_free_slots=cap)
+    if graphs != 14:
+        fail(f"7 new prompt lengths at 2 batch sizes captured {graphs} graphs, want 14")
+    if r1 - r0 > MEM14_PROMPTS or r2 - r0 > MEM14_PROMPTS + cap * kv8 or free != cap:
+        fail(f"captured programs keep too much: {out}")
+    del engine
+    return out
+
+
+def kernel_count(torch, fn, substr):
+    """How many kernels whose name holds ``substr`` a profiled ``fn()`` ran
+    on the card (CUPTI records the kernels of a replayed graph one by one)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and substr in e.key)
+
+
+def captured_vs_eager(torch, fa, models, serving_mod, name, width, smi):
+    """Phase 14 (a) at one width: the captured engine against the same
+    functions without graphs (``uncaptured``) on phase 3's prompts (B8, 128
+    tokens, 32 new)."""
+    cfg = models.LlamaConfig(**width, dtype="bfloat16")
+    L, V, new = cfg.num_hidden_layers, cfg.vocab_size, 32
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = models.LlamaForCausalLM(cfg, device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    prompts = torch.randint(0, V, (8, 128), device="cuda", generator=gen)
+    captured = models.LlamaDecodeEngine(model, max_len=128 + new + 1)
+    eager = uncaptured(models.LlamaDecodeEngine(model, max_len=128 + new + 1))
+    c0 = serving_mod._Program.captures
+    lc, cc, pos = captured.prefill(prompts)
+    le, ce, _ = eager.prefill(prompts)
+    if not torch.equal(lc, le):
+        fail(f"{name}: captured prefill logits differ from eager by "
+             f"{(lc.float() - le.float()).abs().max().item()}")
+    tok = lc.argmax(-1, keepdim=True)
+    for i in range(new - 1):
+        lc, cc = captured.decode_step(tok, cc, pos)
+        le, ce = eager.decode_step(tok, ce, pos)
+        if not torch.equal(lc, le):
+            fail(f"{name}: captured decode step {i} logits differ from eager by "
+                 f"{(lc.float() - le.float()).abs().max().item()}")
+        tok = lc.argmax(-1, keepdim=True)
+        pos += 1
+    del cc, ce
+    graphs = serving_mod._Program.captures - c0
+    if graphs != 2:
+        fail(f"{name}: the first prefill and decode captured {graphs} graphs, want 2")
+    out = {}
+    for path, engine in (("captured", captured), ("eager", eager)):
+        run = serve_timed(torch, fa, engine, prompts, new, torch.cuda.synchronize)
+        num = run["numbers"]
+        if (num["launches_generate"], num["launches_prefill"], num["launches_decode"]) != (
+                L, L, 0):
+            fail(f"{name} {path}: forward launches (generate, prefill, decode) = "
+                 f"{(num['launches_generate'], num['launches_prefill'], num['launches_decode'])}"
+                 f", want ({L}, {L}, 0)")
+        # one more decode step under the profiler: kernels, device ms, idle share
+        prof = profile_step(torch, lambda: engine.decode_step(run["tok"], run["cache"],
+                                                              run["pos"]), num["ms_per_token"])
+        out[path] = dict(prefill_ms=num["prefill_ms"], ms_per_token=num["ms_per_token"],
+                         tokens_per_sec=num["tokens_per_sec"], generate_s=num["generate_s"],
+                         launches_per_prefill=num["launches_prefill"],
+                         decode_step_profile={k: prof[k] for k in (
+                             "device_ms", "idle_share", "kernel_launches", "by_group")})
+        out[path + "_toks"] = run["toks"]
+        del run
+    if not torch.equal(out["captured_toks"], out.pop("eager_toks")):
+        fail(f"{name}: captured and eager generate tokens differ")
+    toks = out.pop("captured_toks")
+    c0 = serving_mod._Program.captures
+    warm = captured.generate(prompts, max_new_tokens=new)
+    torch.cuda.synchronize()
+    out["warm_generate_graphs_captured"] = serving_mod._Program.captures - c0
+    if out["warm_generate_graphs_captured"] or not torch.equal(warm, toks):
+        fail(f"{name}: a warm generate captured {out['warm_generate_graphs_captured']} graphs "
+             f"or changed its tokens")
+    if name == "flagship":
+        # the credit against the kernels a profiled replay runs
+        reset_counts(fa)
+        n = kernel_count(torch, lambda: captured.prefill(prompts), "fa_fwd_wgmma")
+        if (n, fa.launches) != (L, L):
+            fail(f"a replayed prefill ran {n} fa_fwd_wgmma kernels and was credited "
+                 f"{fa.launches} launches, want {L} and {L}")
+        out["profiled_replay"] = dict(fa_fwd_wgmma_kernels=n, credited=fa.launches)
+        # two live caches at one batch size: their own buffers, solo tokens
+        other = torch.randint(0, V, (8, 128), device="cuda", generator=gen)
+        solo = captured.generate(other, max_new_tokens=8)
+        caches = [captured.prefill(p) for p in (prompts, other)]
+        streams = [[c[0].argmax(-1, keepdim=True)] for c in caches]
+        handles, poss = [c[1] for c in caches], [c[2] for c in caches]
+        for _ in range(7):
+            for j in range(2):
+                logits, handles[j] = captured.decode_step(streams[j][-1], handles[j], poss[j])
+                poss[j] += 1
+                streams[j].append(logits.argmax(-1, keepdim=True))
+        got = [torch.cat(st, dim=1) for st in streams]
+        if not (torch.equal(got[0], toks[:, :8]) and torch.equal(got[1], solo)):
+            fail(f"{name}: interleaved decodes at one batch size changed their tokens")
+        out["interleaved_solo_tokens"] = True
+        del caches, handles
+        out["memory"] = captured_memory(torch, models, model, gen)
+    out.update(batch=8, prompt=128, new_tokens=new, layers=L,
+               ms_per_token_captured_over_eager=(out["captured"]["ms_per_token"]
+                                                 / out["eager"]["ms_per_token"]),
+               bit_equal_logits=True, card=smi)
+    del model, captured, eager
+    return out
+
+
+def captured_forms(torch, models):
+    """Phase 14 (b): phase 9's cell, the paged, int8 and paged-int8 engines
+    captured against the same functions without graphs (tokens), and beam
+    search B8 K4 dense and paged (tokens and scores)."""
+    cfg = models.LlamaConfig(**FLAGSHIP, dtype="bfloat16")
+    V = cfg.vocab_size
+    model = models.LlamaForCausalLM(cfg, device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    prompts = torch.randint(0, V, (8, 128), device="cuda", generator=gen)
+    forms = dict(paged=dict(kv_cache_layout="paged", block_size=64),
+                 int8=dict(kv_cache_dtype="int8"),
+                 paged_int8=dict(kv_cache_dtype="int8", kv_cache_layout="paged",
+                                 block_size=64))
+    out = {}
+    for name, kw in forms.items():
+        engines = [models.LlamaDecodeEngine(model, max_len=161, **kw) for _ in range(2)]
+        toks = [e.generate(prompts, max_new_tokens=32)
+                for e in (engines[0], uncaptured(engines[1]))]
+        if not torch.equal(*toks):
+            fail(f"{name}: captured and eager tokens differ")
+        out[name] = dict(tokens_equal=True, new_tokens=32)
+    for name, kw in (("dense", {}), ("paged", forms["paged"])):
+        engines = [models.LlamaDecodeEngine(model, max_len=128 + 17, **kw) for _ in range(2)]
+        beams = [e.beam_search(prompts, beam_size=4, max_new_tokens=16)
+                 for e in (engines[0], uncaptured(engines[1]))]
+        if not (torch.equal(beams[0][0], beams[1][0]) and torch.equal(beams[0][1], beams[1][1])):
+            fail(f"beam search {name}: captured and eager beams differ")
+        out["beam_" + name] = dict(tokens_equal=True, scores_equal=True, batch=8, beams=4,
+                                   new_tokens=16)
+    del model
+    return out
+
+
+def to_static_training(torch, fa, models, AdamW, jit, smi, eager, math_calls):
+    """Phase 14 (c): phase 6's step under jit.to_static (Inductor), against
+    phase 6's eager numbers from this run."""
+    cfg = models.LlamaConfig(**FLAGSHIP, dtype="bfloat16", recompute=True,
+                             recompute_granularity="full")
+    L, B, S = cfg.num_hidden_layers, 8, 2048
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = models.LlamaForCausalLM(cfg, device="cuda", seed=0)
+    model.train()
+    jit.to_static(model)
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters(), multi_precision=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", generator=gen)
+    labels = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", generator=gen)
+
+    def fp32_loss(logits):
+        with torch.no_grad():
+            return model.criterion(logits.float(), labels).item()
+
+    def step():
+        loss, logits = model(ids, labels=labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss, logits
+
+    torch.cuda.synchronize()
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    loss, logits = model(ids, labels=labels)
+    loss.backward()
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    cold_counts = counts(fa)
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())
+           or not bool((p.grad != 0).any())]
+    if bad:
+        fail(f"to_static: parameters without a finite nonzero gradient: {bad}")
+    first = (loss.item(), fp32_loss(logits))
+    del logits
+    opt.step()
+    opt.clear_grad()
+    # a warm step, counted
+    torch.cuda.synchronize()
+    reset_counts(fa)
+    math_calls[0] = 0
+    step()
+    torch.cuda.synchronize()
+    per_step = counts(fa)
+    if per_step != (2 * L, L, L):
+        fail(f"a to_static step launched (fwd, dq, dk/dv) = {per_step}, want {(2 * L, L, L)}")
+    if math_calls[0] or fa.copies_for_alignment or fa.pads_for_head_dim:
+        fail(f"a to_static step took the math path {math_calls[0]} times, made "
+             f"{fa.copies_for_alignment} alignment copies and {fa.pads_for_head_dim} pads")
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, logits = step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    last = (loss.item(), fp32_loss(logits))
+    del logits
+    step_ms = sorted(times)[len(times) // 2]
+    profile = profile_step(torch, step, step_ms)
+    if not all(math.isfinite(x) for x in first + last) or not last[1] < first[1]:
+        fail(f"the to_static loss did not fall: {first} -> {last}")
+    out = dict(step_ms=step_ms, step_ms_all=times, eager_step_ms=eager["step_ms"],
+               eager_step_ms_all=eager["step_ms_all"], step_ms_over_eager=step_ms / eager[
+                   "step_ms"], tokens_per_sec=B * S / (step_ms / 1e3),
+               compile_s=compile_s, cold_step_launches=list(cold_counts),
+               launches_per_step=dict(fwd=per_step[0], bwd_dq=per_step[1],
+                                      bwd_dkv=per_step[2]),
+               math_path_calls=0, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               eager_peak_mem_gb=eager["peak_mem_gb"], loss_first=first[0],
+               loss_last=last[0], loss_first_fp32=first[1], loss_last_fp32=last[1],
+               batch=B, seq=S, layers=L, steps=8, profile=profile,
+               eager_profile_by_group=eager["profile"]["by_group"], card=smi)
+    del model, opt
+    return out
+
+
+def to_static_vs_eager_fp32(torch, fa, models, AdamW, jit):
+    """Phase 14 (c), second half: 2 layers in fp32 at phase 7's shape, the
+    compiled step against the eager step on the card, two AdamW steps."""
+    import copy
+
+    cfg = models.LlamaConfig(**dict(FLAGSHIP, num_hidden_layers=2), dtype="float32",
+                             recompute=True)
+    eager = models.LlamaForCausalLM(cfg, device="cuda", seed=5)
+    comp = copy.deepcopy(eager)
+    eager.train()
+    comp.train()
+    jit.to_static(comp)
+    oe = AdamW(learning_rate=TRAIN_LR, parameters=eager.parameters())
+    oc = AdamW(learning_rate=TRAIN_LR, parameters=comp.parameters())
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    ids = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen)
+    labels = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen)
+    labels[torch.rand(2, 256, generator=gen) < 0.1] = -100
+    ids, labels = ids.cuda(), labels.cuda()
+    t0 = time.perf_counter()
+    losses, grad_err = [], {}
+    reset_counts(fa)
+    for i in range(2):
+        le, _ = eager(ids, labels=labels)
+        le.backward()
+        lc, _ = comp(ids, labels=labels)
+        lc.backward()
+        losses.append((lc.item(), le.item()))
+        err = abs(losses[-1][0] - losses[-1][1]) / abs(losses[-1][1])
+        if not (math.isfinite(err) and err <= TOL_COMPILED_LOSS):
+            fail(f"fp32 to_static vs eager loss at step {i + 1}: {losses[-1]}")
+        if i == 0:
+            eg = dict(eager.named_parameters())
+            for n, p in comp.named_parameters():
+                grad_err[n] = norm_rel(p.grad, eg[n].grad)
+            worst = max(grad_err, key=grad_err.get)
+            if not grad_err[worst] <= TOL_COMPILED_GRAD:
+                fail(f"fp32 to_static vs eager gradient of {worst}: {grad_err[worst]}")
+        oe.step()
+        oc.step()
+        oe.clear_grad()
+        oc.clear_grad()
+    if counts(fa) != (2 * 2 * 2 * 2, 2 * 2 * 2, 2 * 2 * 2):
+        fail(f"fp32 eager + compiled steps launched {counts(fa)}, want (16, 8, 8)")
+    out = dict(losses=losses, tol_loss=TOL_COMPILED_LOSS, worst_grad_err=[worst, grad_err[worst]],
+               tol_grad=TOL_COMPILED_GRAD, shape=[2, 256], layers=2,
+               seconds=time.perf_counter() - t0)
+    del eager, comp
+    return out
+
+
+def axpy_to_static(torch, axpy, jit):
+    """Phase 14 (d): the registered axpy op inside a full_graph=True
+    to_static function on the card."""
+    op = axpy.register_example(name="chip_smoke_axpy_to_static")
+    f = jit.to_static(lambda x: op(x), full_graph=True)
+    x = torch.randn(2 ** 20 + 3, device="cuda")
+    f(x)
+    torch.cuda.synchronize()
+    axpy.launches = 0
+    for _ in range(3):
+        y = f(x)
+    torch.cuda.synchronize()
+    if axpy.launches != 3:
+        fail(f"3 calls of the compiled axpy function launched {axpy.launches} kernels")
+    if not same_bits(torch, y, axpy.axpy_plain(x)):
+        fail("the compiled axpy function differs from the plain version")
+    return dict(calls=3, launches=axpy.launches, bit_exact=True, numel=x.numel(),
+                signatures=len(f._cache))
+
+
+def graph_break_on_card(torch, jit):
+    """Phase 14 (e): a full_graph=False function with an .item() read."""
+    import warnings
+
+    def brk(x):
+        h = torch.tanh(x) * 2.0
+        if h.sum().item() > 0:
+            return h * 3.0
+        return h - 1.0
+
+    sf = jit.to_static(brk, full_graph=False)
+    x = torch.rand(64, 64, device="cuda") + 0.1
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        outs = [sf(x), sf(x)]
+    ref = brk(x)
+    err = max((o - ref).abs().max().item() / ref.abs().max().item() for o in outs)
+    segments = sum(sf.compiled_segment_counts().values())
+    if not err <= TOL_BREAK or segments < 2:
+        fail(f"the .item() break on the card: error {err}, {segments} compiled segments")
+    return dict(max_rel_err=err, tol=TOL_BREAK, segments=segments)
+
+
+def phase_compiled(torch, fa, axpy, models, AdamW, jit, serving_mod, port_F, smi, eager):
+    """Phase 14: the compiled paths (module docstring)."""
+    out = dict(decode={})
+    for name, width in WIDTHS14:
+        t0 = time.perf_counter()
+        row = captured_vs_eager(torch, fa, models, serving_mod, name, width, smi)
+        row["seconds"] = time.perf_counter() - t0
+        print(f"captured_decode_{name} " + json.dumps(row), flush=True)
+        out["decode"][name] = row
+    t0 = time.perf_counter()
+    out["forms"] = captured_forms(torch, models)
+    out["forms"]["seconds"] = time.perf_counter() - t0
+    print("captured_forms " + json.dumps(out["forms"]), flush=True)
+    math_calls = count_math_path(port_F)
+    out["training"] = to_static_training(torch, fa, models, AdamW, jit, smi, eager, math_calls)
+    print("to_static_training " + json.dumps(out["training"]), flush=True)
+    out["fp32"] = to_static_vs_eager_fp32(torch, fa, models, AdamW, jit)
+    print("to_static_vs_eager_fp32 " + json.dumps(out["fp32"]), flush=True)
+    out["axpy"] = axpy_to_static(torch, axpy, jit)
+    out["graph_break"] = graph_break_on_card(torch, jit)
+    print("to_static_ops " + json.dumps(dict(axpy=out["axpy"], graph_break=out["graph_break"])),
+          flush=True)
+    return out
+
+
 def main():
     import torch
 
@@ -2998,6 +3435,7 @@ def main():
         import paddle_tpu_torch.checkpoint as ckpt
         from paddle_tpu_torch.distributed.fleet.recompute import SAVED_OPS
         import paddle_tpu_torch.nn.functional as tfunc
+        from paddle_tpu_torch import jit
         # the module (the package's attribute of that name is the function)
         port_F = importlib.import_module("paddle_tpu_torch.nn.functional.flash_attention")
     except ImportError as e:
@@ -3007,6 +3445,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off for matmul and cuDNN", flush=True)
+    # Inductor's and Triton's compiled code go beside the kernels' build
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(_build.BUILD_DIR / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(_build.BUILD_DIR / "triton"))
 
     # phase 1: device and build
     smi = nvidia_smi()
@@ -3098,6 +3539,16 @@ def main():
     widths = phase_widths(torch, fa, models, AdamW, port_F, tfunc, incubate_functional, smi)
     print(f"phase_seconds 13 {time.perf_counter() - t0:.1f}", flush=True)
 
+    # phase 14: the compiled paths (launch counts set to 0 before each
+    # counted call, read after it)
+    t0 = time.perf_counter()
+    compiled = phase_compiled(torch, fa, axpy, models, AdamW, jit, serving_mod, port_F, smi,
+                              training)
+    from torch._inductor import async_compile
+    if hasattr(async_compile, "shutdown_compile_workers"):
+        async_compile.shutdown_compile_workers()    # Inductor's compile processes
+    print(f"phase_seconds 14 {time.perf_counter() - t0:.1f}", flush=True)
+
     kernel = dict(
         name="flash_attention_fwd", route="cuda",
         source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -3112,7 +3563,10 @@ def main():
                               continuous=continuous["serving"]["forward_launches_continuous"],
                               resilience=resilience["launches"][0],
                               train_knobs={k: v["launches_per_step"][0] for k, v in
-                                           surface["knobs"]["variants"].items()}),
+                                           surface["knobs"]["variants"].items()},
+                              to_static_training=compiled["training"]["launches_per_step"]["fwd"],
+                              captured_prefill=compiled["decode"]["flagship"]["captured"][
+                                  "launches_per_prefill"]),
         max_abs_err=main_row["max_abs_err"],
         tol=main_row["tol"], ms=main_row["kernel_ms"], kernel_ms=main_row["kernel_ms"],
         call_ms=main_row["kernel_call_ms"],
@@ -3139,7 +3593,9 @@ def main():
             launches_by_path=dict(training=training["launches_per_step"][f"bwd_{key}"],
                                   train_knobs={k: v["launches_per_step"][1 + (key == "dkv")]
                                                for k, v in
-                                               surface["knobs"]["variants"].items()}),
+                                               surface["knobs"]["variants"].items()},
+                                  to_static_training=compiled["training"][
+                                      "launches_per_step"][f"bwd_{key}"]),
             max_abs_err=max(tr[f"{g}_max_abs_err"] for g in grads),
             norm_rel_err=max(tr[f"{g}_err"] for g in grads), tol=tr["tol"],
             ms=tr[f"{key}_ms"], kernel_ms=tr[f"{key}_ms"], call_ms=tr[f"{key}_call_ms"],
@@ -3156,6 +3612,8 @@ def main():
     axpy_kernel = dict(
         name="axpy", route="cuda", source="paddle_tpu_torch/csrc/axpy.cu",
         replaces="tests/test_extension_points.py:57", launches=custom["launches"],
+        launches_by_path=dict(custom_op=custom["launches"],
+                              to_static=compiled["axpy"]["launches"]),
         max_abs_err=ax["max_abs_err"], bit_exact=ax["bit_exact"], ms=ax["kernel_ms"],
         kernel_ms=ax["kernel_ms"], call_ms=ax["kernel_call_ms"], plain_ms=ax["plain_ms"],
         plain_call_ms=ax["plain_call_ms"], bound_ms=ax["bound_ms"], bound_by=ax["bound_by"],
@@ -3178,7 +3636,9 @@ def main():
             launches=w["serving"]["launches"],
             launches_by_path=dict(serving=w["serving"]["launches"],
                                   per_prefill=w["serving"]["launches_per_prefill"],
-                                  training=w["training"]["launches_per_step"]["fwd"]),
+                                  training=w["training"]["launches_per_step"]["fwd"],
+                                  captured_prefill=compiled["decode"][wname]["captured"][
+                                      "launches_per_prefill"]),
             max_abs_err=f["max_abs_err"], max_scaled_err=f["max_scaled_err"], tol=f["tol"],
             ms=f["kernel_ms"], call_ms=f["kernel_call_ms"], plain_ms=f["plain_ms"],
             bound_ms=f["bound_ms"], bound_by=f["bound_by"], library_ms=f["library_ms"],

@@ -12,6 +12,31 @@ Three cache forms, as in the JAX engine:
   tables (``models/paged_kv.py``), granted on the host as decoding advances,
   in bf16/fp16/fp32 or int8.
 
+On the card the engine's programs are captured as CUDA graphs, as the JAX
+engine jits them (``jit/_cuda_graph.py``): the prompt pass, one program per
+(batch, prompt length), with the flash-attention kernel inside the graph;
+the decode step, one program per batch size, with the position an int32
+device tensor, as JAX ``_step_jit`` traces it; and beam search's cache
+reorder. A graph is bound to the addresses of the cache it writes, so the
+buffers of a cache and the programs bound to them form a slot: ``prefill``
+takes a free slot of its batch size (or makes one), and the slot goes back
+to the free list when the caller drops the cache it returned. Two live
+caches never share buffers, and a warm ``generate`` at a seen shape
+captures nothing. The free list keeps the ``max_free_slots`` slots released
+last and drops older ones with their buffers and graphs, and every graph of
+an engine is captured into one memory pool, so what the programs keep
+beyond their caches is their outputs, however many prompt lengths and
+batch sizes the engine has served. A ``decode_step`` on a cache that did
+not come from ``prefill`` (``init_cache``'s, or one the caller built) binds
+a slot of its own to that cache's buffers; such a slot never joins the
+free list. Block grants and copy-on-write stay on the host, before the
+replay; sampling and the EOS poll stay outside the graphs. On the CPU the
+same functions run eagerly.
+
+The decode step takes the JAX engine's fixed shape: RoPE rows gathered at
+the device position, the K/V written at it by ``index_copy_``, and attention
+over every ``max_len`` slot of the cache, masked ``t <= pos``.
+
 The bf16/fp16/fp32 prompt pass, dense or paged, attends causally over the
 prompt's own K/V through ``F.scaled_dot_product_attention(is_causal=True)``,
 which runs the Hopper flash-attention kernel on the card. That is the JAX
@@ -37,12 +62,14 @@ only the groups that hold its rows (``_attend_lane_groups``).
 from __future__ import annotations
 
 import math
+import weakref
 
 import numpy as np
 import torch
 import torch.nn.functional as tF
 
 from ..incubate.nn.functional import _rope_tables, fused_rotary_position_embedding
+from ..jit._cuda_graph import _Program
 from ..nn import functional as F
 from . import paged_kv as _pk
 
@@ -92,11 +119,44 @@ class _PagedCache:
     pager (host allocator + tables). The pager travels with the cache, not
     the engine, so interleaved prefills cannot cross-wire block tables."""
 
-    __slots__ = ("pager", "pools")
+    __slots__ = ("pager", "pools", "_slot", "__weakref__")
 
     def __init__(self, pager, pools):
         self.pager = pager
         self.pools = pools
+
+
+class _DenseCache(list):
+    """Cache value of the dense engine: one tuple of tensors per layer, (k, v)
+    or the int8 form (k_q, k_scale, v_q, v_scale), each (B, max_len, ...)."""
+
+
+class _Slot:
+    """One cache's buffers and the programs bound to their addresses."""
+
+    __slots__ = ("batch", "cache", "pager", "programs")
+
+    def __init__(self, batch, cache, pager=None):
+        self.batch = batch
+        self.cache = cache          # per-layer tuples (dense) or pools (paged)
+        self.pager = pager
+        self.programs = {}
+
+
+def _release(free, cap, slot):
+    """``slot`` back on the free list ``free`` (the last released last), the
+    oldest dropped past ``cap``."""
+    free.append(slot)
+    del free[:max(len(free) - cap, 0)]
+
+
+def _reorder_dense(parent, cache):
+    """Beam reorder in place: row i of every cache tensor becomes row
+    ``parent[i]`` (the JAX engine's ``_reorder_jit``, into the same
+    buffers)."""
+    for entry in cache:
+        for a in entry:
+            a.copy_(a.index_select(0, parent))
 
 
 class LlamaDecodeEngine:
@@ -104,9 +164,14 @@ class LlamaDecodeEngine:
     on the model's device. The engine holds the model's parameters, not
     copies."""
 
+    #: released slots kept for reuse, with their buffers and graphs
+    max_free_slots = 2
+
     def __init__(self, model, max_len=None, kv_cache_dtype=None,
                  kv_cache_layout=None, block_size=64):
         cfg = model.config
+        self._free = []        # released slots, the last released last
+        self._graph_pool = None
         self.config = cfg
         if kv_cache_dtype not in (None, "int8"):
             raise ValueError(f"unsupported kv_cache_dtype {kv_cache_dtype!r}")
@@ -238,52 +303,73 @@ class LlamaDecodeEngine:
         it would add exactly 0): the flash kernel on the card."""
         return F.scaled_dot_product_attention(q, k, v, is_causal=True, training=False)
 
-    def _block(self, p, x, cache_kv, start, rope, pos_mask):
+    def _block(self, p, x, cache_kv, rope, pos_mask):
+        """A prompt-pass layer: K/V written into the cache's first S slots,
+        in place (the JAX engine returns a new cache from a donated
+        ``lax.dynamic_update_slice``, which is the same buffer reused)."""
         S = x.shape[1]
         q, k, v = self._qkv_rope(p, x, *rope)
-        end = start + S
-        # written in place; the JAX engine returns a new cache from a donated
-        # lax.dynamic_update_slice, which is the same buffer reused
         if self.kv_int8:
             ck_q, ck_s, cv_q, cv_s = cache_kv
-            ck_q[:, start:end], ck_s[:, start:end] = self._quantize_kv(k)
-            cv_q[:, start:end], cv_s[:, start:end] = self._quantize_kv(v)
+            ck_q[:, :S], ck_s[:, :S] = self._quantize_kv(k)
+            cv_q[:, :S], cv_s[:, :S] = self._quantize_kv(v)
             # the prompt pass too attends the quantized K/V, as the JAX int8
             # engine does (so no flash kernel here)
-            attn = self._attend_int8(q, ck_q[:, :end], ck_s[:, :end], cv_q[:, :end],
-                                     cv_s[:, :end], pos_mask)
+            attn = self._attend_int8(q, ck_q[:, :S], ck_s[:, :S], cv_q[:, :S],
+                                     cv_s[:, :S], pos_mask)
         else:
             ck, cv = cache_kv
-            ck[:, start:end] = k
-            cv[:, start:end] = v
-            if start == 0:
-                attn = self._prompt_attention(q, k, v)
-            else:
-                attn = self._attend(q, ck[:, :end], cv[:, :end], pos_mask)
+            ck[:, :S] = k
+            cv[:, :S] = v
+            attn = self._prompt_attention(q, k, v)
         return self._post_attn(p, x, attn)
 
     def _logits(self, x):
         """Final norm and LM head of the last position: (B, V)."""
         return tF.linear(F.rms_norm(x[:, -1], self.norm_w, epsilon=self.eps), self.head_w)
 
-    def _forward(self, ids, cache, start_pos):
-        """ids: (B, S) at absolute positions start_pos..start_pos+S-1; returns
-        the last position's logits (B, V) — the only ones any caller reads."""
+    def _prefill_dense(self, ids, cache):
+        """The prompt pass: ids (B, S) at positions 0..S-1 written into the
+        cache's first S slots; returns the last position's logits (B, V)."""
         B, S = ids.shape
         x = self.emb[ids]
-        positions = torch.arange(start_pos, start_pos + S, device=x.device)
-        # rotate-half cos/sin (S, D) at the absolute positions, built once for
-        # every layer
-        rope = _rope_tables(S, self.head_dim, self.theta, x.dtype, x.device, positions,
-                            every_two=False)
+        # rotate-half cos/sin (S, D), built once for every layer
+        rope = _rope_tables(S, self.head_dim, self.theta, x.dtype, x.device, every_two=False)
         pos_mask = None
-        if start_pos > 0 or self.kv_int8:
-            # cache slots past start_pos + S are masked in the JAX engine and
-            # add 0: attend only the filled prefix
-            t = torch.arange(start_pos + S, device=x.device)[None, None, :]
-            pos_mask = (t <= positions[None, :, None]).expand(B, S, start_pos + S)
+        if self.kv_int8:
+            t = torch.arange(S, device=x.device)
+            pos_mask = (t[None, None, :] <= t[None, :, None]).expand(B, S, S)
         for p, ckv in zip(self.layers, cache):
-            x = self._block(p, x, ckv, start_pos, rope, pos_mask)
+            x = self._block(p, x, ckv, rope, pos_mask)
+        return self._logits(x)
+
+    def _step_dense(self, token, cache, pos):
+        """One lockstep decode step at the device position ``pos`` ((1,)
+        int32) for every row, in the JAX engine's fixed shape: RoPE rows
+        gathered at ``pos``, the K/V written there by ``index_copy_``, and
+        attention over all ``max_len`` slots masked ``t <= pos``."""
+        B = token.shape[0]
+        x = self.emb[token]                                   # (B, 1, hidden)
+        idx = pos.long()
+        rope = _rope_tables(1, self.head_dim, self.theta, x.dtype, x.device, idx,
+                            every_two=False)
+        t = torch.arange(self.max_len, device=x.device)
+        pos_mask = (t[None, :] <= idx[:, None])[None].expand(B, 1, self.max_len)
+        for p, cache_kv in zip(self.layers, cache):
+            q, k, v = self._qkv_rope(p, x, *rope)
+            if self.kv_int8:
+                ck_q, ck_s, cv_q, cv_s = cache_kv
+                kq, ks = self._quantize_kv(k)
+                vq, vs = self._quantize_kv(v)
+                for buf, new in ((ck_q, kq), (ck_s, ks), (cv_q, vq), (cv_s, vs)):
+                    buf.index_copy_(1, idx, new)
+                attn = self._attend_int8(q, ck_q, ck_s, cv_q, cv_s, pos_mask)
+            else:
+                ck, cv = cache_kv
+                ck.index_copy_(1, idx, k.to(ck.dtype))
+                cv.index_copy_(1, idx, v.to(cv.dtype))
+                attn = self._attend(q, ck, cv, pos_mask)
+            x = self._post_attn(p, x, attn)
         return self._logits(x)
 
     # -- paged forward paths (models/paged_kv.py pools + tables) -------------
@@ -422,14 +508,96 @@ class LlamaDecodeEngine:
         return self._logits(x)
 
     def _step_paged(self, token, pools, tables, pos):
-        """One lockstep decode step at position ``pos`` for every row."""
+        """One lockstep decode step at the device position ``pos`` ((1,)
+        int32) for every row: ``lens`` derives from it on the device, as in
+        JAX ``_step_paged_jit``."""
         x = self.emb[token]
-        lens = torch.full((token.shape[0],), pos, dtype=torch.int32, device=x.device)
+        lens = pos.to(torch.int32).repeat(token.shape[0])
         rope = _row_rope_tables(lens, self.head_dim, self.theta, x.dtype, x.device)
         plan = _pk._decode_plan(tables, lens, self.block_size)
         for p, pool in zip(self.layers, pools):
             x = self._block_paged_decode(p, x, pool, tables, lens, rope, plan)
         return self._logits(x)
+
+    # -- slots: cache buffers and their programs -----------------------------
+    def _acquire(self, batch):
+        """The free slot of ``batch`` rows released last, reset to a fresh
+        cache's state, or a new one."""
+        mine = [s for s in self._free if s.batch == batch]
+        if not mine:
+            if self.paged:
+                pager, pools = self._init_paged(batch)
+                return _Slot(batch, pools, pager)
+            return _Slot(batch, self.init_cache(batch))
+        slot = mine[-1]
+        self._free.remove(slot)
+        if self.paged:
+            slot.pager.reset()
+        else:
+            for entry in slot.cache:
+                for a in entry:
+                    a.zero_()
+        return slot
+
+    def _handle(self, slot):
+        """The cache value a caller holds for ``slot``; the slot returns to
+        the free list when the last reference to it goes."""
+        cache = (_PagedCache(slot.pager, slot.cache) if self.paged
+                 else _DenseCache(slot.cache))
+        cache._slot = slot
+        weakref.finalize(cache, _release, self._free, self.max_free_slots, slot)
+        return cache
+
+    def _adopt(self, cache):
+        """(slot, cache) for a cache ``prefill`` did not return: a slot bound
+        to its buffers, which stay the caller's (it never joins the free
+        list). A dense cache comes back as a handle on the same tensors."""
+        if self.paged:
+            cache._slot = _Slot(cache.pager.batch, cache.pools, cache.pager)
+            return cache._slot, cache
+        slot = _Slot(cache[0][0].shape[0], [tuple(entry) for entry in cache])
+        handle = _DenseCache(slot.cache)
+        handle._slot = slot
+        return slot, handle
+
+    def _program(self, slot, key, fn):
+        """The slot's program ``key``, made from ``fn(first, pools, *rest)``
+        on first use; on the card every program of the engine captures into
+        one graph memory pool."""
+        prog = slot.programs.get(key)
+        if prog is None:
+            if self._graph_pool is None and self.device.type == "cuda":
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            prog = slot.programs[key] = _Program(fn, slot.cache, pool=self._graph_pool)
+        return prog
+
+    # The programs' functions hold the engine weakly and the slot not at all:
+    # engine -> free slots -> programs -> functions, with no cycle back, so a
+    # dropped engine frees its buffers and graphs at once.
+    def _prefill_program(self, slot, S, rows=1):
+        """The prompt pass of (B, S) prompts into rows ``::rows`` of the slot
+        (beam search prefills row b*K)."""
+        eng = weakref.proxy(self)
+        tables = slot.pager.block_tables[::rows] if self.paged else None
+
+        def run(ids, cache):
+            if tables is not None:
+                lens = torch.full((ids.shape[0],), S, dtype=torch.int32, device=ids.device)
+                return eng._prefill_paged(ids, cache, tables, lens)
+            return eng._prefill_dense(ids, [tuple(a[::rows] for a in e) for e in cache])
+
+        return self._program(slot, ("prefill", S, rows), run)
+
+    def _step_program(self, slot):
+        eng = weakref.proxy(self)
+        tables = slot.pager.block_tables if self.paged else None
+
+        def run(token, cache, pos):
+            if tables is not None:
+                return eng._step_paged(token, cache, tables, pos)
+            return eng._step_dense(token, cache, pos)
+
+        return self._program(slot, "step", run)
 
     # -- public API ----------------------------------------------------------
     def _ids(self, input_ids):
@@ -442,41 +610,43 @@ class LlamaDecodeEngine:
         B, S = ids.shape
         if S > self.max_len:
             raise ValueError(f"prompt ({S}) exceeds the cache (max_len={self.max_len})")
+        slot = self._acquire(B)
         if self.paged:
-            pager, pools = self._init_paged(B)
-            self._pager = pager   # introspection only; the cache owns it
-            pager.ensure_capacity([S] * B)
-            lens = torch.full((B,), S, dtype=torch.int32, device=self.device)
-            logits = self._prefill_paged(ids, pools, pager.block_tables, lens)
-            return logits, _PagedCache(pager, pools), S
-        cache = self.init_cache(B)
-        return self._forward(ids, cache, 0), cache, S
+            self._pager = slot.pager   # introspection only; the cache owns it
+            slot.pager.ensure_capacity([S] * B)
+        logits = self._prefill_program(slot, S)(ids).clone()
+        return logits, self._handle(slot), S
 
     @torch.inference_mode()
     def decode_step(self, token, cache, pos):
-        """token (B, 1) -> (next-token logits (B, V), cache)."""
+        """token (B, 1) -> (next-token logits (B, V), cache). The cache is
+        written in place and comes back as the same object, or, for a dense
+        cache that did not come from ``prefill``, as a handle on the same
+        buffers: pass the returned cache to the next step, as in JAX."""
         if int(pos) >= self.max_len:
             raise ValueError(
                 f"decode position {int(pos)} exceeds the cache "
                 f"(max_len={self.max_len}); build the engine with a larger "
                 "max_len")
-        if not self.paged:
-            return self._forward(self._ids(token), cache, int(pos)), cache
-        if not isinstance(cache, _PagedCache):
+        if self.paged and not isinstance(cache, _PagedCache):
             raise TypeError(
                 "paged decode_step needs the cache returned by prefill() (each "
                 "prefill owns its own block tables; engine-level state would "
                 "cross-wire interleaved sequences)")
-        pager = cache.pager
-        # host-side block grant for position pos (writes land at pos), then
-        # copy-on-write for any shared tail block (beam forks; a cheap no-op
-        # when nothing is shared). The copy writes the pools in place, so on
-        # CowPoolExhausted cache.pools stay live: the JAX engine has to adopt
-        # the replacement pools the exception carries instead.
-        pager.ensure_capacity([int(pos) + 1] * pager.batch)
-        pools = pager.make_tail_exclusive(int(pos), cache.pools)
-        logits = self._step_paged(self._ids(token), pools, pager.block_tables, int(pos))
-        return logits, _PagedCache(pager, pools)
+        slot = getattr(cache, "_slot", None)
+        if slot is None:
+            slot, cache = self._adopt(cache)
+        if self.paged:
+            pager = cache.pager
+            # host-side block grant for position pos (writes land at pos), then
+            # copy-on-write for any shared tail block (beam forks; a cheap no-op
+            # when nothing is shared). The copy writes the pools in place, so on
+            # CowPoolExhausted cache.pools stay live: the JAX engine has to adopt
+            # the replacement pools the exception carries instead.
+            pager.ensure_capacity([int(pos) + 1] * pager.batch)
+            cache.pools = pager.make_tail_exclusive(int(pos), cache.pools)
+        pos_t = torch.tensor([int(pos)], dtype=torch.int32)
+        return self._step_program(slot)(self._ids(token), pos_t).clone(), cache
 
     def _select(self, logits, temperature, top_k, top_p, generator):
         """Greedy (temperature 0) or temperature/top-k/top-p sampling."""
@@ -552,8 +722,9 @@ class LlamaDecodeEngine:
                     length_penalty=0.0, eos_token_id=None):
         """Beam-search decoding over the KV cache: beams ride the batch axis,
         so every step is one decode_step at batch B*K plus a cache reorder
-        (dense: an ``index_select`` of every cache tensor; paged: the beams
-        fork the parents' block tables, copy-on-write at the next write).
+        (dense: every cache tensor's rows gathered into the same buffers, a
+        program of its own; paged: the beams fork the parents' block tables,
+        copy-on-write at the next write).
 
         Returns (tokens (B, K, T), scores (B, K) fp32), beams sorted best
         first per batch row. ``length_penalty`` alpha divides final scores by
@@ -570,29 +741,30 @@ class LlamaDecodeEngine:
             return (torch.zeros((B, K, 0), dtype=torch.long, device=self.device),
                     torch.zeros((B, K), dtype=torch.float32, device=self.device))
 
+        # prefill the B prompts into rows b*K of a B*K-row cache. The paged
+        # beams then fork the prompt blocks (refcounted sharing,
+        # copy-on-write) instead of copying the prompt KV K times; the dense
+        # rows copy in place (the reorder program)
+        slot = self._acquire(B * K)
         if self.paged:
-            # prefill the B prompts into rows b*K of a B*K-row pager; beams
-            # then fork the prompt blocks (refcounted sharing, copy-on-write)
-            # instead of copying the prompt KV K times
-            pager, pools = self._init_paged(B * K)
-            self._pager = pager
+            self._pager = slot.pager
             need = np.zeros(B * K, np.int64)
             need[::K] = S
-            pager.ensure_capacity(need)
-            lens = torch.full((B,), S, dtype=torch.int32, device=self.device)
-            logits = self._prefill_paged(ids, pools, pager.block_tables[::K], lens)
-            cache = _PagedCache(pager, pools)
-            pos = S
-        else:
-            logits, cache, pos = self.prefill(ids)
+            slot.pager.ensure_capacity(need)
+        logits = self._prefill_program(slot, S, rows=K)(ids).clone()
+        cache, pos = self._handle(slot), S
         logp = torch.log_softmax(logits.float(), dim=-1)              # (B, V)
         scores, first = self._top_k(logp, K)                          # (B, K)
         # expand the cache to B*K rows: beam k of row b lives at b*K + k
         base = torch.arange(B, device=self.device).repeat_interleave(K)
+        # the first call of a slot's reorder (its capture, whose warm-up run
+        # and replay both apply it) is this expansion, which gives the same
+        # rows applied once or twice
+        reorder = None if self.paged else self._program(slot, "reorder", _reorder_dense)
         if self.paged:
             cache.pager.fork_rows(base.cpu().numpy() * K)
         else:
-            cache = [tuple(a.index_select(0, base) for a in entry) for entry in cache]
+            reorder(base * K)
         tokens = first[:, :, None]
         finished = (torch.zeros((B, K), dtype=torch.bool, device=self.device)
                     if eos_token_id is None else first == eos_token_id)
@@ -619,8 +791,7 @@ class LlamaDecodeEngine:
             if self.paged:
                 cache.pager.fork_rows(flat_parent.cpu().numpy())
             else:
-                cache = [tuple(a.index_select(0, flat_parent) for a in entry)
-                         for entry in cache]
+                reorder(flat_parent)
             if eos_token_id is not None:
                 finished = torch.gather(finished, 1, parent) | (tok == eos_token_id)
 

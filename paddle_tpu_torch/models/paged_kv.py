@@ -97,6 +97,19 @@ class PagedKVCache:
         # prompt blocks); writes go copy-on-write via make_tail_exclusive
         self._refs = np.zeros(num_blocks, np.int32)
 
+    def reset(self):
+        """The state a new pager starts in, in the same tensors (the decode
+        engine's captured programs are bound to them): every block free in
+        the constructor's order, no references, tables and pools zeroed."""
+        self._free = list(range(self.num_blocks - 1, 0, -1))
+        self._tables_np[:] = 0
+        self._refs[:] = 0
+        pools = self.k + self.v + (self.k_scale + self.v_scale if self.quantized else [])
+        with torch.inference_mode():
+            for t in pools:
+                t.zero_()
+        self._upload()
+
     def _upload(self):
         """Overwrite the device tables in place from the host mirror. The
         copy is taken from a private snapshot and is blocking, so the mirror

@@ -67,6 +67,7 @@ import torch
 
 from ..analysis import faultinject as _fi
 from ..incubate.nn.functional import _rope_tables
+from ..jit._cuda_graph import _Program
 from . import paged_kv as _pk
 from .llama_decode import LlamaDecodeEngine, _row_rope_tables
 from .radix_cache import PrefixCache
@@ -178,68 +179,6 @@ def _pool_layout(pager, kv_int8):
         pools = list(zip(pager.k, pager.v))
     nbytes = int(sum(leaf.numel() * leaf.element_size() for entry in pools for leaf in entry))
     return pools, nbytes
-
-
-# one capture at a time in the process: replica threads of a fleet capture
-# their programs side by side (fleet warmup), and each capture is
-# thread-local, so another thread's table upload or result copy in the
-# middle of it does not invalidate it
-_CAPTURE_LOCK = threading.Lock()
-
-
-class _Program:
-    """One of the engine's fixed-shape programs, ``fn(first, pools, *rest)``,
-    on the pools' device.
-
-    On the CPU a call runs ``fn`` eagerly. On CUDA the first call copies its
-    inputs into static buffers, runs ``fn`` once on a side stream (lazy
-    library set-up must not happen under capture; the run writes the same
-    K/V the replay writes again) and captures it into a CUDA graph, under
-    the process-wide capture lock and in ``thread_local`` error mode; every
-    call then copies its inputs into the buffers and replays. The returned
-    tensor is the graph's static output: read it before the next call.
-    ``_Program.captures`` counts the graphs captured in the process."""
-
-    captures = 0
-
-    def __init__(self, fn, pools):
-        self._fn = fn
-        self._pools = pools
-        self._device = pools[0][0].device
-        self._graph = None
-        self._static = None
-        self._out = None
-
-    def _run(self, inputs):
-        return self._fn(inputs[0], self._pools, *inputs[1:])
-
-    def __call__(self, *inputs):
-        dev = self._device
-        if dev.type != "cuda":
-            return self._run([x.to(dev) for x in inputs])
-        if self._graph is None:
-            with _CAPTURE_LOCK:
-                static = [torch.empty_like(x, device=dev) for x in inputs]
-                for buf, x in zip(static, inputs):
-                    buf.copy_(x)
-                side = torch.cuda.Stream(dev)
-                side.wait_stream(torch.cuda.current_stream(dev))
-                with torch.cuda.stream(side):
-                    self._run(static)
-                torch.cuda.current_stream(dev).wait_stream(side)
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                    out = self._run(static)
-                self._static, self._out, self._graph = static, out, graph
-                _Program.captures += 1
-        for buf, x in zip(self._static, inputs):
-            buf.copy_(x)
-        self._graph.replay()
-        return self._out
-
-    @property
-    def captured(self):
-        return self._graph is not None
 
 
 class ContinuousBatchingEngine:

@@ -16,6 +16,11 @@ or raises. On both, ``axpy`` takes float32, float16 and bfloat16 (anything else
 raises ``TypeError``) and contiguous tensors (anything else raises
 ``ValueError``); the result is bit for bit the plain version's, NaN payloads
 aside.
+
+The kernel is the ``torch.library`` op ``paddle_tpu_torch::axpy``, so a
+registered custom op that calls ``axpy`` traces under ``jit.to_static`` with
+``full_graph=True`` and its compiled graph launches the kernel (the launch
+counter lives in the op's real implementation).
 """
 from __future__ import annotations
 
@@ -73,10 +78,10 @@ def _launch(x):
     return y
 
 
-def axpy(x):
-    """``x * 2 + 1`` in x's dtype: the kernel on the card, the plain version on
-    the CPU. An empty tensor comes back empty without a launch."""
-    _check(x)
+@torch.library.custom_op("paddle_tpu_torch::axpy", mutates_args=())
+def _axpy_op(x: torch.Tensor) -> torch.Tensor:
+    """The kernel on a CUDA tensor, the plain version on the CPU; an empty
+    tensor comes back empty without a launch."""
     if x.numel() == 0:
         return torch.empty_like(x)
     if x.is_cuda:
@@ -84,6 +89,21 @@ def axpy(x):
     if x.device.type != "cpu":
         raise RuntimeError(f"axpy runs on CUDA or the CPU, not {x.device}")
     return axpy_plain(x)
+
+
+@_axpy_op.register_fake
+def _axpy_fake(x):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def axpy(x):
+    """``x * 2 + 1`` in x's dtype: the kernel on the card, the plain version on
+    the CPU. An empty tensor comes back empty without a launch. The result
+    has no gradient on either device (the op is given a detached ``x``), so
+    a differentiable registration of ``axpy`` raises ``CustomOpError`` at
+    the backward pass, as a kernel launched outside autograd does."""
+    _check(x)
+    return _axpy_op(x.detach())
 
 
 def register_example(name="test_pallas_axpy"):

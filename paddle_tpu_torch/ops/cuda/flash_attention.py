@@ -4,9 +4,22 @@ dk/dv), their wrappers, their plain PyTorch versions and the autograd glue.
 Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``: ``_fwd_kernel``
 (launched by ``_fwd``) is ``paddle_tpu_torch/csrc/flash_attention_fwd.cu``;
 ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (launched by ``_bwd``) are
-``paddle_tpu_torch/csrc/flash_attention_bwd.cu``; the ``custom_vjp``
-``_flash`` is ``FlashAttentionFunction``. Layout contract: paddle's (batch,
-seq, num_heads, head_dim) at the entry, read through strides by the kernels.
+``paddle_tpu_torch/csrc/flash_attention_bwd.cu``. Layout contract: paddle's
+(batch, seq, num_heads, head_dim) at the entry, read through strides by the
+kernels.
+
+The kernels are ``torch.library`` ops, so a compiled graph (``jit.to_static``,
+Inductor) calls them where eager code does: ``paddle_tpu_torch::
+flash_attention_fwd`` (q, k, v, causal, scale, head_dim) -> (O, LSE) and
+``paddle_tpu_torch::flash_attention_bwd`` (q, k, v, O, LSE, dO, causal,
+scale) -> (dq, dk, dv). Each has a shape rule for fake tensors, and the
+forward's autograd formula (``register_autograd``) is the backward op: the
+JAX package's ``custom_vjp`` ``_flash``. Whatever reads an address (the TMA
+alignment checks and copies) and the counters live in the ops' real
+implementations, which a compiled step calls as an eager one does; the
+head-dim pad (``_at_native_dim``) stays outside, in traced torch code, so the
+ops only ever see the kernels' native head dims, and the forward op takes
+the head dim before the pad (``head_dim``) to count the pad where it runs.
 
 A tensor on the CPU takes the plain versions (the CPU tests and the card's
 reference); a CUDA tensor launches the kernels or raises. The TPU kernels'
@@ -42,7 +55,8 @@ launches_bwd_dkv = 0
 #: where they lie (a base or a stride that is not a multiple of 16 bytes)
 copies_for_alignment = 0
 #: q, k or v tensors zero-padded along the head dim to the kernels' next
-#: native head dim (the backward then gets a padded dO from autograd)
+#: native head dim (the backward then gets a padded dO from autograd),
+#: counted by the forward op, so a compiled or captured call counts too
 pads_for_head_dim = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -107,15 +121,13 @@ def _native_dim(D):
 
 
 def _pad_head_dim(ts, n):
-    """Each tensor of ``ts`` zero-padded along its last dim to ``n`` (counted
-    in ``pads_for_head_dim``); differentiable, so a gradient is sliced back."""
-    global pads_for_head_dim
-    pads_for_head_dim += len(ts)
+    """Each tensor of ``ts`` zero-padded along its last dim to ``n``;
+    differentiable, so a gradient is sliced back."""
     return [torch.nn.functional.pad(t, (0, n - t.shape[-1])) for t in ts]
 
 
 def _at_native_dim(q, k, v, causal, scale):
-    """``FlashAttentionFunction`` at the kernels' next native head dim: q, k,
+    """The forward op at the kernels' next native head dim: q, k,
     v zero-padded there when D is not one, O sliced back to D; the padded
     columns' gradients are dropped by autograd (the pad's backward).
     ``scale`` is the true head dim's. Raises ``FlashShapeError`` above 256 or
@@ -124,8 +136,8 @@ def _at_native_dim(q, k, v, causal, scale):
     D = q.shape[-1]
     n = _native_dim(D)
     if n == D:
-        return FlashAttentionFunction.apply(q, k, v, causal, scale)
-    out, lse = FlashAttentionFunction.apply(*_pad_head_dim((q, k, v), n), causal, scale)
+        return _fwd_op(q, k, v, causal, scale, D)
+    out, lse = _fwd_op(*_pad_head_dim((q, k, v), n), causal, scale, D)
     return out[..., :D], lse
 
 
@@ -354,52 +366,93 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal=False, scale=None):
     rows and writes it), then the dk/dv kernel (which reads delta and sums dk
     and dv over each GQA group itself). The head dim must be one the kernels
     are built for (the backward of a padded forward gets padded tensors from
-    ``FlashAttentionFunction``). ``do`` and ``out`` need a contiguous head
-    dim; anything else raises ``FlashShapeError``.
+    autograd). ``do`` and ``out`` need a contiguous head dim; anything else
+    raises ``FlashShapeError``.
     """
     _check_shapes(q, k, v, causal)
     s = float(scale if scale is not None else 1.0 / math.sqrt(q.shape[-1]))
+    return _bwd_op(q, k, v, out, lse, do, bool(causal), s)
+
+
+def _device_check(t):
+    if t.device.type != "cpu":
+        raise RuntimeError(f"flash attention runs on CUDA or the CPU, not {t.device}")
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd", mutates_args=())
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            scale: float, head_dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel on a CUDA tensor, the plain version on the CPU:
+    (O (B, Sq, Hq, D) in q's dtype, LSE (B, Hq, Sq) float32), both
+    contiguous. ``head_dim`` is the head dim before any pad: where q's
+    differs, q, k and v were padded, and the call counts it in
+    ``pads_for_head_dim``."""
+    global pads_for_head_dim
+    if head_dim != q.shape[-1]:
+        pads_for_head_dim += 3
+    if q.is_cuda:
+        return _launch(q, k, v, causal, scale)
+    _device_check(q)
+    out, lse = flash_attention_fwd_plain(q, k, v, causal, scale)
+    return out.contiguous(), lse.contiguous()
+
+
+@_fwd_op.register_fake
+def _fwd_fake(q, k, v, causal, scale, head_dim):
+    B, Sq, Hq, D = q.shape
+    return q.new_empty((B, Sq, Hq, D)), q.new_empty((B, Hq, Sq), dtype=torch.float32)
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_bwd", mutates_args=())
+def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+            lse: torch.Tensor, do: torch.Tensor, causal: bool,
+            scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The dq and dk/dv kernels on CUDA tensors, the plain backward on the
+    CPU: (dq, dk, dv) in the dtypes of q, k and v, contiguous."""
     if q.is_cuda:
         if q.dtype != torch.float32:
             # the 16-bit kernels read every input by TMA: copy (and count)
             # what it cannot read where it lies, once for both kernels
             q, k, v, do, out = (_tma_ready(t) for t in (q, k, v, do, out))
             lse = _rows_ready(lse)
-        dq, delta = _launch_bwd_dq(q, k, v, do, out, lse, causal, s)
-        dk, dv = _launch_bwd_dkv(q, k, v, do, lse, delta, causal, s)
+        dq, delta = _launch_bwd_dq(q, k, v, do, out, lse, causal, scale)
+        dk, dv = _launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
         return dq, dk, dv
-    if q.device.type != "cpu":
-        raise RuntimeError(f"flash attention runs on CUDA or the CPU, not {q.device}")
-    return flash_attention_bwd_plain(q, k, v, out, lse, do, causal, s)
+    _device_check(q)
+    dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, lse, do, causal, scale)
+    return dq.contiguous(), dk.contiguous(), dv.contiguous()
 
 
-class FlashAttentionFunction(torch.autograd.Function):
-    """Flash attention as one autograd node (the JAX package's ``custom_vjp``
-    ``_flash``): the forward kernel saves (q, k, v, out, lse); the backward
-    runs the two backward kernels. On the CPU both are the plain versions."""
+@_bwd_op.register_fake
+def _bwd_fake(q, k, v, out, lse, do, causal, scale):
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            torch.empty_like(k, memory_format=torch.contiguous_format),
+            torch.empty_like(v, memory_format=torch.contiguous_format))
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        if q.is_cuda:
-            out, lse = _launch(q, k, v, causal, scale)
-        else:
-            out, lse = flash_attention_fwd_plain(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
-        ctx.mark_non_differentiable(lse)
-        return out, lse
 
-    @staticmethod
-    def backward(ctx, dout, _dlse):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None
+def _fwd_setup_context(ctx, inputs, output):
+    q, k, v, causal, scale, _ = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.causal, ctx.scale = causal, scale
+    ctx.mark_non_differentiable(lse)
+
+
+def _fwd_backward(ctx, dout, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = _bwd_op(q, k, v, out, lse, dout, ctx.causal, ctx.scale)
+    return dq, dk, dv, None, None, None
+
+
+# the JAX package's custom_vjp ``_flash``: the forward saves (q, k, v, O, LSE)
+# and the backward runs the two backward kernels
+_fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup_context)
 
 
 def flash_attention_fwd_lse(q, k, v, causal=False, scale=None):
     """(O, LSE) for (B, S, H, D) inputs; LSE is (B, Hq, Sq) float32, the
-    residual the backward needs. O is differentiable (``FlashAttentionFunction``)
-    on both devices.
+    residual the backward needs. O is differentiable on both devices (the
+    forward op's autograd formula runs the backward op).
 
     Raises ``FlashShapeError`` (a ValueError) for what the JAX entry rejects:
     ``Hq % Hkv != 0``, causal with ``Sq > Sk``, mismatched shapes. On the card
@@ -414,9 +467,8 @@ def flash_attention_fwd_lse(q, k, v, causal=False, scale=None):
     s = float(scale if scale is not None else 1.0 / math.sqrt(q.shape[-1]))
     if q.is_cuda:
         return _at_native_dim(q, k, v, bool(causal), s)
-    if q.device.type != "cpu":
-        raise RuntimeError(f"flash attention runs on CUDA or the CPU, not {q.device}")
-    return FlashAttentionFunction.apply(q, k, v, bool(causal), s)
+    _device_check(q)
+    return _fwd_op(q, k, v, bool(causal), s, q.shape[-1])
 
 
 def flash_attention_fwd(q, k, v, causal=False, scale=None):

@@ -14,14 +14,17 @@ As in the JAX package, a C++ extension computes on the HOST:
   and the float32 result goes back to the first input's device. On a CUDA
   tensor that is two copies around a host call, which is what
   ``jax.pure_callback`` does on an accelerator: the op's defined semantics,
-  not a fallback.
+  not a fallback. The C call (and its backward's) is a ``torch.library`` op
+  (``paddle_tpu_torch_ext::<op name>``) whose fake output is a float32
+  tensor of the first input's shape, the ``ShapeDtypeStruct`` the JAX op
+  hands ``jax.pure_callback``: so the op traces under ``jit.to_static`` with
+  ``full_graph=True``, and the compiled graph calls C where eager code does.
 * richer signatures bind through ``.lib`` (the raw ctypes CDLL) and wrap
   with ``register_custom_op`` directly.
 
 ``.cu`` sources are skipped, as in the JAX package, and a CUDA-only source
 list raises ``BuildError``; the port's own kernels build from ``csrc/`` with
-``ops/cuda/_build.py``. The JAX package's ``jit.to_static`` capture of a
-``def_op`` waits for the port's ``jit`` slice.
+``ops/cuda/_build.py``.
 
 The simple def_op C ABI (float32, same-shape outputs):
     1 input : void sym(const float* x, float* y, int64_t n);
@@ -39,7 +42,8 @@ import tempfile
 
 import torch
 
-from .custom_op import register_custom_op
+from .custom_op import CustomOpError, register_custom_op
+from ..ops._apply import is_registered
 
 __all__ = ["load", "setup", "CppExtension", "CUDAExtension",
            "CppExtensionModule", "BuildError"]
@@ -111,6 +115,27 @@ def _call_c(cfn, *xs):
     return out.to(xs[0].device)
 
 
+def _host_op(qualname, cfn, schema):
+    """``cfn`` of the float32 ABI as a ``torch.library`` op taking a list of
+    tensors: the C call runs in the op's real implementation, and its fake
+    output is float32 in the first input's shape."""
+    def impl(xs):
+        return _call_c(cfn, *xs)
+
+    op = torch.library.custom_op(qualname, impl, mutates_args=(), schema=schema)
+
+    @op.register_fake
+    def _fake(xs):
+        return xs[0].new_empty(xs[0].shape, dtype=torch.float32)
+
+    return op
+
+
+def _qualname(op_name, suffix=""):
+    safe = "".join(c if c.isalnum() else "_" for c in op_name)
+    return f"paddle_tpu_torch_ext::{safe}{suffix}"
+
+
 class CppExtensionModule:
     """A loaded extension: ``.lib`` is the raw ctypes CDLL; ``def_op``
     registers an exported symbol as an op."""
@@ -125,9 +150,12 @@ class CppExtensionModule:
         ``op_name`` under the simple float32 elementwise ABI (module
         docstring). Returns the public op callable (tensors -> float32
         tensor on the first input's device)."""
+        if is_registered(op_name):
+            raise CustomOpError(f"op {op_name!r} is already registered")
         fwd_c = getattr(self.lib, symbol or op_name)
         fwd_c.argtypes = [ctypes.c_void_p] * (n_inputs + 1) + [ctypes.c_int64]
         fwd_c.restype = None
+        fwd_op = _host_op(_qualname(op_name), fwd_c, "(Tensor[] xs) -> Tensor")
 
         def forward(*xs):
             if len(xs) != n_inputs:
@@ -139,7 +167,8 @@ class CppExtensionModule:
                 raise TypeError(
                     f"{op_name}: all inputs must share one shape, got "
                     f"{[tuple(x.shape) for x in xs]}")
-            return _call_c(fwd_c, *xs)
+            # detached: a gradient with no backward_symbol raises CustomOpError
+            return fwd_op([x.detach() for x in xs])
 
         backward = None
         if backward_symbol is not None:
@@ -150,10 +179,11 @@ class CppExtensionModule:
             bwd_c = getattr(self.lib, backward_symbol)
             bwd_c.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64]
             bwd_c.restype = None
+            bwd_op = _host_op(_qualname(op_name, "_grad"), bwd_c, "(Tensor[] xs) -> Tensor")
 
             def backward(residuals, gy):
                 (x,) = residuals
-                return (_call_c(bwd_c, x, gy),)
+                return (bwd_op([x, gy]),)
 
         return register_custom_op(op_name, forward, backward=backward)
 

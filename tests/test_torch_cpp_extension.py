@@ -2,9 +2,10 @@
 case after tests/test_cpp_extension.py::TestCppExtension, with the same C
 source built by the system C++ compiler for both.
 
-The JAX test's ``jit.to_static`` half of ``test_binary_op_and_jit`` is not
-mirrored: the port has no ``jit`` slice yet (ROADMAP Queue A item 6).
-Registries are process-global, so every op registered here has a name of its
+The JAX test's ``jit.to_static`` half of ``test_binary_op_and_jit`` is
+``test_binary_op_under_to_static``, with ``full_graph=True``: the C call is a
+``torch.library`` op, so Dynamo traces the registered op without a graph
+break. Registries are process-global, so every op registered here has a name of its
 own: ``torch_test_*`` in the port, ``torch_parity_*`` in the JAX package.
 """
 import ctypes
@@ -80,6 +81,29 @@ class TestCppExtension:
         np.testing.assert_allclose(out.numpy(), np.full((2, 3), 7.0))
         np.testing.assert_array_equal(
             out.numpy(), jop(paddle.to_tensor(a), paddle.to_tensor(b)).numpy())
+
+    def test_binary_op_under_to_static(self, exts):
+        """The ``jit.to_static`` half of the JAX test_binary_op_and_jit, with
+        ``full_graph=True``: no graph break, one compiled signature, the JAX
+        package's to_static result to the last bit."""
+        import torch._dynamo
+
+        from paddle_tpu import jit as jax_jit
+        from paddle_tpu_torch import jit
+
+        ext, jext = exts
+        op = ext.def_op("torch_test_scaled_add_jit", "scaled_add", n_inputs=2)
+        jop = jext.def_op("torch_parity_scaled_add_jit", "scaled_add", n_inputs=2)
+        a, b = np.ones((2, 3), "float32"), np.full((2, 3), 3.0, "float32")
+        torch._dynamo.reset()
+        f = jit.to_static(lambda u, v: op(u, v) + 1.0, full_graph=True, backend="aot_eager")
+        out = f(torch.from_numpy(a), torch.from_numpy(b))
+        np.testing.assert_allclose(out.numpy(), np.full((2, 3), 8.0))
+        jf = jax_jit.to_static(lambda u, v: jop(u, v) + 1.0)
+        np.testing.assert_array_equal(
+            out.numpy(), np.asarray(jf(paddle.to_tensor(a), paddle.to_tensor(b)).numpy()))
+        assert len(f._cache) == 1 and not f._fallback
+        torch._dynamo.reset()
 
     @pytest.mark.parametrize("dtype", ["float64", "float16"])
     def test_inputs_cast_to_float32(self, exts, dtype):

@@ -332,6 +332,110 @@ class TestPagedCache:
         assert all(a is b for a, b in zip(cache.pools[0], te._pager.k[:1] + te._pager.v[:1]))
 
 
+class TestCapturedPrograms:
+    """The engine's programs (captured as CUDA graphs on the card, run
+    eagerly here): the dense decode step in the JAX engine's fixed shape,
+    one program per (batch, form) across positions, and the cache slots
+    the programs are bound to."""
+
+    @pytest.mark.parametrize("kv", [1, 2])
+    def test_device_pos_step_matches_jax_step_jit(self, kv):
+        """The dense step (the position a device tensor, attention over every
+        cache slot masked t <= pos) against JAX ``_step_jit`` at every
+        position of a 10-token decode, fp32 within 1e-5 (sums in another
+        order); the step function runs once a step, from one program."""
+        je, te = _engines(kv=kv, seed=20 + kv)
+        ids = _prompt(60 + kv)
+        jl, jc, pos = je.prefill(ids)
+        tl, tc, _ = te.prefill(ids)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5, atol=1e-5)
+        calls = []
+        step = te._step_dense
+        te._step_dense = lambda *a: calls.append(a[2].clone()) or step(*a)
+        toks = np.random.RandomState(70 + kv).randint(0, 64, (10, 2, 1)).astype("int32")
+        for tok in toks:
+            jl, jc = je._step_jit(jnp.asarray(tok), jc, jnp.asarray(pos, jnp.int32))
+            tl, tc2 = te.decode_step(torch.from_numpy(tok), tc, pos)
+            assert tc2 is tc
+            np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5, atol=1e-5)
+            pos += 1
+        assert [int(p) for p in calls] == list(range(ids.shape[1], pos))
+        assert all(p.dtype == torch.int32 and p.shape == (1,) for p in calls)
+        assert sorted(map(str, tc._slot.programs)) == ["('prefill', 6, 1)", "step"]
+
+    @pytest.mark.parametrize("kw", [{}, dict(kv_cache_dtype="int8"), _PAGED],
+                             ids=["dense", "int8", "paged"])
+    def test_slot_reused_after_the_cache_goes(self, kw):
+        """A generate at a seen (B, S) takes the slot the last one left, with
+        its programs (on the card: its captured graphs), and the same tokens."""
+        kw = dict(kw)
+        _, te = _engines(seed=30, max_len=kw.pop("max_len", _MAXLEN),
+                         positions=kw.pop("positions", 32), **kw)
+        ids = _prompt(80)
+        first = te.generate(ids, max_new_tokens=6)
+        (slot,) = te._free
+        programs = dict(slot.programs)
+        again = te.generate(ids, max_new_tokens=6)
+        assert te._free == [slot] and slot.programs == programs
+        np.testing.assert_array_equal(again.numpy(), first.numpy())
+
+    def test_live_caches_never_share_buffers(self):
+        """Two interleaved dense decodes at one batch size: two slots, each
+        stream equal to its solo run."""
+        _, te = _engines(seed=31)
+        a, b = _prompt(81), _prompt(82)
+        solo = [te.generate(p, max_new_tokens=6).numpy() for p in (a, b)]
+        la, ca, pa = te.prefill(a)
+        lb, cb, pb = te.prefill(b)
+        assert ca._slot is not cb._slot
+        assert all(x.data_ptr() != y.data_ptr() for ea, eb in zip(ca, cb)
+                   for x, y in zip(ea, eb))
+        toks = [[la.argmax(-1, keepdim=True)], [lb.argmax(-1, keepdim=True)]]
+        for _ in range(5):
+            la, ca = te.decode_step(toks[0][-1], ca, pa)
+            lb, cb = te.decode_step(toks[1][-1], cb, pb)
+            pa, pb = pa + 1, pb + 1
+            toks[0].append(la.argmax(-1, keepdim=True))
+            toks[1].append(lb.argmax(-1, keepdim=True))
+        for want, got in zip(solo, toks):
+            np.testing.assert_array_equal(torch.cat(got, 1).numpy(), want)
+
+    def test_free_list_keeps_the_slots_released_last(self):
+        """Past ``max_free_slots`` released caches the oldest slot goes, with
+        its buffers and programs: generates at four batch sizes leave the
+        last two, and a fifth at the first batch size makes a new slot."""
+        _, te = _engines(seed=33)
+        slots = []
+        for B in (1, 2, 3, 4):
+            te.generate(_prompt(83, (B, 6)), max_new_tokens=3)
+            slots.append(te._free[-1])
+        assert te._free == slots[2:] and [s.batch for s in te._free] == [3, 4]
+        te.generate(_prompt(83, (1, 6)), max_new_tokens=3)
+        assert te._free[-1] is not slots[0] and [s.batch for s in te._free] == [4, 1]
+
+    @pytest.mark.parametrize("form", [{}, dict(kv_cache_dtype="int8")], ids=["dense", "int8"])
+    def test_decode_from_init_cache_matches_jax(self, form):
+        """A decode from ``init_cache`` (no prefill) against the JAX engine's
+        ``decode_step`` on its ``init_cache``: logits at every position of a
+        6-token decode within 1e-5 (fp32). The step binds a slot to the
+        caller's buffers, writes them in place and returns a handle on them;
+        that slot never joins the free list."""
+        je, te = _engines(seed=32, **form)
+        jc, tc = je.init_cache(2), te.init_cache(2)
+        toks = np.random.RandomState(84).randint(0, 64, (6, 2, 1)).astype("int32")
+        for pos, tok in enumerate(toks):
+            jl, jc = je.decode_step(tok, jc, pos)
+            tl, tc2 = te.decode_step(torch.from_numpy(tok), tc, pos)
+            assert all(a is b for ea, eb in zip(tc, tc2) for a, b in zip(ea, eb))
+            tc = tc2
+            np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(tc[0][0].numpy(), np.asarray(jc[0][0]), rtol=1e-5,
+                                   atol=1e-5)
+        assert list(tc._slot.programs) == ["step"]
+        del tc, tc2
+        assert te._free == []
+
+
 class TestRopeAtRows:
     def test_matches_jax(self):
         from paddle_tpu.models.llama_decode import _rope_at_rows as jax_rope

@@ -147,6 +147,36 @@ def test_serving_programs_on_cuda_capture_or_raise():
     assert len(calls) == 1 and not on_cpu.captured
 
 
+def test_decode_programs_on_cuda_capture_or_raise(monkeypatch):
+    """The decode engine's prompt pass and decode step on a CUDA device are
+    captured as CUDA graphs or the call raises: neither function runs
+    eagerly instead."""
+    from paddle_tpu_torch.jit import _cuda_graph
+    from paddle_tpu_torch.models import LlamaConfig, LlamaDecodeEngine, LlamaForCausalLM
+    from paddle_tpu_torch.models import llama_decode
+
+    class OnCard(_cuda_graph._Program):
+        def __init__(self, fn, pools, pool=None):
+            super().__init__(fn, pools, pool)
+            self._device = torch.device("cuda", 0)
+
+    cfg = LlamaConfig(vocab_size=16, hidden_size=16, intermediate_size=32,
+                      num_hidden_layers=1, num_attention_heads=2)
+    engine = LlamaDecodeEngine(LlamaForCausalLM(cfg, device="cpu"), max_len=8)
+    ids = torch.zeros(1, 3, dtype=torch.long)
+    _, cache, pos = engine.prefill(ids)          # CPU programs: eager
+    calls = []
+    for name in ("_prefill_dense", "_step_dense"):
+        monkeypatch.setattr(engine, name, lambda *a, _n=name: calls.append(_n))
+    monkeypatch.setattr(llama_decode, "_Program", OnCard)
+    with pytest.raises(Exception):
+        engine.decode_step(torch.zeros(1, 1, dtype=torch.long), cache, pos)
+    with pytest.raises(Exception):
+        engine.prefill(torch.zeros(1, 4, dtype=torch.long))
+    assert calls == []
+    assert not cache._slot.programs["step"].captured
+
+
 def test_kernel_source_present_and_build_ignored():
     assert (PORT / "csrc" / "flash_attention_fwd.cu").is_file()
     assert (PORT / "csrc" / "flash_attention_bwd.cu").is_file()
