@@ -180,7 +180,31 @@ Phases, each a hard check (the script exits nonzero on the first failure):
      step-1 gradients within 1e-4 norm-relative; (d) the axpy op inside a
      full_graph=True to_static function: one launch a call, bit for bit the
      plain version; (e) a full_graph=False function with an .item() break:
-     equal to eager, at least two compiled segments.
+     equal to eager, at least two compiled segments; (f) the flagship's
+     forward at B8 S128 under to_static (no grad): one launch a layer, the
+     cold compile seconds, the median ms of a call and a profiled call
+     (phase 15's yardstick).
+ 15. the deploy path: (a) the flagship (phase 3's model) saved by jit.save
+     on the card at InputSpec([8, 128], "int64"): its graph holds one
+     flash_attention_fwd op a layer and no softmax; served by an
+     inference.Predictor (Inductor) with that shape warmed at creation;
+     launch counts set to 0 before one run and read after it: 8 forward
+     launches, no backward, no math-path call, no alignment copy or pad, no
+     compile. The loaded program run as it was saved gives the eager
+     logits bit for bit; the Predictor's are no farther from an fp32 run of
+     the same weights than the eager model's are (bounds below); the
+     artifact's bytes, save, load and compile seconds, and the median ms of
+     a run beside the eager forward's and phase 14 (f)'s to_static
+     forward at that shape, each with a profiled call;
+     (b) 2 layers in fp32 at B2 S128 saved on the card and from a CPU twin:
+     the card program launches the fp32 kernel once a layer, card against
+     CPU within TOL_E2E_LOGITS, each program equal to its eager model
+     within 1e-5; (c) the CPU program loaded for the card raises; (d) a
+     function calling the axpy op, saved on the card and reloaded in a
+     fresh interpreter that imports only paddle_tpu_torch.jit: one launch a
+     call, bit for bit; (e) the flagship's state dict through
+     paddle_tpu_torch.save and load bit for bit, and a fresh model loaded
+     from it gives the same logits bit for bit. At most DEPLOY_SECONDS.
 Phases 3, 9 and 13 time the decode engine's default, the captured path.
 The last line is the device JSON object; the line before it the card's name
 and power limit; before that the kernels JSON object.
@@ -3386,6 +3410,47 @@ def graph_break_on_card(torch, jit):
     return dict(max_rel_err=err, tol=TOL_BREAK, segments=segments)
 
 
+def to_static_forward(torch, fa, models, jit, math_calls, smi):
+    """Phase 14 (f): the flagship's forward at phase 15's shape (B8 S128)
+    under to_static (Inductor, no grad): launches, the cold compile, the
+    median ms of a call and a profiled call, the yardstick phase 15's
+    Predictor is read beside."""
+    cfg = models.LlamaConfig(**FLAGSHIP, dtype="bfloat16")
+    L = cfg.num_hidden_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = models.LlamaForCausalLM(cfg, device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    ids = torch.randint(0, cfg.vocab_size, (8, 128), device="cuda", generator=gen)
+    compiled = jit.to_static(lambda x: model(x))
+
+    def fwd():
+        with torch.no_grad():
+            return compiled(ids)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fwd()
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    reset_counts(fa)
+    math_calls[0] = 0
+    fwd()
+    torch.cuda.synchronize()
+    launched = counts(fa)
+    if launched != (L, 0, 0) or math_calls[0] or fa.copies_for_alignment:
+        fail(f"the to_static forward launched {launched}, took the math path "
+             f"{math_calls[0]} times, made {fa.copies_for_alignment} copies")
+    ms, ms_all = timed_runs(torch, fwd)
+    profile = profile_step(torch, fwd, ms)
+    if len(compiled._cache) != 1:
+        fail(f"the to_static forward compiled {len(compiled._cache)} signatures")
+    del model, compiled
+    return dict(batch=8, seq=128, layers=L, compile_s=compile_s, launches=launched[0],
+                ms=ms, ms_all=ms_all, profile=profile,
+                timing=f"CUDA events around each call, median of {DEPLOY_RUNS}", card=smi)
+
+
 def phase_compiled(torch, fa, axpy, models, AdamW, jit, serving_mod, port_F, smi, eager):
     """Phase 14: the compiled paths (module docstring)."""
     out = dict(decode={})
@@ -3408,6 +3473,329 @@ def phase_compiled(torch, fa, axpy, models, AdamW, jit, serving_mod, port_F, smi
     out["graph_break"] = graph_break_on_card(torch, jit)
     print("to_static_ops " + json.dumps(dict(axpy=out["axpy"], graph_break=out["graph_break"])),
           flush=True)
+    out["forward"] = to_static_forward(torch, fa, models, jit, math_calls, smi)
+    print("to_static_forward " + json.dumps(out["forward"]), flush=True)
+    return out
+
+
+# phase 15: the deploy path. The flagship's loaded program, run as it was
+# saved, must give the eager model's logits bit for bit: the same operations
+# in the same order. The Predictor runs that program compiled by Inductor,
+# which keeps intermediates in fp32 inside its fused kernels where eager code
+# rounds each op's result to bf16: through 8 random layers its logits part
+# from eager's by ~2e-2 norm-relative, and eager's from an fp32 run of the
+# same weights by as much (on an H100 80GB HBM3 at 700 W: 0.0195 and 0.0175;
+# the Predictor 0.0146 from fp32). So the Predictor is held to the fp32 run: no
+# farther from it than the eager model is (times DEPLOY_REF_FACTOR), its
+# argmax agreeing with it as often as eager's (less DEPLOY_ARGMAX_SLACK).
+DEPLOY_REF_FACTOR = 1.25
+DEPLOY_ARGMAX_SLACK = 0.01
+# (b) fp32: each loaded program against its own eager model runs the same
+# operations (compiled by nothing): only summation order may differ
+TOL_DEPLOY_FP32 = 1e-5     # norm-relative
+DEPLOY_RUNS = 20           # timed calls of the Predictor, eager and to_static
+DEPLOY_SECONDS = 120       # phase 15's share of the script's time
+# (d) run in a fresh interpreter that imports only paddle_tpu_torch.jit
+AXPY_DEPLOY_CODE = r"""
+import json, sys, torch
+from paddle_tpu_torch import jit
+f = jit.load(sys.argv[1])
+axpy = sys.modules["paddle_tpu_torch.ops.cuda.axpy"]
+x = torch.randn(int(sys.argv[2]), device="cuda", generator=torch.Generator("cuda").manual_seed(5))
+f(x)
+torch.cuda.synchronize()
+axpy.launches = 0
+ys = [f(x) for _ in range(3)]
+torch.cuda.synchronize()
+launches = axpy.launches
+ref = x * 2.0 + 1.0
+print(json.dumps(dict(calls=3, launches=launches, bit_exact=all(
+    torch.equal(y.view(torch.int32), ref.view(torch.int32)) for y in ys),
+    ops=[str(n.target) for n in f._program.graph.nodes if n.op == "call_function"])))
+"""
+
+
+def graph_ops(program):
+    """The call_function targets of a loaded program's graph, as strings."""
+    return [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+
+
+def timed_runs(torch, fn, runs=DEPLOY_RUNS):
+    """Median and all ms of ``runs`` calls, CUDA events around each call
+    (the host's launch time shows where it exceeds the device's)."""
+    fn()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2], times
+
+
+def fp32_logits(torch, model, ids):
+    """Logits of ``model``'s weights (bf16 values) run in fp32."""
+    import copy
+
+    m32 = copy.deepcopy(model).float()
+    out = m32(ids)
+    del m32
+    return out
+
+
+def agreement(a, b):
+    """Share of positions where the argmaxes of two logits agree."""
+    return (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+
+
+def deploy_flagship(torch, fa, models, jit, inference, math_calls, tmp, smi, static):
+    """Phase 15 (a) and (e): the flagship saved on the card, served by a
+    Predictor from the saved program, its state dict through paddle.save."""
+    cfg = models.LlamaConfig(**FLAGSHIP, dtype="bfloat16")
+    L, B, S = cfg.num_hidden_layers, 8, 128
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = models.LlamaForCausalLM(cfg, device="cuda", seed=0)
+    prefix = os.path.join(tmp, "flagship")
+    t0 = time.perf_counter()
+    jit.save(model, prefix, input_spec=[jit.InputSpec([B, S], "int64", "input_ids")])
+    save_s = time.perf_counter() - t0
+    sizes = {ext: os.path.getsize(prefix + ext) for ext in (".pdmodel", ".pdiparams")}
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    config = inference.Config(prefix)
+    config.enable_use_gpu(device_id=0, precision=inference.PrecisionType.Bfloat16)
+    config.exp_set_warmup_shapes([((B, S), "int64")])
+    t0 = time.perf_counter()
+    pred = inference.create_predictor(config)
+    create_s = time.perf_counter() - t0
+    ops = graph_ops(pred._fn._program)
+    n_fwd = sum(t.startswith("paddle_tpu_torch.flash_attention_fwd") for t in ops)
+    softmax = [t for t in ops if "softmax" in t]
+    if n_fwd != L or softmax:
+        fail(f"the saved flagship holds {n_fwd} flash_attention_fwd nodes (want {L}) "
+             f"and softmax nodes {softmax}")
+    if pred._warmed_shapes != [(B, S)] or pred.compiles < 1:
+        fail(f"the Predictor warmed {pred._warmed_shapes} with {pred.compiles} compiles")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    ids = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", generator=gen)
+    handle = pred.get_input_handle(pred.get_input_names()[0])
+    handle.share_external_data(ids)
+    compiles = pred.compiles
+    torch.cuda.synchronize()
+    reset_counts(fa)
+    math_calls[0] = 0
+    pred.run()
+    torch.cuda.synchronize()
+    launched = counts(fa)
+    extra = (math_calls[0], fa.copies_for_alignment, fa.pads_for_head_dim,
+             pred.compiles - compiles)
+    if launched != (L, 0, 0) or extra != (0, 0, 0, 0):
+        fail(f"a Predictor.run launched (fwd, dq, dk/dv) = {launched}, want {(L, 0, 0)}; "
+             f"math path, alignment copies, pads, compiles = {extra}, want zeros")
+    logits = pred.get_output_handle("output_0")._value
+    if logits.shape != (B, S, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        fail(f"the Predictor's logits are misshapen or not finite: {tuple(logits.shape)}")
+    with torch.no_grad():
+        eager = model(ids)
+        as_saved = pred._fn(ids)          # the loaded program, not compiled
+        ref = fp32_logits(torch, model, ids)
+    if not torch.equal(as_saved, eager):
+        fail(f"the loaded program's logits differ from eager's by "
+             f"{norm_rel(as_saved, eager)} (norm-relative); they must be equal")
+    acc = dict(predictor_vs_eager=norm_rel(logits, eager),
+               predictor_vs_fp32=norm_rel(logits, ref), eager_vs_fp32=norm_rel(eager, ref),
+               argmax_predictor_eager=agreement(logits, eager),
+               argmax_predictor_fp32=agreement(logits, ref),
+               argmax_eager_fp32=agreement(eager, ref), ref_factor=DEPLOY_REF_FACTOR,
+               argmax_slack=DEPLOY_ARGMAX_SLACK, loaded_program_equals_eager=True)
+    if not (acc["predictor_vs_fp32"] <= DEPLOY_REF_FACTOR * acc["eager_vs_fp32"]
+            and acc["argmax_predictor_fp32"] >= acc["argmax_eager_fp32"] - DEPLOY_ARGMAX_SLACK):
+        fail(f"the Predictor's logits are farther from the fp32 run than eager's: {acc}")
+    host = pred.run([ids.cpu().numpy()])[0]
+    if host.shape != (B, S, cfg.vocab_size) or host.dtype.name != "float32":
+        fail(f"Predictor.run(inputs) gave {host.dtype} {host.shape}")
+    def eager_fwd():
+        with torch.no_grad():
+            return model(ids)
+
+    run_ms, run_all = timed_runs(torch, pred.run)
+    eager_ms, eager_all = timed_runs(torch, eager_fwd)
+    # device ms by kernel group and idle share of one call each; the
+    # to_static forward's from phase 14 (f), the same model and ids
+    profiles = dict(predictor=profile_step(torch, pred.run, run_ms),
+                    to_static=static["profile"],
+                    eager=profile_step(torch, eager_fwd, eager_ms))
+    if pred.compiles != compiles:
+        fail(f"the timed runs compiled {pred.compiles - compiles} graphs")
+    out = dict(batch=B, seq=S, layers=L, dtype="bfloat16", save_s=save_s,
+               load_s=pred.load_s, compile_s=pred.warmup_s, create_s=create_s,
+               pdmodel_bytes=sizes[".pdmodel"], pdiparams_bytes=sizes[".pdiparams"],
+               weight_bytes=weight_bytes, flash_nodes=n_fwd,
+               launches_per_run=dict(fwd=launched[0], bwd_dq=launched[1], bwd_dkv=launched[2]),
+               math_path_calls=extra[0], alignment_copies=extra[1], pads=extra[2],
+               compiles_at_run=extra[3], accuracy=acc,
+               run_ms=run_ms, run_ms_all=run_all, eager_ms=eager_ms, eager_ms_all=eager_all,
+               to_static_ms=static["ms"], to_static_ms_all=static["ms_all"],
+               to_static_compile_s=static["compile_s"], profiles=profiles,
+               assert_nodes=sum("_assert_tensor_metadata" in t for t in ops),
+               timing=f"CUDA events around each call, median of {DEPLOY_RUNS}", card=smi)
+    del pred, logits, eager, host, as_saved, ref
+    out["state_dict"] = state_dict_round_trip(torch, models, model, ids, cfg, tmp)
+    del model
+    return out
+
+
+def state_dict_round_trip(torch, models, model, ids, cfg, tmp):
+    """Phase 15 (e): the flagship's state dict through paddle_tpu_torch.save
+    and load, bit for bit, and into a fresh model: logits bit for bit."""
+    import paddle_tpu_torch as pt
+
+    path = os.path.join(tmp, "flagship.pdparams")
+    sd = model.state_dict()
+    t0 = time.perf_counter()
+    pt.save(sd, path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = pt.load(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    bad = [k for k, v in sd.items()
+           if back[k].dtype != v.dtype or back[k].device != v.device
+           or not torch.equal(back[k].view(torch.int16), v.view(torch.int16))]
+    if sorted(back) != sorted(sd) or bad:
+        fail(f"paddle.save/load of the flagship changed {bad or sorted(set(back) ^ set(sd))}")
+    fresh = models.LlamaForCausalLM(cfg, device="cuda", seed=1)
+    fresh.load_state_dict(back)
+    with torch.no_grad():
+        same = torch.equal(fresh(ids), model(ids))
+    if not same:
+        fail("a model loaded from the flagship's paddle.save file gives other logits")
+    out = dict(bytes=os.path.getsize(path), tensors=len(sd), save_s=save_s, load_s=load_s,
+               bit_exact=True, logits_bit_exact=same)
+    os.remove(path)
+    del fresh, back
+    return out
+
+
+def deploy_fp32(torch, fa, models, jit, tmp):
+    """Phase 15 (b) and (c): 2 layers in fp32 at S128 saved on the card and
+    from a CPU twin; the CPU program refused on the card."""
+    import copy
+
+    cfg = models.LlamaConfig(**dict(FLAGSHIP, num_hidden_layers=2), dtype="float32")
+    gpu = models.LlamaForCausalLM(cfg, device="cuda", seed=3)
+    cpu = copy.deepcopy(gpu).to("cpu")
+    spec = [jit.InputSpec([2, 128], "int64", "input_ids")]
+    jit.save(gpu, os.path.join(tmp, "fp32_card"), input_spec=spec)
+    jit.save(cpu, os.path.join(tmp, "fp32_cpu"), input_spec=spec)
+    on_card = jit.load(os.path.join(tmp, "fp32_card"))
+    on_cpu = jit.load(os.path.join(tmp, "fp32_cpu"), device="cpu")
+    card_ops, cpu_ops = graph_ops(on_card._program), graph_ops(on_cpu._program)
+    n_card = sum(t.startswith("paddle_tpu_torch.flash_attention_fwd") for t in card_ops)
+    n_cpu = sum(t.startswith("paddle_tpu_torch.flash_attention_fwd") for t in cpu_ops)
+    if n_card != 2 or n_cpu != 0:
+        fail(f"fp32 programs hold {n_card} (card) and {n_cpu} (CPU) flash_attention_fwd "
+             "nodes, want 2 and 0")
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    ids = torch.randint(0, cfg.vocab_size, (2, 128), generator=gen)
+    torch.cuda.synchronize()
+    before = fa.launches
+    lg = on_card(ids)
+    torch.cuda.synchronize()
+    launched = fa.launches - before
+    lc = on_cpu(ids)
+    with torch.no_grad():
+        eg, ec = gpu(ids.cuda()), cpu(ids)
+    err = (lg.cpu() - lc).abs().max().item()
+    err_card, err_cpu = norm_rel(lg, eg), norm_rel(lc, ec)
+    if launched != 2:
+        fail(f"the fp32 program on the card launched the kernel {launched} times, want 2")
+    if not (math.isfinite(err) and err <= TOL_E2E_LOGITS):
+        fail(f"fp32 programs, card against CPU: {err} > {TOL_E2E_LOGITS}")
+    if not (err_card <= TOL_DEPLOY_FP32 and err_cpu <= TOL_DEPLOY_FP32):
+        fail(f"fp32 programs against their eager models: card {err_card}, CPU {err_cpu} "
+             f"> {TOL_DEPLOY_FP32}")
+    refused = []
+    for what, call in (("jit.load", lambda: jit.load(os.path.join(tmp, "fp32_cpu"))),
+                       ("jit.load(device='cuda')",
+                        lambda: jit.load(os.path.join(tmp, "fp32_cpu"), device="cuda"))):
+        try:
+            call()
+        except RuntimeError as e:
+            if "exported for cpu" not in str(e):
+                fail(f"{what} of a CPU program raised another error: {e}")
+            refused.append(what)
+        else:
+            fail(f"{what} ran a CPU program on the card")
+    del gpu, cpu, on_card, on_cpu
+    return dict(layers=2, shape=[2, 128], launches_card=launched,
+                card_vs_cpu_max_abs_err=err, tol=TOL_E2E_LOGITS,
+                card_vs_eager_norm_rel=err_card, cpu_vs_eager_norm_rel=err_cpu,
+                tol_eager=TOL_DEPLOY_FP32, cpu_program_refused_on_card=refused)
+
+
+def deploy_axpy_start(axpy, jit, tmp, root):
+    """Phase 15 (d): a function calling the registered axpy op, saved on the
+    card, then reloaded in a fresh interpreter that imports only
+    paddle_tpu_torch.jit (started here, read by ``deploy_axpy_check``; it
+    runs while the flagship is saved and compiled)."""
+    op = axpy.register_example(name="chip_smoke_axpy_deploy")
+    n = 2 ** 20 + 3
+    prefix = os.path.join(tmp, "axpy")
+    jit.save(lambda x: op(x), prefix, input_spec=[jit.InputSpec([n], "float32", "x")],
+             device="cuda")
+    env = dict(os.environ, PYTHONPATH=root)
+    proc = subprocess.Popen([sys.executable, "-c", AXPY_DEPLOY_CODE, prefix, str(n)],
+                            cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, n
+
+
+def deploy_axpy_check(proc, n):
+    """Phase 15 (d), read: one launch a call, bit for bit 2x + 1."""
+    try:
+        stdout, stderr = proc.communicate(timeout=120)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail("the saved axpy function did not finish in a fresh interpreter")
+    if proc.returncode != 0:
+        fail(f"the saved axpy function did not run in a fresh interpreter:\n{stderr[-3000:]}")
+    res = json.loads(stdout.strip().splitlines()[-1])
+    if res["ops"].count("paddle_tpu_torch.axpy.default") != 1:
+        fail(f"the saved axpy function's graph calls {res['ops']}")
+    if res["launches"] != res["calls"] or not res["bit_exact"]:
+        fail(f"the reloaded axpy function: {res}")
+    return dict(numel=n, calls=res["calls"], launches=res["launches"],
+                launches_per_call=res["launches"] // res["calls"], bit_exact=True,
+                fresh_interpreter=True)
+
+
+def phase_deploy(torch, fa, axpy, models, jit, inference, port_F, smi, root, static):
+    """Phase 15: the deploy path (module docstring); ``static`` is phase 14
+    (f)'s to_static forward, the yardstick of the Predictor's run."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_deploy_")
+    proc = None
+    try:
+        proc, n = deploy_axpy_start(axpy, jit, tmp, root)
+        math_calls = count_math_path(port_F)
+        out = dict(flagship=deploy_flagship(torch, fa, models, jit, inference, math_calls,
+                                            tmp, smi, static))
+        print("deploy_flagship " + json.dumps(out["flagship"]), flush=True)
+        out["fp32"] = deploy_fp32(torch, fa, models, jit, tmp)
+        out["axpy"] = deploy_axpy_check(proc, n)
+        print("deploy_checks " + json.dumps(dict(fp32=out["fp32"], axpy=out["axpy"])),
+              flush=True)
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
@@ -3435,7 +3823,7 @@ def main():
         import paddle_tpu_torch.checkpoint as ckpt
         from paddle_tpu_torch.distributed.fleet.recompute import SAVED_OPS
         import paddle_tpu_torch.nn.functional as tfunc
-        from paddle_tpu_torch import jit
+        from paddle_tpu_torch import inference, jit
         # the module (the package's attribute of that name is the function)
         port_F = importlib.import_module("paddle_tpu_torch.nn.functional.flash_attention")
     except ImportError as e:
@@ -3544,10 +3932,20 @@ def main():
     t0 = time.perf_counter()
     compiled = phase_compiled(torch, fa, axpy, models, AdamW, jit, serving_mod, port_F, smi,
                               training)
+    print(f"phase_seconds 14 {time.perf_counter() - t0:.1f}", flush=True)
+
+    # phase 15: the deploy path (launch counts set to 0 before the counted
+    # Predictor.run, read after it; axpy's in the fresh interpreter)
+    t0 = time.perf_counter()
+    deploy = phase_deploy(torch, fa, axpy, models, jit, inference, port_F, smi, root,
+                          compiled["forward"])
     from torch._inductor import async_compile
     if hasattr(async_compile, "shutdown_compile_workers"):
         async_compile.shutdown_compile_workers()    # Inductor's compile processes
-    print(f"phase_seconds 14 {time.perf_counter() - t0:.1f}", flush=True)
+    deploy_s = time.perf_counter() - t0
+    print(f"phase_seconds 15 {deploy_s:.1f}", flush=True)
+    if deploy_s > DEPLOY_SECONDS:
+        fail(f"phase 15 took {deploy_s:.1f} s, more than its {DEPLOY_SECONDS} s")
 
     kernel = dict(
         name="flash_attention_fwd", route="cuda",
@@ -3566,7 +3964,9 @@ def main():
                                            surface["knobs"]["variants"].items()},
                               to_static_training=compiled["training"]["launches_per_step"]["fwd"],
                               captured_prefill=compiled["decode"]["flagship"]["captured"][
-                                  "launches_per_prefill"]),
+                                  "launches_per_prefill"],
+                              to_static_forward=compiled["forward"]["launches"],
+                              deploy=deploy["flagship"]["launches_per_run"]["fwd"]),
         max_abs_err=main_row["max_abs_err"],
         tol=main_row["tol"], ms=main_row["kernel_ms"], kernel_ms=main_row["kernel_ms"],
         call_ms=main_row["kernel_call_ms"],
@@ -3613,7 +4013,8 @@ def main():
         name="axpy", route="cuda", source="paddle_tpu_torch/csrc/axpy.cu",
         replaces="tests/test_extension_points.py:57", launches=custom["launches"],
         launches_by_path=dict(custom_op=custom["launches"],
-                              to_static=compiled["axpy"]["launches"]),
+                              to_static=compiled["axpy"]["launches"],
+                              deploy=deploy["axpy"]["launches_per_call"]),
         max_abs_err=ax["max_abs_err"], bit_exact=ax["bit_exact"], ms=ax["kernel_ms"],
         kernel_ms=ax["kernel_ms"], call_ms=ax["kernel_call_ms"], plain_ms=ax["plain_ms"],
         plain_call_ms=ax["plain_call_ms"], bound_ms=ax["bound_ms"], bound_by=ax["bound_by"],

@@ -7,6 +7,8 @@ explicit ``torch.Generator``s. Hand-written kernels live in ``csrc/`` and
 build on first use (``ops/cuda/_build.py``).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
+``save``/``load`` are paddle.save/paddle.load (``framework_io.py``);
+``jit.save``/``jit.load`` and ``inference`` are the deploy path.
 Fault-injection points named in ``PADDLE_TPU_FAULTS`` are armed at import
 (``analysis/faultinject.py``), as the JAX package arms them.
 """
@@ -14,7 +16,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "save", "load"]
+
+__version__ = "0.1.0"
 
 
 def resolve_device(device=None) -> torch.device:
@@ -28,6 +32,21 @@ def resolve_device(device=None) -> torch.device:
                 "device='cpu' to run the plain versions on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
+
+
+def save(obj, path, **kwargs):
+    """paddle.save: ``framework_io.save``."""
+    from .framework_io import save as _save
+
+    return _save(obj, path, **kwargs)
+
+
+def load(path, **kwargs):
+    """paddle.load: ``framework_io.load`` (tensors on the card unless
+    ``device="cpu"``)."""
+    from .framework_io import load as _load
+
+    return _load(path, **kwargs)
 
 
 from .analysis import faultinject as _faultinject  # noqa: E402

@@ -7,10 +7,13 @@ the hand-written kernels reaching the compiled graphs as ``torch.library``
 ops. ``sot.py`` holds the graph-break contract (``full_graph=False``).
 ``_cuda_graph.py`` holds the CUDA-graph programs the serving and decode
 engines capture in place of the JAX engines' internal ``jax.jit`` programs.
+``serialization.py`` holds ``save``, ``load`` and ``TranslatedLayer``: a
+layer's eval forward exported with ``torch.export`` as a pure function of
+(state, inputs), the kernels kept in it as their ``torch.library`` ops, the
+weights once in ``.pdiparams`` (``paddle_tpu_torch.inference`` serves such a
+program compiled per input shape).
 
-Not ported yet: ``load``, ``save`` and ``TranslatedLayer``
-(``paddle_tpu/jit/serialization.py``, ROADMAP Queue A), and the monitor's
-compile counters and spans (Queue A item 7).
+Not ported yet: the monitor's compile counters and spans (Queue A item 7).
 """
 from .api import (  # noqa: F401
     InputSpec,
@@ -20,6 +23,7 @@ from .api import (  # noqa: F401
     not_to_static,
     to_static,
 )
+from .serialization import TranslatedLayer, load, save  # noqa: F401
 
 _LOG_STATE = {"verbosity": 0, "code_level": 0}
 

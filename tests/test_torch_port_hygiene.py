@@ -43,7 +43,9 @@ def test_import_leaves_jax_and_paddle_tpu_unloaded():
             "paddle_tpu_torch.serving, paddle_tpu_torch.analysis, "
             "paddle_tpu_torch.distributed.watchdog, paddle_tpu_torch.checkpoint, "
             "paddle_tpu_torch.optimizer.lr, paddle_tpu_torch.nn.clip, "
-            "paddle_tpu_torch.incubate, paddle_tpu_torch.incubate.nn.functional; "
+            "paddle_tpu_torch.incubate, paddle_tpu_torch.incubate.nn.functional, "
+            "paddle_tpu_torch.jit, paddle_tpu_torch.jit.serialization, "
+            "paddle_tpu_torch.inference, paddle_tpu_torch.framework_io; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -228,3 +230,11 @@ def test_every_unported_raise_names_its_roadmap_item():
 def test_unported_raise_messages_name_the_item(call, item):
     with pytest.raises(NotImplementedError, match=item):
         call()
+
+
+@pytest.mark.parametrize("module", ["framework_io.py", "jit/serialization.py", "inference.py"])
+def test_deploy_path_never_needs_ml_dtypes(module):
+    """paddle.save/load, jit.save/load and the Predictor carry bfloat16 as
+    uint16 bits: they import no ml_dtypes."""
+    roots = {m.split(".")[0] for m in _imported_roots(PORT / module)}
+    assert "ml_dtypes" not in roots
