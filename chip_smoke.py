@@ -205,6 +205,27 @@ Phases, each a hard check (the script exits nonzero on the first failure):
      call, bit for bit; (e) the flagship's state dict through
      paddle_tpu_torch.save and load bit for bit, and a fresh model loaded
      from it gives the same logits bit for bit. At most DEPLOY_SECONDS.
+ 16. mixed precision through the op dispatch (paddle.amp): phase 6's cell built
+     in float32 and trained with the PaddlePaddle AMP recipe, each variant's
+     first step counted (launch counts and the operator stats set to 0
+     before it, read after it): (a) auto_cast O1 bf16 with AdamW on the
+     float32 parameters, (b) decorate O2 bf16 (bf16 parameters, float32
+     masters) and auto_cast O2, (c) auto_cast O1 fp16 with a GradScaler
+     (2**15, dynamic): each launches (16, 8, 8) a step with the attention
+     op's calls all in the low dtype (the kernels' inputs), no math path,
+     a falling loss, step_ms, tokens/s, MFU, peak memory and a profiled
+     step (casts named) beside phase 6's eager median from this run; (c)
+     waits on the card once a step (torch's sync debug mode counts it),
+     then two overflow drills (the scale set to 2**40, which the fp16
+     backward kernels must carry to a non-finite gradient, and an inf put in
+     one gradient): each step skipped with every parameter, AdamW moment
+     and the step count unchanged bit for bit and the scale halved, then a
+     normal step trains; (d) 2 layers at the flagship width in float32, B1
+     S128, card against a CPU twin under O1 bf16, O2 bf16 and O1 fp16, the
+     forward: operator-stats tables equal, losses within TOL_AMP_LOSS; (e)
+     the host microseconds of a dispatched add beside torch.add's, and phase 6's
+     step with the ops on the dispatch against the same step with it
+     bypassed, alternated, with each one's idle share. At most AMP_SECONDS.
 Phases 3, 9 and 13 time the decode engine's default, the captured path.
 The last line is the device JSON object; the line before it the card's name
 and power limit; before that the kernels JSON object.
@@ -492,6 +513,8 @@ def phase_kernel(torch, fa):
         ("static_prefill", 1, S_static, S_static, 16, 16, 128, "bfloat16", True, True),
         ("long_prompt", 1, 2048, 2048, 16, 16, 128, "bfloat16", True, True),
         ("training_shape", 8, 2048, 2048, 16, 16, 128, "bfloat16", True, True),
+        # phase 16 (c)'s fp16 training: the kernel at the training shape in fp16
+        ("training_shape_fp16", 8, 2048, 2048, 16, 16, 128, "float16", True, True),
         ("gqa_hkv4", 2, 512, 512, 16, 4, 128, "bfloat16", True, False),
         ("mqa_hkv1", 2, 512, 512, 16, 1, 128, "bfloat16", True, False),
         ("non_causal", 2, 512, 512, 16, 16, 128, "bfloat16", False, False),
@@ -718,6 +741,7 @@ def phase_backward(torch, fa):
     cases = [
         # name, B, Sq, Sk, Hq, Hkv, D, dtype, causal, timed
         ("training", 8, 2048, 2048, 16, 16, 128, "bfloat16", True, True),
+        ("training_fp16", 8, 2048, 2048, 16, 16, 128, "float16", True, True),
         ("long_b1", 1, 2048, 2048, 16, 16, 128, "bfloat16", True, True),
         ("gqa_hkv4", 2, 512, 512, 16, 4, 128, "bfloat16", True, False),
         ("mqa_hkv1", 2, 512, 512, 16, 1, 128, "bfloat16", True, False),
@@ -3799,6 +3823,386 @@ def phase_deploy(torch, fa, axpy, models, jit, inference, port_F, smi, root, sta
     return out
 
 
+# phase 16: mixed precision through the op dispatch (paddle.amp), phase 6's
+# cell trained with the PaddlePaddle AMP recipe. (d) holds 2 layers at the
+# flagship width on the card (kernels, cuBLAS) against a CPU twin (plain
+# versions) under the same auto_cast: both round the same products and
+# attention outputs to the low dtype, each with its own summation order, so a
+# value on a rounding boundary may land one low-dtype step apart; the
+# float32 cross-entropy of those logits then agrees to a fraction of that
+# step. TOL_AMP_LOSS is op_test's low-dtype bound: 2**-6 of the loss for
+# bf16 (8 mantissa bits) and 2**-8 for fp16 (11), each several times what a
+# one-step flip in every logit could move a mean over 128 tokens.
+TOL_AMP_LOSS = {"bfloat16": 2e-2, "float16": 5e-3}
+AMP_SCALE = 2.0 ** 15      # GradScaler's init_loss_scaling in (c)
+AMP_OVERFLOW_SCALE = 2.0 ** 40   # (c)'s drill: overflows every fp16 gradient
+AMP_SECONDS = 150          # phase 16's share of the script's time
+DISPATCH_CALLS = 10000     # (e): host time of a dispatched op, per call
+
+
+def op_stats_step(torch, dbg, step):
+    """``step()`` with the operator stats collected: its table."""
+    dbg.enable_operator_stats_collection()
+    try:
+        step()
+    finally:
+        table = dbg._OP_STATS[0]
+        dbg._OP_STATS[0] = None
+    return dict(table or {})
+
+
+def amp_variant(torch, fa, models, T, name, level, dtype, math_calls, smi, decorate=False,
+                scaler=False, warm=2, timed=5):
+    """Phase 6's cell (flagship, 8 layers, B8 S2048, full recompute) built
+    in float32 and trained with ``auto_cast(level, dtype)``: AdamW on the
+    float32 parameters (``decorate``: O2's bf16 parameters with float32
+    masters; ``scaler``: a GradScaler). Step 1 is counted (launch counters
+    and the operator stats), then ``warm`` steps, ``timed`` timed ones and
+    one profiled. Returns the records and, for (c), the live objects."""
+    cfg = models.LlamaConfig(**FLAGSHIP, dtype="float32", recompute=True,
+                             recompute_granularity="full")
+    L, B, S = cfg.num_hidden_layers, 8, 2048
+    low = getattr(torch, dtype)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = models.LlamaForCausalLM(cfg, device="cuda", seed=0)
+    model.train()
+    opt = T.optimizer.AdamW(learning_rate=TRAIN_LR, parameters=model.parameters())
+    if decorate:
+        T.amp.decorate(model, opt, level="O2", dtype=dtype)
+        kinds = {str(p.dtype) for p in model.parameters()}
+        if kinds != {str(low)} or not opt._multi_precision:
+            fail(f"{name}: decorate left parameters {kinds}, masters {opt._multi_precision}")
+    gs = T.amp.GradScaler(init_loss_scaling=AMP_SCALE) if scaler else None
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", generator=gen)
+    labels = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", generator=gen)
+    scales = []
+
+    def step():
+        with T.amp.auto_cast(level=level, dtype=dtype):
+            loss, _ = model(ids, labels=labels)
+        if gs is None:
+            loss.backward()
+            opt.step()
+        else:
+            gs.scale(loss).backward()
+            gs.step(opt)
+            gs.update()
+            scales.append(gs._scale)
+        opt.clear_grad()
+        return loss
+
+    torch.cuda.synchronize()
+    reset_counts(fa)
+    math_calls[0] = 0
+    box = []
+    table = op_stats_step(torch, T.amp.debugging, lambda: box.append(step()))
+    torch.cuda.synchronize()
+    per_step = counts(fa)
+    first = box[0].float().item()
+    want_col = {"float16": 0, "bfloat16": 1}[dtype]
+    want_attn = [0, 0, 0, 0]
+    want_attn[want_col] = 2 * L     # forward and recompute
+    if per_step != (2 * L, L, L):
+        fail(f"{name}: a step launched (fwd, dq, dk/dv) = {per_step}, want {(2 * L, L, L)}")
+    if table.get("flash_attention") != want_attn:
+        fail(f"{name}: flash_attention calls by dtype {table.get('flash_attention')}, "
+             f"want {want_attn} ({dtype} kernel inputs)")
+    if math_calls[0] or fa.copies_for_alignment or fa.pads_for_head_dim:
+        fail(f"{name}: {math_calls[0]} math-path calls, {fa.copies_for_alignment} alignment "
+             f"copies, {fa.pads_for_head_dim} pads")
+    for _ in range(warm):
+        step()
+    times = []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = sorted(times)[len(times) // 2]
+    last = loss.float().item()
+    profile = profile_step(torch, step, step_ms, kernel_groups=(
+        ("cast_kernel", "casts"), ("copy_kernel", "casts")) + _KERNEL_GROUPS)
+    if not (math.isfinite(first) and math.isfinite(last) and last < first):
+        fail(f"{name}: the loss did not fall: {first} -> {last}")
+    n_params = sum(p.numel() for p in model.parameters())
+    n_embed = model.llama.embed_tokens.weight.numel()
+    flops = 6.0 * (n_params - n_embed) * B * S + 6.0 * L * B * S * S * cfg.hidden_size
+    out = dict(level=level, dtype=dtype, decorate=decorate, step_ms=step_ms,
+               step_ms_all=times, tokens_per_sec=B * S / (step_ms / 1e3),
+               mfu=flops / (step_ms / 1e3) / PEAK_TC_FLOPS,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               loss_first=first, loss_last=last,
+               launches_per_step=dict(fwd=per_step[0], bwd_dq=per_step[1],
+                                      bwd_dkv=per_step[2]),
+               op_stats_first_step={k: table[k] for k in sorted(table)},
+               math_path_calls=0, param_dtypes=sorted({str(p.dtype).removeprefix("torch.")
+                                                       for p in model.parameters()}),
+               steps=1 + warm + timed + 1, profile=profile, card=smi)
+    if scaler:
+        out["scales"] = scales
+    return out, (model, opt, gs, step, ids, labels)
+
+
+def host_reads(torch, fn):
+    """Where ``fn()`` waited on the card: torch's sync debug mode warns once
+    per synchronizing call; for each, the innermost Python frames (function
+    and file:line) that called it."""
+    import traceback
+    import warnings
+
+    waits = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        frames = traceback.extract_stack()[:-1][-4:]
+        # the probe's own switch back to mode 0 warns once: not a wait
+        if "synchroniz" in str(message) and not any(
+                f.name == "set_sync_debug_mode" for f in frames):
+            waits.append(" < ".join(f"{f.name} {os.path.basename(f.filename)}:{f.lineno}"
+                                    for f in reversed(frames)))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return waits
+
+
+def overflow_drills(torch, T, live, name):
+    """(c): one fp16 step whose loss scale overflows every gradient, and one
+    with an inf put in one gradient: each must be skipped with the
+    parameters, the AdamW moments and the step count unchanged bit for bit,
+    and the scale halved; then a normal step trains."""
+    model, opt, gs, step, ids, labels = live
+
+    def snapshot():
+        return ([p.detach().clone() for p in model.parameters()],
+                [{k: v.clone() for k, v in opt._accumulators[id(p)].items()}
+                 for p in model.parameters()], opt._step_count)
+
+    def unchanged(before):
+        params, moments, count = before
+        same = all(torch.equal(p.detach(), q) for p, q in zip(model.parameters(), params))
+        same = same and all(torch.equal(v, m[k]) for p, m in zip(model.parameters(), moments)
+                            for k, v in opt._accumulators[id(p)].items())
+        return same and opt._step_count == count
+
+    def scaled_backward():
+        with T.amp.auto_cast(level="O1", dtype="float16"):
+            loss, _ = model(ids, labels=labels)
+        gs.scale(loss).backward()
+        return loss
+
+    out = {}
+    resume = gs._scale
+    for drill in ("scale_2_40", "inf_in_one_gradient"):
+        before = snapshot()
+        if drill == "scale_2_40":
+            gs.set_init_loss_scaling(AMP_OVERFLOW_SCALE)
+        start = gs._scale
+        scaled_backward()
+        q = model.llama.layers[0].self_attn.q_proj.weight
+        if drill == "inf_in_one_gradient":
+            q.grad[0, 0] = float("inf")
+        nonfinite = sum(not bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+        # layer 0's q projection takes its gradient through the fp16
+        # attention backward kernels: an overflow must reach it non-finite
+        q_finite = bool(torch.isfinite(q.grad).all())
+        gs.unscale_(opt)
+        found = gs._found_inf
+        gs.step(opt)
+        gs.update()
+        opt.clear_grad()
+        if not found or not unchanged(before):
+            fail(f"{name} {drill}: found_inf {found}, state unchanged {unchanged(before)}")
+        if gs._scale != start / 2:
+            fail(f"{name} {drill}: scale {start} -> {gs._scale}, want it halved")
+        if drill == "scale_2_40" and q_finite:
+            fail(f"{name}: at scale 2**40 the attention backward gave a finite q_proj gradient")
+        out[drill] = dict(found_inf=found, scale_before=start, scale_after=gs._scale,
+                          nonfinite_grads=nonfinite, params=len(list(model.parameters())),
+                          q_proj_layer0_finite=q_finite, skipped_bit_for_bit=True)
+        if drill == "scale_2_40":
+            gs.set_init_loss_scaling(resume)
+    before = snapshot()
+    loss = step()
+    if gs._cached_found_inf or unchanged(before) or not math.isfinite(loss.float().item()):
+        fail(f"{name}: the step after the drills did not train (found_inf "
+             f"{gs._cached_found_inf}, loss {loss.float().item()})")
+    out["next_step"] = dict(trained=True, loss=loss.float().item(), scale=gs._scale)
+    return out
+
+
+def amp_card_vs_cpu(torch, fa, models, T):
+    """(d): 2 layers at the flagship width, float32 parameters, B1 S128, on
+    the card and as a CPU twin, under O1 bf16, O2 bf16 and O1 fp16: the
+    forward's operator-stats tables equal, the losses within TOL_AMP_LOSS
+    (forward only: the CPU's low-dtype products take seconds each)."""
+    import copy
+
+    cfg = models.LlamaConfig(**dict(FLAGSHIP, num_hidden_layers=2), dtype="float32")
+    gpu = models.LlamaForCausalLM(cfg, device="cuda", seed=7)
+    cpu = copy.deepcopy(gpu).to("cpu")
+    gpu.train()
+    cpu.train()
+    gen = torch.Generator(device="cpu").manual_seed(17)
+    ids = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen)
+    labels = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen)
+    out = {}
+    for level, dtype in (("O1", "bfloat16"), ("O2", "bfloat16"), ("O1", "float16")):
+        losses, tables = [], []
+        reset_counts(fa)
+        seconds = []
+        for model, dev in ((gpu, "cuda"), (cpu, "cpu")):
+            def run():
+                with torch.no_grad(), T.amp.auto_cast(level=level, dtype=dtype):
+                    loss, _ = model(ids.to(dev), labels=labels.to(dev))
+                losses.append(loss.float().item())
+            t0 = time.perf_counter()
+            tables.append(op_stats_step(torch, T.amp.debugging, run))
+            seconds.append(time.perf_counter() - t0)
+        launched = counts(fa)
+        err = abs(losses[0] - losses[1]) / abs(losses[1])
+        key = f"{level}_{dtype}"
+        if tables[0] != tables[1]:
+            fail(f"card vs CPU {key}: operator stats differ: {tables[0]} vs {tables[1]}")
+        if not (math.isfinite(err) and err <= TOL_AMP_LOSS[dtype]):
+            fail(f"card vs CPU {key}: losses {losses}, relative {err}")
+        if launched != (2, 0, 0):
+            fail(f"card vs CPU {key}: the card launched {launched}, want (2, 0, 0)")
+        out[key] = dict(losses=losses, rel_err=err, tol=TOL_AMP_LOSS[dtype],
+                        op_stats_equal=True, ops=len(tables[0]), launches=list(launched),
+                        flash_attention=tables[0].get("flash_attention"),
+                        card_s=seconds[0], cpu_s=seconds[1])
+    del gpu, cpu
+    return out
+
+
+def dispatch_cost(torch, T, models, AdamW, fa, smi):
+    """(e): the host microseconds of one dispatched op (``T.add`` on two
+    1024-element tensors on the card, AMP off) against the same torch call,
+    the median of DISPATCH_CALLS timed calls each; and phase 6's eager step
+    with the model's ops on the dispatch against the same step with the
+    dispatch bypassed (each op's function called directly), alternated,
+    each with a profiled step's idle share."""
+    from paddle_tpu_torch.ops import _apply
+
+    a = torch.randn(1024, device="cuda")
+    b = torch.randn(1024, device="cuda")
+
+    def per_call(fn):
+        for _ in range(200):
+            fn(a, b)
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(DISPATCH_CALLS):
+            t0 = time.perf_counter_ns()
+            fn(a, b)
+            ts.append(time.perf_counter_ns() - t0)
+        torch.cuda.synchronize()
+        return sorted(ts)[len(ts) // 2] / 1e3
+
+    calls = dict(dispatched_add_us=per_call(T.add), torch_add_us=per_call(torch.add))
+    calls["dispatch_us"] = calls["dispatched_add_us"] - calls["torch_add_us"]
+    cfg = models.LlamaConfig(**FLAGSHIP, dtype="bfloat16", recompute=True,
+                             recompute_granularity="full")
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = models.LlamaForCausalLM(cfg, device="cuda", seed=0)
+    model.train()
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters(), multi_precision=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (8, 2048), device="cuda", generator=gen)
+    labels = torch.randint(0, cfg.vocab_size, (8, 2048), device="cuda", generator=gen)
+    dispatch = _apply.apply
+
+    def bypass(opdef, *args, **kwargs):
+        return opdef.fn(*args, **kwargs)
+
+    def step():
+        loss, _ = model(ids, labels=labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+
+    times = {"dispatch": [], "bypass": []}
+    try:
+        for _ in range(2):
+            step()
+        for mode in ("dispatch", "bypass", "bypass", "dispatch") * 2:
+            _apply.apply = dispatch if mode == "dispatch" else bypass
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                times[mode].append((time.perf_counter() - t0) * 1e3)
+        med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+        profiles = {}
+        for mode in ("dispatch", "bypass"):
+            _apply.apply = dispatch if mode == "dispatch" else bypass
+            p = profile_step(torch, step, med[mode])
+            profiles[mode] = dict(idle_share=p["idle_share"], device_ms=p["device_ms"])
+    finally:
+        _apply.apply = dispatch
+    del model, opt
+    return dict(calls=calls, calls_timed=DISPATCH_CALLS, step_ms=med, step_ms_all=times,
+                profiles=profiles, card=smi)
+
+
+def phase_amp(torch, fa, models, T, AdamW, port_F, smi, eager):
+    """Phase 16 (module docstring); ``eager`` is phase 6's result."""
+    math_calls = count_math_path(port_F)
+    out = {}
+    for key, level, dtype, kw in (("o1_bf16", "O1", "bfloat16", {}),
+                                  ("o2_bf16", "O2", "bfloat16", dict(decorate=True)),
+                                  ("o1_fp16", "O1", "float16", dict(scaler=True))):
+        t0 = time.perf_counter()
+        row, live = amp_variant(torch, fa, models, T, key, level, dtype, math_calls, smi,
+                                **kw)
+        row["eager_bf16_step_ms"] = eager["step_ms"]
+        row["step_ms_over_eager"] = row["step_ms"] / eager["step_ms"]
+        row["eager_bf16_idle_share"] = eager["profile"]["idle_share"]
+        if key == "o1_fp16":
+            # the scaler reads one flag on the host a step (found_inf); the
+            # whole step's waits are recorded with their places
+            model, opt, gs = live[:3]
+            row["host_reads_step"] = host_reads(torch, live[3])
+            if len(row["host_reads_step"]) != 1:
+                fail(f"{key}: a scaled step waited on the card at {row['host_reads_step']}, "
+                     f"want once (the scaler's found_inf)")
+            with T.amp.auto_cast(level="O1", dtype="float16"):
+                loss, _ = model(live[4], labels=live[5])
+            gs.scale(loss).backward()
+            reads = host_reads(torch, lambda: (gs.step(opt), gs.update()))
+            opt.clear_grad()
+            if len(reads) != 1:
+                fail(f"{key}: the scaler's step and update waited on the card at {reads}, "
+                     f"want once")
+            row["host_reads_scaler"] = reads
+            row["drills"] = overflow_drills(torch, T, live, key)
+        row["seconds"] = time.perf_counter() - t0
+        print(f"amp_{key} " + json.dumps(row), flush=True)
+        out[key] = row
+        del live
+    t0 = time.perf_counter()
+    out["card_vs_cpu"] = amp_card_vs_cpu(torch, fa, models, T)
+    out["card_vs_cpu"]["seconds"] = time.perf_counter() - t0
+    print("amp_card_vs_cpu " + json.dumps(out["card_vs_cpu"]), flush=True)
+    t0 = time.perf_counter()
+    out["dispatch"] = dispatch_cost(torch, T, models, AdamW, fa, smi)
+    out["dispatch"]["seconds"] = time.perf_counter() - t0
+    print("amp_dispatch " + json.dumps(out["dispatch"]), flush=True)
+    return out
+
+
 def main():
     import torch
 
@@ -3808,6 +4212,7 @@ def main():
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     try:
+        import paddle_tpu_torch as T
         import paddle_tpu_torch.models as models
         from paddle_tpu_torch.ops.cuda import _build
         from paddle_tpu_torch.ops.cuda import axpy
@@ -3947,6 +4352,17 @@ def main():
     if deploy_s > DEPLOY_SECONDS:
         fail(f"phase 15 took {deploy_s:.1f} s, more than its {DEPLOY_SECONDS} s")
 
+    # phase 16: mixed precision (launch counts and the operator stats set to
+    # 0 before each variant's first step, read after it)
+    t0 = time.perf_counter()
+    amp = phase_amp(torch, fa, models, T, AdamW, port_F, smi, training)
+    amp_s = time.perf_counter() - t0
+    print(f"phase_seconds 16 {amp_s:.1f}", flush=True)
+    if amp_s > AMP_SECONDS:
+        fail(f"phase 16 took {amp_s:.1f} s, more than its {AMP_SECONDS} s")
+    amp_launches = {f"amp_{k}": amp[k]["launches_per_step"] for k in
+                    ("o1_bf16", "o2_bf16", "o1_fp16")}
+
     kernel = dict(
         name="flash_attention_fwd", route="cuda",
         source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -3966,7 +4382,8 @@ def main():
                               captured_prefill=compiled["decode"]["flagship"]["captured"][
                                   "launches_per_prefill"],
                               to_static_forward=compiled["forward"]["launches"],
-                              deploy=deploy["flagship"]["launches_per_run"]["fwd"]),
+                              deploy=deploy["flagship"]["launches_per_run"]["fwd"],
+                              **{k: v["fwd"] for k, v in amp_launches.items()}),
         max_abs_err=main_row["max_abs_err"],
         tol=main_row["tol"], ms=main_row["kernel_ms"], kernel_ms=main_row["kernel_ms"],
         call_ms=main_row["kernel_call_ms"],
@@ -3995,7 +4412,8 @@ def main():
                                                for k, v in
                                                surface["knobs"]["variants"].items()},
                                   to_static_training=compiled["training"][
-                                      "launches_per_step"][f"bwd_{key}"]),
+                                      "launches_per_step"][f"bwd_{key}"],
+                                  **{k: v[f"bwd_{key}"] for k, v in amp_launches.items()}),
             max_abs_err=max(tr[f"{g}_max_abs_err"] for g in grads),
             norm_rel_err=max(tr[f"{g}_err"] for g in grads), tol=tr["tol"],
             ms=tr[f"{key}_ms"], kernel_ms=tr[f"{key}_ms"], call_ms=tr[f"{key}_call_ms"],
@@ -4061,8 +4479,33 @@ def main():
                 bound_ms=b[f"{key}_bound_ms"], bound_by=b[f"{key}_bound_by"],
                 library_ms=b["library_ms"], backward_ms=b["bwd_ms"], shape=b["shape"],
                 dtype=b["dtype"]))
-    print(json.dumps({"kernels": [kernel] + bwd_kernels + [axpy_kernel] + dim_kernels}),
-          flush=True)
+    # kernels 1-3 at fp16, phase 16 (c)'s dtype: the training shape's times
+    # from phases 2 and 5, launches from phase 16 (c)
+    f16, b16 = fwd_rows["training_shape_fp16"], bwd_rows["training_fp16"]
+    fp16_launches = amp["o1_fp16"]["launches_per_step"]
+    fp16_kernels = [dict(
+        name="flash_attention_fwd_fp16", route="cuda",
+        source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+        replaces="paddle_tpu/ops/pallas/flash_attention.py:48", launches=fp16_launches["fwd"],
+        max_abs_err=f16["max_abs_err"], max_scaled_err=f16["max_scaled_err"], tol=f16["tol"],
+        ms=f16["kernel_ms"], call_ms=f16["kernel_call_ms"], plain_ms=f16["plain_ms"],
+        bound_ms=f16["bound_ms"], bound_by=f16["bound_by"], library_ms=f16["library_ms"],
+        shape=f16["shape"], dtype=f16["dtype"])]
+    for key, name, line, grads in (("dq", "flash_attention_bwd_dq", 130, ("dq",)),
+                                   ("dkv", "flash_attention_bwd_dkv", 171, ("dk", "dv"))):
+        fp16_kernels.append(dict(
+            name=f"{name}_fp16", route="cuda",
+            source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+            replaces=f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
+            launches=fp16_launches[f"bwd_{key}"],
+            max_abs_err=max(b16[f"{g}_max_abs_err"] for g in grads),
+            norm_rel_err=max(b16[f"{g}_err"] for g in grads), tol=b16["tol"],
+            ms=b16[f"{key}_ms"], call_ms=b16[f"{key}_call_ms"], plain_ms=b16["plain_ms"],
+            bound_ms=b16[f"{key}_bound_ms"], bound_by=b16[f"{key}_bound_by"],
+            library_ms=b16["library_ms"], backward_ms=b16["bwd_ms"], shape=b16["shape"],
+            dtype=b16["dtype"]))
+    print(json.dumps({"kernels": [kernel] + bwd_kernels + [axpy_kernel] + dim_kernels
+                      + fp16_kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,14 +22,22 @@ ones keep the outputs of matrix products and recompute the rest, through
 The flash-attention kernels are launched inside an autograd Function and are
 no aten op, so they run again in the recompute, as a ``pallas_call`` (not a
 dot) is recomputed under the JAX policies.
+
+A segment run inside ``amp.auto_cast`` is recomputed under the same AMP
+state (the backward runs after the context has closed), so the recompute
+casts as the forward did: ``jax.checkpoint`` traces the segment once, under
+the state of its forward.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
+
+from ...ops._apply import _AMP_STATE
 
 _FULL = (None, "full", "nothing_saveable")
 _aten = torch.ops.aten
@@ -44,6 +52,33 @@ def _policy(saved, ctx, op, *args, **kwargs):
     return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
 
 
+@contextlib.contextmanager
+def _amp_entered(state):
+    _AMP_STATE.append(state)
+    try:
+        yield
+    finally:
+        _AMP_STATE.pop()
+
+
+def _with_amp(state, context_fn):
+    """``context_fn``'s (forward, recompute) contexts, the recompute one also
+    under the AMP ``state`` of the forward."""
+
+    def contexts():
+        fwd, rec = context_fn() if context_fn is not None else (
+            contextlib.nullcontext(), contextlib.nullcontext())
+
+        @contextlib.contextmanager
+        def recompute_ctx():
+            with _amp_entered(state), rec:
+                yield
+
+        return fwd, recompute_ctx()
+
+    return contexts
+
+
 def recompute(function, *args, **kwargs):
     """Run ``function(*args, **kwargs)`` without keeping its intermediate
     activations (all of them, or all but the products' outputs under a
@@ -52,13 +87,16 @@ def recompute(function, *args, **kwargs):
     preserve_rng_state = kwargs.pop("preserve_rng_state", True)
     kwargs.pop("use_reentrant", None)
     policy = kwargs.pop("checkpoint_policy", None)
+    context_fn = None
     if policy in SAVED_OPS:
         context_fn = functools.partial(create_selective_checkpoint_contexts,
                                        functools.partial(_policy, SAVED_OPS[policy]))
-        return checkpoint(function, *args, use_reentrant=False, context_fn=context_fn,
-                          preserve_rng_state=preserve_rng_state, **kwargs)
-    if policy not in _FULL:
+    elif policy not in _FULL:
         raise ValueError(f"unknown checkpoint_policy {policy!r}; expected one of "
                          f"{sorted(p for p in _FULL + tuple(SAVED_OPS) if p)}")
+    if _AMP_STATE:
+        context_fn = _with_amp(_AMP_STATE[-1], context_fn)
+    if context_fn is not None:
+        kwargs["context_fn"] = context_fn
     return checkpoint(function, *args, use_reentrant=False,
                       preserve_rng_state=preserve_rng_state, **kwargs)

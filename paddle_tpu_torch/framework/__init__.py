@@ -1,7 +1,15 @@
-"""Parameters that carry the JAX package's generated names: the port of
-``paddle_tpu/framework/core.py``'s ``Parameter`` naming, ``param_{N}`` from
-one process-wide counter. ``AdamW`` calls ``apply_decay_param_fun`` with
-these names, as the JAX package's ``AdamW.step`` does with ``p.name``.
+"""The framework layer of the port: parameters that carry the JAX package's
+generated names (below), and the modules ``dtype`` (dtype names and the
+default dtype), ``flags`` (``set_flags``/``get_flags``), ``random`` (``seed``
+and the generators' states) and ``core`` (``to_tensor``).
+
+The port has no tensor class of its own: its ``Tensor`` is ``torch.Tensor``,
+which every model, engine, optimizer and compiler path takes and returns.
+
+``Parameter`` is the port of ``paddle_tpu/framework/core.py``'s
+``Parameter`` naming, ``param_{N}`` from one process-wide counter.
+``AdamW`` calls ``apply_decay_param_fun`` with these names, as the JAX
+package's ``AdamW.step`` does with ``p.name``.
 
 ``torch.Tensor.name`` is a read-only attribute of the C tensor that reads
 ``None``, so a plain ``torch.nn.Parameter`` cannot carry a name. ``Parameter``
@@ -22,9 +30,14 @@ import itertools
 import torch
 from torch import nn
 
-__all__ = ["Parameter", "name_parameters"]
+__all__ = ["Parameter", "name_parameters", "Tensor"]
+
+Tensor = torch.Tensor
 
 _counter = itertools.count(1)  # process-wide, as the JAX package's
+#: bumped when ``amp.decorate`` recasts parameters in place; a program
+#: captured before (``jit/_cuda_graph.py``) refuses to replay after it
+PARAM_EPOCH = [0]
 
 
 class Parameter(nn.Parameter):

@@ -4,7 +4,9 @@ Ported so far: ``fused_rotary_position_embedding`` with both pairings (the
 interleaved rotate-every-two of ``use_neox_rotary_style=True``, the default,
 and the rotate-half of ``False``, which the LLaMA model uses),
 ``block_multihead_attention`` over the paged KV pool, and the fused LM-head
-cross-entropy (``fused_linear_cross_entropy``).
+cross-entropy (``fused_linear_cross_entropy``). The rotary embedding is the
+op ``fused_rotary_position_embedding`` (white-listed under AMP) and the
+fused cross-entropy the op ``fused_linear_cross_entropy`` (black-listed).
 """
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ import math
 
 import numpy as np
 import torch
+
+from ....ops._apply import defop
 
 
 def _rotate_half(x):
@@ -57,14 +61,10 @@ def _normalize_rope_table(tbl):
     return tbl
 
 
-def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
-                                    position_ids=None, use_neox_rotary_style=True,
-                                    rotary_theta=10000.0):
-    """Rotary embedding of every given (B, S, H, D) input; a None input gives
-    None in its own slot. ``use_neox_rotary_style=True`` is the interleaved
-    rotate-every-two pairing, ``False`` the rotate-half pairing (the
-    reference kernel's dispatch, not the usual HF naming); generated tables
-    take the layout of the chosen pairing."""
+@defop("fused_rotary_position_embedding", amp_category="white")
+def _fused_rope(q, k=None, v=None, sin=None, cos=None, position_ids=None,
+                use_neox_rotary_style=True, rotary_theta=10000.0):
+    """The rotated inputs that were given, in order (a tuple of one or more)."""
     S, D = q.shape[1], q.shape[-1]
     if cos is None or sin is None:
         cos, sin = _rope_tables(S, D, rotary_theta, q.dtype, q.device, position_ids,
@@ -77,8 +77,21 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
     else:                                                    # (B,S,D) from position_ids
         cos_b, sin_b = cos[:, :, None, :], sin[:, :, None, :]
     rotate = _rotate_every_two if use_neox_rotary_style else _rotate_half
-    return tuple(None if x is None else x * cos_b + rotate(x) * sin_b
-                 for x in (q, k, v))
+    return tuple(x * cos_b + rotate(x) * sin_b for x in (q, k, v) if x is not None)
+
+
+def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
+                                    position_ids=None, use_neox_rotary_style=True,
+                                    rotary_theta=10000.0, name=None):
+    """Rotary embedding of every given (B, S, H, D) input; a None input gives
+    None in its own slot. ``use_neox_rotary_style=True`` is the interleaved
+    rotate-every-two pairing, ``False`` the rotate-half pairing (the
+    reference kernel's dispatch, not the usual HF naming); generated tables
+    take the layout of the chosen pairing."""
+    out = iter(_fused_rope(q, k, v, sin=sin, cos=cos, position_ids=position_ids,
+                           use_neox_rotary_style=use_neox_rotary_style,
+                           rotary_theta=rotary_theta))
+    return tuple(None if x is None else next(out) for x in (q, k, v))
 
 
 def _check(cond, exc, msg):
@@ -305,6 +318,7 @@ class _FusedLinearCrossEntropy(torch.autograd.Function):
         return d_hidden, d_weight, None, None, None
 
 
+@defop("fused_linear_cross_entropy", amp_category="black")
 def _fused_linear_cross_entropy(hidden, weight, labels, ignore_index=-100, chunk_size=512):
     """Chunked LM-head matmul and softmax cross-entropy that never holds the
     full [B, S, V] logits: the port of the JAX package's

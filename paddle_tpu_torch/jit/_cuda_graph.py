@@ -29,6 +29,11 @@ integers their wrappers bump) would not move: the capture records how far
 they moved while the graph was captured, puts them back (a capture launches
 nothing), and each replay adds that much, so a replayed program counts as
 an eager run of it does.
+
+A graph reads the weights at the addresses they had when it was captured:
+after ``amp.decorate`` recasts parameters in place
+(``framework.PARAM_EPOCH`` moves), a replay raises instead of reading the
+old storage; build the engine again.
 """
 from __future__ import annotations
 
@@ -36,6 +41,8 @@ import gc
 import threading
 
 import torch
+
+from ..framework import PARAM_EPOCH
 
 # one capture at a time in the process: replica threads of a fleet capture
 # their programs side by side (fleet warmup), and each capture is
@@ -78,6 +85,7 @@ class _Program:
         self._static = None
         self._out = None
         self._credit = None
+        self._epoch = None
 
     def _run(self, inputs):
         return self._fn(inputs[0], self._pools, *inputs[1:])
@@ -88,6 +96,9 @@ class _Program:
             return self._run([x.to(dev) for x in inputs])
         if self._graph is None:
             self._capture(inputs)
+        if self._epoch != PARAM_EPOCH[0]:
+            raise RuntimeError("amp.decorate recast the parameters after this program "
+                               "was captured on the old weights; build the engine again")
         for buf, x in zip(self._static, inputs):
             buf.copy_(x)
         self._graph.replay()
@@ -127,6 +138,7 @@ class _Program:
             for (mod, name), n in zip(counters, self._credit):
                 setattr(mod, name, getattr(mod, name) - n)
             self._static, self._out, self._graph = static, out, graph
+            self._epoch = PARAM_EPOCH[0]
             _Program.captures += 1
 
     @property

@@ -6,9 +6,18 @@ and a causal-LM head with optional weight tying. Attention goes through
 ``F.scaled_dot_product_attention``, which runs the hand-written Hopper
 flash-attention kernel for prompt-length queries on the card.
 
+Every step of the forward is one of the port's ops under the JAX op's name
+(``embedding_op``, ``rms_norm``, ``linear``, ``reshape``,
+``fused_rotary_position_embedding``, ``flash_attention``, ``add``,
+``swiglu``, ``matmul``, ``cross_entropy`` and the criterion's ``unsqueeze``,
+``squeeze``, ``not_equal``, ``cast``, ``sum``, ``maximum``, ``multiply``,
+``divide``), as in the JAX model, so ``amp.auto_cast`` casts each where the
+JAX dispatch casts it and the operator stats of the two models agree.
+
 Differences from the JAX module, by design:
-  * Linear layers are ``torch.nn.Linear`` (weight (out, in), y = x @ W^T);
-    paddle stores (in, out). ``models/convert.py`` transposes on transfer.
+  * Linear layers are the port's ``nn.Linear`` (torch's, weight (out, in),
+    y = x @ W^T, through the ``linear`` op); paddle stores (in, out).
+    ``models/convert.py`` transposes on transfer.
   * The untied LM head stores its weight as (vocab, hidden), the layout of
     the tied embedding, so both heads are one ``F.linear``.
   * Initialisation draws from a ``torch.Generator`` seeded by ``seed``; it
@@ -32,15 +41,15 @@ ring attention and the budget remat planner wait for the distributed slice
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as tF
 from torch import nn
 
-from .. import resolve_device
+from .. import ops, resolve_device
 from ..distributed.fleet.recompute import recompute
-from ..framework import Parameter, name_parameters
+from ..framework import Parameter
 from ..incubate.nn.functional import (_rotate_half, fused_linear_cross_entropy,
                                      fused_rotary_position_embedding)
 from ..nn import functional as F
+from ..nn.layer.common import Embedding, Linear
 from ..nn.layer.norm import RMSNorm
 
 _PARALLEL_SLICE = "the distributed slice of the port (ROADMAP Queue A item 10)"
@@ -147,23 +156,23 @@ class LlamaAttention(nn.Module):
         h = config.hidden_size
         kv = self.num_kv_heads * self.head_dim
         kw = dict(bias=False, device=device, dtype=dtype)
-        self.q_proj = name_parameters(nn.Linear(h, h, **kw))
-        self.k_proj = name_parameters(nn.Linear(h, kv, **kw))
-        self.v_proj = name_parameters(nn.Linear(h, kv, **kw))
-        self.o_proj = name_parameters(nn.Linear(h, h, **kw))
+        self.q_proj = Linear(h, h, **kw)
+        self.k_proj = Linear(h, kv, **kw)
+        self.v_proj = Linear(h, kv, **kw)
+        self.o_proj = Linear(h, h, **kw)
 
     def forward(self, hidden_states, attn_mask=None):
         B, S = hidden_states.shape[:2]
-        q = self.q_proj(hidden_states).view(B, S, self.num_heads, self.head_dim)
-        k = self.k_proj(hidden_states).view(B, S, self.num_kv_heads, self.head_dim)
-        v = self.v_proj(hidden_states).view(B, S, self.num_kv_heads, self.head_dim)
+        q = ops.reshape(self.q_proj(hidden_states), [B, S, self.num_heads, self.head_dim])
+        k = ops.reshape(self.k_proj(hidden_states), [B, S, self.num_kv_heads, self.head_dim])
+        v = ops.reshape(self.v_proj(hidden_states), [B, S, self.num_kv_heads, self.head_dim])
         # use_neox_rotary_style=False = rotate-half pairing, as the JAX model
         q, k, _ = fused_rotary_position_embedding(
             q, k, rotary_theta=self.config.rope_theta, use_neox_rotary_style=False)
         out = F.scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask, is_causal=attn_mask is None,
             training=self.training)
-        return self.o_proj(out.reshape(B, S, self.num_heads * self.head_dim))
+        return self.o_proj(ops.reshape(out, [B, S, self.num_heads * self.head_dim]))
 
 
 class LlamaMLP(nn.Module):
@@ -173,9 +182,9 @@ class LlamaMLP(nn.Module):
         super().__init__()
         h, m = config.hidden_size, config.intermediate_size
         kw = dict(bias=False, device=device, dtype=dtype)
-        self.gate_proj = name_parameters(nn.Linear(h, m, **kw))
-        self.up_proj = name_parameters(nn.Linear(h, m, **kw))
-        self.down_proj = name_parameters(nn.Linear(m, h, **kw))
+        self.gate_proj = Linear(h, m, **kw)
+        self.up_proj = Linear(h, m, **kw)
+        self.down_proj = Linear(m, h, **kw)
 
     def forward(self, x):
         return self.down_proj(F.swiglu(self.gate_proj(x), self.up_proj(x)))
@@ -198,8 +207,9 @@ class LlamaDecoderLayer(nn.Module):
                                   else "dots_with_no_batch_dims_saveable")
 
     def _block(self, hidden_states, attn_mask=None):
-        h = hidden_states + self.self_attn(self.input_layernorm(hidden_states), attn_mask)
-        return h + self.mlp(self.post_attention_layernorm(h))
+        h = ops.add(hidden_states,
+                    self.self_attn(self.input_layernorm(hidden_states), attn_mask))
+        return ops.add(h, self.mlp(self.post_attention_layernorm(h)))
 
     def forward(self, hidden_states, attn_mask=None):
         if self._recompute and self.training:
@@ -212,8 +222,8 @@ class LlamaModel(nn.Module):
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
         self.config = config
-        self.embed_tokens = name_parameters(nn.Embedding(
-            config.vocab_size, config.hidden_size, device=device, dtype=dtype))
+        self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
+                                      device=device, dtype=dtype)
         self.layers = nn.ModuleList(
             [LlamaDecoderLayer(config, device, dtype)
              for _ in range(config.num_hidden_layers)])
@@ -241,7 +251,7 @@ class LlamaLMHead(nn.Module):
 
     def forward(self, hidden_states):
         w = self._embedding[0].weight if self._tied else self.weight
-        return tF.linear(hidden_states, w)
+        return ops.matmul(hidden_states, w, transpose_y=True)
 
 
 class LlamaPretrainingCriterion(nn.Module):
@@ -258,14 +268,15 @@ class LlamaPretrainingCriterion(nn.Module):
         tok_loss = F.softmax_with_cross_entropy(logits, labels,
                                                 ignore_index=self.ignore_index)
         if tok_loss.dim() > labels.dim():
-            tok_loss = tok_loss.squeeze(-1)
+            tok_loss = ops.squeeze(tok_loss, -1)
         return self.masked_mean(tok_loss, labels)
 
     def masked_mean(self, tok_loss, labels):
         """Mean over the positions whose label is not ``ignore_index``."""
-        mask = (labels != self.ignore_index).to(tok_loss.dtype)
-        denom = torch.clamp(mask.sum(), min=1.0)
-        return (tok_loss * mask).sum() / denom
+        mask = ops.cast(ops.not_equal(labels, self.ignore_index), tok_loss.dtype)
+        one = torch.ones((), dtype=tok_loss.dtype, device=tok_loss.device)
+        denom = ops.maximum(ops.sum(mask), one)
+        return ops.divide(ops.sum(ops.multiply(tok_loss, mask)), denom)
 
 
 class LlamaForCausalLM(nn.Module):
@@ -313,7 +324,7 @@ class LlamaForCausalLM(nn.Module):
             # paddle's (hidden, vocab) layout: both heads store (vocab, hidden)
             w = (head._embedding[0].weight if head._tied else head.weight).t()
             if labels.dim() == 3:  # the reference's [B, S, 1] labels
-                labels = labels.squeeze(-1)
+                labels = ops.squeeze(labels, -1)
             tok_loss = fused_linear_cross_entropy(
                 h, w, labels, ignore_index=self.criterion.ignore_index)
             return self.criterion.masked_mean(tok_loss, labels), None

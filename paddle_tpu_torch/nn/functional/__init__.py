@@ -1,5 +1,6 @@
 """Functionals of the port (counterpart of paddle_tpu.nn.functional)."""
-from .activation import swiglu  # noqa: F401
+from .activation import log_softmax, softmax, swiglu  # noqa: F401
+from .common import embedding, linear  # noqa: F401
 from .extras import flash_attn_qkvpacked, flash_attn_varlen_qkvpacked  # noqa: F401
 from .flash_attention import (flash_attention, flash_attn_unpadded,  # noqa: F401
                               scaled_dot_product_attention, sdp_kernel)

@@ -6,7 +6,10 @@ the hand-written Hopper flash-attention kernel (ops/cuda/flash_attention.py),
 differentiable through its backward kernels; the math path is the plain
 PyTorch attention used on the CPU, for short queries, masks and dropout.
 ``_varlen`` is plain torch, as it is an XLA einsum in the JAX package. Layout
-is paddle's (batch, seq, num_heads, head_dim).
+is paddle's (batch, seq, num_heads, head_dim). ``_sdpa`` is the op
+``flash_attention`` and ``_varlen`` the op ``flash_attn_varlen``, both
+white-listed under AMP, so inside ``auto_cast`` q, k and v reach the kernel
+in the low dtype.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import math
 
 import torch
 
+from ...ops._apply import defop
 from ...ops.cuda.flash_attention import FlashShapeError, flash_attention_fwd
 
 
@@ -56,6 +60,7 @@ def _use_kernel(q):
     return q.is_cuda and q.shape[1] >= 128
 
 
+@defop("flash_attention", amp_category="white")
 def _sdpa(q, k, v, attn_mask=None, dropout_p=0.0, causal=False, scale=None,
           use_kernel=False, generator=None):
     if use_kernel and attn_mask is None and dropout_p == 0.0:
@@ -88,6 +93,7 @@ def flash_attention(query, key, value, dropout=0.0, causal=False, return_softmax
                                         training), None
 
 
+@defop("flash_attn_varlen", amp_category="white")
 def _varlen(q, k, v, seg_q, seg_k, scale=None, causal=False):
     """Segment-masked attention over packed (total, H, D) rows: the JAX
     package's arithmetic (logits in q's dtype, -1e30 outside the segment and,

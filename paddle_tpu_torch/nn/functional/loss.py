@@ -15,11 +15,16 @@ The JAX arithmetic: ``log_softmax``, then
   * ``use_softmax=False``: the input is a distribution, and the loss is
     ``nll_loss(log(input))`` over class axis 1.
 Everything is computed in the logits' dtype, as the JAX functions do outside
-AMP (a bfloat16 model has a bfloat16 loss).
+AMP (a bfloat16 model has a bfloat16 loss). ``_cross_entropy`` is the op
+``cross_entropy`` and ``_nll_loss`` the op ``nll_loss_op``, both black-listed
+under AMP (float32 inputs).
 """
 from __future__ import annotations
 
 import torch
+
+from ...ops._apply import defop
+from ...ops.manipulation import unsqueeze
 
 
 def _reduce(out, reduction):
@@ -35,6 +40,7 @@ def _check_reduction(reduction):
         raise ValueError(f"unknown reduction {reduction!r}")
 
 
+@defop("cross_entropy", amp_category="black")
 def _cross_entropy(input, label, weight=None, ignore_index=-100, reduction="mean",  # noqa: A002
                    soft_label=False, axis=-1, label_smoothing=0.0):
     _check_reduction(reduction)
@@ -70,9 +76,8 @@ def _cross_entropy(input, label, weight=None, ignore_index=-100, reduction="mean
     return _reduce(nll, reduction)
 
 
-def nll_loss(input, label, weight=None, ignore_index=-100, reduction="mean",  # noqa: A002
-             name=None):
-    """Negative log-likelihood of log-probabilities, the class axis 1."""
+@defop("nll_loss_op", amp_category="black")
+def _nll_loss(input, label, weight=None, ignore_index=-100, reduction="mean"):  # noqa: A002
     _check_reduction(reduction)
     lbl = label.long()
     valid = lbl != ignore_index
@@ -87,6 +92,12 @@ def nll_loss(input, label, weight=None, ignore_index=-100, reduction="mean",  # 
                                             min=1e-12)
     loss = torch.where(valid, loss, zero)
     return _reduce(loss, reduction)
+
+
+def nll_loss(input, label, weight=None, ignore_index=-100, reduction="mean",  # noqa: A002
+             name=None):
+    """Negative log-likelihood of log-probabilities, the class axis 1."""
+    return _nll_loss(input, label, weight, ignore_index=int(ignore_index), reduction=reduction)
 
 
 def cross_entropy(input, label, weight=None, ignore_index=-100, reduction="mean",  # noqa: A002
@@ -109,7 +120,9 @@ def softmax_with_cross_entropy(logits, label, soft_label=False, ignore_index=-10
     loss = _cross_entropy(logits, label, None, ignore_index=int(ignore_index),
                           reduction="none", soft_label=bool(soft_label), axis=int(axis))
     if not soft_label:
-        loss = loss.unsqueeze(int(axis) % logits.dim())
+        loss = unsqueeze(loss, [int(axis)])
     if return_softmax:
-        return loss, torch.softmax(logits, dim=axis)
+        from .activation import softmax
+
+        return loss, softmax(logits, axis=axis)
     return loss

@@ -1,21 +1,35 @@
-"""The op registry: ``OpDef``, ``register_op``, ``get_registry`` and ``defop``.
+"""The op registry and the op dispatch: the port of ``paddle_tpu/ops/_apply.py``.
 
-Counterpart of the registry half of ``paddle_tpu/ops/_apply.py`` (``OpDef``
-:29-36, ``register_op`` :39-42, ``get_registry`` :45-46, ``defop`` :468-486).
-There every op is a pure jax function and ``apply`` is the eager dispatch with
-its tape, caches and hooks. Here an op's function takes torch tensors and
-PyTorch's autograd stands in for the tape, so ``apply`` only runs the
-function: under ``torch.no_grad()`` when the op is not differentiable (the JAX
-package marks such outputs ``stop_gradient``), as it is otherwise.
+Every op of the port is an ``OpDef`` (its JAX name, its function over torch
+tensors, ``differentiable`` and ``amp_category``), defined with ``defop``;
+the public wrapper calls ``apply``, which does what the JAX dispatch does
+around an op, in the same order:
 
-Not ported with the registry (each belongs to its module's slice): the AMP
-cast of every op's inputs (``amp/auto_cast.py``), SPMD sharding rules, the
-eager VJP cache, graph capture, ``check_nan_inf``, op statistics and the
-profiler and monitor spans.
+  1. the AMP cast (``amp/auto_cast.py``): inside ``auto_cast`` the floating
+     tensor inputs are cast by the op's name and ``amp_category`` through
+     the ``cast`` op, a differentiable ``.to(dtype)``, so the gradient is
+     cast back as the JAX cast through ``ops.manipulation.cast`` casts it;
+  2. the op's function, under ``torch.no_grad()`` when the op is not
+     differentiable (the JAX package marks such outputs ``stop_gradient``);
+  3. the NaN/Inf scan of the floating outputs when ``FLAGS_check_nan_inf``
+     is on (``amp/debugging.py``), and the operator-stats record by output
+     dtype while a collection is open.
+With AMP off, no scan and no collection, ``apply`` costs three checks over
+calling the function. PyTorch's autograd stands in for the JAX tape, so the
+eager VJP cache (``_cached_pos_fns``/``_cached_op_fns``/``_LazyVjp``) has no
+counterpart, and ``jit.to_static`` (Dynamo) traces through ``apply``: the AMP
+state, the flag and the stats slot are guarded, so a step compiled outside
+``auto_cast`` compiles again inside it. Python operators on tensors
+(``a @ b``, ``a + b``) are torch's own and bypass this dispatch (in the JAX
+package they are ``Tensor`` methods that dispatch).
 
-The JAX package registers its built-in ops here when it is imported; the port
-has none, so their names are kept in ``_builtin_names.py`` and
-``is_registered`` counts them as taken.
+Not ported here: graph capture (``to_static`` is Dynamo), the SPMD rules slot
+(ROADMAP Queue A item 10) and the profiler and monitor spans (item 7).
+
+The JAX package registers its built-in ops when it is imported; the port
+registers those it has ported, under the same names, and keeps every JAX
+built-in name in ``_builtin_names.py``, which ``is_registered`` counts as
+taken.
 """
 from __future__ import annotations
 
@@ -23,10 +37,21 @@ import functools
 
 import torch
 
+from ..framework import flags as _flags
 from ._builtin_names import BUILTIN_OP_NAMES
 
 _REGISTRY = {}
 _BUILTIN = frozenset(BUILTIN_OP_NAMES)
+
+#: the ``auto_cast`` state stack (``amp/auto_cast.py`` pushes and pops it)
+_AMP_STATE = []
+#: ``[amp_cast_inputs]``, bound when ``amp/auto_cast.py`` is imported
+_AMP_CAST = [None]
+#: operator stats, op name -> [fp16, bf16, fp32, other] calls; None: off
+_OP_STATS = [None]
+_NAN_FLAG = _flags._REGISTRY["FLAGS_check_nan_inf"]
+_NAN_INF_HOOK = [None]  # bound to amp.debugging._scan_op_outputs on first use
+_STATS_COLUMN = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2}
 
 
 class OpDef:
@@ -55,12 +80,62 @@ def is_registered(name):
     return name in _BUILTIN or name in _REGISTRY
 
 
+def _output_tensors(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (tuple, list)):
+        return [t for t in out if isinstance(t, torch.Tensor)]
+    return []
+
+
+def _record_op_call(name, vals):
+    """One call of ``name`` in the stats table, in the column of the first
+    float16, bfloat16 or float32 output (else "other"), as the JAX
+    ``_record_op_call`` counts it."""
+    row = _OP_STATS[0].setdefault(name, [0, 0, 0, 0])
+    col = 3
+    for v in vals:
+        c = _STATS_COLUMN.get(v.dtype)
+        if c is not None:
+            col = c
+            break
+    row[col] += 1
+
+
+def _finish_outputs(name, out):
+    """The dispatch postlude: NaN/Inf scan and op stats."""
+    vals = _output_tensors(out)
+    if _NAN_FLAG["value"]:
+        hook = _NAN_INF_HOOK[0]
+        if hook is None:
+            from ..amp import debugging as _dbg
+
+            hook = _NAN_INF_HOOK[0] = _dbg._scan_op_outputs
+        hook(name, vals)
+    if _OP_STATS[0] is not None:
+        _record_op_call(name, vals)
+
+
 def apply(opdef: OpDef, *args, **kwargs):
-    """Run an op's function on torch tensors."""
-    if not opdef.differentiable:
+    """Dispatch one op call: AMP cast, the function, scan and stats."""
+    if _AMP_STATE:
+        args, kwargs = _AMP_CAST[0](opdef, args, kwargs)
+    if opdef.differentiable:
+        out = opdef.fn(*args, **kwargs)
+    else:
         with torch.no_grad():
-            return opdef.fn(*args, **kwargs)
-    return opdef.fn(*args, **kwargs)
+            out = opdef.fn(*args, **kwargs)
+    if _NAN_FLAG["value"] or _OP_STATS[0] is not None:
+        _finish_outputs(opdef.name, out)
+    return out
+
+
+def apply_raw(name, fn, tensor_args, n_outs=1):
+    """Call ``fn`` on positional tensors and return its outputs as a tuple
+    (the JAX entry for PyLayer and create_graph replay; autograd records it
+    as it records any torch code)."""
+    out = fn(*tensor_args)
+    return tuple(out) if isinstance(out, (tuple, list)) else (out,)
 
 
 def defop(name, differentiable=True, amp_category=None):

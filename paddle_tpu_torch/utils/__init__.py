@@ -1,11 +1,11 @@
 """paddle.utils namespace of the port (counterpart of
 ``paddle_tpu/utils/__init__.py``; reference python/paddle/utils/__init__.py):
-the custom-op extension point, C++ extensions, try_import, deprecated,
-run_check and unique_name.
+the custom-op extension point, C++ extensions, the op table
+(``op_table``/``generate_op_docs``), try_import, deprecated, run_check and
+unique_name.
 
-Not ported yet: ``require_version`` (waits for a port of ``version.py``),
-``op_table``/``generate_op_docs`` (wait for the op table) and the
-``download``/``weights`` helpers.
+Not ported yet: ``require_version`` (waits for a port of ``version.py``) and
+the ``download``/``weights`` helpers.
 """
 import functools as _functools
 import importlib as _importlib
@@ -16,6 +16,7 @@ import torch as _torch
 from . import cpp_extension  # noqa: F401
 from . import custom_op  # noqa: F401
 from .custom_op import get_custom_op, register_custom_op  # noqa: F401
+from ..ops.optable import generate_op_docs, op_table  # noqa: F401
 from .. import resolve_device as _resolve_device
 
 

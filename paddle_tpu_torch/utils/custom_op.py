@@ -30,8 +30,9 @@ Gradients, by the arguments of ``register_custom_op``:
   output requires grad (the JAX package's ``stop_gradient`` outputs).
 
 ``amp_category`` is kept on the op's ``OpDef`` as given; like the JAX package,
-registration does not check it. It has no effect yet: the JAX package reads it
-only in ``amp/auto_cast.py``, and the port has no ``auto_cast``.
+registration does not check it. Inside ``amp.auto_cast`` the dispatch reads
+it as the JAX package does: ``"white"`` casts the op's floating inputs to the
+low dtype, ``"black"`` to float32, ``"skip"`` leaves them (``amp/auto_cast.py``).
 """
 from __future__ import annotations
 
