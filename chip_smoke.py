@@ -226,6 +226,39 @@ Phases, each a hard check (the script exits nonzero on the first failure):
      the host microseconds of a dispatched add beside torch.add's, and phase 6's
      step with the ops on the dispatch against the same step with it
      bypassed, alternated, with each one's idle share. At most AMP_SECONDS.
+ 17. master gradients, autograd, streams, samplers and linalg: (a) phase 6's
+     cell built in float32 and trained after decorate(O2, bf16,
+     master_grad=True) (AdamW with float32 masters): the first step counted
+     (launch counts set to 0 before it, read after it): 2L bf16 forward
+     launches (forward and recompute), each layer's attention pullback rerun
+     in float32 (L fp32 forward, L fp32 dq and L fp32 dk/dv launches, no
+     bf16 backward), no math path, every parameter's gradient float32,
+     finite and nonzero; one more warm-up step and 3 timed with the port's
+     device.Event pairs beside phase 16 (b)'s O2 median and one profiled,
+     the peak from the port's max_memory_allocated, a falling loss; (b) 2 layers at the
+     flagship width, B1 S128, one O2 bf16 master-grad backward card against
+     a CPU twin: with the card's attention on the plain math path, as on
+     the CPU, gradients within 2e-2 norm-relative; with it on the kernels
+     within 3e-2 (the kernels keep fp32 logits where the plain path rounds
+     them to bf16); each beside its distance to the float32 gradient; and an fp16 overflow
+     drill: from a 2**15 GradScaler, the scale doubles until the fp16
+     pullback overflows without master grad (the step skipped, the scale
+     halved); at that scale with it every gradient is finite and the step
+     is taken; (c) vjp of the flash_attention functional at bf16, B2 S2048
+     H16 D128, causal: one forward, one dq and one dk/dv launch (counted),
+     cotangents equal torch.autograd.grad of the same call bit for bit; a
+     jacobian and a hessian of a small op-surface function, card against
+     CPU; (d) phase 3's flagship generate inside stream_guard of a new
+     device.Stream: tokens equal the default stream's bit for bit, both
+     timed with device.Events beside phase 3's; the port's memory
+     statistics equal torch.cuda's; (e) the samplers (a seeded draw
+     repeats; the moments of 2**24 draws within 6 standard errors; randperm
+     of 2**20 a permutation; multinomial without replacement distinct) and
+     cholesky, qr, svd, solve, lstsq, eigh and slogdet at 512 x 512 in
+     float32 and float64 within TOL_LINALG (32 n eps) of their
+     reconstructions, card and CPU. Phases 2 and 5 time the fp32 kernels at (a)'s shape
+     (``master_grad_fp32``), with torch's sdpa and its memory-efficient
+     backward in float32 beside them. At most MASTER_SECONDS.
 Phases 3, 9 and 13 time the decode engine's default, the captured path.
 The last line is the device JSON object; the line before it the card's name
 and power limit; before that the kernels JSON object.
@@ -515,6 +548,8 @@ def phase_kernel(torch, fa):
         ("training_shape", 8, 2048, 2048, 16, 16, 128, "bfloat16", True, True),
         # phase 16 (c)'s fp16 training: the kernel at the training shape in fp16
         ("training_shape_fp16", 8, 2048, 2048, 16, 16, 128, "float16", True, True),
+        # phase 17 (a)'s master-grad pullbacks: the fp32 kernel at that shape
+        ("master_grad_fp32", 8, 2048, 2048, 16, 16, 128, "float32", True, True),
         ("gqa_hkv4", 2, 512, 512, 16, 4, 128, "bfloat16", True, False),
         ("mqa_hkv1", 2, 512, 512, 16, 1, 128, "bfloat16", True, False),
         ("non_causal", 2, 512, 512, 16, 16, 128, "bfloat16", False, False),
@@ -601,9 +636,11 @@ def phase_kernel(torch, fa):
                 plain=lambda: fa.flash_attention_fwd_plain(q, k, v, causal),
                 library=lambda: torch.nn.functional.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=causal))
+            # the fp32 case's calls take 10-100 ms: fewer of them
+            it = 4 if dtype == torch.float32 else 20
             for key, fn in fns.items():
-                row[f"{key}_ms"] = device_ms(torch, fn)
-                row[f"{key}_call_ms"] = call_ms(torch, fn)
+                row[f"{key}_ms"] = device_ms(torch, fn, iters=it)
+                row[f"{key}_call_ms"] = call_ms(torch, fn, iters=it)
             row["bound_ms"], row["bound_by"] = attention_bound_ms(
                 B, Sq, Sk, Hq, Hkv, D, causal, q.element_size(), dtype != torch.float32)
         print("kernel_check " + json.dumps(row), flush=True)
@@ -709,6 +746,12 @@ def phase_serving(torch, fa, models, width=FLAGSHIP):
 def reset_counts(fa):
     fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = fa.copies_for_alignment = 0
     fa.pads_for_head_dim = 0
+    fa.launches_f32 = fa.launches_bwd_dq_f32 = fa.launches_bwd_dkv_f32 = 0
+
+
+def counts_f32(fa):
+    """The float32 kernels' share of ``counts``."""
+    return fa.launches_f32, fa.launches_bwd_dq_f32, fa.launches_bwd_dkv_f32
 
 
 def counts(fa):
@@ -726,8 +769,15 @@ def norm_rel(a, ref):
 def library_backward(torch, q, k, v, do, causal, scale):
     """torch's flash-attention backward on the outputs of its own forward (a
     yardstick: one library call computing dq, dk and dv; the port never
-    calls it). Returns the callable."""
+    calls it); in float32, which torch's flash kernels do not take, its
+    memory-efficient attention's backward. Returns the callable."""
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    if q.dtype == torch.float32:
+        out, lse, seed, offset = torch.ops.aten._scaled_dot_product_efficient_attention(
+            qt, kt, vt, None, True, 0.0, causal, scale=scale)
+        return lambda: torch.ops.aten._scaled_dot_product_efficient_attention_backward(
+            dot, qt, kt, vt, None, out, lse, seed, offset, 0.0, [True, True, True, False],
+            causal, scale=scale)
     out, lse, cq, ck, mq, mk, seed, offset, _ = (
         torch.ops.aten._scaled_dot_product_flash_attention(
             qt, kt, vt, 0.0, causal, False, scale=scale))
@@ -742,6 +792,8 @@ def phase_backward(torch, fa):
         # name, B, Sq, Sk, Hq, Hkv, D, dtype, causal, timed
         ("training", 8, 2048, 2048, 16, 16, 128, "bfloat16", True, True),
         ("training_fp16", 8, 2048, 2048, 16, 16, 128, "float16", True, True),
+        # phase 17 (a)'s master-grad pullbacks: the fp32 kernels at that shape
+        ("master_grad_fp32", 8, 2048, 2048, 16, 16, 128, "float32", True, True),
         ("long_b1", 1, 2048, 2048, 16, 16, 128, "bfloat16", True, True),
         ("gqa_hkv4", 2, 512, 512, 16, 4, 128, "bfloat16", True, False),
         ("mqa_hkv1", 2, 512, 512, 16, 1, 128, "bfloat16", True, False),
@@ -844,9 +896,10 @@ def phase_backward(torch, fa):
                 library=library_backward(torch, q, k.repeat_interleave(Hq // Hkv, dim=2),
                                          v.repeat_interleave(Hq // Hkv, dim=2), do, causal,
                                          scale))
+            it = 4 if dtype == torch.float32 else 20
             for key, fn in fns.items():
-                row[f"{key}_ms"] = device_ms(torch, fn)
-                row[f"{key}_call_ms"] = call_ms(torch, fn)
+                row[f"{key}_ms"] = device_ms(torch, fn, iters=it)
+                row[f"{key}_call_ms"] = call_ms(torch, fn, iters=it)
             (row["dq_bound_ms"], row["dq_bound_by"]), (row["dkv_bound_ms"],
                                                        row["dkv_bound_by"]) = (
                 backward_bounds_ms(B, Sq, Sk, Hq, Hkv, D, causal, q.element_size(),
@@ -4203,6 +4256,441 @@ def phase_amp(torch, fa, models, T, AdamW, port_F, smi, eager):
     return out
 
 
+MASTER_SECONDS = 180       # phase 17's share of the script's time
+TOL_MASTER_GRAD = 2e-2     # (b): norm-relative per parameter, test_torch_amp's bf16 bound
+# (b) with the card's attention on the kernels and the CPU's on the plain
+# path: at this width the bf16 forward alone moves each run's master
+# gradient 2.3-2.5% from the float32 gradient (measured on an H100,
+# PERF.md); the kernels keep fp32 logits where the plain path rounds them to
+# bf16, and the two runs part by about as much
+TOL_MASTER_GRAD_KERNEL = 3e-2
+MASTER_SCALE = 2.0 ** 15   # (b)'s drill starts at GradScaler's usual scale
+TOL_TRANSFORMS = 1e-5      # (c): jacobian and hessian, card against CPU, norm-relative
+SAMPLES = 2 ** 24          # (e): draws a moment is taken over
+SAMPLER_SIGMAS = 6.0
+# (e): relative reconstruction residual at n = 512: 32 n eps (a backward
+# stable factorization's residual is O(n eps); cuSOLVER's fp32 SVD reads
+# 1.7e-4 on an H100)
+TOL_LINALG = {"float32": 32 * 512 * 2.0 ** -23, "float64": 32 * 512 * 2.0 ** -52}
+
+
+def master_training(torch, fa, models, T, math_calls, smi, o2):
+    """(a): phase 6's cell built in float32, decorate(O2, bf16, master_grad),
+    AdamW with float32 masters: step 1 counted (every parameter a finite
+    float32 master gradient), one more warm-up step, 3 timed with the port's
+    Event pairs and one profiled; peak memory from the port's statistics."""
+    cfg = models.LlamaConfig(**FLAGSHIP, dtype="float32", recompute=True,
+                             recompute_granularity="full")
+    L, B, S = cfg.num_hidden_layers, 8, 2048
+    gc.collect()
+    T.device.empty_cache()
+    T.device.cuda.reset_max_memory_allocated()
+    model = models.LlamaForCausalLM(cfg, device="cuda", seed=0)
+    model.train()
+    opt = T.optimizer.AdamW(learning_rate=TRAIN_LR, parameters=model.parameters())
+    T.amp.decorate(model, opt, level="O2", dtype="bfloat16", master_grad=True)
+    if {p.dtype for p in model.parameters()} != {torch.bfloat16} or not opt._multi_precision:
+        fail("master grad: decorate left the parameters or the masters wrong")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", generator=gen)
+    labels = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", generator=gen)
+
+    def forward_backward():
+        with T.amp.auto_cast(level="O2", dtype="bfloat16"):
+            loss, _ = model(ids, labels=labels)
+        loss.backward()
+        return loss
+
+    def step():
+        loss = forward_backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    T.device.synchronize()
+    reset_counts(fa)
+    math_calls[0] = 0
+    first = forward_backward().float().item()
+    T.device.synchronize()
+    total, f32 = counts(fa), counts_f32(fa)
+    bf16 = tuple(a - b for a, b in zip(total, f32))
+    # the bf16 forward runs in the forward and the recompute; each layer's
+    # attention pullback reruns in float32: the fp32 forward and both fp32
+    # backward kernels, and no bf16 backward
+    if bf16 != (2 * L, 0, 0) or f32 != (L, L, L):
+        fail(f"master grad: a step launched bf16 {bf16} and fp32 {f32} (fwd, dq, dk/dv), "
+             f"want {(2 * L, 0, 0)} and {(L, L, L)}")
+    if math_calls[0] or fa.copies_for_alignment or fa.pads_for_head_dim:
+        fail(f"master grad: {math_calls[0]} math-path calls, {fa.copies_for_alignment} "
+             f"copies, {fa.pads_for_head_dim} pads")
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is None or p.grad.dtype != torch.float32
+           or not bool(torch.isfinite(p.grad).all()) or not bool((p.grad != 0).any())]
+    if bad:
+        fail(f"master grad: parameters without a finite nonzero float32 gradient: {bad}")
+    opt.step()
+    opt.clear_grad()
+    step()
+    times = []
+    for _ in range(3):
+        t0, t1 = T.device.Event(enable_timing=True), T.device.Event(enable_timing=True)
+        t0.record()
+        loss = step()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+    last = loss.float().item()
+    if not (math.isfinite(first) and math.isfinite(last) and last < first):
+        fail(f"master grad: the loss did not fall: {first} -> {last}")
+    step_ms = sorted(times)[1]
+    peak = T.device.max_memory_allocated()
+    profile = profile_step(torch, step, step_ms, kernel_groups=(
+        ("cast_kernel", "casts"), ("copy_kernel", "casts")) + _KERNEL_GROUPS)
+    T.autograd.master_grad.set_master_grad(False)
+    del model, opt
+    return dict(step_ms=step_ms, step_ms_all=times, o2_bf16_step_ms=o2["step_ms"],
+                step_ms_over_o2=step_ms / o2["step_ms"], tokens_per_sec=B * S / (step_ms / 1e3),
+                peak_mem_gb=peak / 1e9, loss_first=first, loss_last=last,
+                launches_per_step=dict(fwd=total[0], bwd_dq=total[1], bwd_dkv=total[2]),
+                launches_bf16=dict(fwd=bf16[0], bwd_dq=bf16[1], bwd_dkv=bf16[2]),
+                launches_f32=dict(fwd=f32[0], bwd_dq=f32[1], bwd_dkv=f32[2]),
+                grads="float32, finite, nonzero", math_path_calls=0, steps=6,
+                profile=profile, card=smi)
+
+
+def master_card_vs_cpu(torch, fa, models, T, port_F):
+    """(b): 2 layers at the flagship width, float32 weights, B1 S128, one O2
+    bf16 master-grad backward on a CPU twin and twice on the card: with the
+    attention on the kernels, and with it on the plain math path as on the
+    CPU. Every gradient float32; the math-path run within TOL_MASTER_GRAD of
+    the CPU's (the same arithmetic on both), the kernel run within
+    TOL_MASTER_GRAD_KERNEL; each run's distance to the card's float32
+    gradient (float32 forward and backward) printed beside them."""
+    import copy
+
+    cfg = models.LlamaConfig(**dict(FLAGSHIP, num_hidden_layers=2), dtype="float32")
+    base = models.LlamaForCausalLM(cfg, device="cuda", seed=7)
+    base.train()
+    gen = torch.Generator(device="cpu").manual_seed(17)
+    ids = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen)
+    labels = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen)
+
+    def run(dev, master=True, kernel=True):
+        model = copy.deepcopy(base).to(dev)
+        if master:
+            T.amp.decorate(model, level="O2", dtype="bfloat16", master_grad=True)
+        use_kernel = port_F._use_kernel
+        if not kernel:
+            port_F._use_kernel = lambda q: False
+        t0 = time.perf_counter()
+        try:
+            with T.amp.auto_cast(enable=master, level="O2", dtype="bfloat16"):
+                loss, _ = model(ids.to(dev), labels=labels.to(dev))
+            loss.backward()
+        finally:
+            port_F._use_kernel = use_kernel
+            T.autograd.master_grad.set_master_grad(False)
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        return grads, time.perf_counter() - t0
+
+    reset_counts(fa)
+    fp32, _ = run("cuda", master=False)
+    kern, card_s = run("cuda")
+    launched = counts(fa)
+    math_, _ = run("cuda", kernel=False)
+    cpu, cpu_s = run("cpu")
+    # the fp32 run: 2 layers, fp32 (2, 2, 2); the master run: bf16 (2, 0, 0)
+    # and fp32 (2, 2, 2)
+    if launched != (6, 4, 4) or counts_f32(fa) != (4, 4, 4):
+        fail(f"master grad card vs CPU: the fp32 and master runs launched {launched} "
+             f"(fp32 {counts_f32(fa)}), want (6, 4, 4) and (4, 4, 4)")
+
+    def worst(a, b):
+        return max(norm_rel(a[n], b[n]) for n in a)
+
+    dtypes = {str(g.dtype) for gs in (kern, math_, cpu) for g in gs.values()}
+    out = dict(math_path_vs_cpu=worst(math_, cpu), kernel_vs_cpu=worst(kern, cpu),
+               kernel_vs_fp32=worst(kern, fp32), cpu_vs_fp32=worst(cpu, fp32),
+               math_path_vs_fp32=worst(math_, fp32), tol=TOL_MASTER_GRAD,
+               tol_kernel=TOL_MASTER_GRAD_KERNEL, params=len(cpu), grad_dtypes=sorted(dtypes),
+               card_s=card_s, cpu_s=cpu_s)
+    if dtypes != {"torch.float32"} or not (
+            math.isfinite(out["math_path_vs_cpu"]) and out["math_path_vs_cpu"] <= TOL_MASTER_GRAD
+            and out["kernel_vs_cpu"] <= TOL_MASTER_GRAD_KERNEL):
+        fail(f"master grad card vs CPU: {out}")
+    del base
+    return out
+
+
+def overflow_drill(torch, models, T):
+    """(b): O2 fp16 at 2 layers, flagship width, B1 S128, a GradScaler: from
+    2**15 the scale doubles until the fp16 pullback overflows without master
+    grad (the scaler finds a non-finite gradient and skips the step: every
+    parameter unchanged, the scale halved); at that scale, with master grad,
+    every gradient is finite and the step is taken."""
+    cfg = models.LlamaConfig(**dict(FLAGSHIP, num_hidden_layers=2), dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    ids = torch.randint(0, cfg.vocab_size, (1, 128), device="cuda", generator=gen)
+    labels = torch.randint(0, cfg.vocab_size, (1, 128), device="cuda", generator=gen)
+
+    def drill(master, scale):
+        model = models.LlamaForCausalLM(cfg, device="cuda", seed=11)
+        model.train()
+        opt = T.optimizer.AdamW(learning_rate=TRAIN_LR, parameters=model.parameters())
+        T.amp.decorate(model, opt, level="O2", dtype="float16", master_grad=master)
+        gs = T.amp.GradScaler(init_loss_scaling=scale)
+        with T.amp.auto_cast(level="O2", dtype="float16"):
+            loss, _ = model(ids, labels=labels)
+        gs.scale(loss).backward()
+        finite = all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+        dtypes = sorted({str(p.grad.dtype).removeprefix("torch.") for p in model.parameters()})
+        before = [p.detach().clone() for p in model.parameters()]
+        gs.step(opt)
+        gs.update()
+        moved = any(not torch.equal(b, p) for b, p in zip(before, model.parameters()))
+        T.autograd.master_grad.set_master_grad(False)
+        return dict(master_grad=master, scale=scale, all_grads_finite=finite,
+                    grad_dtypes=dtypes, found_inf=bool(gs._cached_found_inf),
+                    step_taken=moved, scale_after=gs._scale)
+
+    tries = []
+    scale = MASTER_SCALE
+    while True:
+        plain = drill(False, scale)
+        tries.append(plain)
+        if not plain["all_grads_finite"] or scale >= 2.0 ** 24:
+            break
+        scale *= 2
+    if plain["all_grads_finite"] or not plain["found_inf"] or plain["step_taken"] or \
+            plain["scale_after"] != scale / 2:
+        fail(f"overflow drill without master grad: {plain}")
+    master = drill(True, scale)
+    if not master["all_grads_finite"] or master["found_inf"] or not master["step_taken"] or \
+            master["grad_dtypes"] != ["float32"]:
+        fail(f"overflow drill with master grad: {master}")
+    return dict(scale=scale, scales_tried=[t["scale"] for t in tries], without=plain,
+                with_master_grad=master)
+
+
+def transforms_on_card(torch, fa, T, tfunc):
+    """(c): vjp of the flash_attention functional at bf16, B2 S2048 H16 D128,
+    causal: one forward and one dq and dk/dv launch, cotangents and output
+    equal torch.autograd.grad of the same call bit for bit; jacobian and
+    hessian of a small function of the op surface, card against CPU."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do = (torch.randn(2, 2048, 16, 128, device="cuda", generator=gen).to(
+        torch.bfloat16) for _ in range(4))
+
+    def attn(q, k, v):
+        return tfunc.flash_attention(q, k, v, causal=True)[0]
+
+    torch.cuda.synchronize()
+    reset_counts(fa)
+    out, grads = T.autograd.vjp(attn, [q, k, v], do)
+    torch.cuda.synchronize()
+    launched = counts(fa)
+    if launched != (1, 1, 1) or fa.copies_for_alignment or fa.pads_for_head_dim:
+        fail(f"vjp of flash_attention launched {launched}, want (1, 1, 1)")
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    ref_out = attn(*leaves)
+    ref = torch.autograd.grad(ref_out, leaves, do)
+    if not torch.equal(out, ref_out.detach()) or not all(
+            torch.equal(a, b) for a, b in zip(grads, ref)):
+        fail("vjp of flash_attention differs from torch.autograd.grad of the same call")
+    del q, k, v, do, out, grads, leaves, ref_out, ref
+    w_np = torch.randn(4, 3, generator=torch.Generator().manual_seed(9))
+    x_np = torch.randn(2, 4, generator=torch.Generator().manual_seed(10))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        W, x = w_np.to(dev), x_np.to(dev)
+        res[dev] = (
+            T.autograd.jacobian(lambda x: T.tanh(T.matmul(x, W)), x),
+            T.autograd.hessian(lambda x: T.add(T.sum(T.multiply(T.exp(x), T.sin(x))),
+                                               T.sum(T.tanh(T.matmul(x, W)))), x))
+    errs = dict(jacobian=norm_rel(res["cuda"][0].cpu(), res["cpu"][0]),
+                hessian=norm_rel(res["cuda"][1].cpu(), res["cpu"][1]))
+    if not all(math.isfinite(e) and e <= TOL_TRANSFORMS for e in errs.values()):
+        fail(f"jacobian / hessian card against CPU: {errs}")
+    return dict(vjp_launches=list(launched), vjp_bit_exact=True, shape=[2, 2048, 16, 128],
+                dtype="bfloat16", card_vs_cpu=errs, tol=TOL_TRANSFORMS,
+                jacobian_shape=list(res["cuda"][0].shape),
+                hessian_shape=list(res["cuda"][1].shape))
+
+
+def streams_and_memory(torch, fa, models, T, serving):
+    """(d): phase 3's flagship generate on the default stream, then inside
+    stream_guard of a new port Stream: the same tokens bit for bit, each
+    timed with the port's Events beside phase 3's generate; the port's
+    memory statistics against torch.cuda's."""
+    cfg = models.LlamaConfig(**FLAGSHIP, dtype="bfloat16")
+    model = models.LlamaForCausalLM(cfg, device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    prompts = torch.randint(0, cfg.vocab_size, (8, 128), device="cuda", generator=gen)
+    new = 32
+    engine = models.LlamaDecodeEngine(model, max_len=128 + new + 1)
+    engine.generate(prompts, max_new_tokens=2)
+    d = T.device
+    default = d.current_stream()
+
+    def timed():
+        e0, e1 = d.Event(enable_timing=True), d.Event(enable_timing=True)
+        e0.record()
+        toks = engine.generate(prompts, max_new_tokens=new)
+        e1.record()
+        e1.synchronize()
+        return toks, e0.elapsed_time(e1)
+
+    toks0, ms0 = timed()
+    side = d.Stream()
+    if side.cuda_stream == default.cuda_stream:
+        fail("device.Stream() gave the default stream")
+    side.wait_stream(default)
+    with d.stream_guard(side):
+        if d.current_stream() != side:
+            fail("stream_guard did not make its stream current")
+        toks1, ms1 = timed()
+    default.wait_stream(side)
+    if d.current_stream() != default:
+        fail("stream_guard did not put the default stream back")
+    if not torch.equal(toks0, toks1):
+        fail("generate inside stream_guard gave other tokens than on the default stream")
+    del engine, model
+    stats = dict(memory_allocated=(d.memory_allocated(), torch.cuda.memory_allocated()),
+                 max_memory_allocated=(d.max_memory_allocated(),
+                                       torch.cuda.max_memory_allocated()),
+                 memory_reserved=(d.memory_reserved(), torch.cuda.memory_reserved()),
+                 max_memory_reserved=(d.max_memory_reserved(),
+                                      torch.cuda.max_memory_reserved()))
+    if any(a != b for a, b in stats.values()) or d.memory_stats() != torch.cuda.memory_stats():
+        fail(f"the port's memory statistics differ from torch.cuda's: {stats}")
+    props = d.cuda.get_device_properties()
+    if (d.cuda.get_device_name() != torch.cuda.get_device_name(0)
+            or d.cuda.get_device_capability() != torch.cuda.get_device_capability(0)
+            or d.cuda.device_count() != torch.cuda.device_count()):
+        fail("device.cuda's name, capability or count differ from torch.cuda's")
+    return dict(generate_ms_default_stream=ms0, generate_ms_side_stream=ms1,
+                phase3_generate_ms=serving["generate_s"] * 1e3, tokens_equal=True,
+                batch=8, prompt=128, new_tokens=new, memory_stats_equal=True,
+                memory=stats, device_name=d.cuda.get_device_name(),
+                capability=list(d.cuda.get_device_capability()),
+                total_memory_gb=props.total_memory / 1e9)
+
+
+def _moment_check(name, got, want, se):
+    if not abs(got - want) <= SAMPLER_SIGMAS * se:
+        fail(f"sampler {name}: {got}, want {want} within {SAMPLER_SIGMAS} x {se}")
+    return dict(got=got, want=want, se=se)
+
+
+def samplers_and_linalg(torch, T):
+    """(e): the samplers on the card (a seeded draw twice gives the same
+    values; the moments of SAMPLES draws within SAMPLER_SIGMAS standard
+    errors; randperm(2**20) a permutation; multinomial without replacement
+    distinct within each row) and cholesky, qr, svd, solve, lstsq, eigh and
+    slogdet at 512 x 512 in float32 and float64, card and CPU each within
+    TOL_LINALG of its own reconstruction, logdet card against CPU."""
+    n = SAMPLES
+    draws = dict(randn=lambda: T.randn([n]), rand=lambda: T.rand([n]),
+                 randint=lambda: T.randint(0, 10, [n]),
+                 normal=lambda: T.normal(2.0, 3.0, [n]),
+                 bernoulli=lambda: T.bernoulli(torch.full((n,), 0.3, device="cuda")),
+                 poisson=lambda: T.poisson(torch.full((n,), 4.0, device="cuda")),
+                 exponential_=lambda: T.exponential_(torch.empty(n, device="cuda"), 2.0),
+                 randperm=lambda: T.randperm(2 ** 20))
+    seeded = {}
+    for name, fn in draws.items():
+        T.seed(1234)
+        a = fn()
+        T.seed(1234)
+        b = fn()
+        if a.device.type != "cuda" or not torch.equal(a, b):
+            fail(f"sampler {name}: a seeded draw did not repeat on the card")
+        seeded[name] = str(a.dtype).removeprefix("torch.")
+    T.seed(99)
+    moments = {}
+    # (mean, variance, fourth central moment) of each distribution
+    for name, fn, mean, var, mu4 in (
+            ("randn", draws["randn"], 0.0, 1.0, 3.0),
+            ("rand", draws["rand"], 0.5, 1 / 12, 1 / 80),
+            ("normal", draws["normal"], 2.0, 9.0, 3 * 81.0),
+            ("randint", draws["randint"], 4.5, 8.25, 8.25 ** 2 * 1.78),
+            ("bernoulli", draws["bernoulli"], 0.3, 0.21, 0.21 * (1 - 3 * 0.21)),
+            ("poisson", draws["poisson"], 4.0, 4.0, 4.0 * (1 + 3 * 4.0)),
+            ("exponential_", draws["exponential_"], 0.5, 0.25, 9 * 0.5 ** 4)):
+        x = fn().double()
+        m = x.mean().item()
+        v = x.var().item()
+        moments[name] = dict(mean=_moment_check(name + " mean", m, mean, math.sqrt(var / n)),
+                             var=_moment_check(name + " var", v, var,
+                                               math.sqrt((mu4 - var ** 2) / n)))
+    perm = T.randperm(2 ** 20)
+    if not torch.equal(perm.sort().values, torch.arange(2 ** 20, device="cuda")):
+        fail("randperm(2**20) is not a permutation")
+    probs = torch.rand(64, 1000, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(1))
+    picks = T.multinomial(probs, 100)
+    distinct = all(len(set(r.tolist())) == 100 for r in picks)
+    if not distinct or picks.shape != (64, 100) or picks.dtype != torch.int64:
+        fail("multinomial without replacement repeated an index")
+    linalg = {}
+    for dt in ("float32", "float64"):
+        dtype = getattr(torch, dt)
+        g = torch.Generator().manual_seed(21)
+        A = torch.randn(512, 512, generator=g, dtype=torch.float64)
+        well = A / math.sqrt(512) + 4 * torch.eye(512, dtype=torch.float64)
+        spd = A @ A.T / 512 + torch.eye(512, dtype=torch.float64)
+        b = torch.randn(512, 8, generator=g, dtype=torch.float64)
+        rows = {}
+        for dev in ("cuda", "cpu"):
+            a, w, s, rhs = (t.to(dev, dtype) for t in (A, well, spd, b))
+            L = T.linalg.cholesky(s)
+            Q, R = T.linalg.qr(a)
+            U, S_, Vh = T.linalg.svd(a)
+            x = T.linalg.solve(w, rhs)
+            xl = T.linalg.lstsq(w, rhs)[0]
+            ev, V = T.linalg.eigh(s)
+            sl = T.linalg.slogdet(s)
+            rel = lambda r, ref: ((r - ref).norm() / ref.norm()).item()  # noqa: E731
+            rows[dev] = dict(cholesky=rel(L @ L.T, s), qr=rel(Q @ R, a),
+                             svd=rel(U * S_ @ Vh, a), solve=rel(w @ x, rhs),
+                             lstsq=rel(w @ xl, rhs), eigh=rel(V * ev @ V.T, s),
+                             slogdet_sign=sl[0].item(), logdet=sl[1].item())
+        for key in ("cholesky", "qr", "svd", "solve", "lstsq", "eigh"):
+            for dev in ("cuda", "cpu"):
+                if not rows[dev][key] <= TOL_LINALG[dt]:
+                    fail(f"linalg {key} {dt} on {dev}: residual {rows[dev][key]}")
+        logdet_rel = abs(rows["cuda"]["logdet"] - rows["cpu"]["logdet"]) / abs(
+            rows["cpu"]["logdet"])
+        if rows["cuda"]["slogdet_sign"] != 1.0 or not logdet_rel <= TOL_LINALG[dt]:
+            fail(f"slogdet {dt}: card {rows['cuda']}, cpu {rows['cpu']}")
+        linalg[dt] = dict(card=rows["cuda"], cpu=rows["cpu"], logdet_rel=logdet_rel,
+                          tol=TOL_LINALG[dt])
+    return dict(seeded_repeat=seeded, moments=moments, samples=n, sigmas=SAMPLER_SIGMAS,
+                randperm_is_permutation=True, multinomial_distinct=True, linalg=linalg)
+
+
+def phase_master(torch, fa, models, T, port_F, tfunc, smi, amp, serving):
+    """Phase 17 (module docstring); ``amp`` is phase 16's result and
+    ``serving`` phase 3's."""
+    math_calls = count_math_path(port_F)
+    out = {}
+    for key, fn in (
+            ("training", lambda: master_training(torch, fa, models, T, math_calls, smi,
+                                                 amp["o2_bf16"])),
+            ("card_vs_cpu", lambda: master_card_vs_cpu(torch, fa, models, T, port_F)),
+            ("overflow", lambda: overflow_drill(torch, models, T)),
+            ("transforms", lambda: transforms_on_card(torch, fa, T, tfunc)),
+            ("streams", lambda: streams_and_memory(torch, fa, models, T, serving)),
+            ("samplers_linalg", lambda: samplers_and_linalg(torch, T))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        out[key]["seconds"] = time.perf_counter() - t0
+        print(f"master_{key} " + json.dumps(out[key]), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
 
@@ -4363,6 +4851,18 @@ def main():
     amp_launches = {f"amp_{k}": amp[k]["launches_per_step"] for k in
                     ("o1_bf16", "o2_bf16", "o1_fp16")}
 
+    # phase 17: master-grad training, autograd, streams, samplers and linalg
+    # (launch counts set to 0 before the counted master-grad step and the
+    # vjp, read after each)
+    t0 = time.perf_counter()
+    master = phase_master(torch, fa, models, T, port_F, tfunc, smi, amp, serving)
+    master_s = time.perf_counter() - t0
+    print(f"phase_seconds 17 {master_s:.1f}", flush=True)
+    if master_s > MASTER_SECONDS:
+        fail(f"phase 17 took {master_s:.1f} s, more than its {MASTER_SECONDS} s")
+    mg_total = master["training"]["launches_per_step"]
+    mg_bf16 = master["training"]["launches_bf16"]
+
     kernel = dict(
         name="flash_attention_fwd", route="cuda",
         source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -4383,6 +4883,7 @@ def main():
                                   "launches_per_prefill"],
                               to_static_forward=compiled["forward"]["launches"],
                               deploy=deploy["flagship"]["launches_per_run"]["fwd"],
+                              master_grad_bf16=mg_bf16["fwd"],
                               **{k: v["fwd"] for k, v in amp_launches.items()}),
         max_abs_err=main_row["max_abs_err"],
         tol=main_row["tol"], ms=main_row["kernel_ms"], kernel_ms=main_row["kernel_ms"],
@@ -4413,6 +4914,7 @@ def main():
                                                surface["knobs"]["variants"].items()},
                                   to_static_training=compiled["training"][
                                       "launches_per_step"][f"bwd_{key}"],
+                                  master_grad_bf16=mg_bf16[f"bwd_{key}"],
                                   **{k: v[f"bwd_{key}"] for k, v in amp_launches.items()}),
             max_abs_err=max(tr[f"{g}_max_abs_err"] for g in grads),
             norm_rel_err=max(tr[f"{g}_err"] for g in grads), tol=tr["tol"],
@@ -4504,8 +5006,36 @@ def main():
             bound_ms=b16[f"{key}_bound_ms"], bound_by=b16[f"{key}_bound_by"],
             library_ms=b16["library_ms"], backward_ms=b16["bwd_ms"], shape=b16["shape"],
             dtype=b16["dtype"]))
+    # kernels 1-3's float32 variants (fa_fwd_f32, the F32Tile dq and dk/dv)
+    # at phase 17 (a)'s shape: times from phases 2 and 5 (sdpa and its
+    # backward in float32 as the library calls), launches from 17 (a)
+    f32, b32 = fwd_rows["master_grad_fp32"], bwd_rows["master_grad_fp32"]
+    mg_f32 = master["training"]["launches_f32"]
+    f32_kernels = [dict(
+        name="flash_attention_fwd_f32", route="cuda",
+        source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+        replaces="paddle_tpu/ops/pallas/flash_attention.py:48", launches=mg_f32["fwd"],
+        launches_by_path=dict(master_grad=mg_f32["fwd"], master_grad_all=mg_total["fwd"]),
+        max_abs_err=f32["max_abs_err"], max_scaled_err=f32["max_scaled_err"], tol=f32["tol"],
+        ms=f32["kernel_ms"], call_ms=f32["kernel_call_ms"], plain_ms=f32["plain_ms"],
+        bound_ms=f32["bound_ms"], bound_by=f32["bound_by"], library_ms=f32["library_ms"],
+        shape=f32["shape"], dtype=f32["dtype"])]
+    for key, name, line, grads in (("dq", "flash_attention_bwd_dq", 130, ("dq",)),
+                                   ("dkv", "flash_attention_bwd_dkv", 171, ("dk", "dv"))):
+        f32_kernels.append(dict(
+            name=f"{name}_f32", route="cuda",
+            source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+            replaces=f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
+            launches=mg_f32[f"bwd_{key}"],
+            launches_by_path=dict(master_grad=mg_f32[f"bwd_{key}"]),
+            max_abs_err=max(b32[f"{g}_max_abs_err"] for g in grads),
+            norm_rel_err=max(b32[f"{g}_err"] for g in grads), tol=b32["tol"],
+            ms=b32[f"{key}_ms"], call_ms=b32[f"{key}_call_ms"], plain_ms=b32["plain_ms"],
+            bound_ms=b32[f"{key}_bound_ms"], bound_by=b32[f"{key}_bound_by"],
+            library_ms=b32["library_ms"], backward_ms=b32["bwd_ms"], shape=b32["shape"],
+            dtype=b32["dtype"]))
     print(json.dumps({"kernels": [kernel] + bwd_kernels + [axpy_kernel] + dim_kernels
-                      + fp16_kernels}), flush=True)
+                      + fp16_kernels + f32_kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -61,28 +61,11 @@ def load(path, **kwargs):
     return _load(path, **kwargs)
 
 
-def grad(outputs, inputs, grad_outputs=None, retain_graph=None, create_graph=False,
-         only_inputs=True, allow_unused=False, no_grad_vars=None):
-    """paddle.grad over ``torch.autograd.grad``: a list of gradients, None
-    for an unused input when ``allow_unused``."""
-    if no_grad_vars is not None:
-        raise NotImplementedError("paddle.grad(no_grad_vars=...) is not ported; "
-                                  "detach those tensors instead (ROADMAP Queue A item 6)")
-    outputs = list(outputs) if isinstance(outputs, (list, tuple)) else [outputs]
-    inputs = list(inputs) if isinstance(inputs, (list, tuple)) else [inputs]
-    if grad_outputs is not None and not isinstance(grad_outputs, (list, tuple)):
-        grad_outputs = [grad_outputs]
-    return list(torch.autograd.grad(
-        outputs, inputs, grad_outputs=grad_outputs,
-        retain_graph=create_graph if retain_graph is None else retain_graph,
-        create_graph=create_graph, allow_unused=allow_unused))
-
-
-no_grad = torch.no_grad
-enable_grad = torch.enable_grad
-set_grad_enabled = torch.set_grad_enabled
-is_grad_enabled = torch.is_grad_enabled
 Tensor = torch.Tensor
+
+from . import autograd  # noqa: E402
+from .autograd import (  # noqa: E402,F401
+    enable_grad, grad, is_grad_enabled, no_grad, set_grad_enabled)
 
 from . import device  # noqa: E402
 from .device import get_device, set_device  # noqa: E402,F401
@@ -101,6 +84,12 @@ from .ops import *  # noqa: E402,F401,F403
 from .ops import (  # noqa: E402,F401  (names shadowed by Python builtins in *)
     abs, all, any, max, min, pow, round, slice, sum, complex)
 from . import amp  # noqa: E402,F401
+from . import incubate  # noqa: E402,F401
+import importlib  # noqa: E402
+
+# ``from .ops import *`` bound ``linalg`` to ``ops.linalg``: the namespace
+# module is ``paddle_tpu_torch/linalg.py``
+linalg = importlib.import_module(".linalg", __name__)
 from . import nn  # noqa: E402,F401
 from . import optimizer  # noqa: E402,F401
 from . import utils  # noqa: E402,F401

@@ -14,7 +14,8 @@ called directly is outside the dispatch.
 ``decorate`` at O2 casts the float32 parameters of the models to the low
 dtype in place (each ``Parameter`` keeps its identity, name, ``need_clip``
 and ``optimize_attr``) and turns the optimizers' float32 master weights on;
-it must run before an optimizer's first step. Programs captured before it on
+it must run before an optimizer's first step. ``master_grad=True`` at O2
+turns on float32 master gradients (``autograd/master_grad.py``). Programs captured before it on
 the old weights (the decode engines' CUDA graphs) refuse to replay
 (``jit/_cuda_graph.py``); ``jit.to_static`` compiles again on the new dtype.
 """
@@ -24,6 +25,7 @@ import contextlib
 
 import torch
 
+from ..autograd import master_grad as _master
 from ..framework import PARAM_EPOCH
 from ..framework import dtype as dtype_mod
 from ..ops import _apply
@@ -125,12 +127,10 @@ def decorate(models, optimizers=None, level="O1", dtype="float16", master_weight
              save_dtype=None, master_grad=False, excluded_layers=None):
     """paddle.amp.decorate (auto_cast.py:1091): O2 casts the models' float32
     parameters to ``dtype`` in place and lets the optimizers keep float32
-    master weights."""
-    if master_grad:
-        raise NotImplementedError(
-            "decorate(master_grad=True) is not ported: the JAX tape reruns every "
-            "reduced-precision pullback in float32, which needs a float32 backward "
-            "for every op (ROADMAP Queue A item 6)")
+    master weights. ``master_grad`` at O2 sets the master-grad mode
+    (``autograd/master_grad.py``) and gives the cast parameters float32
+    gradients (their ``grad_dtype``); every O2 ``decorate`` sets the mode from
+    its argument, as in the JAX package."""
     single_model = not isinstance(models, (list, tuple))
     model_list = [models] if single_model else list(models)
     opt_list = ([] if optimizers is None else
@@ -147,13 +147,16 @@ def decorate(models, optimizers=None, level="O1", dtype="float16", master_weight
                 for p in m.parameters():
                     if p.dtype == torch.float32:
                         p.data = p.data.to(d)
-                        if p.grad is not None:
+                        if p.grad is not None and not master_grad:
                             p.grad = p.grad.to(d)
+                    if p.dtype in (torch.float16, torch.bfloat16):
+                        p.grad_dtype = torch.float32 if master_grad else p.dtype
         PARAM_EPOCH[0] += 1
         for opt in opt_list:
             if hasattr(opt, "_multi_precision"):
                 opt._multi_precision = True if master_weight is None else bool(master_weight)
-        _amp_global_state.use_master_grad = False
+        _master.set_master_grad(master_grad)
+        _amp_global_state.use_master_grad = bool(master_grad)
     if optimizers is None:
         return models
     return models, optimizers

@@ -5,7 +5,9 @@ come from torch's default generators, one for the CPU and one for each card,
 which ``seed`` sets all at once (``torch.manual_seed``). The states are
 ``[CPU state, card 0 state, ...]`` as uint8 tensors. Like every entry point,
 ``seed`` raises where there is no card unless ``set_device("cpu")`` was
-called.
+called. ``generator(device)`` is the generator the samplers
+(``ops/random_ops.py``) pass explicitly: the CPU's or the card's default
+one, so ``seed`` fixes every draw.
 """
 from __future__ import annotations
 
@@ -48,3 +50,11 @@ def get_cuda_rng_state():
 
 def set_cuda_rng_state(state):
     torch.cuda.set_rng_state_all(list(state))
+
+
+def generator(device):
+    """The default ``torch.Generator`` of ``device`` (a ``torch.device``)."""
+    if device.type == "cuda":
+        idx = device.index if device.index is not None else torch.cuda.current_device()
+        return torch.cuda.default_generators[idx]
+    return torch.default_generator

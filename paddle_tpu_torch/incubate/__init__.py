@@ -1,3 +1,4 @@
-"""Fused ops and experimental optimizers of the port (counterpart of
-paddle_tpu.incubate)."""
+"""Fused ops, experimental optimizers and the functional autograd surface of
+the port (counterpart of paddle_tpu.incubate)."""
+from . import autograd  # noqa: F401
 from .optimizer import LookAhead, ModelAverage  # noqa: F401

@@ -54,7 +54,9 @@ _SIDE_STREAMS = {}
 
 # (module, attribute) of every counter a kernel wrapper bumps
 _COUNTERS = (("flash_attention", "launches"), ("flash_attention", "launches_bwd_dq"),
-             ("flash_attention", "launches_bwd_dkv"),
+             ("flash_attention", "launches_bwd_dkv"), ("flash_attention", "launches_f32"),
+             ("flash_attention", "launches_bwd_dq_f32"),
+             ("flash_attention", "launches_bwd_dkv_f32"),
              ("flash_attention", "copies_for_alignment"),
              ("flash_attention", "pads_for_head_dim"), ("axpy", "launches"))
 

@@ -6,3 +6,4 @@ from .flash_attention import (flash_attention, flash_attn_unpadded,  # noqa: F40
                               scaled_dot_product_attention, sdp_kernel)
 from .loss import cross_entropy, nll_loss, softmax_with_cross_entropy  # noqa: F401
 from .norm import rms_norm  # noqa: F401
+from ...ops.random_ops import gumbel_softmax  # noqa: F401,E402

@@ -4,9 +4,10 @@ search, matrix-product and einsum ops, each under the JAX op's name, the
 registry (``_apply``) and the operators that launch the hand-written kernels
 (``cuda``).
 
-Not ported yet, in ROADMAP Queue A item 6: the linear-algebra
-decompositions, ``random_ops`` (the samplers), ``indexing`` (paddle's
-getitem/setitem), ``compat``, ``parity`` and ``fused``. The methods the JAX
+The samplers (``random_ops``), paddle's ``getitem``/``setitem_``
+(``indexing``) and the linear-algebra half of ``linalg`` are here too. Not
+ported yet, in ROADMAP Queue A item 6 (c): ``compat``, ``parity`` and
+``fused``. The methods the JAX
 package installs on its ``Tensor`` (``x.astype``, ``x.stop_gradient``, ...)
 are not installed on ``torch.Tensor``: the port never patches torch, and
 their function forms (``cast``, ...) are here.
@@ -51,6 +52,17 @@ from .manipulation import (  # noqa: F401
 from .search import (  # noqa: F401
     argmax, argmin, argsort, bucketize, kthvalue, mode, searchsorted, sort, topk,
 )
-from .linalg import bmm, matmul, mm, multi_dot, mv  # noqa: F401
+from .linalg import (  # noqa: F401
+    bincount, bmm, cholesky, cholesky_inverse, cholesky_solve, cond, corrcoef, cov, det, eig,
+    eigh, eigvals, eigvalsh, histogram, histogramdd, householder_product, inv, inverse,
+    lstsq, lu, lu_unpack, matmul, matrix_exp, matrix_power, matrix_rank, mm, multi_dot, mv,
+    pinv, qr, slogdet, solve, svd, svd_lowrank, triangular_solve,
+)
+from .random_ops import (  # noqa: F401
+    bernoulli, bernoulli_, cauchy_, exponential_, geometric_, gumbel_softmax, log_normal_,
+    multinomial, normal, normal_, poisson, rand, rand_like, randint, randint_like, randn,
+    randn_like, randperm, standard_normal, uniform, uniform_,
+)
+from .indexing import getitem, setitem_  # noqa: F401
 from .einsum_op import einsum  # noqa: F401
 from .optable import generate_op_docs, op_table  # noqa: F401

@@ -10,7 +10,9 @@ around an op, in the same order:
      the ``cast`` op, a differentiable ``.to(dtype)``, so the gradient is
      cast back as the JAX cast through ``ops.manipulation.cast`` casts it;
   2. the op's function, under ``torch.no_grad()`` when the op is not
-     differentiable (the JAX package marks such outputs ``stop_gradient``);
+     differentiable (the JAX package marks such outputs ``stop_gradient``),
+     and under master-grad mode through ``autograd/master_grad.py``, which
+     reruns its pullback in float32;
   3. the NaN/Inf scan of the floating outputs when ``FLAGS_check_nan_inf``
      is on (``amp/debugging.py``), and the operator-stats record by output
      dtype while a collection is open.
@@ -51,6 +53,10 @@ _AMP_CAST = [None]
 _OP_STATS = [None]
 _NAN_FLAG = _flags._REGISTRY["FLAGS_check_nan_inf"]
 _NAN_INF_HOOK = [None]  # bound to amp.debugging._scan_op_outputs on first use
+#: master-grad mode (``autograd/master_grad.py``): [on], and the call it
+#: routes a differentiable op through, bound when that module is imported
+_MASTER_GRAD = [False]
+_MASTER_CALL = [None]
 _STATS_COLUMN = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2}
 
 
@@ -121,7 +127,10 @@ def apply(opdef: OpDef, *args, **kwargs):
     if _AMP_STATE:
         args, kwargs = _AMP_CAST[0](opdef, args, kwargs)
     if opdef.differentiable:
-        out = opdef.fn(*args, **kwargs)
+        if _MASTER_GRAD[0] and torch.is_grad_enabled():
+            out = _MASTER_CALL[0](opdef, args, kwargs)
+        else:
+            out = opdef.fn(*args, **kwargs)
     else:
         with torch.no_grad():
             out = opdef.fn(*args, **kwargs)

@@ -37,6 +37,7 @@ import functools
 import math
 
 import torch
+from torch.autograd import forward_ad as fwAD
 
 from . import _build
 
@@ -51,6 +52,11 @@ launches = 0
 launches_bwd_dq = 0
 #: backward dk/dv kernel launches, counted the same way
 launches_bwd_dkv = 0
+#: of those, the float32 kernels' (``fa_fwd_f32``, the ``F32Tile`` dq and
+#: dk/dv), which master-grad training runs in its float32 pullbacks
+launches_f32 = 0
+launches_bwd_dq_f32 = 0
+launches_bwd_dkv_f32 = 0
 #: q, k or v tensors the forward wrapper copied because TMA cannot read them
 #: where they lie (a base or a stride that is not a multiple of 16 bytes)
 copies_for_alignment = 0
@@ -206,7 +212,7 @@ def _stream(t):
 
 
 def _launch(q, k, v, causal, scale):
-    global launches
+    global launches, launches_f32
     _check_kernel_inputs(q, k, v)
     if q.dtype != torch.float32:  # the 16-bit kernel reads q, k, v by TMA
         q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
@@ -223,6 +229,7 @@ def _launch(q, k, v, causal, scale):
     if err:
         _build.check(_build.load(_NAME), err, "flash_attention_fwd launch")
     launches += 1
+    launches_f32 += q.dtype == torch.float32
     return out, lse
 
 
@@ -287,7 +294,7 @@ def _launch_bwd_dq(q, k, v, do, out, lse, causal, scale):
     """(dq, delta): the dq kernel, which also writes delta = rowsum(dO * O)
     for the dk/dv kernel. 16-bit inputs must be readable by TMA where they
     lie (``flash_attention_bwd`` copies what is not)."""
-    global launches_bwd_dq
+    global launches_bwd_dq, launches_bwd_dq_f32
     _check_bwd_inputs(q, k, v, do, lse, out=out)
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -302,12 +309,13 @@ def _launch_bwd_dq(q, k, v, do, out, lse, causal, scale):
     if err:
         _build.check(_build.load(_NAME_BWD), err, "flash_attention_bwd dq launch")
     launches_bwd_dq += 1
+    launches_bwd_dq_f32 += q.dtype == torch.float32
     return dq, delta
 
 
 def _launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale):
     """(dk, dv), each summed over its GQA group, from the dq kernel's delta."""
-    global launches_bwd_dkv
+    global launches_bwd_dkv, launches_bwd_dkv_f32
     _check_bwd_inputs(q, k, v, do, lse, delta)
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -322,6 +330,7 @@ def _launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale):
     if err:
         _build.check(_build.load(_NAME_BWD), err, "flash_attention_bwd dk/dv launch")
     launches_bwd_dkv += 1
+    launches_bwd_dkv_f32 += q.dtype == torch.float32
     return dk, dv
 
 
@@ -464,6 +473,12 @@ def flash_attention_fwd_lse(q, k, v, causal=False, scale=None):
     forward takes.
     """
     _check_shapes(q, k, v, causal)
+    if not torch.compiler.is_compiling() and any(
+            fwAD.unpack_dual(t).tangent is not None for t in (q, k, v)):
+        # the JAX entry is a custom_vjp, which jax.jvp refuses; the op has
+        # an autograd formula and no forward-mode rule
+        raise TypeError("flash attention has no forward-mode (jvp) rule: "
+                        "differentiate it in reverse mode")
     s = float(scale if scale is not None else 1.0 / math.sqrt(q.shape[-1]))
     if q.is_cuda:
         return _at_native_dim(q, k, v, bool(causal), s)

@@ -17,6 +17,7 @@ import torch
 
 from ..framework import dtype as dtype_mod
 from ._apply import defop
+from .indexing import _getitem
 
 
 def _ints(seq):
@@ -363,8 +364,12 @@ def index_fill(x, index, axis, value, name=None):
 
 @defop("masked_fill")
 def _masked_fill(x, mask, value):
-    v = value.to(x.dtype) if isinstance(value, torch.Tensor) else torch.full(
-        (), value, dtype=x.dtype, device=x.device)
+    if isinstance(value, torch.Tensor):
+        v = value.to(x.dtype)
+    elif isinstance(value, float) and x.is_floating_point():
+        v = torch.full((), value, dtype=torch.float64, device=x.device).to(x.dtype)
+    else:
+        v = torch.full((), value, dtype=x.dtype, device=x.device)
     return torch.where(mask, v, x)
 
 
@@ -374,7 +379,9 @@ def masked_fill(x, mask, value, name=None):
 
 @defop("where_op")
 def _where(condition, x, y):
-    return torch.where(condition, x, y)
+    from .math import _pair
+
+    return torch.where(condition, *_pair(x, y))
 
 
 def where(condition, x=None, y=None, name=None):
@@ -491,25 +498,6 @@ def slice(x, axes, starts, ends):  # noqa: A001
         norm_s.append(min(max(s, 0), n))
         norm_e.append(min(max(e, 0), n))
     return _slice(x, axes=tuple(axes), starts=tuple(norm_s), ends=tuple(norm_e))
-
-
-@defop("getitem")
-def _getitem(x, idx):
-    """Basic indexing by a tuple of slices (a negative step as numpy's: a
-    flip of the positive-step slice that visits the same elements)."""
-    out = x
-    for dim, sl in enumerate(idx):
-        start, stop, step = sl.indices(x.shape[dim])
-        if step > 0:
-            out = out[(_py_slice(None),) * dim + (sl,)]
-        else:
-            pos = list(range(start, stop, step))
-            if pos:
-                kept = out[(_py_slice(None),) * dim + (_py_slice(pos[-1], pos[0] + 1, -step),)]
-                out = torch.flip(kept, (dim,))
-            else:
-                out = out.narrow(dim, 0, 0)
-    return out
 
 
 def strided_slice(x, axes, starts, ends, strides, name=None):

@@ -4,8 +4,15 @@ of ``paddle_tpu/ops/math.py``.
 Each op is one or a few torch calls under the JAX op's name. A Python number
 on the right of a binary op keeps the tensor's dtype (JAX's weak typing,
 torch's scalar promotion), except that a float next to an integer tensor
-gives the default float dtype. The in-place forms (``add_``, ...) write the
-result into ``x`` with ``copy_``, which autograd records.
+gives the default float dtype. Two tensor operands of different dtypes are
+promoted with ``framework/dtype.py`` ``promote_types`` (``jnp.promote_types``)
+before torch sees them: torch lets a dimensioned operand's dtype win over a
+0-d tensor's of the same kind, JAX does not. The floating ops take integer
+and bool inputs in JAX's floating dtype (``_float``: the JAX package runs
+with x64, so int64 gives float64 and narrower integers float32); ``rsqrt``
+and ``sigmoid`` refuse them with ``TypeError``, as jax does. The in-place
+forms (``add_``, ...) write the result into ``x`` with ``copy_``, which
+autograd records.
 """
 from __future__ import annotations
 
@@ -15,6 +22,38 @@ from ..framework import dtype as dtype_mod
 from ._apply import defop
 
 
+def _float(x):
+    """``x`` in JAX's floating dtype for it: floating and complex tensors as
+    they are, int64 (and uint64) as float64, other integers and bool as
+    float32."""
+    if x.is_floating_point() or x.is_complex():
+        return x
+    return x.to(torch.float64 if x.dtype in (torch.int64, torch.uint64) else torch.float32)
+
+
+def _float64(x):
+    """Integer and bool inputs as float64: the JAX functions that combine
+    them with a Python float (``1.0 / x``, ``scale_b * tanh(...)``) get
+    x64's float64 whatever the integer's width."""
+    return x if (x.is_floating_point() or x.is_complex()) else x.to(torch.float64)
+
+
+def _floating_only(name, x):
+    if not (x.is_floating_point() or x.is_complex()):
+        raise TypeError(f"{name} does not accept dtype {str(x.dtype).removeprefix('torch.')}; "
+                        "it takes floating inputs only")
+    return x
+
+
+def _pair(x, y):
+    """Two tensor operands in their promoted dtype (a number is left to
+    torch's weak promotion)."""
+    if isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor) and x.dtype != y.dtype:
+        d = dtype_mod.promote_types(x.dtype, y.dtype)
+        return x.to(d), y.to(d)
+    return x, y
+
+
 def _t(y, like):
     """``y`` as a tensor beside ``like`` (a number keeps ``like``'s dtype
     where it fits it)."""
@@ -22,38 +61,44 @@ def _t(y, like):
         return y
     if isinstance(y, float) and not (like.is_floating_point() or like.is_complex()):
         return torch.full((), y, dtype=dtype_mod.get_default_dtype(), device=like.device)
+    if isinstance(y, float) and like.is_floating_point():
+        # out of the dtype's range: inf, as in JAX (CUDA's fill would raise)
+        return torch.full((), y, dtype=torch.float64, device=like.device).to(like.dtype)
     return torch.full((), y, dtype=like.dtype, device=like.device)
 
 
 # ---- binary arithmetic ----------------------------------------------------
 @defop("add")
 def add(x, y):
-    return torch.add(x, y)
+    return torch.add(*_pair(x, y))
 
 
 @defop("subtract")
 def subtract(x, y):
-    return torch.subtract(x, y)
+    return torch.subtract(*_pair(x, y))
 
 
 @defop("multiply")
 def multiply(x, y):
-    return torch.multiply(x, y)
+    return torch.multiply(*_pair(x, y))
 
 
 @defop("divide")
 def divide(x, y):
+    x, y = _pair(x, y)
+    if isinstance(y, torch.Tensor) and not (x.is_floating_point() or x.is_complex()):
+        x, y = _float(x), _float(y)
     return torch.true_divide(x, y)
 
 
 @defop("floor_divide")
 def floor_divide(x, y):
-    return torch.floor_divide(x, y)
+    return torch.floor_divide(*_pair(x, y))
 
 
 @defop("remainder")
 def remainder(x, y):
-    return torch.remainder(x, y)
+    return torch.remainder(*_pair(x, y))
 
 
 mod = remainder
@@ -62,34 +107,36 @@ floor_mod = remainder
 
 @defop("pow")
 def pow(x, y):  # noqa: A001
-    return torch.pow(x, y)
+    return torch.pow(*_pair(x, y))
 
 
 @defop("fmax")
 def fmax(x, y):
-    return torch.fmax(x, _t(y, x))
+    return torch.fmax(*_pair(x, _t(y, x)))
 
 
 @defop("fmin")
 def fmin(x, y):
-    return torch.fmin(x, _t(y, x))
+    return torch.fmin(*_pair(x, _t(y, x)))
 
 
 @defop("maximum")
 def maximum(x, y):
-    return torch.maximum(x, _t(y, x))
+    return torch.maximum(*_pair(x, _t(y, x)))
 
 
 @defop("minimum")
 def minimum(x, y):
-    return torch.minimum(x, _t(y, x))
+    return torch.minimum(*_pair(x, _t(y, x)))
 
 
 @defop("scale")
 def _scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None):
+    # a number outside x's dtype's range becomes inf, as in JAX (a CUDA
+    # ``torch.full`` in that dtype raises instead of rounding)
     s = scale.to(x.dtype) if isinstance(scale, torch.Tensor) else torch.full(
-        (), scale, dtype=x.dtype, device=x.device)
-    b = torch.full((), bias, dtype=x.dtype, device=x.device)
+        (), scale, dtype=torch.float64, device=x.device).to(x.dtype)
+    b = torch.full((), bias, dtype=torch.float64, device=x.device).to(x.dtype)
     if bias_after_scale:
         return x * s + b
     return (x + b) * s
@@ -115,53 +162,58 @@ def lerp(x, y, weight):
 
 
 # ---- unary ----------------------------------------------------------------
-def _unary(name, fn, differentiable=True):
+def _unary(name, fn, differentiable=True, cast=None):
+    if cast is not None:
+        inner = fn
+
+        def fn(x):
+            return inner(cast(x))
     return defop(name, differentiable=differentiable)(fn)
 
 
-exp = _unary("exp", lambda x: torch.exp(x))
-expm1 = _unary("expm1", lambda x: torch.expm1(x))
-log = _unary("log", lambda x: torch.log(x))
-log2 = _unary("log2", lambda x: torch.log2(x))
-log10 = _unary("log10", lambda x: torch.log10(x))
-log1p = _unary("log1p", lambda x: torch.log1p(x))
-sqrt = _unary("sqrt", lambda x: torch.sqrt(x))
-rsqrt = _unary("rsqrt", lambda x: torch.rsqrt(x))
+exp = _unary("exp", lambda x: torch.exp(x), cast=_float)
+expm1 = _unary("expm1", lambda x: torch.expm1(x), cast=_float)
+log = _unary("log", lambda x: torch.log(x), cast=_float)
+log2 = _unary("log2", lambda x: torch.log2(x), cast=_float)
+log10 = _unary("log10", lambda x: torch.log10(x), cast=_float)
+log1p = _unary("log1p", lambda x: torch.log1p(x), cast=_float)
+sqrt = _unary("sqrt", lambda x: torch.sqrt(x), cast=_float)
+rsqrt = _unary("rsqrt", lambda x: torch.rsqrt(_floating_only("rsqrt", x)))
 square = _unary("square", lambda x: torch.square(x))
 abs = _unary("abs", lambda x: torch.abs(x))  # noqa: A001
 sign = _unary("sign", lambda x: torch.sign(x))
 neg = _unary("neg", lambda x: torch.neg(x))
 negative = neg
-reciprocal = _unary("reciprocal", lambda x: 1.0 / x)
+reciprocal = _unary("reciprocal", lambda x: 1.0 / x, cast=_float64)
 floor = _unary("floor", lambda x: torch.floor(x))
 ceil = _unary("ceil", lambda x: torch.ceil(x))
 round = _unary("round", lambda x: torch.round(x))  # noqa: A001
 trunc = _unary("trunc", lambda x: torch.trunc(x))
 frac = _unary("frac", lambda x: x - torch.trunc(x))
-sin = _unary("sin", lambda x: torch.sin(x))
-cos = _unary("cos", lambda x: torch.cos(x))
-tan = _unary("tan", lambda x: torch.tan(x))
-asin = _unary("asin", lambda x: torch.asin(x))
-acos = _unary("acos", lambda x: torch.acos(x))
-atan = _unary("atan", lambda x: torch.atan(x))
-sinh = _unary("sinh", lambda x: torch.sinh(x))
-cosh = _unary("cosh", lambda x: torch.cosh(x))
-tanh = _unary("tanh", lambda x: torch.tanh(x))
-asinh = _unary("asinh", lambda x: torch.asinh(x))
-acosh = _unary("acosh", lambda x: torch.acosh(x))
-atanh = _unary("atanh", lambda x: torch.atanh(x))
-erf = _unary("erf", lambda x: torch.erf(x))
-erfinv = _unary("erfinv", lambda x: torch.erfinv(x))
-sigmoid = _unary("sigmoid", lambda x: torch.sigmoid(x))
-digamma = _unary("digamma", lambda x: torch.digamma(x))
-lgamma = _unary("lgamma", lambda x: torch.lgamma(x))
-i0 = _unary("i0", lambda x: torch.special.i0(x))
-i0e = _unary("i0e", lambda x: torch.special.i0e(x))
-i1 = _unary("i1", lambda x: torch.special.i1(x))
-i1e = _unary("i1e", lambda x: torch.special.i1e(x))
-deg2rad = _unary("deg2rad", lambda x: torch.deg2rad(x))
-rad2deg = _unary("rad2deg", lambda x: torch.rad2deg(x))
-angle = _unary("angle", lambda x: torch.angle(x))
+sin = _unary("sin", lambda x: torch.sin(x), cast=_float)
+cos = _unary("cos", lambda x: torch.cos(x), cast=_float)
+tan = _unary("tan", lambda x: torch.tan(x), cast=_float)
+asin = _unary("asin", lambda x: torch.asin(x), cast=_float)
+acos = _unary("acos", lambda x: torch.acos(x), cast=_float)
+atan = _unary("atan", lambda x: torch.atan(x), cast=_float)
+sinh = _unary("sinh", lambda x: torch.sinh(x), cast=_float)
+cosh = _unary("cosh", lambda x: torch.cosh(x), cast=_float)
+tanh = _unary("tanh", lambda x: torch.tanh(x), cast=_float)
+asinh = _unary("asinh", lambda x: torch.asinh(x), cast=_float)
+acosh = _unary("acosh", lambda x: torch.acosh(x), cast=_float)
+atanh = _unary("atanh", lambda x: torch.atanh(x), cast=_float)
+erf = _unary("erf", lambda x: torch.erf(x), cast=_float)
+erfinv = _unary("erfinv", lambda x: torch.erfinv(x), cast=_float)
+sigmoid = _unary("sigmoid", lambda x: torch.sigmoid(_floating_only("sigmoid", x)))
+digamma = _unary("digamma", lambda x: torch.digamma(x), cast=_float)
+lgamma = _unary("lgamma", lambda x: torch.lgamma(x), cast=_float)
+i0 = _unary("i0", lambda x: torch.special.i0(x), cast=_float)
+i0e = _unary("i0e", lambda x: torch.special.i0e(x), cast=_float)
+i1 = _unary("i1", lambda x: torch.special.i1(x), cast=_float)
+i1e = _unary("i1e", lambda x: torch.special.i1e(x), cast=_float)
+deg2rad = _unary("deg2rad", lambda x: torch.deg2rad(x), cast=_float)
+rad2deg = _unary("rad2deg", lambda x: torch.rad2deg(x), cast=_float)
+angle = _unary("angle", lambda x: torch.angle(x), cast=_float64)
 conj = _unary("conj", lambda x: torch.conj_physical(x))
 real = _unary("real", lambda x: torch.real(x))
 imag = _unary("imag", lambda x: torch.imag(x) if x.is_complex() else torch.zeros_like(x))
@@ -169,11 +221,13 @@ imag = _unary("imag", lambda x: torch.imag(x) if x.is_complex() else torch.zeros
 
 @defop("atan2")
 def atan2(x, y):
-    return torch.atan2(x, _t(y, x))
+    x, y = _pair(x, _t(y, x))
+    return torch.atan2(_float(x), _float(y))
 
 
 @defop("logit")
 def _logit(x, eps=None):
+    x = _float64(x)
     if eps is not None:
         x = torch.clamp(x, eps, 1.0 - eps)
     return torch.log(x / (1.0 - x))
@@ -185,7 +239,8 @@ def logit(x, eps=None, name=None):
 
 @defop("logaddexp")
 def logaddexp(x, y):
-    return torch.logaddexp(x, _t(y, x))
+    x, y = _pair(x, _t(y, x))
+    return torch.logaddexp(_float(x), _float(y))
 
 
 @defop("clip")
@@ -201,7 +256,7 @@ def clip(x, min=None, max=None, name=None):  # noqa: A002
 
 @defop("stanh")
 def _stanh(x, scale_a=0.67, scale_b=1.7159):
-    return scale_b * torch.tanh(scale_a * x)
+    return scale_b * torch.tanh(scale_a * _float64(x))
 
 
 def stanh(x, scale_a=0.67, scale_b=1.7159, name=None):
@@ -224,10 +279,16 @@ def _flat_axis(x, axis):
     return (x.reshape(-1), 0) if axis is None else (x, axis)
 
 
+def _running_dtype(x):
+    """The dtype of a running sum or product: the input's, as in JAX (torch
+    widens integers to int64), and int64 for bool."""
+    return torch.int64 if x.dtype == torch.bool else x.dtype
+
+
 @defop("cumsum")
 def _cumsum(x, axis=None):
     x, axis = _flat_axis(x, axis)
-    return torch.cumsum(x, axis)
+    return torch.cumsum(x, axis, dtype=_running_dtype(x))
 
 
 def cumsum(x, axis=None, dtype=None, name=None):
@@ -242,7 +303,7 @@ def cumsum(x, axis=None, dtype=None, name=None):
 @defop("cumprod")
 def _cumprod(x, dim=None):
     x, dim = _flat_axis(x, dim)
-    return torch.cumprod(x, dim)
+    return torch.cumprod(x, dim, dtype=_running_dtype(x))
 
 
 def cumprod(x, dim=None, dtype=None, name=None):
@@ -418,6 +479,9 @@ def diagonal(x, offset=0, axis1=0, axis2=1, name=None):
 
 @defop("addmm")
 def _addmm(input, x, y, beta=1.0, alpha=1.0):  # noqa: A002
+    x, y = _pair(x, y)
+    if not (x.is_floating_point() or x.is_complex()):
+        input, x, y = _float64(input), _float64(x), _float64(y)
     return beta * input + alpha * torch.matmul(x, y)
 
 
@@ -431,11 +495,15 @@ lcm = _cmp("lcm", lambda x, y: torch.lcm(x, _t(y, x)))
 
 @defop("heaviside")
 def heaviside(x, y):
-    return torch.heaviside(x, _t(y, x).to(x.dtype))
+    x, y = _pair(x, _t(y, x))
+    x = _float(x)
+    return torch.heaviside(x, y.to(x.dtype))
 
 
 @defop("hypot")
 def hypot(x, y):
+    x, y = _pair(x, y)
+    x, y = _float(x), _float(y)
     return torch.sqrt(x * x + y * y)
 
 
@@ -447,16 +515,19 @@ def ldexp(x, y):
 
 @defop("copysign")
 def copysign(x, y):
-    return torch.copysign(x, _t(y, x))
+    x, y = _pair(x, _t(y, x))
+    return torch.copysign(_float(x), _float(y))
 
 
 @defop("nextafter", differentiable=False)
 def nextafter(x, y):
-    return torch.nextafter(x, _t(y, x))
+    x, y = _pair(x, _t(y, x))
+    return torch.nextafter(_float(x), _float(y))
 
 
 @defop("trapezoid")
 def _trapezoid(y, x=None, dx=1.0, axis=-1):
+    y = _float(y)
     if x is not None:
         return torch.trapezoid(y, x, dim=axis)
     return torch.trapezoid(y, dx=dx, dim=axis)

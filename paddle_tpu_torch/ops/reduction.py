@@ -14,6 +14,7 @@ import torch
 
 from ..framework import dtype as dtype_mod
 from ._apply import defop
+from .math import _float
 
 
 def _axes(axis):
@@ -33,17 +34,19 @@ def _dims(x, axis):
     return (axis,) if isinstance(axis, int) else tuple(axis)
 
 
-def _float(x):
-    """Integer and bool inputs of a mean-like reduction in the default float
-    dtype, as numpy promotes them."""
-    if x.is_floating_point() or x.is_complex():
-        return x
-    return x.to(dtype_mod.get_default_dtype())
+def _reduced(x, axis, keepdim):
+    """``(x, dims, keepdim)`` for a torch reduction. An empty axis list
+    reduces no axis (jnp's ``axis=()``), where torch's ``dim=()`` reduces
+    every one: the reduction then runs over a new unit axis."""
+    if axis == ():
+        return x.unsqueeze(0), (0,), False
+    return x, _dims(x, axis), keepdim
 
 
 @defop("sum")
 def _sum(x, axis=None, keepdim=False, dtype=None):
-    return torch.sum(x, dim=_dims(x, axis), keepdim=keepdim, dtype=dtype)
+    x, dims, keepdim = _reduced(x, axis, keepdim)
+    return torch.sum(x, dim=dims, keepdim=keepdim, dtype=dtype)
 
 
 def sum(x, axis=None, dtype=None, keepdim=False, name=None):  # noqa: A001
@@ -52,7 +55,8 @@ def sum(x, axis=None, dtype=None, keepdim=False, name=None):  # noqa: A001
 
 @defop("mean")
 def _mean(x, axis=None, keepdim=False):
-    return torch.mean(_float(x), dim=_dims(x, axis), keepdim=keepdim)
+    x, dims, keepdim = _reduced(_float(x), axis, keepdim)
+    return torch.mean(x, dim=dims, keepdim=keepdim)
 
 
 def mean(x, axis=None, keepdim=False, name=None):
@@ -74,7 +78,8 @@ def prod(x, axis=None, keepdim=False, dtype=None, name=None):
 
 @defop("max")
 def _max(x, axis=None, keepdim=False):
-    return torch.amax(x, dim=_dims(x, axis), keepdim=keepdim)
+    x, dims, keepdim = _reduced(x, axis, keepdim)
+    return torch.amax(x, dim=dims, keepdim=keepdim)
 
 
 def max(x, axis=None, keepdim=False, name=None):  # noqa: A001
@@ -83,7 +88,8 @@ def max(x, axis=None, keepdim=False, name=None):  # noqa: A001
 
 @defop("min")
 def _min(x, axis=None, keepdim=False):
-    return torch.amin(x, dim=_dims(x, axis), keepdim=keepdim)
+    x, dims, keepdim = _reduced(x, axis, keepdim)
+    return torch.amin(x, dim=dims, keepdim=keepdim)
 
 
 def min(x, axis=None, keepdim=False, name=None):  # noqa: A001
@@ -96,8 +102,8 @@ amin = min
 
 @defop("std")
 def _std(x, axis=None, unbiased=True, keepdim=False):
-    return torch.std(_float(x), dim=_dims(x, axis), correction=1 if unbiased else 0,
-                     keepdim=keepdim)
+    x, dims, keepdim = _reduced(_float(x), axis, keepdim)
+    return torch.std(x, dim=dims, correction=1 if unbiased else 0, keepdim=keepdim)
 
 
 def std(x, axis=None, unbiased=True, keepdim=False, name=None):
@@ -106,8 +112,8 @@ def std(x, axis=None, unbiased=True, keepdim=False, name=None):
 
 @defop("var")
 def _var(x, axis=None, unbiased=True, keepdim=False):
-    return torch.var(_float(x), dim=_dims(x, axis), correction=1 if unbiased else 0,
-                     keepdim=keepdim)
+    x, dims, keepdim = _reduced(_float(x), axis, keepdim)
+    return torch.var(x, dim=dims, correction=1 if unbiased else 0, keepdim=keepdim)
 
 
 def var(x, axis=None, unbiased=True, keepdim=False, name=None):
@@ -134,7 +140,8 @@ def any(x, axis=None, keepdim=False, name=None):  # noqa: A001
 
 @defop("logsumexp")
 def _logsumexp(x, axis=None, keepdim=False):
-    return torch.logsumexp(x, dim=_dims(x, axis), keepdim=keepdim)
+    x, dims, keepdim = _reduced(_float(x), axis, keepdim)
+    return torch.logsumexp(x, dim=dims, keepdim=keepdim)
 
 
 def logsumexp(x, axis=None, keepdim=False, name=None):
@@ -210,6 +217,7 @@ def nanmedian(x, axis=None, keepdim=False, mode="avg", name=None):
 
 
 def _quantile_in(x, q, axis):
+    x = _float(x)
     qt = torch.as_tensor(q, dtype=x.dtype, device=x.device)
     return (x.reshape(-1), qt, 0) if axis is None else (x, qt, axis)
 

@@ -302,11 +302,6 @@ class TestDecorate:
         with pytest.raises(RuntimeError, match="first step"):
             T.amp.decorate(tm, opt, level="O2", dtype="bfloat16")
 
-    def test_master_grad_names_its_item(self):
-        _, tm = _llamas()
-        with pytest.raises(NotImplementedError, match="Queue A item 6"):
-            T.amp.decorate(tm, level="O2", master_grad=True)
-
     def test_captured_program_refuses_stale_weights(self):
         from paddle_tpu_torch.framework import PARAM_EPOCH
         from paddle_tpu_torch.jit import _cuda_graph

@@ -451,6 +451,77 @@ CASES = [
     C("multi_dot", lambda P, a, b, c: P.multi_dot([a, b, c]), [N(2, 3), N(3, 4), N(4, 2)]),
     C("einsum", lambda P, x, y: P.einsum("bij,bjk->bik", x, y), [N(2, 3, 4), N(2, 4, 5)]),
     C("einsum_trace", lambda P, x: P.einsum("ii->", x), [N(3, 3)]),
+    # ---- ROADMAP Queue C Open 2: an empty axis list reduces no axis ----
+    C("sum_axis_empty", lambda P, x: P.sum(x, axis=[]), [N(2, 3)]),
+    C("sum_axis_empty_keepdim", lambda P, x: P.sum(x, axis=[], keepdim=True), [N(2, 3)]),
+    C("mean_axis_empty", lambda P, x: P.mean(x, axis=[]), [N(2, 3)]),
+    C("max_axis_empty", lambda P, x: P.max(x, axis=[]), [N(2, 3)]),
+    C("min_axis_empty", lambda P, x: P.min(x, axis=[]), [N(2, 3)]),
+    C("amax_amin_axis_empty", lambda P, x: [P.amax(x, axis=[]), P.amin(x, axis=())],
+      [N(2, 3)]),
+    C("std_var_axis_empty", lambda P, x: [P.std(x, axis=[], unbiased=False),
+                                          P.var(x, axis=[], unbiased=False)], [N(2, 3)],
+      grad=False),
+    C("logsumexp_axis_empty", lambda P, x: P.logsumexp(x, axis=[]), [N(2, 3)]),
+    C("sum_axis_empty_int32", lambda P, x: P.sum(P.cast(x, "int32"), axis=[]),
+      [I((2, 3), -5, 5)], low=False),
+    # ---- Open 3: running sums and products keep the integer dtype ----
+    C("cumsum_int32", lambda P, x: P.cumsum(P.cast(x, "int32")), [A([1, 2, 3])], low=False),
+    C("cumsum_int32_axis", lambda P, x: P.cumsum(P.cast(x, "int32"), axis=1),
+      [I((2, 3), -4, 4)], low=False),
+    C("cumprod_int32", lambda P, x: P.cumprod(P.cast(x, "int32"), dim=0), [A([1, 2, 3])],
+      low=False),
+    C("cumsum_int32_dtype", lambda P, x: [P.cumsum(P.cast(x, "int32"), dtype="int64"),
+                                          P.cumprod(P.cast(x, "int32"), dim=0,
+                                                    dtype="float32")],
+      [A([1, 2, 3])], low=False),
+    C("cumsum_bool", lambda P, x: P.cumsum(x), [B(5)], low=False),
+    # ---- Open 4: int64 into floating ops gives float64 (int32 float32) ----
+    C("mean_arange", lambda P: P.mean(P.arange(4)), low=False),
+    C("sqrt_int64_scalar", lambda P: P.sqrt(P.to_tensor(4, place="cpu")), low=False),
+    C("divide_int64", lambda P, x, y: P.divide(x, y), [A([1, 2, 4]), A([2, 4, 3])],
+      low=False),
+    C("divide_int32", lambda P, x, y: P.divide(P.cast(x, "int32"), P.cast(y, "int32")),
+      [A([1, 2, 4]), A([2, 4, 3])], low=False),
+    C("unary_int64", lambda P, x: [getattr(P, f)(x) for f in (
+        "exp", "expm1", "log", "log2", "log10", "log1p", "sqrt", "sin", "cos", "tan",
+        "atan", "sinh", "cosh", "tanh", "asinh", "erf", "reciprocal", "lgamma", "digamma",
+        "i0", "deg2rad", "stanh")], [A([1, 2, 4])], low=False),
+    C("unary_int32", lambda P, x: [getattr(P, f)(P.cast(x, "int32")) for f in (
+        "exp", "log", "sqrt", "sin", "tanh", "erf", "lgamma", "i0", "deg2rad",
+        "reciprocal", "stanh")], [A([1, 2, 4])], low=False),
+    C("reductions_int64", lambda P, x: [P.var(x), P.std(x), P.median(x), P.nanmean(x),
+                                        P.logsumexp(x), P.quantile(x, 0.5),
+                                        P.mean(x, axis=0)], [A([1, 2, 4, 7])], low=False),
+    C("reductions_int32", lambda P, x: [f(P.cast(x, "int32")) for f in (
+        P.var, P.std, P.median, P.nanmean, P.logsumexp, P.mean)], [A([1, 2, 4, 7])],
+      low=False),
+    C("binary_int64", lambda P, x, y: [P.hypot(x, y), P.atan2(x, y), P.logaddexp(x, y),
+                                       P.nextafter(x, y), P.heaviside(x, y)],
+      [A([1, 2, 4]), A([3, 0, 5])], low=False),
+    C("binary_int32", lambda P, x, y: [f(P.cast(x, "int32"), P.cast(y, "int32")) for f in (
+        P.hypot, P.atan2, P.logaddexp, P.nextafter, P.heaviside)],
+      [A([1, 2, 4]), A([3, 0, 5])], low=False),
+    C("addmm_trapezoid_int64", lambda P, m, x, y: [P.addmm(m, x, y), P.trapezoid(x[0])],
+      [A([[1, 2], [3, 4]]), A([[1, 2], [0, 1]]), A([[2, 1], [1, 3]])], low=False),
+    # ---- Open 5: operands of different dtypes promote as jnp.promote_types ----
+    C("add_bf16_zero_d_f32", lambda P, x, s: P.add(P.cast(x, "bfloat16"), s),
+      [N(3), A(np.float32(1.5))], low=False),
+    C("binary_f16_zero_d_f32", lambda P, x, s: [
+        P.multiply(P.cast(x, "float16"), s), P.maximum(P.cast(x, "float16"), s),
+        P.subtract(s, P.cast(x, "bfloat16")), P.divide(P.cast(x, "bfloat16"), s)],
+      [N(3), A(np.float32(0.25))], low=False),
+    C("pow_bf16_zero_d_f32", lambda P, x, s: P.pow(P.cast(x, "bfloat16"), s),
+      [U((3,), 0.5, 2.0), A(np.float32(2.0))], low=False),
+    C("where_bf16_f32", lambda P, m, x, s: P.where(m, P.cast(x, "bfloat16"), s),
+      [B(3), N(3), A(np.float32(-1.0))], low=False),
+    C("add_int32_zero_d_int64", lambda P, x, s: P.add(P.cast(x, "int32"), s),
+      [I((3,), -5, 5), A(np.int64(7))], low=False),
+    C("matmul_f16_f32", lambda P, x, y: P.matmul(P.cast(x, "float16"), y),
+      [N(1, 3), N(3, 1)], low=False),
+    C("matmul_f16_bf16", lambda P, x, y: P.matmul(P.cast(x, "float16"),
+                                                 P.cast(y, "bfloat16")),
+      [N(1, 3), N(3, 1)], low=False),
 ]
 
 
@@ -558,6 +629,17 @@ def test_op_matches_jax_bfloat16(fn, inputs, low, grad, rtol, atol):
     for j, t in zip(jout, tout):
         assert _dtype(t) == _dtype(j)
         np.testing.assert_allclose(_np(t), _np(j), rtol=BF16_RTOL, atol=BF16_ATOL)
+
+
+@pytest.mark.parametrize("name", ["rsqrt", "sigmoid"])
+@pytest.mark.parametrize("dtype", ["int32", "int64", "bool"])
+def test_integer_inputs_raise_where_jax_raises(name, dtype):
+    """ROADMAP Queue C Open 4: jax's rsqrt and sigmoid refuse integer (and
+    bool) inputs with TypeError; so do the port's."""
+    x = np.array([1, 2, 4]).astype(dtype)
+    for P in (paddle, T):
+        with pytest.raises(TypeError):
+            getattr(P, name)(P.to_tensor(x, place="cpu"))
 
 
 class TestPaddleArguments:

@@ -1,8 +1,8 @@
 """The port's tensor core (``to_tensor``, dtypes, ``set_default_dtype``,
 ``seed``, flags and the device rule) against the JAX package's, with the
 cases of tests/test_tensor.py that apply to a package whose tensor is
-``torch.Tensor`` (indexing and the random samplers wait for their modules,
-ROADMAP Queue A item 6)."""
+``torch.Tensor``; indexing and the random samplers are held in
+test_torch_indexing.py and test_torch_random.py."""
 import numpy as np
 import pytest
 import torch
