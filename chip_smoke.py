@@ -30,13 +30,15 @@ Phases, each a hard check (the script exits nonzero on the first failure):
      rowsum(dO * O)) and the dk/dv kernel against the plain backward on the
      card, at the training shapes and the edge cases, head dims 32, 64, 96,
      128 and 256 (phase 13's widths at the training shape), a padded 80 in
-     bf16, fp16 and fp32, and views TMA cannot read (q, dO: the wrapper
-     copies them and launches the same kernels once each), with a
-     norm-relative tolerance per
+     bf16, fp16 and fp32, and views TMA cannot read (q, dO, and an fp32 q:
+     the kernels read every input by TMA at every dtype, so the wrapper
+     copies such a view once and launches the same kernels once each), with
+     a norm-relative tolerance per
      dtype; the fused delta against the plain one at the timed shapes; times
      of each kernel, the whole backward, the plain version and torch's
      flash-attention backward (a yardstick only) beside the least time the
-     card could take.
+     card could take; the fp32 (3xTF32) kernels also beside their
+     tensor-core bound, at phase 17 (a)'s shape causal and not.
   6. training at full width: the flagship in bf16 with per-layer recompute,
      AdamW(multi_precision) at lr 1e-4, batch 8 x 2048, the same batch every
      step. Launch counts are set to 0 before one step and read after it:
@@ -281,6 +283,7 @@ import time
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_TC_FLOPS = 989e12     # bf16 / fp16 tensor cores
 PEAK_FP32_FLOPS = 67e12    # fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12   # tf32 tensor cores: the fp32 backward's 3xTF32 runs three passes
 PEAK_HBM_BYTES = 3.35e12
 
 # kernel vs plain version: |kernel - plain| <= TOL * max(1, |plain|), i.e.
@@ -302,7 +305,10 @@ TOL_DELTA = 1e-5
 # both round the gradient to the input dtype at the end. bf16 rounds at
 # 2**-9 relative, so each of those roundings adds ~2e-3 of relative error
 # with random signs; 2e-2 leaves room for five of them lining up. fp16 rounds
-# at 2**-12 (~2.4e-4). fp32 differs only in summation order and exp.
+# at 2**-12 (~2.4e-4). fp32 runs its products as 3xTF32 on the tensor cores:
+# each ~2**-21 relative (the dropped lo * lo term and lo's truncation to
+# tf32) with the tensor cores' fp32 accumulation: 2e-6-2.3e-5 on an H100
+# (PERF.md), where CUDA-core kernels read ~1e-7.
 TOL_BWD = {"bfloat16": 2e-2, "float16": 5e-3, "float32": 1e-4}
 
 # training, card (kernels, cuBLAS) vs CPU twin (plain versions), fp32
@@ -461,9 +467,10 @@ def visible_pairs(Sq, Sk, causal):
     return sum(min(Sk, i + off + 1) for i in range(Sq))
 
 
-def bound_ms(flops, nbytes, tensor_cores):
-    """Least time for the card: max(flops / peak, bytes / HBM rate)."""
-    t_ops = flops / (PEAK_TC_FLOPS if tensor_cores else PEAK_FP32_FLOPS)
+def bound_ms(flops, nbytes, tensor_cores, peak=None):
+    """Least time for the card: max(flops / peak, bytes / HBM rate); the peak
+    is the bf16/fp16 tensor cores', fp32 outside them, or ``peak``."""
+    t_ops = flops / (peak or (PEAK_TC_FLOPS if tensor_cores else PEAK_FP32_FLOPS))
     t_bytes = nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
@@ -476,7 +483,7 @@ def attention_bound_ms(B, Sq, Sk, Hq, Hkv, D, causal, elt, tensor_cores):
     return bound_ms(flops, nbytes, tensor_cores)
 
 
-def backward_bounds_ms(B, Sq, Sk, Hq, Hkv, D, causal, elt, tensor_cores):
+def backward_bounds_ms(B, Sq, Sk, Hq, Hkv, D, causal, elt, tensor_cores, peak=None):
     """(dq bound, dk/dv bound), each (ms, bound_by). dq: three D-deep products
     (S, dP, dQ), 6 D flops per visible pair (delta's D a row is negligible);
     reads q, dO, O, k, v, LSE, writes dq and delta. dk/dv: four products (S,
@@ -484,9 +491,16 @@ def backward_bounds_ms(B, Sq, Sk, Hq, Hkv, D, causal, elt, tensor_cores):
     dk, dv."""
     pairs = visible_pairs(Sq, Sk, causal) * B * Hq
     qsize, ksize, rows = B * Sq * Hq * D * elt, B * Sk * Hkv * D * elt, 8 * B * Hq * Sq
-    dq = bound_ms(6.0 * D * pairs, 4 * qsize + 2 * ksize + rows, tensor_cores)
-    dkv = bound_ms(8.0 * D * pairs, 2 * qsize + 4 * ksize + rows, tensor_cores)
+    dq = bound_ms(6.0 * D * pairs, 4 * qsize + 2 * ksize + rows, tensor_cores, peak)
+    dkv = bound_ms(8.0 * D * pairs, 2 * qsize + 4 * ksize + rows, tensor_cores, peak)
     return dq, dkv
+
+
+def backward_bounds_tf32x3_ms(B, Sq, Sk, Hq, Hkv, D, causal):
+    """The fp32 backward kernels' tensor-core bound: the same work and bytes,
+    each product three TF32 passes (3xTF32) at 495 TFLOP/s."""
+    return backward_bounds_ms(B, Sq, Sk, Hq, Hkv, D, causal, 4, True,
+                              peak=PEAK_TF32_FLOPS / 3)
 
 
 def ptxas_summary(log):
@@ -794,6 +808,8 @@ def phase_backward(torch, fa):
         ("training_fp16", 8, 2048, 2048, 16, 16, 128, "float16", True, True),
         # phase 17 (a)'s master-grad pullbacks: the fp32 kernels at that shape
         ("master_grad_fp32", 8, 2048, 2048, 16, 16, 128, "float32", True, True),
+        # the same without the causal mask: no block skips a tile
+        ("master_grad_fp32_noncausal", 8, 2048, 2048, 16, 16, 128, "float32", False, True),
         ("long_b1", 1, 2048, 2048, 16, 16, 128, "bfloat16", True, True),
         ("gqa_hkv4", 2, 512, 512, 16, 4, 128, "bfloat16", True, False),
         ("mqa_hkv1", 2, 512, 512, 16, 1, 128, "bfloat16", True, False),
@@ -827,6 +843,8 @@ def phase_backward(torch, fa):
         ("d80_padded_fp16", 2, 300, 300, 8, 8, 80, "float16", True, False),
         ("d80_padded_fp32", 1, 256, 256, 4, 4, 80, "float32", True, False),
         ("unaligned_do_d96", 2, 256, 256, 16, 4, 96, "bfloat16", True, False),
+        # the fp32 kernels read by TMA too: an unaligned fp32 q is copied once
+        ("unaligned_q_fp32", 2, 256, 256, 16, 4, 128, "float32", True, False),
     ]
     checks, rows = [], {}
     for name, B, Sq, Sk, Hq, Hkv, D, dt, causal, timed in cases:
@@ -836,7 +854,7 @@ def phase_backward(torch, fa):
         k = torch.randn(B, Sk, Hkv, D, device="cuda", generator=gen).to(dtype)
         v = torch.randn(B, Sk, Hkv, D, device="cuda", generator=gen).to(dtype)
         do = torch.randn(B, Sq, Hq, D, device="cuda", generator=gen).to(dtype)
-        if name == "unaligned_q":
+        if name.startswith("unaligned_q"):
             q = unaligned(torch, (B, Sq, Hq, D), dtype, gen)
         if name.startswith("unaligned_do"):
             do = unaligned(torch, (B, Sq, Hq, D), dtype, gen)
@@ -904,6 +922,16 @@ def phase_backward(torch, fa):
                                                        row["dkv_bound_by"]) = (
                 backward_bounds_ms(B, Sq, Sk, Hq, Hkv, D, causal, q.element_size(),
                                    dtype != torch.float32))
+            if dtype == torch.float32:
+                # beside the fp32 (CUDA-core) bound, the 3xTF32 tensor-core
+                # one the kernels run against, and the share of each reached
+                (row["dq_bound_tf32x3_ms"], row["dq_bound_tf32x3_by"]), (
+                    row["dkv_bound_tf32x3_ms"], row["dkv_bound_tf32x3_by"]) = (
+                    backward_bounds_tf32x3_ms(B, Sq, Sk, Hq, Hkv, D, causal))
+                for key in ("dq", "dkv"):
+                    row[f"{key}_share_of_fp32_bound"] = row[f"{key}_bound_ms"] / row[f"{key}_ms"]
+                    row[f"{key}_share_of_tf32x3_bound"] = (row[f"{key}_bound_tf32x3_ms"]
+                                                           / row[f"{key}_ms"])
             rows[name] = row
         print("backward_check " + json.dumps(row), flush=True)
         checks.append(row)
@@ -5006,10 +5034,12 @@ def main():
             bound_ms=b16[f"{key}_bound_ms"], bound_by=b16[f"{key}_bound_by"],
             library_ms=b16["library_ms"], backward_ms=b16["bwd_ms"], shape=b16["shape"],
             dtype=b16["dtype"]))
-    # kernels 1-3's float32 variants (fa_fwd_f32, the F32Tile dq and dk/dv)
+    # kernels 1-3's float32 variants (fa_fwd_f32, the 3xTF32 dq and dk/dv)
     # at phase 17 (a)'s shape: times from phases 2 and 5 (sdpa and its
-    # backward in float32 as the library calls), launches from 17 (a)
+    # backward in float32 as the library calls), launches from 17 (a); the
+    # backward's also without the causal mask
     f32, b32 = fwd_rows["master_grad_fp32"], bwd_rows["master_grad_fp32"]
+    b32n = bwd_rows["master_grad_fp32_noncausal"]
     mg_f32 = master["training"]["launches_f32"]
     f32_kernels = [dict(
         name="flash_attention_fwd_f32", route="cuda",
@@ -5032,8 +5062,18 @@ def main():
             norm_rel_err=max(b32[f"{g}_err"] for g in grads), tol=b32["tol"],
             ms=b32[f"{key}_ms"], call_ms=b32[f"{key}_call_ms"], plain_ms=b32["plain_ms"],
             bound_ms=b32[f"{key}_bound_ms"], bound_by=b32[f"{key}_bound_by"],
+            bound_tf32x3_ms=b32[f"{key}_bound_tf32x3_ms"],
+            bound_tf32x3_by=b32[f"{key}_bound_tf32x3_by"],
+            share_of_fp32_bound=b32[f"{key}_share_of_fp32_bound"],
+            share_of_tf32x3_bound=b32[f"{key}_share_of_tf32x3_bound"],
             library_ms=b32["library_ms"], backward_ms=b32["bwd_ms"], shape=b32["shape"],
-            dtype=b32["dtype"]))
+            dtype=b32["dtype"],
+            noncausal=dict(
+                ms=b32n[f"{key}_ms"], plain_ms=b32n["plain_ms"],
+                bound_ms=b32n[f"{key}_bound_ms"],
+                bound_tf32x3_ms=b32n[f"{key}_bound_tf32x3_ms"],
+                library_ms=b32n["library_ms"], backward_ms=b32n["bwd_ms"],
+                norm_rel_err=max(b32n[f"{g}_err"] for g in grads))))
     print(json.dumps({"kernels": [kernel] + bwd_kernels + [axpy_kernel] + dim_kernels
                       + fp16_kernels + f32_kernels}), flush=True)
     print(nvidia_smi(), flush=True)

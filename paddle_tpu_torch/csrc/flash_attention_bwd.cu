@@ -77,9 +77,52 @@
 // fp32 atomics (FA2/FA3: it drops the recompute of S and dP, 14 D to 10 D
 // flops a pair, but gives up the deterministic two-kernel split).
 //
-// fp32 inputs run on CUDA cores in full fp32 (no TF32), four threads per row
-// (64-row tiles, 32 at D = 256); the fp32 dq kernel computes delta for its
-// rows too.
+// fp32 (`fa_bwd_dq_tf32`, `fa_bwd_dkv_tf32`, the same head dims), on the
+// tensor cores with 3xTF32, which keeps fp32's accuracy (one TF32 pass keeps
+// ~3 decimal digits and is not used):
+//   * operations: each product is three tf32 passes, a_hi b_lo + a_lo b_hi +
+//     a_hi b_hi in fp32, so the bound is the tensor cores' 495 TFLOP/s over
+//     three passes, ~165 TFLOP/s of fp32 work (6 D flops a visible pair in
+//     dq, 8 D in dk/dv, as above). The score products S = Q K^T and dP =
+//     dO V^T (dk/dv: S^T = K Q^T, dP^T = V dO^T) run on tf32 wgmma: A (Q, dO;
+//     K, V) from registers, split there (hi rounded to nearest, lo = x - hi),
+//     B (the streamed K, V; Q, dO tile) from shared memory, where the tensor
+//     cores read the fp32 words truncated to tf32 (hi) and a lo plane (x -
+//     trunc(x)) that the block writes once a tile. tf32 wgmma reads B only
+//     K-major (no transpose bit below 16 bits), so dQ += dS K, dV += P^T dO
+//     and dK += dS^T Q, whose B (K, dO, Q) is MN-major, run on
+//     mma.sync.m16n8k8: S and dP, as the wgmma accumulators lie, are their A
+//     fragments in a permuted contraction order (see `sw`), and B is read as
+//     32-bit words from the tile and its lo plane. P and dS never leave
+//     registers. Each warp owns 16 rows (dq: queries; dk/dv: keys) of a
+//     256-thread block of 128 rows, kN = 32 keys (queries) a tile; at
+//     D = 256 two warpgroups take the same 64 rows, each summing half of dQ
+//     (dK, dV) and each computing S and dP (kN = 16).
+//   * bytes: Q, K, V, dO come by TMA with the 128-byte swizzle (32-column
+//     atoms) into a ring of two stages with full/empty mbarriers, as in the
+//     16-bit kernels, so every input must be 16-byte aligned with 16-byte
+//     strides (the wrapper's one alignment copy); the wgmma A fragments are
+//     ldmatrix reads, the MN-major B words 32-bit reads, all free of bank
+//     conflicts. The dq kernel computes delta from dO in shared memory and O
+//     read directly while the first K/V tiles arrive.
+//   * order: the grid is (heads x batch, tiles) with the tile index slowest,
+//     so every head's longest causal tile (dq: the last query rows; dk/dv:
+//     the first keys) is issued before any head's next one.
+//   On an H100 (700 W) at B8 S2048 H16 D128 causal, chip_smoke.py phase 5
+//   reads dq 3.3 ms and dk/dv 5.2 (38% and 32% of the 3xTF32 bound) and
+//   torch's memory-efficient fp32 backward 10.4 for both; the CUDA-core
+//   kernels they replace took 28.6 and 23.7 (tools/flash_bwd_ab.py). Each
+//   step of the design was kept over the one before in a same-card A/B:
+//   every product on mma.sync (slower than torch's pair), the score products
+//   on wgmma, B of the mma.sync products from the lo planes instead of split
+//   in registers, one A set in dk/dv. Slower and not kept: lo rounded by a
+//   second cvt.rna (the same error); 32-bit reads where ldmatrix reads; dk/dv
+//   with two warps a 16-key group (one for S^T, P^T and dV, one for dP^T and
+//   dK, P^T passed through shared memory: 16 warps at 128 registers, which
+//   spill more); kN = 16 in dk/dv; the mma.sync loops rolled or unrolled by
+//   2 (no spills, dq slower). Left for later: the MN-major products on wgmma
+//   need transposed hi/lo copies of K (dO, Q), which do not fit beside two
+//   stages at D = 128.
 #include "flash_attention_common.cuh"
 #include "hopper.cuh"
 
@@ -97,6 +140,8 @@ struct BwdParams {
   void* dq;                         // contiguous (B, Sq, Hq, D)
   void* dk;                         // contiguous (B, Sk, Hkv, D)
   void* dv;
+  const float* o;                   // fp32 dq: O, read directly for delta
+  long long o_sb, o_ss, o_sh;
   int Hq, Hkv, Sq, Sk;
   float scale;
   int causal;
@@ -594,17 +639,96 @@ fa_bwd_dkv_wgmma(const __grid_constant__ BwdParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// fp32: CUDA cores, full fp32 arithmetic
+// fp32: 3xTF32 on the tensor cores (tf32 wgmma and mma.sync m16n8k8)
 // ---------------------------------------------------------------------------
-// 64-row tiles, 256 threads (four a row); 32-row tiles and 128 threads at
-// D = 256, where 64-row tiles of Q, dO, K and V take 279,808 bytes of shared
-// memory in dq (more in dk/dv), above a block's 227 KB
-template <int D>
-struct F32Tile {
-  static constexpr int kM = D > 128 ? 32 : 64;  // dq: query rows a block; dk/dv: keys a block
-  static constexpr int kN = kM;                 // dq: keys a k/v tile; dk/dv: queries a q tile
-  static constexpr int kThreads = 4 * kM;
+// An A operand x (registers) is split into hi = tf32(x), rounded to nearest
+// with ties away (cvt.rna), and lo = x - hi, exact in fp32; a B operand
+// (shared memory) into hi = trunc(x), the fp32 word itself, and lo = x -
+// trunc(x), its lo plane. The tensor cores read every operand word's top 19
+// bits (tf32 by truncation). A product accumulates a_hi b_lo + a_lo b_hi +
+// a_hi b_hi in fp32, the small terms first (CUTLASS's OpMultiplyAddFastF32);
+// a_lo b_lo, ~2^-21 of the product, is dropped.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));  // the tensor cores read its top 19 bits
+}
+
+// c (m16 x n8, fp32) += a (m16 x k8, tf32) b (k8 x n8, tf32)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An A fragment split once and used against several B fragments
+struct FragA {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ void split(float x0, float x1, float x2, float x3) {
+    split_tf32(x0, hi[0], lo[0]);
+    split_tf32(x1, hi[1], lo[1]);
+    split_tf32(x2, hi[2], lo[2]);
+    split_tf32(x3, hi[3], lo[3]);
+  }
 };
+
+// c += a b in 3xTF32 (mma.sync): b's two elements as fp32 words of a tile in
+// shared memory, h0, h1 (the tensor cores read them truncated to tf32), and of
+// its lo plane, l0, l1 (x - trunc(x))
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, float h0, float h1,
+                                     float l0, float l1) {
+  mma_tf32(c, a.hi, __float_as_uint(l0), __float_as_uint(l1));
+  mma_tf32(c, a.lo, __float_as_uint(h0), __float_as_uint(h1));
+  mma_tf32(c, a.hi, __float_as_uint(h0), __float_as_uint(h1));
+}
+
+// An fp32 (R, D) tile as TMA writes it with the 128-byte swizzle: D / 32
+// column atoms of R rows x 128 bytes, atom a at a R 128 bytes; the 16-byte
+// chunk j of row r lies at chunk j ^ (r % 8). Float offset of (r, c):
+template <int R>
+__device__ __forceinline__ int sw(int r, int c) {
+  return ((c >> 5) * R + r) * 32 + ((c & 31) ^ ((r & 7) << 2));
+}
+// Fragment reads, lane = 4 g + t: an A fragment whose contraction dim is the
+// tile's columns (K-major) is one ldmatrix of 8 x 16-byte matrices, whose 8
+// rows (r % 8 = 0..7) sit in 8 different chunks: one pass over the banks. A B
+// fragment whose contraction dim is the tile's rows (MN-major: dQ = dS K,
+// dV = P^T dO, dK = dS^T Q) reads rows 8 k + 2 t, 8 k + 2 t + 1 and column
+// 8 n + g: word g ^ 4 (2 t + {0, 1}) of chunk group n, 32 banks. Those rows
+// are the contraction order that makes an m16n8 (or wgmma m64) accumulator,
+// columns 2 t, 2 t + 1 of each n8 group, the A fragment of the next product
+// as it lies (a0..a3 = c0, c2, c1, c3), so P and dS never leave registers.
+
+// ldmatrix of four 8 x 16-byte matrices: lane l gives the address of row
+// l % 8 of matrix l / 8 and gets word l % 4 of row l / 4 of each, which for
+// fp32 is a0 of an m16n8k8 (or wgmma m64k8) A fragment: rows 8 i + g,
+// column t
+__device__ __forceinline__ void ldsm4(uint32_t addr, float (&x)[4]) {
+  uint32_t r0, r1, r2, r3;
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(addr));
+  x[0] = __uint_as_float(r0);
+  x[1] = __uint_as_float(r1);
+  x[2] = __uint_as_float(r2);
+  x[3] = __uint_as_float(r3);
+}
+
+// The A fragment of rows [r0, r0 + 16) and columns [c0, c0 + 8) of an (R, D)
+// tile at shared address `tile` (K-major): matrices (rows +0, cols +0),
+// (+8, +0), (+0, +4), (+8, +4) are a0..a3
+template <int R>
+__device__ __forceinline__ void load_a(FragA& a, uint32_t tile, int r0, int c0, int lane) {
+  float x[4];
+  ldsm4(tile + 4 * sw<R>(r0 + lane % 8 + 8 * ((lane / 8) % 2), c0 + 4 * (lane / 16)), x);
+  a.split(x[0], x[1], x[2], x[3]);
+}
 
 struct Params {
   const void* q;
@@ -627,216 +751,560 @@ struct Params {
   int causal;
 };
 
-// Four threads per row of the block's kM rows. Thread (r, c) owns score
-// columns c, c+4, ... of its row and output dims c, c+4, ...; odd pitches
-// keep the column walks free of bank conflicts.
-template <int D>
-__device__ __forceinline__ void load_rows_f32(float* dst, const float* src, long long stride,
-                                              int r0, int nrows, float mul) {
-  constexpr int LD = D + 1;
-  for (int i = threadIdx.x; i < F32Tile<D>::kM * D; i += F32Tile<D>::kThreads) {
-    const int rr = i / D, d = i % D;
-    const int gr = r0 + rr;
-    dst[rr * LD + d] = gr < nrows ? src[(long long)gr * stride + d] * mul : 0.f;
+// tf32 wgmma, A from registers (the m16n8k8 A fragment of each warp's 16
+// rows), B from shared memory K-major: d (m64 x N) (+)= a b; scale_d = 0
+// overwrites d. The tensor cores read B's fp32 words as tf32 by truncation.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8], const uint32_t (&a)[4], uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// The K-major descriptor of k8 step kk of an fp32 (R, D) tile (tma_load_f32's
+// layout: 32-column atoms of R rows x 128 bytes, 128-byte swizzle)
+template <int R>
+__device__ __forceinline__ uint64_t f32_kmajor_desc(uint32_t tile, int kk) {
+  return wgmma_desc(tile + (kk / 4) * R * 128 + (kk % 4) * 32, 16, 1024, 1);
+}
+
+// Keep an A fragment in its registers across an asynchronous wgmma that reads
+// it (the compiler takes an asm input as read at issue).
+__device__ __forceinline__ void fence_frag(FragA& a) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a.hi[i]), "+r"(a.lo[i]) :: "memory");
+}
+
+// the tf32 the tensor cores read of x: its top 19 bits
+__device__ __forceinline__ float tf32_trunc(float x) {
+  return __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+}
+
+// order this thread's shared-memory writes before later async-proxy (wgmma,
+// TMA) reads of them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The lo planes of a stage's two B tiles (the streamed K, V or Q, dO): x -
+// (x as the tensor cores read it), in the tiles' own layout, written by the
+// whole block and made visible to the wgmmas. The caller's barrier before it
+// ensures the last tile's wgmmas are done with the buffer.
+template <int kBytes, int kThreads>
+__device__ __forceinline__ void write_lo_planes(float* lo, const float* tiles, int tid) {
+  const float4* const src = reinterpret_cast<const float4*>(tiles);
+  float4* const dst = reinterpret_cast<float4*>(lo);
+  static_assert(kBytes % (16 * kThreads) == 0, "whole float4s a thread");
+#pragma unroll
+  for (int c = 0; c < kBytes / 16 / kThreads; ++c) {
+    const int i = c * kThreads + tid;
+    const float4 x = src[i];
+    dst[i] = make_float4(x.x - tf32_trunc(x.x), x.y - tf32_trunc(x.y), x.z - tf32_trunc(x.z),
+                         x.w - tf32_trunc(x.w));
+  }
+  fence_proxy_async();
+  __syncthreads();
+}
+
+// The two score-like products of a warpgroup's 64 rows and a streamed tile's
+// N rows, in 3xTF32 on tf32 wgmma: s = A0 B0^T, d = A1 B1^T (dq: S = Q K^T,
+// dP = dO V^T; dk/dv: S^T = K Q^T, dP^T = V dO^T). A0, A1: the kept (R, D)
+// tiles at a0, a1, the warp's rows from r0, split in registers per k8 step;
+// B0, B1: the stage's tiles at b0, b1 and their lo planes at lo0, lo1.
+// kSets A sets in turn: with two, step kk's loads overlap step kk - 1's
+// wgmmas.
+template <int kSets, int R, int N, int D>
+__device__ __forceinline__ void score_products(float (&s)[N / 2], float (&d)[N / 2], uint32_t a0,
+                                               uint32_t a1, uint32_t b0, uint32_t b1,
+                                               uint32_t lo0, uint32_t lo1, int r0, int lane) {
+  FragA fa[kSets], fb[kSets];
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    // set kk % kSets was last read by step kk - kSets's wgmmas, done since
+    // the wait at step kk - kSets + 1
+    FragA& x = fa[kk % kSets];
+    FragA& y = fb[kk % kSets];
+    load_a<R>(x, a0, r0, 8 * kk, lane);
+    load_a<R>(y, a1, r0, 8 * kk, lane);
+    wgmma_fence();
+    fence_regs(s);
+    fence_regs(d);
+    wgmma_tf32(s, x.hi, f32_kmajor_desc<N>(lo0, kk), kk > 0);
+    wgmma_tf32(s, x.lo, f32_kmajor_desc<N>(b0, kk), 1);
+    wgmma_tf32(s, x.hi, f32_kmajor_desc<N>(b0, kk), 1);
+    wgmma_tf32(d, y.hi, f32_kmajor_desc<N>(lo1, kk), kk > 0);
+    wgmma_tf32(d, y.lo, f32_kmajor_desc<N>(b1, kk), 1);
+    wgmma_tf32(d, y.hi, f32_kmajor_desc<N>(b1, kk), 1);
+    wgmma_commit();
+    wgmma_wait<kSets - 1>();
+    // the set read by the step now done stays in its registers until here
+    fence_frag(fa[(kk + 1) % kSets]);
+    fence_frag(fb[(kk + 1) % kSets]);
+  }
+  wgmma_wait<0>();
+  fence_regs(s);
+  fence_regs(d);
+}
+
+// Store a warp's fp32 m16 x (8 kAccT) accumulator rows row[0], row[1]
+// (skipped at or past nrows) at base + row * stride, columns 2 t, 2 t + 1 of
+// each n8 group
+template <int kAccT>
+__device__ __forceinline__ void store_rows_f32(float* base, long long stride, const int (&row)[2],
+                                               int nrows, const float (&acc)[kAccT][4], int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= nrows) continue;
+    float* const out = base + (long long)row[r] * stride + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kAccT; ++n)
+      *reinterpret_cast<float2*>(out + 8 * n) = make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
   }
 }
 
+// dq's fp32 tiles. kRows: the query rows a block keeps in shared memory (Q
+// and dO) for the whole loop, a warpgroup of four warps for each 64; at
+// D = 256 two warpgroups take the same 64 rows, each computing their S and
+// dP and summing half of the columns of dQ (dQ of 16 rows x 256 would be 128
+// registers a thread beside S and dP); kN: keys of a streamed K/V tile. The
+// lo planes (x - tf32(x)) of the tile's K and V, which the S and dP wgmmas
+// read, have one buffer: the block rebuilds it at the top of each tile.
 template <int D>
-__global__ void __launch_bounds__(F32Tile<D>::kThreads)
-fa_bwd_dq_f32(const Params p) {
-  constexpr int kF32BlockM = F32Tile<D>::kM;
-  constexpr int kF32BlockN = F32Tile<D>::kN;
-  constexpr int LD = D + 1;
-  constexpr int LDP = kF32BlockN + 1;
-  constexpr int kCols = kF32BlockN / 4;
-  constexpr int kDims = D / 4;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);  // pre-scaled by scale
-  float* sdO = sQ + kF32BlockM * LD;
-  float* sK = sdO + kF32BlockM * LD;
-  float* sV = sK + kF32BlockN * LD;
-  float* sS = sV + kF32BlockN * LD;  // dS
+struct F32DqLayout {
+  static constexpr bool kWide = D > 128;
+  static constexpr int kSplit = kWide ? 2 : 1;
+  static constexpr int kRows = kWide ? 64 : 128;
+  static constexpr int kN = kWide ? 16 : 32;
+  static constexpr int kThreads = 256;
+  static constexpr int kAccN = D / kSplit;                      // dQ columns a warp
+  static constexpr int kResBytes = kRows * D * 4;               // one of Q, dO
+  static constexpr int kTileBytes = kN * D * 4;                 // one of K, V
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kStage0 = 2 * kResBytes;
+  static constexpr int kLoOffset = kStage0 + kStages * kStageBytes;   // K_lo, V_lo
+  static constexpr int kDeltaOffset = kLoOffset + kStageBytes;        // float[kRows]
+  static constexpr int kBarOffset = kDeltaOffset + kRows * 4;
+  static constexpr size_t kSmem = (size_t)kBarOffset + 8 * (2 * kStages + 1) + 1024;
+  static_assert(D % 32 == 0, "tiles are whole 32-column atoms");
+  static_assert(kThreads == 32 * (kRows / 16) * kSplit, "a warp for each 16 rows (and half)");
+  static_assert(kSmem <= 232448, "a block's shared memory is 227 KB");
+};
 
-  const int n_qtiles = (p.Sq + kF32BlockM - 1) / kF32BlockM;
-  const int q0 = (n_qtiles - 1 - blockIdx.x) * kF32BlockM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+// dq: kRows query rows of one (b, q head) a block, kN-key K/V tiles streamed
+// by TMA. S = Q K^T and dP = dO V^T run on tf32 wgmma (3 passes: Q_hi K_lo,
+// Q_lo K_hi, Q_hi K_hi, K_hi = the tile as the tensor cores truncate it),
+// dQ += dS K on mma.sync (K MN-major)
+template <int D>
+__global__ void __launch_bounds__(F32DqLayout<D>::kThreads, 1)
+fa_bwd_dq_tf32(const __grid_constant__ BwdParams p) {
+  using L = F32DqLayout<D>;
+  constexpr int R = L::kRows;
+  constexpr int N = L::kN;
+  constexpr int kNT = N / 8;             // n8 groups of the S and dP tiles
+  constexpr int kAccT = L::kAccN / 8;    // n8 groups of dQ a warp
+  constexpr int kThreads = L::kThreads;
+  constexpr int kPerRow = kThreads / R;  // threads a row in the delta prologue
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const smem = smem_raw + (base - raw);
+  const float* const fbase = reinterpret_cast<const float*>(smem);
+  const float* const sdO = fbase + R * D;
+  float* const sLo = reinterpret_cast<float*>(smem + L::kLoOffset);
+  float* const sDelta = reinterpret_cast<float*>(smem + L::kDeltaOffset);
+  const uint32_t uLo = base + L::kLoOffset;
+  const uint32_t bars = base + L::kBarOffset;
+  // full[s] = bars + 8 s, empty[s] = bars + 8 (kStages + s), Q/dO = bars + 16 kStages
+  const uint32_t q_bar = bars + 16 * kStages;
+
+  // every head's longest tile before any head's next one
+  const int n_qtiles = (p.Sq + R - 1) / R;
+  const int q0 = (n_qtiles - 1 - (int)blockIdx.y) * R;
+  const int h = blockIdx.x % p.Hq;
+  const int b = blockIdx.x / p.Hq;
   const int hk = h / (p.Hq / p.Hkv);
-  const int lr = threadIdx.x / 4;
-  const int c4 = threadIdx.x % 4;
-  const int r = q0 + lr;
-
-  const float* Qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* dOg = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const float* Og = static_cast<const float*>(p.o) + b * p.o_sb + h * p.o_sh;
-  const float* Kg = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const float* Vg = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  load_rows_f32<D>(sQ, Qg, p.q_ss, q0, p.Sq, p.scale);
-  load_rows_f32<D>(sdO, dOg, p.do_ss, q0, p.Sq, 1.f);
-
-  // delta = rowsum(dO * O), the row's four threads a quarter each
-  float dlt = 0.f;
-  if (r < p.Sq) {
-#pragma unroll
-    for (int i = 0; i < kDims; ++i)
-      dlt += dOg[(long long)r * p.do_ss + c4 + 4 * i] * Og[(long long)r * p.o_ss + c4 + 4 * i];
-  }
-  dlt += __shfl_xor_sync(0xffffffffu, dlt, 1);
-  dlt += __shfl_xor_sync(0xffffffffu, dlt, 2);
-  const long long idx = ((long long)b * p.Hq + h) * p.Sq + r;
-  if (c4 == 0 && r < p.Sq) p.delta[idx] = dlt;
-  const float lse = r < p.Sq ? p.lse[idx] : 0.f;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int wg = warp / 4;                         // warpgroup
+  const int wg_r0 = L::kSplit == 1 ? 64 * wg : 0;  // its first row in the block
+  const int wr0 = wg_r0 + 16 * (warp % 4);         // the warp's first row
+  const int col0 = L::kSplit == 1 ? 0 : wg * L::kAccN;
+  const int wq0 = q0 + wg_r0;
   const int offset = p.Sk - p.Sq;
-  float acc[kDims];
-#pragma unroll
-  for (int i = 0; i < kDims; ++i) acc[i] = 0.f;
 
-  const int n_tiles = (kv_limit(q0, kF32BlockM, p.Sq, p.Sk, p.causal) + kF32BlockN - 1) /
-                      kF32BlockN;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kF32BlockN;
-    __syncthreads();
-    load_rows_f32<D>(sK, Kg, p.k_ss, k0, p.Sk, 1.f);
-    load_rows_f32<D>(sV, Vg, p.v_ss, k0, p.Sk, 1.f);
-    __syncthreads();
+  const int n_tiles = (kv_limit(q0, R, p.Sq, p.Sk, p.causal) + N - 1) / N;
+  const int wg_tiles = wq0 >= p.Sq ? 0 : (kv_limit(wq0, 64, p.Sq, p.Sk, p.causal) + N - 1) / N;
 
-    float s[kCols], dp[kCols];
+  auto stage_k = [&](int s) { return base + L::kStage0 + s * L::kStageBytes; };
+  auto load_kv = [&](int j) {  // tile j into stage j % kStages
+    const int s = j % kStages;
+    const uint32_t full = bars + 8 * s;
+    mbar_arrive_expect_tx(full, 2 * L::kTileBytes);
+    tma_load_f32<D>(stage_k(s), &p.tk, N, N, j * N, hk, b, full);
+    tma_load_f32<D>(stage_k(s) + L::kTileBytes, &p.tv, N, N, j * N, hk, b, full);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (kStages + s), kThreads);
+    }
+    mbar_init(q_bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect_tx(q_bar, 2 * L::kResBytes);
+    tma_load_f32<D>(base, &p.tq, R, R, q0, h, b, q_bar);
+    tma_load_f32<D>(base + L::kResBytes, &p.tdo, R, R, q0, h, b, q_bar);
+    for (int j = 0; j < kStages && j < n_tiles; ++j) load_kv(j);
+  }
+  __syncwarp();
+
+  // Prologue: delta = rowsum(dO * O) in fp32, kPerRow threads a row: dO from
+  // shared memory, O from global memory (16-byte rows: the wrapper's
+  // alignment rule), while the first K/V tiles stream in. Rows past Sq get 0.
+  mbar_wait(q_bar, 0);
+  {
+    constexpr int kCols = D / kPerRow;
+    const int r = tid / kPerRow;
+    const int part = tid % kPerRow;
+    const int row = q0 + r;
+    float sum = 0.f;
+    if (row < p.Sq) {
+      const float* og = p.o + (long long)b * p.o_sb + (long long)row * p.o_ss +
+                        (long long)h * p.o_sh + part * kCols;
 #pragma unroll
-    for (int jj = 0; jj < kCols; ++jj) s[jj] = dp[jj] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float qv = sQ[lr * LD + d];
-      const float ov = sdO[lr * LD + d];
-#pragma unroll
-      for (int jj = 0; jj < kCols; ++jj) {
-        s[jj] = fmaf(qv, sK[(c4 + 4 * jj) * LD + d], s[jj]);
-        dp[jj] = fmaf(ov, sV[(c4 + 4 * jj) * LD + d], dp[jj]);
+      for (int c = 0; c < kCols; c += 4) {
+        const float4 x = *reinterpret_cast<const float4*>(sdO + sw<R>(r, part * kCols + c));
+        const float4 y = *reinterpret_cast<const float4*>(og + c);
+        sum += x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
       }
     }
 #pragma unroll
-    for (int jj = 0; jj < kCols; ++jj) {
-      const int col = k0 + c4 + 4 * jj;
-      const bool ok = r < p.Sq && col < p.Sk && (!p.causal || col <= r + offset);
-      const float pe = ok ? expf(s[jj] - lse) : 0.f;
-      sS[lr * LDP + c4 + 4 * jj] = ok ? pe * (dp[jj] - dlt) * p.scale : 0.f;
+    for (int m = 1; m < kPerRow; m *= 2) sum += __shfl_xor_sync(0xffffffffu, sum, m);
+    if (part == 0) {
+      sDelta[r] = sum;
+      if (row < p.Sq) p.delta[((long long)b * p.Hq + h) * p.Sq + row] = sum;
     }
-    __syncwarp();  // the row's four threads share one warp
-    for (int c = 0; c < kF32BlockN; ++c) {
-      const float ds = sS[lr * LDP + c];
-      const float* kr = sK + c * LD + c4;
+  }
+  __syncthreads();
+
+  const int row[2] = {q0 + wr0 + g, q0 + wr0 + g + 8};
+  const float scale_log2 = p.scale * kLog2e;
+  float neg_lse[2], dlt[2];  // -LSE in log2 units (kBig past Sq: P = 0), delta
 #pragma unroll
-      for (int i = 0; i < kDims; ++i) acc[i] = fmaf(ds, kr[4 * i], acc[i]);
+  for (int r = 0; r < 2; ++r) {
+    neg_lse[r] = row[r] < p.Sq
+        ? -p.lse[((long long)b * p.Hq + h) * p.Sq + row[r]] * kLog2e : -kBig;
+    dlt[r] = sDelta[wr0 + g + 8 * r];
+  }
+  float acc[kAccT][4];
+#pragma unroll
+  for (int n = 0; n < kAccT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages;
+    const uint32_t parity = (j / kStages) & 1;
+    const uint32_t uK = stage_k(s);
+    mbar_wait(bars + 8 * s, parity);
+    __syncthreads();  // every warp is done with the last tile's lo planes
+    write_lo_planes<L::kStageBytes, kThreads>(sLo, fbase + (uK - base) / 4, tid);
+    if (j < wg_tiles) {
+      // S = Q K^T and dP = dO V^T for the warpgroup's 64 rows
+      float sc[N / 2], dp[N / 2];
+      score_products<2, R, N, D>(sc, dp, base, base + L::kResBytes, uK, uK + L::kTileBytes, uLo,
+                                 uLo + L::kTileBytes, wr0, lane);
+
+      // P = exp2(S scale log2e - LSE log2e): a thread holds rows row[0],
+      // row[1] (e >> 1) at columns 8 i + 2 t + (e & 1)
+      const int k0 = j * N;
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) sc[i] = fmaf(sc[i], scale_log2, neg_lse[(i >> 1) & 1]);
+      if ((k0 + N > p.Sk) || (p.causal && k0 + N - 1 > q0 + wr0 + offset)) {
+        int lim[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          lim[r] = (p.causal ? min(p.Sk, row[r] + offset + 1) : p.Sk) - k0 - 2 * t;
+#pragma unroll
+        for (int i = 0; i < kNT; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (8 * i + (e & 1) >= lim[e >> 1]) sc[4 * i + e] = kNegBig;
+      }
+      // dS = P (dP - delta) scale
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i)
+        dp[i] = fast_exp2(sc[i]) * (dp[i] - dlt[(i >> 1) & 1]) * p.scale;
+
+      // dQ += dS K: contraction over the tile's keys, K MN-major (and its
+      // lo plane)
+      const float* const sK = fbase + (uK - base) / 4;
+#pragma unroll
+      for (int kc = 0; kc < kNT; ++kc) {
+        FragA da;
+        da.split(dp[4 * kc], dp[4 * kc + 2], dp[4 * kc + 1], dp[4 * kc + 3]);
+#pragma unroll
+        for (int n = 0; n < kAccT; ++n) {
+          const int i0 = sw<N>(8 * kc + 2 * t, col0 + 8 * n + g);
+          const int i1 = sw<N>(8 * kc + 2 * t + 1, col0 + 8 * n + g);
+          mma3(acc[n], da, sK[i0], sK[i1], sLo[i0], sLo[i1]);
+        }
+      }
     }
+    // this thread is done with stage s; thread 0 refills it once every
+    // thread is
+    mbar_arrive(bars + 8 * (kStages + s));
+    if (tid == 0 && j + kStages < n_tiles) {
+      mbar_wait(bars + 8 * (kStages + s), parity);
+      load_kv(j + kStages);
+    }
+    __syncwarp();
   }
 
-  if (r < p.Sq) {
-    float* dQg = static_cast<float*>(p.dq) + ((long long)b * p.Sq + r) * p.Hq * D + h * D;
-#pragma unroll
-    for (int i = 0; i < kDims; ++i) dQg[c4 + 4 * i] = acc[i];
-  }
+  store_rows_f32<kAccT>(static_cast<float*>(p.dq) + ((long long)b * p.Sq * p.Hq + h) * D + col0,
+                        (long long)p.Hq * D, row, p.Sq, acc, t);
 }
 
+// dk/dv's fp32 tiles. kRows: the keys a block keeps in shared memory (K and
+// V) for the whole loop, a warpgroup of four warps for each 64; at D = 256
+// two warpgroups take the same 64 keys, each computing their S^T and dP^T and
+// summing half of the columns of dK and dV (dK and dV of 16 keys x 256 would
+// be 256 registers a thread); kN: queries of a streamed Q/dO tile. The lo
+// planes of the tile's Q and dO, which the S^T and dP^T wgmmas read, have one
+// buffer, rebuilt at the top of each tile.
 template <int D>
-__global__ void __launch_bounds__(F32Tile<D>::kThreads)
-fa_bwd_dkv_f32(const Params p) {
-  constexpr int kF32BlockM = F32Tile<D>::kM;
-  constexpr int kF32BlockN = F32Tile<D>::kN;
-  constexpr int LD = D + 1;
-  constexpr int LDP = kF32BlockN + 1;
-  constexpr int kCols = kF32BlockN / 4;  // queries of a q tile a thread owns
-  constexpr int kDims = D / 4;
+struct F32DkvLayout {
+  static constexpr bool kWide = D > 128;
+  static constexpr int kSplit = kWide ? 2 : 1;
+  static constexpr int kRows = kWide ? 64 : 128;
+  static constexpr int kN = kWide ? 16 : 32;
+  static constexpr int kThreads = 256;
+  static constexpr int kAccN = D / kSplit;                      // dK, dV columns a warp
+  static constexpr int kResBytes = kRows * D * 4;               // one of K, V
+  static constexpr int kTileBytes = kN * D * 4;                 // one of Q, dO
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kStage0 = 2 * kResBytes;
+  static constexpr int kLoOffset = kStage0 + kStages * kStageBytes;  // Q_lo, dO_lo
+  // a stage's LSE and delta, each a box of kN + 4 floats from the
+  // 16-byte-aligned element at or before the tile's first row
+  static constexpr int kRowsBox = kN + 4;
+  static constexpr int kRowsStride = (kRowsBox * 4 + 127) / 128 * 128;
+  static constexpr int kRowsOffset = kLoOffset + kStageBytes;
+  static constexpr int kBarOffset = kRowsOffset + kStages * 2 * kRowsStride;
+  static constexpr size_t kSmem = (size_t)kBarOffset + 8 * (2 * kStages + 1) + 1024;
+  static_assert(D % 32 == 0, "tiles are whole 32-column atoms");
+  static_assert(kThreads == 32 * (kRows / 16) * kSplit, "a warp for each 16 keys (and half)");
+  static_assert(kSmem <= 232448, "a block's shared memory is 227 KB");
+};
+
+// dk/dv: kRows keys of one (b, kv head) a block, kN-row Q/dO tiles (with
+// their LSE and delta rows) streamed by TMA over every q head of the GQA
+// group; dK and dV are summed over the group in registers. S^T = K Q^T and
+// dP^T = V dO^T run on tf32 wgmma (3 passes, Q and dO as the tensor cores
+// truncate them and their lo planes), dV += P^T dO and dK += dS^T Q on
+// mma.sync (dO and Q MN-major)
+template <int D>
+__global__ void __launch_bounds__(F32DkvLayout<D>::kThreads, 1)
+fa_bwd_dkv_tf32(const __grid_constant__ BwdParams p) {
+  using L = F32DkvLayout<D>;
+  constexpr int R = L::kRows;
+  constexpr int N = L::kN;
+  constexpr int kNT = N / 8;           // n8 groups (queries) of S^T and dP^T
+  constexpr int kAccT = L::kAccN / 8;  // n8 groups of dK and dV a warp
+  constexpr int kThreads = L::kThreads;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sK = reinterpret_cast<float*>(smem_raw);  // pre-scaled by scale
-  float* sV = sK + kF32BlockM * LD;
-  float* sQ = sV + kF32BlockM * LD;
-  float* sdO = sQ + kF32BlockN * LD;
-  float* sP = sdO + kF32BlockN * LD;   // P^T
-  float* sS = sP + kF32BlockM * LDP;   // dS^T
-  float* sL = sS + kF32BlockM * LDP;
-  float* sDl = sL + kF32BlockN;
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const smem = smem_raw + (base - raw);
+  const float* const fbase = reinterpret_cast<const float*>(smem);
+  float* const sLo = reinterpret_cast<float*>(smem + L::kLoOffset);
+  const uint32_t uLo = base + L::kLoOffset;
+  const uint32_t bars = base + L::kBarOffset;
+  // full[s] = bars + 8 s, empty[s] = bars + 8 (kStages + s), K/V = bars + 16 kStages
+  const uint32_t kv_bar = bars + 16 * kStages;
 
-  const int k0 = blockIdx.x * kF32BlockM;
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
+  const int k0 = blockIdx.y * R;  // causal: every head's longest key tile first
+  const int hk = blockIdx.x % p.Hkv;
+  const int b = blockIdx.x / p.Hkv;
   const int rep = p.Hq / p.Hkv;
-  const int lr = threadIdx.x / 4;
-  const int c4 = threadIdx.x % 4;
-  const int c = k0 + lr;  // this thread's key
-
-  const float* Kg = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const float* Vg = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  load_rows_f32<D>(sK, Kg, p.k_ss, k0, p.Sk, p.scale);
-  load_rows_f32<D>(sV, Vg, p.v_ss, k0, p.Sk, 1.f);
-
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int wg = warp / 4;                         // warpgroup
+  const int wg_r0 = L::kSplit == 1 ? 64 * wg : 0;  // its first key in the block
+  const int wr0 = wg_r0 + 16 * (warp % 4);         // the warp's first key
+  const int col0 = L::kSplit == 1 ? 0 : wg * L::kAccN;
+  const int kw0 = k0 + wr0;
+  const int kg0 = k0 + wg_r0;
   const int offset = p.Sk - p.Sq;
-  float dk[kDims], dv[kDims];
-#pragma unroll
-  for (int i = 0; i < kDims; ++i) dk[i] = dv[i] = 0.f;
 
-  const int n_q = (p.Sq + kF32BlockN - 1) / kF32BlockN;
-  const int lo = p.causal ? max(k0 - offset, 0) / kF32BlockN : 0;
-  for (int hh = 0; hh < rep; ++hh) {
-    const int h = hk * rep + hh;
-    const float* Qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const float* dOg = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
-    for (int qt = lo; qt < n_q; ++qt) {
-      const int q0 = qt * kF32BlockN;
-      __syncthreads();
-      load_rows_f32<D>(sQ, Qg, p.q_ss, q0, p.Sq, 1.f);
-      load_rows_f32<D>(sdO, dOg, p.do_ss, q0, p.Sq, 1.f);
-      for (int i = threadIdx.x; i < kF32BlockN; i += F32Tile<D>::kThreads) {
-        const int r = q0 + i;
-        const long long idx = ((long long)b * p.Hq + h) * p.Sq + r;
-        sL[i] = r < p.Sq ? p.lse[idx] : 0.f;
-        sDl[i] = r < p.Sq ? p.delta[idx] : 0.f;
+  // q tiles from the first one with a query that sees the block's (the
+  // warpgroup's) first key; every q head of the group in turn
+  const int n_q = (p.Sq + N - 1) / N;
+  const int lo = p.causal ? max(k0 - offset, 0) / N : 0;
+  const int wg_lo = p.causal ? max(kg0 - offset, 0) / N : 0;
+  const int per_head = n_q - lo;
+  const int n_iter = rep * per_head;
+  const bool wg_live = kg0 < p.Sk;
+
+  auto stage_q = [&](int s) { return base + L::kStage0 + s * L::kStageBytes; };
+  auto stage_rows = [&](int s) { return base + L::kRowsOffset + s * 2 * L::kRowsStride; };
+  auto load_q = [&](int it) {  // iteration it into stage it % kStages
+    const int s = it % kStages;
+    const uint32_t full = bars + 8 * s;
+    const int h = hk * rep + it / per_head;
+    const int q0 = (lo + it % per_head) * N;
+    const int rows = ((b * p.Hq + h) * p.Sq + q0) & ~3;  // into the flat LSE, delta
+    mbar_arrive_expect_tx(full, 2 * L::kTileBytes + 2 * L::kRowsBox * 4);
+    tma_load_f32<D>(stage_q(s), &p.tq, N, N, q0, h, b, full);
+    tma_load_f32<D>(stage_q(s) + L::kTileBytes, &p.tdo, N, N, q0, h, b, full);
+    tma_load_1d(stage_rows(s), &p.tlse, full, rows);
+    tma_load_1d(stage_rows(s) + L::kRowsStride, &p.tdelta, full, rows);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (kStages + s), kThreads);
+    }
+    mbar_init(kv_bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect_tx(kv_bar, 2 * L::kResBytes);
+    tma_load_f32<D>(base, &p.tk, R, R, k0, hk, b, kv_bar);
+    tma_load_f32<D>(base + L::kResBytes, &p.tv, R, R, k0, hk, b, kv_bar);
+    for (int it = 0; it < kStages && it < n_iter; ++it) load_q(it);
+  }
+  __syncwarp();
+
+  const int key[2] = {kw0 + g, kw0 + g + 8};
+  const float scale_log2 = p.scale * kLog2e;
+  float dk[kAccT][4], dv[kAccT][4];
+#pragma unroll
+  for (int n = 0; n < kAccT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  mbar_wait(kv_bar, 0);
+  __syncwarp();
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % kStages;
+    const uint32_t parity = (it / kStages) & 1;
+    const int qt = lo + it % per_head;
+    const int h = hk * rep + it / per_head;
+    const uint32_t uQ = stage_q(s);
+    mbar_wait(bars + 8 * s, parity);
+    __syncthreads();  // every warp is done with the last tile's lo planes
+    write_lo_planes<L::kStageBytes, kThreads>(sLo, fbase + (uQ - base) / 4, tid);
+    if (wg_live && qt >= wg_lo) {
+      const int q0 = qt * N;
+      const float* const sQ = fbase + (uQ - base) / 4;
+      const float* const sdO = sQ + L::kTileBytes / 4;
+      // this tile's LSE and delta: row q0 + c at c (the box began up to 3
+      // rows earlier)
+      const float* const sL = fbase + (stage_rows(s) - base) / 4 +
+                              (((b * p.Hq + h) * p.Sq + q0) & 3);
+      const float* const sDl = sL + L::kRowsStride / 4;
+      // S^T = K Q^T and dP^T = V dO^T for the warpgroup's 64 keys, one A set
+      // (dK and dV hold 128 registers a thread; two sets, as in dq, were
+      // slower)
+      float st[N / 2], dpt[N / 2];
+      score_products<1, R, N, D>(st, dpt, base, base + L::kResBytes, uQ, uQ + L::kTileBytes,
+                                 uLo, uLo + L::kTileBytes, wr0, lane);
+
+      // P^T = exp2(S^T scale log2e - LSE log2e): a thread holds keys key[0],
+      // key[1] (e >> 1) at queries 8 i + 2 t + (e & 1)
+#pragma unroll
+      for (int i = 0; i < kNT; ++i) {
+        const float* l = sL + 8 * i + 2 * t;
+        const float nl[2] = {-l[0] * kLog2e, -l[1] * kLog2e};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[4 * i + e] = fmaf(st[4 * i + e], scale_log2, nl[e & 1]);
       }
-      __syncthreads();
-
-      float s[kCols], dp[kCols];
+      if ((kw0 + 16 > p.Sk) || (q0 + N > p.Sq) || (p.causal && kw0 + 15 > q0 + offset)) {
+        // query 8 i + (e & 1) of this thread's share sees key[r] iff it lies
+        // in [qlo[r], qhi[r])
+        int qlo[2], qhi[2];
 #pragma unroll
-      for (int jj = 0; jj < kCols; ++jj) s[jj] = dp[jj] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        const float kv = sK[lr * LD + d];
-        const float vv = sV[lr * LD + d];
+        for (int r = 0; r < 2; ++r) {
+          qlo[r] = (p.causal ? key[r] - offset - q0 : 0) - 2 * t;
+          qhi[r] = key[r] < p.Sk ? p.Sq - q0 - 2 * t : -(1 << 30);
+        }
 #pragma unroll
-        for (int jj = 0; jj < kCols; ++jj) {
-          s[jj] = fmaf(kv, sQ[(c4 + 4 * jj) * LD + d], s[jj]);
-          dp[jj] = fmaf(vv, sdO[(c4 + 4 * jj) * LD + d], dp[jj]);
+        for (int i = 0; i < kNT; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 8 * i + (e & 1);
+            if (c < qlo[e >> 1] || c >= qhi[e >> 1]) st[4 * i + e] = kNegBig;
+          }
+      }
+      // P^T, then dS^T = P^T (dP^T - delta) scale
+#pragma unroll
+      for (int i = 0; i < kNT; ++i) {
+        const float* dd = sDl + 8 * i + 2 * t;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          st[4 * i + e] = fast_exp2(st[4 * i + e]);
+          dpt[4 * i + e] = st[4 * i + e] * (dpt[4 * i + e] - dd[e & 1]) * p.scale;
         }
       }
+
+      // dV += P^T dO and dK += dS^T Q: contraction over the tile's queries,
+      // dO and Q MN-major (and their lo planes), columns [col0, col0 + kAccN)
+      const float* const sQlo = sLo;
+      const float* const sdOlo = sLo + L::kTileBytes / 4;
 #pragma unroll
-      for (int jj = 0; jj < kCols; ++jj) {
-        const int qc = c4 + 4 * jj;
-        const int r = q0 + qc;
-        const bool ok = r < p.Sq && c < p.Sk && (!p.causal || c <= r + offset);
-        const float pe = ok ? expf(s[jj] - sL[qc]) : 0.f;
-        sP[lr * LDP + qc] = pe;
-        sS[lr * LDP + qc] = ok ? pe * (dp[jj] - sDl[qc]) * p.scale : 0.f;
-      }
-      __syncwarp();
-      for (int qq = 0; qq < kF32BlockN; ++qq) {
-        const float pe = sP[lr * LDP + qq];
-        const float ds = sS[lr * LDP + qq];
-        const float* dor = sdO + qq * LD + c4;
-        const float* qr = sQ + qq * LD + c4;
+      for (int kc = 0; kc < kNT; ++kc) {
+        FragA pa, da;
+        pa.split(st[4 * kc], st[4 * kc + 2], st[4 * kc + 1], st[4 * kc + 3]);
+        da.split(dpt[4 * kc], dpt[4 * kc + 2], dpt[4 * kc + 1], dpt[4 * kc + 3]);
 #pragma unroll
-        for (int i = 0; i < kDims; ++i) {
-          dv[i] = fmaf(pe, dor[4 * i], dv[i]);
-          dk[i] = fmaf(ds, qr[4 * i], dk[i]);
+        for (int n = 0; n < kAccT; ++n) {
+          const int i0 = sw<N>(8 * kc + 2 * t, col0 + 8 * n + g);
+          const int i1 = sw<N>(8 * kc + 2 * t + 1, col0 + 8 * n + g);
+          mma3(dv[n], pa, sdO[i0], sdO[i1], sdOlo[i0], sdOlo[i1]);
+          mma3(dk[n], da, sQ[i0], sQ[i1], sQlo[i0], sQlo[i1]);
         }
       }
     }
+    mbar_arrive(bars + 8 * (kStages + s));
+    if (tid == 0 && it + kStages < n_iter) {
+      mbar_wait(bars + 8 * (kStages + s), parity);
+      load_q(it + kStages);
+    }
+    __syncwarp();
   }
 
-  if (c < p.Sk) {
-    const long long at = ((long long)b * p.Sk + c) * p.Hkv * D + hk * D;
-    float* dKg = static_cast<float*>(p.dk) + at;
-    float* dVg = static_cast<float*>(p.dv) + at;
-#pragma unroll
-    for (int i = 0; i < kDims; ++i) {
-      dKg[c4 + 4 * i] = dk[i];
-      dVg[c4 + 4 * i] = dv[i];
-    }
-  }
+  const long long head = ((long long)b * p.Sk * p.Hkv + hk) * D + col0;
+  store_rows_f32<kAccT>(static_cast<float*>(p.dk) + head, (long long)p.Hkv * D, key, p.Sk, dk, t);
+  store_rows_f32<kAccT>(static_cast<float*>(p.dv) + head, (long long)p.Hkv * D, key, p.Sk, dv, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -900,24 +1368,54 @@ cudaError_t launch_dkv_wgmma(const Params& a, CUtensorMapDataType dt, cudaStream
   return launch(fa_bwd_dkv_wgmma<T, D>, configured, grid, kDkvThreads, L::kSmem, w, stream);
 }
 
+// The fp32 kernels' parameters: 128-byte-swizzled fp32 tensor maps over
+// q and dO (boxes of `q_rows` rows) and k and v (`k_rows`), LSE and delta as
+// 1-d maps for dk/dv, O's pointer and strides for dq.
 template <int D>
-cudaError_t launch_dq_f32(const Params& p, cudaStream_t stream) {
+bool make_f32_params(BwdParams* w, const Params& a, int q_rows, int k_rows, bool rows_maps) {
+  if (!encode_map_f32_tile<D>(&w->tq, a.q, a.Sq, a.Hq, a.B, a.q_sb, a.q_ss, a.q_sh, q_rows) ||
+      !encode_map_f32_tile<D>(&w->tdo, a.dout, a.Sq, a.Hq, a.B, a.do_sb, a.do_ss, a.do_sh,
+                              q_rows) ||
+      !encode_map_f32_tile<D>(&w->tk, a.k, a.Sk, a.Hkv, a.B, a.k_sb, a.k_ss, a.k_sh, k_rows) ||
+      !encode_map_f32_tile<D>(&w->tv, a.v, a.Sk, a.Hkv, a.B, a.v_sb, a.v_ss, a.v_sh, k_rows))
+    return false;
+  const long long rows = (long long)a.B * a.Hq * a.Sq;
+  if (rows_maps && (!encode_map_f32(&w->tlse, a.lse, rows, F32DkvLayout<D>::kRowsBox) ||
+                    !encode_map_f32(&w->tdelta, a.delta, rows, F32DkvLayout<D>::kRowsBox)))
+    return false;
+  w->o = static_cast<const float*>(a.o);
+  w->o_sb = a.o_sb; w->o_ss = a.o_ss; w->o_sh = a.o_sh;
+  w->lse = a.lse;
+  w->delta = a.delta;
+  w->dq = a.dq;
+  w->dk = a.dk;
+  w->dv = a.dv;
+  w->Hq = a.Hq; w->Hkv = a.Hkv; w->Sq = a.Sq; w->Sk = a.Sk;
+  w->scale = a.scale;
+  w->causal = a.causal;
+  return true;
+}
+
+// grid (heads x batch, tiles): the tile index varies slowest, so every
+// head's longest tile is issued before any head's next one
+template <int D>
+cudaError_t launch_dq_tf32(const Params& a, cudaStream_t stream) {
   static bool configured[kMaxDevices] = {};
-  using F = F32Tile<D>;
-  const size_t smem = ((size_t)(2 * F::kM + 2 * F::kN) * (D + 1) +
-                       (size_t)F::kM * (F::kN + 1)) * sizeof(float);
-  const dim3 grid((p.Sq + F::kM - 1) / F::kM, p.Hq, p.B);
-  return launch(fa_bwd_dq_f32<D>, configured, grid, F::kThreads, smem, p, stream);
+  using L = F32DqLayout<D>;
+  BwdParams w = {};
+  if (!make_f32_params<D>(&w, a, L::kRows, L::kN, false)) return cudaErrorInvalidValue;
+  const dim3 grid(a.Hq * a.B, (a.Sq + L::kRows - 1) / L::kRows);
+  return launch(fa_bwd_dq_tf32<D>, configured, grid, L::kThreads, L::kSmem, w, stream);
 }
 
 template <int D>
-cudaError_t launch_dkv_f32(const Params& p, cudaStream_t stream) {
+cudaError_t launch_dkv_tf32(const Params& a, cudaStream_t stream) {
   static bool configured[kMaxDevices] = {};
-  using F = F32Tile<D>;
-  const size_t smem = ((size_t)(2 * F::kM + 2 * F::kN) * (D + 1) +
-                       (size_t)2 * F::kM * (F::kN + 1) + 2 * F::kN) * sizeof(float);
-  const dim3 grid((p.Sk + F::kM - 1) / F::kM, p.Hkv, p.B);
-  return launch(fa_bwd_dkv_f32<D>, configured, grid, F::kThreads, smem, p, stream);
+  using L = F32DkvLayout<D>;
+  BwdParams w = {};
+  if (!make_f32_params<D>(&w, a, L::kN, L::kRows, true)) return cudaErrorInvalidValue;
+  const dim3 grid(a.Hkv * a.B, (a.Sk + L::kRows - 1) / L::kRows);
+  return launch(fa_bwd_dkv_tf32<D>, configured, grid, L::kThreads, L::kSmem, w, stream);
 }
 
 template <int D>
@@ -928,7 +1426,7 @@ cudaError_t launch_dim(bool dq, int dtype, const Params& p, cudaStream_t s) {
   if (dtype == 1)
     return dq ? launch_dq_wgmma<__half, D>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, s)
               : launch_dkv_wgmma<__half, D>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, s);
-  if (dtype == 0) return dq ? launch_dq_f32<D>(p, s) : launch_dkv_f32<D>(p, s);
+  if (dtype == 0) return dq ? launch_dq_tf32<D>(p, s) : launch_dkv_tf32<D>(p, s);
   return cudaErrorInvalidValue;
 }
 
@@ -962,9 +1460,9 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
 
 // dtype: 0 = float32, 1 = float16, 2 = bfloat16. Strides are in elements:
 // (batch, seq, head) of q, k, v, dO (and O); the outputs are contiguous
-// (B, S, H, D). For float16 and bfloat16 every input's base must be 16-byte
-// aligned and its strides multiples of 16 bytes (TMA), LSE's and delta's
-// base too. Each returns a cudaError_t (0 on success).
+// (B, S, H, D). Every input's base must be 16-byte aligned and its strides
+// multiples of 16 bytes (TMA), LSE's and delta's base too. Each returns a
+// cudaError_t (0 on success).
 //
 // dq: writes dq and delta = rowsum(dO * O) (B, Hq, Sq) fp32.
 extern "C" int pt_flash_attention_bwd_dq(

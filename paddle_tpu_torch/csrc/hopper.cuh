@@ -1,8 +1,8 @@
 // Hopper building blocks for hand-written kernels (sm_90a): mbarriers, TMA
-// loads and the host-side tensor maps they read, wgmma shared-memory
-// descriptors and the wgmma shapes the flash-attention kernels issue. Every
-// source built by paddle_tpu_torch/ops/cuda/_build.py hashes this header into
-// its library name, so an edit here rebuilds them all.
+// loads (16-bit and fp32 tiles) and the host-side tensor maps they read,
+// wgmma shared-memory descriptors and the wgmma shapes the flash-attention
+// kernels issue. Every source built by paddle_tpu_torch/ops/cuda/_build.py
+// hashes this header into its library name, so an edit here rebuilds them all.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (the type only; the .so links no driver library)
@@ -100,6 +100,21 @@ __device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* m
   for (int a = 0; a < A::kAtoms; ++a)
     for (int r = 0; r < rows; r += box)
       tma_load_4d(dst + (a * rows + r) * A::kRowBytes, map, bar, a * A::kCols, row0 + r, head, b);
+}
+
+// A float32 (rows, D) tile in shared memory is D / 32 column atoms, each rows
+// x 128 bytes with TMA's 128-byte swizzle (16-byte chunk j of row r at chunk
+// j ^ (r % 8)); atom a starts a * rows * 128 bytes in, on a 1024-byte boundary
+// when the tile does. Rows [row0, row0 + rows) of head `head`, batch `b` of a
+// map from encode_map_f32_tile, in boxes of `box` rows.
+template <int D>
+__device__ __forceinline__ void tma_load_f32(uint32_t dst, const CUtensorMap* map, int rows,
+                                             int box, int row0, int head, int b, uint32_t bar) {
+  static_assert(D % 32 == 0, "fp32 tiles are whole 32-column atoms");
+#pragma unroll
+  for (int a = 0; a < D / 32; ++a)
+    for (int r = 0; r < rows; r += box)
+      tma_load_4d(dst + (a * rows + r) * 128, map, bar, a * 32, row0 + r, head, b);
 }
 
 // --- wgmma ------------------------------------------------------------------
@@ -293,6 +308,26 @@ bool encode_map(CUtensorMap* map, CUtensorMapDataType dtype, const void* ptr, in
   return fn(map, dtype, 4, const_cast<void*>(ptr), dims, strides, box, elem_strides,
             CU_TENSOR_MAP_INTERLEAVE_NONE,
             A::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// A float32 (B, S, H, D) tensor with element strides (sb, ss, sh) and D
+// contiguous, as a 4-d map (D, S, H, B), box (32 columns, `rows` rows, 1, 1),
+// 128-byte swizzle (tma_load_f32). Rows past S read as zeros. The caller
+// guarantees a 16-byte-aligned base and strides that are multiples of 16
+// bytes (the wrapper copies what is not).
+template <int D>
+bool encode_map_f32_tile(CUtensorMap* map, const void* ptr, int S, int H, int B, long long sb,
+                         long long ss, long long sh, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 4, (cuuint64_t)sh * 4, (cuuint64_t)sb * 4};
+  const cuuint32_t box[4] = {32, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(ptr), dims, strides, box,
+            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
 }

@@ -52,13 +52,14 @@ launches = 0
 launches_bwd_dq = 0
 #: backward dk/dv kernel launches, counted the same way
 launches_bwd_dkv = 0
-#: of those, the float32 kernels' (``fa_fwd_f32``, the ``F32Tile`` dq and
-#: dk/dv), which master-grad training runs in its float32 pullbacks
+#: of those, the float32 kernels' (``fa_fwd_f32``, the 3xTF32 dq and dk/dv
+#: ``fa_bwd_*_tf32``), which master-grad training runs in its float32 pullbacks
 launches_f32 = 0
 launches_bwd_dq_f32 = 0
 launches_bwd_dkv_f32 = 0
-#: q, k or v tensors the forward wrapper copied because TMA cannot read them
-#: where they lie (a base or a stride that is not a multiple of 16 bytes)
+#: inputs a wrapper copied because TMA cannot read them where they lie (a
+#: base or a stride that is not a multiple of 16 bytes): the 16-bit forward's
+#: q, k, v and every backward's q, k, v, dO, O and LSE
 copies_for_alignment = 0
 #: q, k or v tensors zero-padded along the head dim to the kernels' next
 #: native head dim (the backward then gets a padded dO from autograd),
@@ -292,8 +293,8 @@ def _delta(out, do):
 
 def _launch_bwd_dq(q, k, v, do, out, lse, causal, scale):
     """(dq, delta): the dq kernel, which also writes delta = rowsum(dO * O)
-    for the dk/dv kernel. 16-bit inputs must be readable by TMA where they
-    lie (``flash_attention_bwd`` copies what is not)."""
+    for the dk/dv kernel. Inputs must be readable by TMA where they lie
+    (``flash_attention_bwd`` copies what is not)."""
     global launches_bwd_dq, launches_bwd_dq_f32
     _check_bwd_inputs(q, k, v, do, lse, out=out)
     B, Sq, Hq, D = q.shape
@@ -419,11 +420,10 @@ def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor
     """The dq and dk/dv kernels on CUDA tensors, the plain backward on the
     CPU: (dq, dk, dv) in the dtypes of q, k and v, contiguous."""
     if q.is_cuda:
-        if q.dtype != torch.float32:
-            # the 16-bit kernels read every input by TMA: copy (and count)
-            # what it cannot read where it lies, once for both kernels
-            q, k, v, do, out = (_tma_ready(t) for t in (q, k, v, do, out))
-            lse = _rows_ready(lse)
+        # both kernels read every input by TMA, at every dtype: copy (and
+        # count) what it cannot read where it lies, once for both kernels
+        q, k, v, do, out = (_tma_ready(t) for t in (q, k, v, do, out))
+        lse = _rows_ready(lse)
         dq, delta = _launch_bwd_dq(q, k, v, do, out, lse, causal, scale)
         dk, dv = _launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
         return dq, dk, dv

@@ -91,13 +91,27 @@ def divide(x, y):
     return torch.true_divide(x, y)
 
 
+def _both_bool(x, y):
+    return (isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor)
+            and x.dtype == torch.bool and y.dtype == torch.bool)
+
+
 @defop("floor_divide")
 def floor_divide(x, y):
+    if _both_bool(x, y):
+        # jnp's int32, with XLA's integer division by zero: x // 0 is -1
+        # for x = 0 and -2 for x = 1 (lax.div gives -1, then the floor step)
+        x, y = x.to(torch.int32), y.to(torch.int32)
+        return torch.where(y != 0, x, torch.where(x != 0, -2, -1).to(torch.int32))
     return torch.floor_divide(*_pair(x, y))
 
 
 @defop("remainder")
 def remainder(x, y):
+    if _both_bool(x, y):
+        # jnp's int32: x % 1 and x % 0 are both 0
+        return torch.zeros(torch.broadcast_shapes(x.shape, y.shape), dtype=torch.int32,
+                           device=x.device)
     return torch.remainder(*_pair(x, y))
 
 
@@ -107,6 +121,8 @@ floor_mod = remainder
 
 @defop("pow")
 def pow(x, y):  # noqa: A001
+    if _both_bool(x, y):  # jnp's int32
+        x, y = x.to(torch.int32), y.to(torch.int32)
     return torch.pow(*_pair(x, y))
 
 
@@ -162,6 +178,23 @@ def lerp(x, y, weight):
 
 
 # ---- unary ----------------------------------------------------------------
+def _int32_if_bool(x):
+    """bool as jnp's int32 (``square``); any other dtype as it is."""
+    return x.to(torch.int32) if x.dtype == torch.bool else x
+
+
+def _bool_as_is(fn):
+    """``fn`` that returns a bool input's values as bool, as jnp's abs,
+    floor, ceil and trunc do (torch has no bool kernel for them)."""
+    return lambda x: x.clone() if x.dtype == torch.bool else fn(x)
+
+
+def _not_bool(name, x):
+    if x.dtype == torch.bool:
+        raise TypeError(f"{name} does not accept dtype bool")
+    return x
+
+
 def _unary(name, fn, differentiable=True, cast=None):
     if cast is not None:
         inner = fn
@@ -179,16 +212,16 @@ log10 = _unary("log10", lambda x: torch.log10(x), cast=_float)
 log1p = _unary("log1p", lambda x: torch.log1p(x), cast=_float)
 sqrt = _unary("sqrt", lambda x: torch.sqrt(x), cast=_float)
 rsqrt = _unary("rsqrt", lambda x: torch.rsqrt(_floating_only("rsqrt", x)))
-square = _unary("square", lambda x: torch.square(x))
-abs = _unary("abs", lambda x: torch.abs(x))  # noqa: A001
-sign = _unary("sign", lambda x: torch.sign(x))
+square = _unary("square", lambda x: torch.square(x), cast=_int32_if_bool)
+abs = _unary("abs", _bool_as_is(torch.abs))  # noqa: A001
+sign = _unary("sign", lambda x: torch.sign(_not_bool("sign", x)))
 neg = _unary("neg", lambda x: torch.neg(x))
 negative = neg
 reciprocal = _unary("reciprocal", lambda x: 1.0 / x, cast=_float64)
-floor = _unary("floor", lambda x: torch.floor(x))
-ceil = _unary("ceil", lambda x: torch.ceil(x))
+floor = _unary("floor", _bool_as_is(torch.floor))
+ceil = _unary("ceil", _bool_as_is(torch.ceil))
 round = _unary("round", lambda x: torch.round(x))  # noqa: A001
-trunc = _unary("trunc", lambda x: torch.trunc(x))
+trunc = _unary("trunc", _bool_as_is(torch.trunc))
 frac = _unary("frac", lambda x: x - torch.trunc(x))
 sin = _unary("sin", lambda x: torch.sin(x), cast=_float)
 cos = _unary("cos", lambda x: torch.cos(x), cast=_float)
@@ -352,6 +385,7 @@ def cummin(x, axis=None, dtype="int64", name=None):
 
 @defop("logcumsumexp")
 def _logcumsumexp(x, axis=None):
+    _floating_only("logcumsumexp", x)
     return torch.logcumsumexp(x, axis if axis is not None else 0)
 
 

@@ -17,6 +17,20 @@ from ._apply import defop
 from .math import _float
 
 
+def _unsigned_acc(x, dtype):
+    """(x, reinterpret): an unsigned integer input sums and multiplies in
+    uint64 in JAX; torch has no uint64 sum or product, so it runs in int64,
+    whose wrap-around leaves the same 64 bits, and the result is viewed as
+    uint64 (``reinterpret``)."""
+    if dtype is None and x.dtype == torch.uint8:
+        return x.to(torch.int64), True
+    return x, False
+
+
+def _as_uint64(out, reinterpret):
+    return out.view(torch.uint64) if reinterpret else out
+
+
 def _axes(axis):
     if axis is None:
         return None
@@ -45,8 +59,9 @@ def _reduced(x, axis, keepdim):
 
 @defop("sum")
 def _sum(x, axis=None, keepdim=False, dtype=None):
+    x, wide = _unsigned_acc(x, dtype)
     x, dims, keepdim = _reduced(x, axis, keepdim)
-    return torch.sum(x, dim=dims, keepdim=keepdim, dtype=dtype)
+    return _as_uint64(torch.sum(x, dim=dims, keepdim=keepdim, dtype=dtype), wide)
 
 
 def sum(x, axis=None, dtype=None, keepdim=False, name=None):  # noqa: A001
@@ -65,11 +80,12 @@ def mean(x, axis=None, keepdim=False, name=None):
 
 @defop("prod")
 def _prod(x, axis=None, keepdim=False, dtype=None):
+    x, wide = _unsigned_acc(x, dtype)
     if dtype is not None:
         x = x.to(dtype)
     for d in sorted((a % builtins.max(x.dim(), 1) for a in _dims(x, axis)), reverse=True):
         x = torch.prod(x, dim=d, keepdim=keepdim)
-    return x
+    return _as_uint64(x, wide)
 
 
 def prod(x, axis=None, keepdim=False, dtype=None, name=None):
@@ -150,7 +166,8 @@ def logsumexp(x, axis=None, keepdim=False, name=None):
 
 @defop("nansum")
 def _nansum(x, axis=None, keepdim=False, dtype=None):
-    return torch.nansum(x, dim=_dims(x, axis), keepdim=keepdim, dtype=dtype)
+    x, wide = _unsigned_acc(x, dtype)
+    return _as_uint64(torch.nansum(x, dim=_dims(x, axis), keepdim=keepdim, dtype=dtype), wide)
 
 
 def nansum(x, axis=None, dtype=None, keepdim=False, name=None):

@@ -522,6 +522,19 @@ CASES = [
     C("matmul_f16_bf16", lambda P, x, y: P.matmul(P.cast(x, "float16"),
                                                  P.cast(y, "bfloat16")),
       [N(1, 3), N(3, 1)], low=False),
+    # ---- Queue C: bool inputs and uint8 accumulations take the JAX dtypes ----
+    C("square_bool", lambda P, x: P.square(x), [B(6)], low=False),
+    C("abs_floor_ceil_trunc_bool", lambda P, x: [P.abs(x), P.floor(x), P.ceil(x),
+                                                 P.trunc(x)], [B(6)], low=False),
+    C("floor_divide_remainder_pow_bool", lambda P, x, y: [
+        P.floor_divide(x, y), P.remainder(x, y), P.pow(x, y)],
+      [A([False, False, True, True]), A([False, True, False, True])], low=False),
+    C("sum_nansum_prod_uint8", lambda P, x: [
+        P.sum(x), P.nansum(x), P.prod(x), P.sum(x, axis=1), P.nansum(x, axis=0),
+        P.prod(x, axis=0, keepdim=True)],
+      [A(np.array([[200, 100, 3], [255, 255, 7]], np.uint8))], low=False),
+    C("prod_uint8_wraps_in_uint64", lambda P, x: P.prod(x),
+      [A(np.full(12, 255, np.uint8))], low=False),
 ]
 
 
@@ -637,6 +650,17 @@ def test_integer_inputs_raise_where_jax_raises(name, dtype):
     """ROADMAP Queue C Open 4: jax's rsqrt and sigmoid refuse integer (and
     bool) inputs with TypeError; so do the port's."""
     x = np.array([1, 2, 4]).astype(dtype)
+    for P in (paddle, T):
+        with pytest.raises(TypeError):
+            getattr(P, name)(P.to_tensor(x, place="cpu"))
+
+
+@pytest.mark.parametrize("name,dtype", [("sign", "bool"), ("logcumsumexp", "int32"),
+                                        ("logcumsumexp", "int64"), ("logcumsumexp", "bool")])
+def test_dtype_errors_match_jax(name, dtype):
+    """ROADMAP Queue C: jnp's sign refuses bool and its
+    logcumsumexp integers, with TypeError; so do the port's."""
+    x = np.array([1, 0, 3]).astype(dtype)
     for P in (paddle, T):
         with pytest.raises(TypeError):
             getattr(P, name)(P.to_tensor(x, place="cpu"))

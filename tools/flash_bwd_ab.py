@@ -7,12 +7,15 @@ dk/dv) between two trees of this repository.
 
 Each run is a process of its own that imports ``paddle_tpu_torch`` from one
 tree, builds that tree's kernels from its ``csrc/`` and times, at the
-training, long-prompt and prefill shapes (bf16, H16 D128, causal): the dq
-kernel, the dk/dv kernel and the whole backward (``flash_attention_bwd``), a
-CUDA graph of 20 calls timed with CUDA events as ``chip_smoke.py`` times
-them, with torch's flash-attention backward
-(``aten._scaled_dot_product_flash_attention_backward``) timed beside them in
-the same process as the yardstick. A tree whose dq launcher takes ``delta``
+training, long-prompt and prefill shapes (bf16, H16 D128, causal) and at the
+training shape in float32 (the master-grad pullbacks' kernels; causal and
+not): the dq kernel, the dk/dv kernel and the whole backward
+(``flash_attention_bwd``), a CUDA graph of 20 calls (4 in float32) timed
+with CUDA events as ``chip_smoke.py`` times them, with torch's
+flash-attention backward (``aten._scaled_dot_product_flash_attention_backward``;
+in float32 its memory-efficient attention's) timed beside them in the same
+process as the yardstick. float32 rows also carry the 3xTF32 tensor-core
+bound beside the fp32 one. A tree whose dq launcher takes ``delta``
 computes it in plain torch before the kernels (its "dq" is the kernel alone,
 its "backward" includes that pass); a tree whose dq launcher takes O fuses it
 into the dq kernel. Each tree's gradients are compared with the library's (a
@@ -32,10 +35,12 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-SHAPES = (  # name, B, S, H, D: bf16, causal, Sq = Sk, Hq = Hkv
-    ("training_shape", 8, 2048, 16, 128),
-    ("long_prompt", 1, 2048, 16, 128),
-    ("flagship_prefill", 8, 128, 16, 128),
+SHAPES = (  # name, B, S, H, D, dtype, causal: Sq = Sk, Hq = Hkv
+    ("training_shape", 8, 2048, 16, 128, "bfloat16", True),
+    ("long_prompt", 1, 2048, 16, 128, "bfloat16", True),
+    ("flagship_prefill", 8, 128, 16, 128, "bfloat16", True),
+    ("master_grad_fp32", 8, 2048, 16, 128, "float32", True),
+    ("master_grad_fp32_noncausal", 8, 2048, 16, 128, "float32", False),
 )
 
 
@@ -56,32 +61,38 @@ def time_tree(tree: Path) -> dict:
     plain_delta = "delta" in inspect.signature(fa._launch_bwd_dq).parameters
     gen = torch.Generator(device="cuda").manual_seed(2024)
     rows = []
-    for name, B, S, H, D in SHAPES:
-        q, k, v, do = (torch.randn(B, S, H, D, device="cuda", generator=gen).to(torch.bfloat16)
+    for name, B, S, H, D, dt, causal in SHAPES:
+        dtype = getattr(torch, dt)
+        q, k, v, do = (torch.randn(B, S, H, D, device="cuda", generator=gen).to(dtype)
                        for _ in range(4))
         scale = 1.0 / math.sqrt(D)
         with torch.no_grad():
-            out, lse = fa.flash_attention_fwd_lse(q, k, v, True)
+            out, lse = fa.flash_attention_fwd_lse(q, k, v, causal)
         if plain_delta:
             delta = fa._delta(out, do)
-            dq_fn = lambda: fa._launch_bwd_dq(q, k, v, do, lse, delta, True, scale)  # noqa: E731
+            dq_fn = lambda: fa._launch_bwd_dq(q, k, v, do, lse, delta, causal, scale)  # noqa: E731
         else:
-            delta = fa._launch_bwd_dq(q, k, v, do, out, lse, True, scale)[1]
-            dq_fn = lambda: fa._launch_bwd_dq(q, k, v, do, out, lse, True, scale)  # noqa: E731
-        library = chip_smoke.library_backward(torch, q, k, v, do, True, scale)
-        got = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
-        ref = [g.transpose(1, 2) for g in library()]
+            delta = fa._launch_bwd_dq(q, k, v, do, out, lse, causal, scale)[1]
+            dq_fn = lambda: fa._launch_bwd_dq(q, k, v, do, out, lse, causal, scale)  # noqa: E731
+        library = chip_smoke.library_backward(torch, q, k, v, do, causal, scale)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+        ref = [g.transpose(1, 2) for g in library()[:3]]
         err = max(chip_smoke.norm_rel(a, r) for a, r in zip(got, ref))
         fns = dict(
             dq=dq_fn,
-            dkv=lambda: fa._launch_bwd_dkv(q, k, v, do, lse, delta, True, scale),
-            bwd=lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, True),
+            dkv=lambda: fa._launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale),
+            bwd=lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, causal),
             library=library)
-        row = {f"{key}_ms": chip_smoke.device_ms(torch, fn) for key, fn in fns.items()}
+        iters = 4 if dtype == torch.float32 else 20
+        row = {f"{key}_ms": chip_smoke.device_ms(torch, fn, iters=iters)
+               for key, fn in fns.items()}
         (row["dq_bound_ms"], _), (row["dkv_bound_ms"], _) = chip_smoke.backward_bounds_ms(
-            B, S, S, H, H, D, True, 2, True)
-        rows.append(dict(name=name, shape=[B, S, S, H, H, D], plain_delta=plain_delta,
-                         norm_rel_err_vs_library=err, **row))
+            B, S, S, H, H, D, causal, q.element_size(), dtype != torch.float32)
+        if dtype == torch.float32:
+            (row["dq_bound_tf32x3_ms"], _), (row["dkv_bound_tf32x3_ms"], _) = (
+                chip_smoke.backward_bounds_tf32x3_ms(B, S, S, H, H, D, causal))
+        rows.append(dict(name=name, shape=[B, S, S, H, H, D], dtype=dt, causal=causal,
+                         plain_delta=plain_delta, norm_rel_err_vs_library=err, **row))
         del q, k, v, do, out, lse, delta, got, ref, library, fns
         torch.cuda.empty_cache()
     return dict(tree=str(tree), card=chip_smoke.nvidia_smi(), build_s=build_s, rows=rows)
@@ -113,14 +124,14 @@ def main() -> int:
             return 1
         runs.append(dict(json.loads(proc.stdout.strip().splitlines()[-1]), label=label))
     print(f"card: {runs[0]['card']}")
-    print(f"{'shape':18} {'run':7} {'dq ms':>8} {'dk/dv ms':>9} {'bwd ms':>8} {'torch ms':>9} "
+    print(f"{'shape':27} {'run':7} {'dq ms':>8} {'dk/dv ms':>9} {'bwd ms':>8} {'torch ms':>9} "
           f"{'dq bound':>9} {'dkv bound':>9} {'err vs torch':>12}")
     for i, (name, *_) in enumerate(SHAPES):
         for run in runs:
             r = run["rows"][i]
-            print(f"{name:18} {run['label']:7} {r['dq_ms']:8.5f} {r['dkv_ms']:9.5f} "
+            print(f"{name:27} {run['label']:7} {r['dq_ms']:8.5f} {r['dkv_ms']:9.5f} "
                   f"{r['bwd_ms']:8.5f} {r['library_ms']:9.5f} {r['dq_bound_ms']:9.5f} "
-                  f"{r['dkv_bound_ms']:9.5f} {r['norm_rel_err_vs_library']:12.5f}")
+                  f"{r['dkv_bound_ms']:9.5f} {r['norm_rel_err_vs_library']:12.3e}")
     print(json.dumps(dict(flash_bwd_ab=runs)), flush=True)
     return 0
 
