@@ -11,11 +11,13 @@ Phases, each a hard check (the script exits nonzero on the first failure):
      training and static-engine prefill (phase 10) shapes, the edge cases,
      head dims 32, 64, 96, 128 and 256 (phase 13's widths at their prefill
      and training shapes), a head dim the wrapper pads (80, to 96) in bf16,
-     fp16 and fp32, and views TMA cannot read (the wrapper copies them and
-     launches the same kernel),
+     fp16 and fp32, and views TMA cannot read, bf16 and fp32 (the wrapper
+     copies them and launches the same kernel),
      with a tolerance per dtype; times of the kernel, the plain version and
      torch's scaled_dot_product_attention (a yardstick only: the port never
-     calls it) beside the least time the card could take.
+     calls it) beside the least time the card could take (float32 at the
+     3xTF32 rate its kernel runs: three TF32 passes a product), the fp32
+     kernel at phase 17 (a)'s shape causal and not.
   3. serving at full width: the flagship LLaMA (vocab 32000, hidden 2048,
      8 layers, 16 heads x 128, bf16, random weights from a seed) served by
      LlamaDecodeEngine.generate (8 prompts x 128 tokens, 32 greedy new
@@ -236,7 +238,8 @@ Phases, each a hard check (the script exits nonzero on the first failure):
      in float32 (L fp32 forward, L fp32 dq and L fp32 dk/dv launches, no
      bf16 backward), no math path, every parameter's gradient float32,
      finite and nonzero; one more warm-up step and 3 timed with the port's
-     device.Event pairs beside phase 16 (b)'s O2 median and one profiled,
+     device.Event pairs beside phase 16 (b)'s O2 median and one profiled
+     (L fa_fwd_tf32 kernels among its launches),
      the peak from the port's max_memory_allocated, a falling loss; (b) 2 layers at the
      flagship width, B1 S128, one O2 bf16 master-grad backward card against
      a CPU twin: with the card's attention on the plain math path, as on
@@ -283,7 +286,7 @@ import time
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_TC_FLOPS = 989e12     # bf16 / fp16 tensor cores
 PEAK_FP32_FLOPS = 67e12    # fp32 outside the tensor cores
-PEAK_TF32_FLOPS = 495e12   # tf32 tensor cores: the fp32 backward's 3xTF32 runs three passes
+PEAK_TF32_FLOPS = 495e12   # tf32 tensor cores: the fp32 kernels' 3xTF32 runs three passes
 PEAK_HBM_BYTES = 3.35e12
 
 # kernel vs plain version: |kernel - plain| <= TOL * max(1, |plain|), i.e.
@@ -467,23 +470,28 @@ def visible_pairs(Sq, Sk, causal):
     return sum(min(Sk, i + off + 1) for i in range(Sq))
 
 
-def bound_ms(flops, nbytes, tensor_cores, peak=None):
-    """Least time for the card: max(flops / peak, bytes / HBM rate); the peak
-    is the bf16/fp16 tensor cores', fp32 outside them, or ``peak``."""
-    t_ops = flops / (peak or (PEAK_TC_FLOPS if tensor_cores else PEAK_FP32_FLOPS))
+def bound_ms(flops, nbytes, peak):
+    """Least time for the card: max(flops / peak, bytes / HBM rate)."""
+    t_ops = flops / peak
     t_bytes = nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
-def attention_bound_ms(B, Sq, Sk, Hq, Hkv, D, causal, elt, tensor_cores):
+def attention_peak(elt):
+    """The rate the attention kernels' products run at: bf16/fp16 on the
+    tensor cores; float32 as 3xTF32, three TF32 passes a product."""
+    return PEAK_TC_FLOPS if elt == 2 else PEAK_TF32_FLOPS / 3
+
+
+def attention_bound_ms(B, Sq, Sk, Hq, Hkv, D, causal, elt):
     """Forward: flops = 4 D per visible (query, key) pair; bytes = q, k, v
     read once, o written once, plus the fp32 LSE."""
     flops = 4.0 * D * visible_pairs(Sq, Sk, causal) * B * Hq
     nbytes = (2 * B * Sq * Hq * D + 2 * B * Sk * Hkv * D) * elt + 4 * B * Hq * Sq
-    return bound_ms(flops, nbytes, tensor_cores)
+    return bound_ms(flops, nbytes, attention_peak(elt))
 
 
-def backward_bounds_ms(B, Sq, Sk, Hq, Hkv, D, causal, elt, tensor_cores, peak=None):
+def backward_bounds_ms(B, Sq, Sk, Hq, Hkv, D, causal, elt):
     """(dq bound, dk/dv bound), each (ms, bound_by). dq: three D-deep products
     (S, dP, dQ), 6 D flops per visible pair (delta's D a row is negligible);
     reads q, dO, O, k, v, LSE, writes dq and delta. dk/dv: four products (S,
@@ -491,16 +499,10 @@ def backward_bounds_ms(B, Sq, Sk, Hq, Hkv, D, causal, elt, tensor_cores, peak=No
     dk, dv."""
     pairs = visible_pairs(Sq, Sk, causal) * B * Hq
     qsize, ksize, rows = B * Sq * Hq * D * elt, B * Sk * Hkv * D * elt, 8 * B * Hq * Sq
-    dq = bound_ms(6.0 * D * pairs, 4 * qsize + 2 * ksize + rows, tensor_cores, peak)
-    dkv = bound_ms(8.0 * D * pairs, 2 * qsize + 4 * ksize + rows, tensor_cores, peak)
+    peak = attention_peak(elt)
+    dq = bound_ms(6.0 * D * pairs, 4 * qsize + 2 * ksize + rows, peak)
+    dkv = bound_ms(8.0 * D * pairs, 2 * qsize + 4 * ksize + rows, peak)
     return dq, dkv
-
-
-def backward_bounds_tf32x3_ms(B, Sq, Sk, Hq, Hkv, D, causal):
-    """The fp32 backward kernels' tensor-core bound: the same work and bytes,
-    each product three TF32 passes (3xTF32) at 495 TFLOP/s."""
-    return backward_bounds_ms(B, Sq, Sk, Hq, Hkv, D, causal, 4, True,
-                              peak=PEAK_TF32_FLOPS / 3)
 
 
 def ptxas_summary(log):
@@ -564,6 +566,7 @@ def phase_kernel(torch, fa):
         ("training_shape_fp16", 8, 2048, 2048, 16, 16, 128, "float16", True, True),
         # phase 17 (a)'s master-grad pullbacks: the fp32 kernel at that shape
         ("master_grad_fp32", 8, 2048, 2048, 16, 16, 128, "float32", True, True),
+        ("master_grad_fp32_noncausal", 8, 2048, 2048, 16, 16, 128, "float32", False, True),
         ("gqa_hkv4", 2, 512, 512, 16, 4, 128, "bfloat16", True, False),
         ("mqa_hkv1", 2, 512, 512, 16, 1, 128, "bfloat16", True, False),
         ("non_causal", 2, 512, 512, 16, 16, 128, "bfloat16", False, False),
@@ -579,6 +582,11 @@ def phase_kernel(torch, fa):
         ("d32_fp32", 2, 256, 256, 16, 16, 32, "float32", True, False),
         ("ragged_d32_gqa", 2, 300, 700, 8, 2, 32, "bfloat16", True, False),
         ("unaligned_view", 2, 256, 256, 16, 4, 128, "bfloat16", True, False),
+        ("unaligned_view_fp32", 2, 256, 256, 16, 4, 128, "float32", True, False),
+        # the fp32 kernel's key-tail mask without the causal one: 1000 and
+        # 333 keys end inside a tile, at D 128 and at D 256's 16-key tiles
+        ("ragged_fp32_noncausal", 2, 333, 1000, 8, 2, 128, "float32", False, False),
+        ("ragged_d256_fp32_noncausal", 1, 200, 333, 4, 2, 256, "float32", False, False),
         # phase 13's widths: Phi-3-mini's attention (32 heads x 96) and
         # Gemma-2B's (8 query heads, 1 KV head, x 256), at the serving
         # prefill (B8 S128) and training (B8 S2048) shapes
@@ -656,7 +664,8 @@ def phase_kernel(torch, fa):
                 row[f"{key}_ms"] = device_ms(torch, fn, iters=it)
                 row[f"{key}_call_ms"] = call_ms(torch, fn, iters=it)
             row["bound_ms"], row["bound_by"] = attention_bound_ms(
-                B, Sq, Sk, Hq, Hkv, D, causal, q.element_size(), dtype != torch.float32)
+                B, Sq, Sk, Hq, Hkv, D, causal, q.element_size())
+            row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
         print("kernel_check " + json.dumps(row), flush=True)
         checks.append(row)
         if timed:
@@ -920,18 +929,9 @@ def phase_backward(torch, fa):
                 row[f"{key}_call_ms"] = call_ms(torch, fn, iters=it)
             (row["dq_bound_ms"], row["dq_bound_by"]), (row["dkv_bound_ms"],
                                                        row["dkv_bound_by"]) = (
-                backward_bounds_ms(B, Sq, Sk, Hq, Hkv, D, causal, q.element_size(),
-                                   dtype != torch.float32))
-            if dtype == torch.float32:
-                # beside the fp32 (CUDA-core) bound, the 3xTF32 tensor-core
-                # one the kernels run against, and the share of each reached
-                (row["dq_bound_tf32x3_ms"], row["dq_bound_tf32x3_by"]), (
-                    row["dkv_bound_tf32x3_ms"], row["dkv_bound_tf32x3_by"]) = (
-                    backward_bounds_tf32x3_ms(B, Sq, Sk, Hq, Hkv, D, causal))
-                for key in ("dq", "dkv"):
-                    row[f"{key}_share_of_fp32_bound"] = row[f"{key}_bound_ms"] / row[f"{key}_ms"]
-                    row[f"{key}_share_of_tf32x3_bound"] = (row[f"{key}_bound_tf32x3_ms"]
-                                                           / row[f"{key}_ms"])
+                backward_bounds_ms(B, Sq, Sk, Hq, Hkv, D, causal, q.element_size()))
+            for key in ("dq", "dkv"):
+                row[f"{key}_share_of_bound"] = row[f"{key}_bound_ms"] / row[f"{key}_ms"]
             rows[name] = row
         print("backward_check " + json.dumps(row), flush=True)
         checks.append(row)
@@ -958,7 +958,8 @@ def profile_step(torch, step, step_ms, kernel_groups=_KERNEL_GROUPS):
     """Device time of one step (training, or a decode step) by kernel group,
     from torch.profiler (CUPTI): the device-side events only, so no time
     counts twice. idle_share compares their sum with the step time measured
-    without the profiler; kernel_launches counts the device-side events."""
+    without the profiler; kernel_launches counts the device-side events,
+    launches_by_group the same by group."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -968,7 +969,7 @@ def profile_step(torch, step, step_ms, kernel_groups=_KERNEL_GROUPS):
         step()
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) * 1e3
-    groups, kernels = {}, []
+    groups, launches, kernels = {}, {}, []
     for e in prof.key_averages():
         ms = e.self_device_time_total / 1e3
         if e.device_type != DeviceType.CUDA or ms <= 0 or e.key in _NOT_KERNELS:
@@ -976,13 +977,14 @@ def profile_step(torch, step, step_ms, kernel_groups=_KERNEL_GROUPS):
         low = e.key.lower()
         group = next((g for sub, g in kernel_groups if sub in low), "other")
         groups[group] = groups.get(group, 0.0) + ms
+        launches[group] = launches.get(group, 0) + e.count
         kernels.append((ms, e.count, e.key[:160]))
     device = sum(groups.values())
     kernels.sort(reverse=True)
     return dict(device_ms=device, idle_share=1.0 - device / step_ms if device else None,
                 profiled_ms=profiled_ms, kernel_launches=sum(n for _, n, _ in kernels),
                 by_group=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-                top_kernels=[dict(ms=ms, launches=n, name=k) for ms, n, k in kernels[:12]])
+                launches_by_group=launches, top_kernels=[dict(ms=ms, launches=n, name=k) for ms, n, k in kernels[:12]])
 
 
 def phase_training(torch, fa, models, AdamW, smi, width=FLAGSHIP, knobs=None, batch=8,
@@ -1278,7 +1280,8 @@ def phase_custom_op(torch, axpy, custom_op, cpp_extension, build_dir):
                 row[f"{key}_ms_turns"] = turns[key]
                 row[f"{key}_call_ms"] = call_ms(torch, fn)
             # one fma (2 operations) an element, on the fp32 units
-            row["bound_ms"], row["bound_by"] = bound_ms(2.0 * x.numel(), nbytes, False)
+            row["bound_ms"], row["bound_by"] = bound_ms(2.0 * x.numel(), nbytes,
+                                                        PEAK_FP32_FLOPS)
             row["kernel_gbps"] = nbytes / (row["kernel_ms"] * 1e-3) / 1e9
             print("axpy_timed " + json.dumps(row), flush=True)
         checks.append(row)
@@ -4373,7 +4376,14 @@ def master_training(torch, fa, models, T, math_calls, smi, o2):
     step_ms = sorted(times)[1]
     peak = T.device.max_memory_allocated()
     profile = profile_step(torch, step, step_ms, kernel_groups=(
-        ("cast_kernel", "casts"), ("copy_kernel", "casts")) + _KERNEL_GROUPS)
+        ("cast_kernel", "casts"), ("copy_kernel", "casts"),
+        ("fa_fwd_tf32", "attention forward kernel (fp32)"),
+        ("fa_bwd_dq_tf32", "attention dq kernel (fp32)"),
+        ("fa_bwd_dkv_tf32", "attention dk/dv kernel (fp32)")) + _KERNEL_GROUPS)
+    # the card ran the fp32 forward kernel once a layer in the profiled step
+    fwd_tf32 = profile["launches_by_group"].get("attention forward kernel (fp32)", 0)
+    if fwd_tf32 != L:
+        fail(f"master grad: a profiled step ran {fwd_tf32} fa_fwd_tf32 kernels, want {L}")
     T.autograd.master_grad.set_master_grad(False)
     del model, opt
     return dict(step_ms=step_ms, step_ms_all=times, o2_bf16_step_ms=o2["step_ms"],
@@ -4383,7 +4393,7 @@ def master_training(torch, fa, models, T, math_calls, smi, o2):
                 launches_bf16=dict(fwd=bf16[0], bwd_dq=bf16[1], bwd_dkv=bf16[2]),
                 launches_f32=dict(fwd=f32[0], bwd_dq=f32[1], bwd_dkv=f32[2]),
                 grads="float32, finite, nonzero", math_path_calls=0, steps=6,
-                profile=profile, card=smi)
+                fa_fwd_tf32_kernels=fwd_tf32, profile=profile, card=smi)
 
 
 def master_card_vs_cpu(torch, fa, models, T, port_F):
@@ -4769,7 +4779,9 @@ def main():
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
-    # every backward instantiation: registers, spills and stack
+    # every forward and backward instantiation: registers, spills and stack
+    print("ptxas_fwd " + json.dumps(ptxas_summary(_build.build_log("flash_attention_fwd"))),
+          flush=True)
     print("ptxas_bwd " + json.dumps(ptxas_summary(_build.build_log("flash_attention_bwd"))),
           flush=True)
     # the axpy kernel's instantiations: registers, shared memory, spills
@@ -5034,11 +5046,12 @@ def main():
             bound_ms=b16[f"{key}_bound_ms"], bound_by=b16[f"{key}_bound_by"],
             library_ms=b16["library_ms"], backward_ms=b16["bwd_ms"], shape=b16["shape"],
             dtype=b16["dtype"]))
-    # kernels 1-3's float32 variants (fa_fwd_f32, the 3xTF32 dq and dk/dv)
-    # at phase 17 (a)'s shape: times from phases 2 and 5 (sdpa and its
-    # backward in float32 as the library calls), launches from 17 (a); the
-    # backward's also without the causal mask
+    # kernels 1-3's float32 variants (the 3xTF32 forward, dq and dk/dv) at
+    # phase 17 (a)'s shape: times from phases 2 and 5 (sdpa and its backward
+    # in float32 as the library calls), launches from 17 (a); also without
+    # the causal mask
     f32, b32 = fwd_rows["master_grad_fp32"], bwd_rows["master_grad_fp32"]
+    f32n = fwd_rows["master_grad_fp32_noncausal"]
     b32n = bwd_rows["master_grad_fp32_noncausal"]
     mg_f32 = master["training"]["launches_f32"]
     f32_kernels = [dict(
@@ -5048,8 +5061,13 @@ def main():
         launches_by_path=dict(master_grad=mg_f32["fwd"], master_grad_all=mg_total["fwd"]),
         max_abs_err=f32["max_abs_err"], max_scaled_err=f32["max_scaled_err"], tol=f32["tol"],
         ms=f32["kernel_ms"], call_ms=f32["kernel_call_ms"], plain_ms=f32["plain_ms"],
-        bound_ms=f32["bound_ms"], bound_by=f32["bound_by"], library_ms=f32["library_ms"],
-        shape=f32["shape"], dtype=f32["dtype"])]
+        bound_ms=f32["bound_ms"], bound_by=f32["bound_by"],
+        share_of_bound=f32["share_of_bound"], library_ms=f32["library_ms"],
+        shape=f32["shape"], dtype=f32["dtype"],
+        noncausal=dict(
+            ms=f32n["kernel_ms"], plain_ms=f32n["plain_ms"], bound_ms=f32n["bound_ms"],
+            share_of_bound=f32n["share_of_bound"], library_ms=f32n["library_ms"],
+            max_abs_err=f32n["max_abs_err"], max_scaled_err=f32n["max_scaled_err"]))]
     for key, name, line, grads in (("dq", "flash_attention_bwd_dq", 130, ("dq",)),
                                    ("dkv", "flash_attention_bwd_dkv", 171, ("dk", "dv"))):
         f32_kernels.append(dict(
@@ -5062,16 +5080,13 @@ def main():
             norm_rel_err=max(b32[f"{g}_err"] for g in grads), tol=b32["tol"],
             ms=b32[f"{key}_ms"], call_ms=b32[f"{key}_call_ms"], plain_ms=b32["plain_ms"],
             bound_ms=b32[f"{key}_bound_ms"], bound_by=b32[f"{key}_bound_by"],
-            bound_tf32x3_ms=b32[f"{key}_bound_tf32x3_ms"],
-            bound_tf32x3_by=b32[f"{key}_bound_tf32x3_by"],
-            share_of_fp32_bound=b32[f"{key}_share_of_fp32_bound"],
-            share_of_tf32x3_bound=b32[f"{key}_share_of_tf32x3_bound"],
+            share_of_bound=b32[f"{key}_share_of_bound"],
             library_ms=b32["library_ms"], backward_ms=b32["bwd_ms"], shape=b32["shape"],
             dtype=b32["dtype"],
             noncausal=dict(
                 ms=b32n[f"{key}_ms"], plain_ms=b32n["plain_ms"],
                 bound_ms=b32n[f"{key}_bound_ms"],
-                bound_tf32x3_ms=b32n[f"{key}_bound_tf32x3_ms"],
+                share_of_bound=b32n[f"{key}_share_of_bound"],
                 library_ms=b32n["library_ms"], backward_ms=b32n["bwd_ms"],
                 norm_rel_err=max(b32n[f"{g}_err"] for g in grads))))
     print(json.dumps({"kernels": [kernel] + bwd_kernels + [axpy_kernel] + dim_kernels

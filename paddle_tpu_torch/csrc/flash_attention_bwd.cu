@@ -641,94 +641,8 @@ fa_bwd_dkv_wgmma(const __grid_constant__ BwdParams p) {
 // ---------------------------------------------------------------------------
 // fp32: 3xTF32 on the tensor cores (tf32 wgmma and mma.sync m16n8k8)
 // ---------------------------------------------------------------------------
-// An A operand x (registers) is split into hi = tf32(x), rounded to nearest
-// with ties away (cvt.rna), and lo = x - hi, exact in fp32; a B operand
-// (shared memory) into hi = trunc(x), the fp32 word itself, and lo = x -
-// trunc(x), its lo plane. The tensor cores read every operand word's top 19
-// bits (tf32 by truncation). A product accumulates a_hi b_lo + a_lo b_hi +
-// a_hi b_hi in fp32, the small terms first (CUTLASS's OpMultiplyAddFastF32);
-// a_lo b_lo, ~2^-21 of the product, is dropped.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = __float_as_uint(x - __uint_as_float(hi));  // the tensor cores read its top 19 bits
-}
-
-// c (m16 x n8, fp32) += a (m16 x k8, tf32) b (k8 x n8, tf32)
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// An A fragment split once and used against several B fragments
-struct FragA {
-  uint32_t hi[4], lo[4];
-  __device__ __forceinline__ void split(float x0, float x1, float x2, float x3) {
-    split_tf32(x0, hi[0], lo[0]);
-    split_tf32(x1, hi[1], lo[1]);
-    split_tf32(x2, hi[2], lo[2]);
-    split_tf32(x3, hi[3], lo[3]);
-  }
-};
-
-// c += a b in 3xTF32 (mma.sync): b's two elements as fp32 words of a tile in
-// shared memory, h0, h1 (the tensor cores read them truncated to tf32), and of
-// its lo plane, l0, l1 (x - trunc(x))
-__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, float h0, float h1,
-                                     float l0, float l1) {
-  mma_tf32(c, a.hi, __float_as_uint(l0), __float_as_uint(l1));
-  mma_tf32(c, a.lo, __float_as_uint(h0), __float_as_uint(h1));
-  mma_tf32(c, a.hi, __float_as_uint(h0), __float_as_uint(h1));
-}
-
-// An fp32 (R, D) tile as TMA writes it with the 128-byte swizzle: D / 32
-// column atoms of R rows x 128 bytes, atom a at a R 128 bytes; the 16-byte
-// chunk j of row r lies at chunk j ^ (r % 8). Float offset of (r, c):
-template <int R>
-__device__ __forceinline__ int sw(int r, int c) {
-  return ((c >> 5) * R + r) * 32 + ((c & 31) ^ ((r & 7) << 2));
-}
-// Fragment reads, lane = 4 g + t: an A fragment whose contraction dim is the
-// tile's columns (K-major) is one ldmatrix of 8 x 16-byte matrices, whose 8
-// rows (r % 8 = 0..7) sit in 8 different chunks: one pass over the banks. A B
-// fragment whose contraction dim is the tile's rows (MN-major: dQ = dS K,
-// dV = P^T dO, dK = dS^T Q) reads rows 8 k + 2 t, 8 k + 2 t + 1 and column
-// 8 n + g: word g ^ 4 (2 t + {0, 1}) of chunk group n, 32 banks. Those rows
-// are the contraction order that makes an m16n8 (or wgmma m64) accumulator,
-// columns 2 t, 2 t + 1 of each n8 group, the A fragment of the next product
-// as it lies (a0..a3 = c0, c2, c1, c3), so P and dS never leave registers.
-
-// ldmatrix of four 8 x 16-byte matrices: lane l gives the address of row
-// l % 8 of matrix l / 8 and gets word l % 4 of row l / 4 of each, which for
-// fp32 is a0 of an m16n8k8 (or wgmma m64k8) A fragment: rows 8 i + g,
-// column t
-__device__ __forceinline__ void ldsm4(uint32_t addr, float (&x)[4]) {
-  uint32_t r0, r1, r2, r3;
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(addr));
-  x[0] = __uint_as_float(r0);
-  x[1] = __uint_as_float(r1);
-  x[2] = __uint_as_float(r2);
-  x[3] = __uint_as_float(r3);
-}
-
-// The A fragment of rows [r0, r0 + 16) and columns [c0, c0 + 8) of an (R, D)
-// tile at shared address `tile` (K-major): matrices (rows +0, cols +0),
-// (+8, +0), (+0, +4), (+8, +4) are a0..a3
-template <int R>
-__device__ __forceinline__ void load_a(FragA& a, uint32_t tile, int r0, int c0, int lane) {
-  float x[4];
-  ldsm4(tile + 4 * sw<R>(r0 + lane % 8 + 8 * ((lane / 8) % 2), c0 + 4 * (lane / 16)), x);
-  a.split(x[0], x[1], x[2], x[3]);
-}
+// The 3xTF32 building blocks (the splits, FragA, mma3, sw, load_a, tf32
+// wgmma) are hopper.cuh's, shared with the fp32 forward kernel.
 
 struct Params {
   const void* q;
@@ -750,58 +664,6 @@ struct Params {
   float scale;
   int causal;
 };
-
-// tf32 wgmma, A from registers (the m16n8k8 A fragment of each warp's 16
-// rows), B from shared memory K-major: d (m64 x N) (+)= a b; scale_d = 0
-// overwrites d. The tensor cores read B's fp32 words as tf32 by truncation.
-__device__ __forceinline__ void wgmma_tf32(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
-                                           int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_tf32(float (&d)[8], const uint32_t (&a)[4], uint64_t db,
-                                           int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-// The K-major descriptor of k8 step kk of an fp32 (R, D) tile (tma_load_f32's
-// layout: 32-column atoms of R rows x 128 bytes, 128-byte swizzle)
-template <int R>
-__device__ __forceinline__ uint64_t f32_kmajor_desc(uint32_t tile, int kk) {
-  return wgmma_desc(tile + (kk / 4) * R * 128 + (kk % 4) * 32, 16, 1024, 1);
-}
-
-// Keep an A fragment in its registers across an asynchronous wgmma that reads
-// it (the compiler takes an asm input as read at issue).
-__device__ __forceinline__ void fence_frag(FragA& a) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a.hi[i]), "+r"(a.lo[i]) :: "memory");
-}
-
-// the tf32 the tensor cores read of x: its top 19 bits
-__device__ __forceinline__ float tf32_trunc(float x) {
-  return __uint_as_float(__float_as_uint(x) & 0xffffe000u);
-}
-
-// order this thread's shared-memory writes before later async-proxy (wgmma,
-// TMA) reads of them
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 
 // The lo planes of a stage's two B tiles (the streamed K, V or Q, dO): x -
 // (x as the tensor cores read it), in the tiles' own layout, written by the

@@ -52,14 +52,14 @@ launches = 0
 launches_bwd_dq = 0
 #: backward dk/dv kernel launches, counted the same way
 launches_bwd_dkv = 0
-#: of those, the float32 kernels' (``fa_fwd_f32``, the 3xTF32 dq and dk/dv
+#: of those, the float32 kernels' (the 3xTF32 ``fa_fwd_tf32``, dq and dk/dv
 #: ``fa_bwd_*_tf32``), which master-grad training runs in its float32 pullbacks
 launches_f32 = 0
 launches_bwd_dq_f32 = 0
 launches_bwd_dkv_f32 = 0
 #: inputs a wrapper copied because TMA cannot read them where they lie (a
-#: base or a stride that is not a multiple of 16 bytes): the 16-bit forward's
-#: q, k, v and every backward's q, k, v, dO, O and LSE
+#: base or a stride that is not a multiple of 16 bytes): the forward's q, k, v
+#: and the backward's q, k, v, dO, O and LSE, at every dtype
 copies_for_alignment = 0
 #: q, k or v tensors zero-padded along the head dim to the kernels' next
 #: native head dim (the backward then gets a padded dO from autograd),
@@ -215,8 +215,8 @@ def _stream(t):
 def _launch(q, k, v, causal, scale):
     global launches, launches_f32
     _check_kernel_inputs(q, k, v)
-    if q.dtype != torch.float32:  # the 16-bit kernel reads q, k, v by TMA
-        q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
+    # the kernels read q, k and v by TMA, at every dtype
+    q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)

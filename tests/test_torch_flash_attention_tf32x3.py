@@ -1,23 +1,28 @@
-"""The fp32 flash-attention backward kernels' arithmetic (3xTF32 on the tensor
-cores), emulated in plain torch on the CPU and held against ``jax.grad`` of
-the JAX package's flash attention in fp32.
+"""The fp32 flash-attention kernels' arithmetic (3xTF32 on the tensor cores),
+emulated in plain torch on the CPU and held against the JAX package's flash
+attention in fp32: ``jax.grad`` of it for the backward kernels, its forward's
+O and LSE for the forward kernel.
 
 The kernels ``fa_bwd_dq_tf32`` and ``fa_bwd_dkv_tf32``
-(``paddle_tpu_torch/csrc/flash_attention_bwd.cu``) split each fp32 operand of
-a product a @ b in two. The left one, a, lies in registers: hi = tf32(a),
-rounded to nearest with ties away from zero (``cvt.rna``), and lo = a - hi.
-The right one, b, lies in shared memory: hi is the fp32 word itself and lo =
-b - trunc(b), a plane the block writes. The tensor cores read every word's
-top 19 bits (tf32 by truncation). Each product accumulates a_hi b_lo, then
-a_lo b_hi, then a_hi b_hi into its fp32 sum. The emulation does the rounding
-on the float32 bits, the same splits and the same term order, inside a
-written-out FA2 backward
+(``paddle_tpu_torch/csrc/flash_attention_bwd.cu``) and ``fa_fwd_tf32``
+(``flash_attention_fwd.cu``) split each fp32 operand of a product a @ b in
+two. The left one, a, lies in registers: hi = tf32(a), rounded to nearest with
+ties away from zero (``cvt.rna``), and lo = a - hi. The right one, b, lies in
+shared memory: hi is the fp32 word itself and lo = b - trunc(b), a plane the
+block writes. The tensor cores read every word's top 19 bits (tf32 by
+truncation). Each product accumulates a_hi b_lo, then a_lo b_hi, then a_hi
+b_hi into its fp32 sum. The emulation does the rounding on the float32 bits,
+the same splits and the same term order, inside a written-out FA2 backward
 with the kernels' tiles (dq: 32-key tiles, delta = rowsum(dO O); dk/dv:
-32-query tiles over every q head of a GQA group into one sum), so it shows,
-without a card, that the split keeps the kernels' fp32 accuracy: 1e-5
-norm-relative to the JAX gradients, ten times inside the 1e-4 the card's
-kernels are held to against the plain backward. The JAX side runs the Pallas
-kernels in interpret mode, as tests/test_torch_flash_attention.py does.
+32-query tiles over every q head of a GQA group into one sum) and a
+written-out online-softmax forward with the forward kernel's (64-key tiles,
+16 at D = 256; exp2 of scores scaled by scale log2(e); P V with P split in
+registers against V's hi and lo planes, keys in the kernel's permuted
+contraction order), so it shows, without a card, that the split keeps the
+kernels' fp32 accuracy: 1e-5 norm-relative to the JAX results, ten times
+inside the 1e-4 the card's kernels are held to against the plain versions.
+The JAX side runs the Pallas kernels in interpret mode, as
+tests/test_torch_flash_attention.py does.
 """
 import math
 
@@ -28,6 +33,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from paddle_tpu.ops.pallas import flash_attention as jax_fa
 from paddle_tpu.ops.pallas.flash_attention import flash_attention_fwd as jax_flash
 from paddle_tpu_torch.ops.cuda import flash_attention as port_fa
 
@@ -200,3 +206,148 @@ def test_split_keeps_fp32(split, bits):
     assert torch.all((hi.double() + lo.double() - x.double()).abs()
                      <= 2.0 ** -bits * x.double().abs())
     assert torch.all(_tf32_trunc(hi) == hi) and torch.all(_tf32_trunc(lo) == lo)
+
+
+# ---------------------------------------------------------------------------
+# the forward kernel (fa_fwd_tf32)
+# ---------------------------------------------------------------------------
+LOG2E = np.float32(1.4426950408889634)
+LN2 = np.float32(0.6931471805599453)
+# the contraction order of an 8-key step: the accumulator's columns 2 t and
+# 2 t + 1 are A positions t and t + 4, and V^T's planes hold keys in that order
+PERM = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def _fwd_tile(D):
+    """Keys of the forward kernel's K/V tile (F32FwdLayout::kN)."""
+    return 16 if D > 128 else 64
+
+
+def _fwd_emulated(q, k, v, causal, scale, passes=3):
+    """(O (B, Sq, Hq, D), LSE (B, Hq, Sq)), float32: the forward kernel's loop
+    over key tiles (zero-filled past Sk, as TMA fills them) in 3xTF32, with
+    the online softmax in log2 units as the kernel keeps it."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    n = _fwd_tile(D)
+    qt = q.transpose(1, 2)
+    kq, vq = (x.transpose(1, 2).repeat_interleave(rep, dim=1) for x in (k, v))
+    pad = -Sk % n
+    kq, vq = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (kq, vq))
+    order = (torch.arange(0, n, 8)[:, None] + torch.tensor(PERM)).reshape(-1)
+    scale_log2 = float(np.float32(np.float32(scale) * LOG2E))
+    m = torch.full((B, Hq, Sq), -1e30)
+    lsum = torch.zeros(B, Hq, Sq)
+    o = torch.zeros(B, Hq, Sq, D)
+    for k0 in range(0, Sk, n):
+        kk, vv = kq[:, :, k0:k0 + n], vq[:, :, k0:k0 + n]
+        s = _mma3(torch.zeros(B, Hq, Sq, n), qt, kk.transpose(-1, -2), passes) * scale_log2
+        s = s.masked_fill(~_visible(0, Sq, k0, n, Sq, Sk, causal), -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        lsum = lsum * alpha + p.sum(-1)
+        o = _mma3(o * alpha[..., None], p[..., order], vv[:, :, order], passes)
+        m = m_new
+    lsum = lsum.clamp(min=1e-30)
+    return (o / lsum[..., None]).transpose(1, 2), (m + torch.log2(lsum)) * float(LN2)
+
+
+def _jax_fwd(q, k, v, causal, scale):
+    """JAX's (O (B, Sq, Hq, D), LSE (B, Hq, Sq)): the Pallas forward kernel in
+    interpret mode, one block over each sequence."""
+    qt, kt, vt = (jnp.swapaxes(jnp.asarray(x), 1, 2) for x in (q, k, v))
+    out, lse = jax_fa._fwd(qt, kt, vt, np.float32(scale), causal, q.shape[1], k.shape[1])
+    return np.asarray(jnp.swapaxes(out, 1, 2)), np.asarray(lse[..., 0])
+
+
+def _fwd_case(B, Sq, Sk, Hq, Hkv, D, causal, passes=3):
+    r = np.random.RandomState(D + Sq + Sk + Hq)
+    q = r.randn(B, Sq, Hq, D).astype(np.float32)
+    k, v = (r.randn(B, Sk, Hkv, D).astype(np.float32) for _ in range(2))
+    scale = 1.0 / math.sqrt(D)
+    ref = _jax_fwd(q, k, v, causal, scale)
+    got = _fwd_emulated(*(torch.from_numpy(x) for x in (q, k, v)), causal, scale, passes)
+    return [x.numpy() for x in got], ref
+
+
+FWD_CASES = [
+    # B, Sq, Sk, Hq, Hkv, D, causal
+    (1, 128, 128, 2, 2, 32, True),
+    (1, 200, 200, 2, 2, 32, False),     # ragged last tile (64-key tiles)
+    (1, 256, 256, 2, 2, 64, True),
+    (1, 100, 300, 4, 2, 64, False),     # GQA 2:1, Sq != Sk, ragged
+    (1, 128, 256, 2, 2, 96, True),      # cross-length, bottom-right
+    (2, 256, 256, 2, 2, 128, True),
+    (1, 128, 128, 2, 2, 128, False),
+    (1, 300, 700, 4, 1, 128, True),     # MQA, ragged, bottom-right
+    (1, 128, 128, 2, 2, 256, True),     # 16-key tiles
+    (1, 200, 333, 4, 2, 256, False),    # 16-key tiles, GQA, ragged
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal", FWD_CASES)
+def test_emulated_forward_matches_jax(B, Sq, Sk, Hq, Hkv, D, causal):
+    (out, lse), (ref_out, ref_lse) = _fwd_case(B, Sq, Sk, Hq, Hkv, D, causal)
+    assert out.shape == ref_out.shape and lse.shape == ref_lse.shape
+    err = _norm_rel(out, ref_out)
+    assert err <= TOL, f"O: {err} > {TOL}"
+    lse_err = float(np.max(np.abs(lse - ref_lse) / np.maximum(1.0, np.abs(ref_lse))))
+    assert lse_err <= TOL, f"LSE: {lse_err} > {TOL}"
+
+
+def test_forward_one_tf32_pass_misses_the_tolerance():
+    """The forward with a_hi b_hi alone in both products is far outside it."""
+    (out, _), (ref_out, _) = _fwd_case(1, 256, 256, 2, 2, 128, True, passes=1)
+    assert _norm_rel(out, ref_out) > 10 * TOL
+
+
+def _vt_planes(v8):
+    """V^T's hi plane for the 8 keys of one k8 step as the forward kernel
+    writes it: 16-byte chunk c of row d holds keys 2 e + c (e = 0..3) of the
+    step, so position 4 c + e of row d is key 2 e + c."""
+    D = v8.shape[1]
+    vt = torch.empty(D, 8, dtype=v8.dtype)
+    for d in range(D):
+        for c in range(2):
+            for e in range(4):
+                vt[d, 4 * c + e] = v8[2 * e + c, d]
+    return vt
+
+
+@pytest.mark.parametrize("D", [32, 128])
+def test_pv_fragments_pair_with_vt_planes(D):
+    """P V as the kernel runs it: a warp's 16 x 8 slice of P as the S
+    accumulator lies (thread 4 g + t holds rows g, g + 8 at columns 2 t,
+    2 t + 1) is the A fragment a0..a3 = elements 0, 2, 1, 3 (rows g, g + 8 at
+    k positions t, t + 4); against V^T's planes, whose row d holds the keys
+    in the same order, the product is P V."""
+    r = np.random.RandomState(D)
+    p = torch.from_numpy(r.rand(16, 8)).double()
+    v = torch.from_numpy(r.randn(8, D)).double()
+    a = torch.empty(16, 8, dtype=torch.float64)
+    for g in range(8):
+        for t in range(4):
+            elem = [p[g + 8 * (e >> 1), 2 * t + (e & 1)] for e in range(4)]
+            a0, a1, a2, a3 = elem[0], elem[2], elem[1], elem[3]
+            a[g, t], a[g + 8, t], a[g, t + 4], a[g + 8, t + 4] = a0, a1, a2, a3
+    b = _vt_planes(v).T  # B[k][n] = V^T[n][k]
+    torch.testing.assert_close(a @ b, p @ v, rtol=1e-14, atol=1e-14)
+
+
+def test_pv_split_keeps_fp32():
+    """P split in registers (rna) against V's hi and lo planes, three passes
+    a k8 step in the kernel's order, is within fp32 rounding of the float64
+    product; one pass (a_hi b_hi) is not."""
+    r = np.random.RandomState(1)
+    p = torch.from_numpy(np.exp(-3 * r.rand(64, 32)).astype(np.float32))
+    v = torch.from_numpy(r.randn(32, 128).astype(np.float32))
+    ref = p.double() @ v.double()
+    scale = ref.abs().max().item()
+    for passes, ok in ((3, True), (1, False)):
+        acc = torch.zeros(64, 128)
+        for kc in range(0, 32, 8):
+            acc = _mma3(acc, p[:, kc:kc + 8], v[kc:kc + 8], passes)
+        err = (acc.double() - ref).abs().max().item() / scale
+        assert (err <= 2.0 ** -19) == ok, (passes, err)

@@ -80,7 +80,8 @@ def time_tree(tree: Path, variant: str | None) -> dict:
                         ("library", lambda: torch.add(one, x, alpha=2)),
                         ("clone", lambda: x.clone())):
             row[f"{key}_ms"] = chip_smoke.device_ms(torch, fn)
-        row["bound_ms"], row["bound_by"] = chip_smoke.bound_ms(2.0 * n, nbytes, False)
+        row["bound_ms"], row["bound_by"] = chip_smoke.bound_ms(2.0 * n, nbytes,
+                                                               chip_smoke.PEAK_FP32_FLOPS)
         row["kernel_tbps"] = nbytes / (row["kernel_ms"] * 1e-3) / 1e12
         rows.append(row)
         del x, y

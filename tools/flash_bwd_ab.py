@@ -14,8 +14,8 @@ not): the dq kernel, the dk/dv kernel and the whole backward
 with CUDA events as ``chip_smoke.py`` times them, with torch's
 flash-attention backward (``aten._scaled_dot_product_flash_attention_backward``;
 in float32 its memory-efficient attention's) timed beside them in the same
-process as the yardstick. float32 rows also carry the 3xTF32 tensor-core
-bound beside the fp32 one. A tree whose dq launcher takes ``delta``
+process as the yardstick. A float32 row's bounds are at the 3xTF32 rate
+its kernels run (three TF32 passes a product). A tree whose dq launcher takes ``delta``
 computes it in plain torch before the kernels (its "dq" is the kernel alone,
 its "backward" includes that pass); a tree whose dq launcher takes O fuses it
 into the dq kernel. Each tree's gradients are compared with the library's (a
@@ -87,10 +87,7 @@ def time_tree(tree: Path) -> dict:
         row = {f"{key}_ms": chip_smoke.device_ms(torch, fn, iters=iters)
                for key, fn in fns.items()}
         (row["dq_bound_ms"], _), (row["dkv_bound_ms"], _) = chip_smoke.backward_bounds_ms(
-            B, S, S, H, H, D, causal, q.element_size(), dtype != torch.float32)
-        if dtype == torch.float32:
-            (row["dq_bound_tf32x3_ms"], _), (row["dkv_bound_tf32x3_ms"], _) = (
-                chip_smoke.backward_bounds_tf32x3_ms(B, S, S, H, H, D, causal))
+            B, S, S, H, H, D, causal, q.element_size())
         rows.append(dict(name=name, shape=[B, S, S, H, H, D], dtype=dt, causal=causal,
                          plain_delta=plain_delta, norm_rel_err_vs_library=err, **row))
         del q, k, v, do, out, lse, delta, got, ref, library, fns

@@ -7,15 +7,17 @@ two trees of this repository.
 
 Each run is a process of its own that imports ``paddle_tpu_torch`` from one
 tree, builds that tree's kernels from its ``csrc/`` and times its forward
-kernel (``flash_attention_fwd_lse``: a CUDA graph of 20 calls timed with CUDA
-events, as ``chip_smoke.py`` times it) at the serving, long-prompt and
-training shapes (bf16, H16 D128, causal), with torch's
-``scaled_dot_product_attention`` timed beside it in the same process as the
-yardstick. The runs go parent, this tree, this tree, parent on one card, so
-each tree is read twice and the spread between its two readings shows. The
-kernel's output is compared with sdpa's at every shape (a broken build shows
-as a large error). Needs one CUDA card; prints a table, then one JSON line
-with every reading.
+kernel (``flash_attention_fwd_lse``: a CUDA graph of 20 calls, 4 in float32,
+timed with CUDA events, as ``chip_smoke.py`` times it) at the serving,
+long-prompt and training shapes (bf16, H16 D128, causal) and at the training
+shape in float32 (the master-grad pullbacks' kernel; causal and not), with
+torch's ``scaled_dot_product_attention`` timed beside it in the same process
+as the yardstick (in float32 with matmul TF32 off). A float32 row's bound is
+at the 3xTF32 rate its kernel runs (three TF32 passes a product). The runs
+go parent, this tree, this tree, parent on one card, so each tree is read
+twice and the spread between its two readings shows. The kernel's output is
+compared with sdpa's at every shape (a broken build shows as a large error).
+Needs one CUDA card; prints a table, then one JSON line with every reading.
 """
 from __future__ import annotations
 
@@ -26,10 +28,12 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-SHAPES = (  # name, B, S, H, D: bf16, causal, Sq = Sk, Hq = Hkv
-    ("flagship_prefill", 8, 128, 16, 128),
-    ("long_prompt", 1, 2048, 16, 128),
-    ("training_shape", 8, 2048, 16, 128),
+SHAPES = (  # name, B, S, H, D, dtype, causal: Sq = Sk, Hq = Hkv
+    ("flagship_prefill", 8, 128, 16, 128, "bfloat16", True),
+    ("long_prompt", 1, 2048, 16, 128, "bfloat16", True),
+    ("training_shape", 8, 2048, 16, 128, "bfloat16", True),
+    ("master_grad_fp32", 8, 2048, 16, 128, "float32", True),
+    ("master_grad_fp32_noncausal", 8, 2048, 16, 128, "float32", False),
 )
 
 
@@ -47,25 +51,28 @@ def time_tree(tree: Path) -> dict:
     if not Path(fa.__file__).resolve().is_relative_to(tree.resolve()):
         raise RuntimeError(f"imported {fa.__file__}, not the tree {tree}")
     build_s = _build.build_all()
+    torch.backends.cuda.matmul.allow_tf32 = False  # sdpa's float32 math stays float32
     gen = torch.Generator(device="cuda").manual_seed(2024)
     rows = []
-    for name, B, S, H, D in SHAPES:
-        q, k, v = (torch.randn(B, S, H, D, device="cuda", generator=gen).to(torch.bfloat16)
+    for name, B, S, H, D, dt, causal in SHAPES:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn(B, S, H, D, device="cuda", generator=gen).to(dtype)
                    for _ in range(3))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        out = fa.flash_attention_fwd_lse(q, k, v, True)[0]
-        lib = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        out = fa.flash_attention_fwd_lse(q, k, v, causal)[0]
+        lib = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
         err = (out.float() - lib.transpose(1, 2).float()).abs().max().item()
+        iters = 4 if dtype == torch.float32 else 20
         with torch.no_grad():
             kernel_ms = chip_smoke.device_ms(
-                torch, lambda: fa.flash_attention_fwd_lse(q, k, v, True))
+                torch, lambda: fa.flash_attention_fwd_lse(q, k, v, causal), iters=iters)
             library_ms = chip_smoke.device_ms(
                 torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True))
-        bound, by = chip_smoke.attention_bound_ms(B, S, S, H, H, D, True, 2, True)
-        rows.append(dict(name=name, shape=[B, S, S, H, H, D], kernel_ms=kernel_ms,
-                         library_ms=library_ms, bound_ms=bound, bound_by=by,
-                         max_abs_err_vs_sdpa=err))
+                    qt, kt, vt, is_causal=causal), iters=iters)
+        bound, by = chip_smoke.attention_bound_ms(B, S, S, H, H, D, causal, q.element_size())
+        rows.append(dict(name=name, shape=[B, S, S, H, H, D], dtype=dt, causal=causal,
+                         kernel_ms=kernel_ms, library_ms=library_ms, bound_ms=bound,
+                         bound_by=by, max_abs_err_vs_sdpa=err))
         del q, k, v, qt, kt, vt, out, lib
         torch.cuda.empty_cache()
     return dict(tree=str(tree), card=chip_smoke.nvidia_smi(), build_s=build_s, rows=rows)
@@ -97,13 +104,13 @@ def main() -> int:
             return 1
         runs.append(dict(json.loads(proc.stdout.strip().splitlines()[-1]), label=label))
     print(f"card: {runs[0]['card']}")
-    print(f"{'shape':18} {'run':7} {'kernel ms':>10} {'sdpa ms':>9} {'bound ms':>9} "
+    print(f"{'shape':27} {'run':7} {'kernel ms':>10} {'sdpa ms':>9} {'bound ms':>9} "
           f"{'err vs sdpa':>11}")
     for i, (name, *_) in enumerate(SHAPES):
         for run in runs:
             r = run["rows"][i]
-            print(f"{name:18} {run['label']:7} {r['kernel_ms']:10.5f} {r['library_ms']:9.5f} "
-                  f"{r['bound_ms']:9.5f} {r['max_abs_err_vs_sdpa']:11.5f}")
+            print(f"{name:27} {run['label']:7} {r['kernel_ms']:10.5f} {r['library_ms']:9.5f} "
+                  f"{r['bound_ms']:9.5f} {r['max_abs_err_vs_sdpa']:11.2e}")
     print(json.dumps(dict(flash_fwd_ab=runs)), flush=True)
     return 0
 
