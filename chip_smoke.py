@@ -239,7 +239,10 @@ Phases, each a hard check (the script exits nonzero on the first failure):
      bf16 backward), no math path, every parameter's gradient float32,
      finite and nonzero; one more warm-up step and 3 timed with the port's
      device.Event pairs beside phase 16 (b)'s O2 median and one profiled
-     (L fa_fwd_tf32 kernels among its launches),
+     (L fa_fwd_tf32 kernels among its launches; then one more step under
+     the port's Profiler with the counts set to 0: its bf16 fa_fwd_wgmma
+     launches read from the Profiler's device table, from torch.profiler
+     read directly, and from the counter),
      the peak from the port's max_memory_allocated, a falling loss; (b) 2 layers at the
      flagship width, B1 S128, one O2 bf16 master-grad backward card against
      a CPU twin: with the card's attention on the plain math path, as on
@@ -264,6 +267,27 @@ Phases, each a hard check (the script exits nonzero on the first failure):
      reconstructions, card and CPU. Phases 2 and 5 time the fp32 kernels at (a)'s shape
      (``master_grad_fp32``), with torch's sdpa and its memory-efficient
      backward in float32 beside them. At most MASTER_SECONDS.
+ 18. the op surface and the profiler (at most SURFACE_SECONDS): (a) every op
+     of ops/compat.py, the generated in-place family and ops/__init__'s
+     helpers on CUDA and on CPU tensors from one seed: integer,
+     manipulation and comparison outputs equal bit for bit, floating ones
+     within the CPU tests' tolerance, in-place ops keep data_ptr(); the
+     samplers' moments on the card (2**20 draws, 6 standard errors) and a
+     seeded draw that repeats; a to_dlpack/from_dlpack round trip on the
+     card shares memory; (b) the fuse'd _rope_cos_sin at S2048 D128 in
+     bf16 and fp32 against its eager function (the angle's rounding bound,
+     plus a bf16 ulp), with the kernels of one call of each from a profile;
+     (c) phase 6's step (flagship width, 8 layers, B8 S2048, recompute,
+     AdamW) after one warm-up step, 4 steps under the port's
+     Profiler(targets=[CPU, GPU], scheduler=(1, 3)): its device table over
+     the two recorded steps counts fa_fwd_wgmma 4L, fa_bwd_dq_wgmma and
+     fa_bwd_dkv_wgmma 2L each, equal to the launch counters over the same
+     steps (set to 0 when the window opens, read before it closes); the
+     merged chrome trace holds op:: host spans and DeviceOp spans on
+     other pids, the device spans inside the host window; it loads back;
+     summary() prints "Device Op Summary"; the profiled steps' ms beside the
+     unprofiled ones' and the Benchmark timer's ips; (d) us of a dispatched
+     add over torch.add with the profiler off (phase 16 (e)'s figure).
 Phases 3, 9 and 13 time the decode engine's default, the captured path.
 The last line is the device JSON object; the line before it the card's name
 and power limit; before that the kernels JSON object.
@@ -981,7 +1005,14 @@ def profile_step(torch, step, step_ms, kernel_groups=_KERNEL_GROUPS):
         kernels.append((ms, e.count, e.key[:160]))
     device = sum(groups.values())
     kernels.sort(reverse=True)
+    # kernel launches torch.profiler kept no record of (a session in a
+    # process that has run for a while loses its first few: profiler/
+    # profiler.py _PRIMER_LAUNCHES)
+    from paddle_tpu_torch.profiler.profiler import _lost_launches
+
+    lost = _lost_launches(prof.events(), (DeviceType.CUDA,), 0.0)
     return dict(device_ms=device, idle_share=1.0 - device / step_ms if device else None,
+                lost_launch_records=lost,
                 profiled_ms=profiled_ms, kernel_launches=sum(n for _, n, _ in kernels),
                 by_group=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
                 launches_by_group=launches, top_kernels=[dict(ms=ms, launches=n, name=k) for ms, n, k in kernels[:12]])
@@ -4169,6 +4200,31 @@ def amp_card_vs_cpu(torch, fa, models, T):
     return out
 
 
+def dispatch_us(torch, T):
+    """The host microseconds of ``T.add`` on two 1024-element tensors on the
+    card and of ``torch.add`` on the same, each the median of DISPATCH_CALLS
+    timed calls, the two calls alternated (the host's load drifts, and a
+    block of one after a block of the other reads the drift), and their
+    difference: what the dispatch costs an op."""
+    a = torch.randn(1024, device="cuda")
+    b = torch.randn(1024, device="cuda")
+    fns = (T.add, torch.add)
+    for _ in range(200):
+        for fn in fns:
+            fn(a, b)
+    torch.cuda.synchronize()
+    ts = ([], [])
+    for _ in range(DISPATCH_CALLS):
+        for fn, out in zip(fns, ts):
+            t0 = time.perf_counter_ns()
+            fn(a, b)
+            out.append(time.perf_counter_ns() - t0)
+    torch.cuda.synchronize()
+    dispatched, plain = (sorted(t)[len(t) // 2] / 1e3 for t in ts)
+    return dict(dispatched_add_us=dispatched, torch_add_us=plain,
+                dispatch_us=dispatched - plain)
+
+
 def dispatch_cost(torch, T, models, AdamW, fa, smi):
     """(e): the host microseconds of one dispatched op (``T.add`` on two
     1024-element tensors on the card, AMP off) against the same torch call,
@@ -4178,23 +4234,7 @@ def dispatch_cost(torch, T, models, AdamW, fa, smi):
     each with a profiled step's idle share."""
     from paddle_tpu_torch.ops import _apply
 
-    a = torch.randn(1024, device="cuda")
-    b = torch.randn(1024, device="cuda")
-
-    def per_call(fn):
-        for _ in range(200):
-            fn(a, b)
-        torch.cuda.synchronize()
-        ts = []
-        for _ in range(DISPATCH_CALLS):
-            t0 = time.perf_counter_ns()
-            fn(a, b)
-            ts.append(time.perf_counter_ns() - t0)
-        torch.cuda.synchronize()
-        return sorted(ts)[len(ts) // 2] / 1e3
-
-    calls = dict(dispatched_add_us=per_call(T.add), torch_add_us=per_call(torch.add))
-    calls["dispatch_us"] = calls["dispatched_add_us"] - calls["torch_add_us"]
+    calls = dispatch_us(torch, T)
     cfg = models.LlamaConfig(**FLAGSHIP, dtype="bfloat16", recompute=True,
                              recompute_granularity="full")
     gc.collect()
@@ -4384,6 +4424,7 @@ def master_training(torch, fa, models, T, math_calls, smi, o2):
     fwd_tf32 = profile["launches_by_group"].get("attention forward kernel (fp32)", 0)
     if fwd_tf32 != L:
         fail(f"master grad: a profiled step ran {fwd_tf32} fa_fwd_tf32 kernels, want {L}")
+    fwd_bf16 = fwd_bf16_records(torch, fa, T, step, profile)
     T.autograd.master_grad.set_master_grad(False)
     del model, opt
     return dict(step_ms=step_ms, step_ms_all=times, o2_bf16_step_ms=o2["step_ms"],
@@ -4393,7 +4434,52 @@ def master_training(torch, fa, models, T, math_calls, smi, o2):
                 launches_bf16=dict(fwd=bf16[0], bwd_dq=bf16[1], bwd_dkv=bf16[2]),
                 launches_f32=dict(fwd=f32[0], bwd_dq=f32[1], bwd_dkv=f32[2]),
                 grads="float32, finite, nonzero", math_path_calls=0, steps=6,
-                fa_fwd_tf32_kernels=fwd_tf32, profile=profile, card=smi)
+                fa_fwd_tf32_kernels=fwd_tf32, fa_fwd_wgmma_records=fwd_bf16, profile=profile,
+                card=smi)
+
+
+def fwd_bf16_records(torch, fa, T, step, profile):
+    """A master-grad step's bf16 forward launches (``fa_fwd_wgmma``) by
+    three records (PERF.md's open question on 15 against 16): the launch
+    counter and torch.profiler read directly (``key_averages()``, as
+    ``profile_step`` reads it, with and without its nonzero-time filter, the
+    raw device events, and the kernel launches without a device record) over
+    one step, then the counter and the port's Profiler's device table over
+    the next; ``profile`` is profile_step's group count over the step
+    before."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from paddle_tpu_torch.profiler.profiler import _lost_launches
+
+    def bf16_launches():
+        return counts(fa)[0] - counts_f32(fa)[0]
+
+    torch.cuda.synchronize()
+    reset_counts(fa)
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    rows = [(e.key[:100], e.count, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "fa_fwd_wgmma" in e.key]
+    direct = dict(counter=bf16_launches(), key_averages=sum(c for _, c, _ in rows),
+                  lost_launch_records=_lost_launches(prof.events(), (DeviceType.CUDA,), 0.0),
+                  key_averages_nonzero=sum(c for _, c, t in rows if t > 0),
+                  events=sum(1 for e in prof.events()
+                             if e.device_type == DeviceType.CUDA and "fa_fwd_wgmma" in e.name),
+                  rows=rows)
+    reset_counts(fa)
+    P = T.profiler
+    with P.Profiler(targets=[P.ProfilerTarget.CPU, P.ProfilerTarget.GPU]) as p:
+        step()
+        counter = bf16_launches()
+    res = p._last_result
+    table = [(r["name"][:100], r["calls"]) for r in res.device_op_stats()
+             if "fa_fwd_wgmma" in r["name"]]
+    return dict(profile_step=profile["launches_by_group"].get("attention forward kernel"),
+                torch_profiler=direct,
+                port_profiler=dict(counter=counter, device_table=sum(c for _, c in table),
+                                   rows=table, lost_device_records=res.lost_device_records))
 
 
 def master_card_vs_cpu(torch, fa, models, T, port_F):
@@ -4729,6 +4815,444 @@ def phase_master(torch, fa, models, T, port_F, tfunc, smi, amp, serving):
     return out
 
 
+SURFACE_SECONDS = 120      # phase 18's share of the script's time
+SURFACE_DRAWS = 2 ** 20    # (a): draws a sampler's moments are taken over
+# (a): floating outputs, card against CPU: the CPU tests' tolerances
+# (tests/test_torch_compat.py), rtol and atol, at the CPU tests' reduction
+# lengths (16 terms at most: the card sums in another order)
+TOL_SURFACE = (1e-5, 1e-6)
+# (b): the fused rope tables against eager at S2048. inv_freq comes from pow,
+# Inductor's on the card against CUDA's eager powf (each within 2 ulps), and
+# the angle t * inv_freq carries that error times the position: four ulps
+# (2**-23 relative each) of the largest angle, plus an ulp of cos and sin;
+# bf16 tables round that to a bf16 ulp (2**-8) more
+ROPE_S, ROPE_D = 2048, 128
+TOL_FUSE_ROPE = {"float32": 4 * ROPE_S * 2.0 ** -23 + 2.0 ** -22,
+                 "bfloat16": 4 * ROPE_S * 2.0 ** -23 + 2.0 ** -22 + 2.0 ** -8}
+
+
+def surface_cases():
+    """(a)'s cases: (name, function of the namespace and the inputs, input
+    specs, "exact" or "float", in-place: None, "keep" (the op writes into
+    its first argument's storage) or "swap" (its result, of another shape
+    or dtype, takes the argument's place)). Specs: ("n", shape) normal float32,
+    ("u", shape, lo, hi) uniform float32, ("i", shape, lo, hi) int64,
+    ("b", shape) bool, ("a", array)."""
+    def n(*s):
+        return ("n", s)
+
+    def u(s, lo, hi):
+        return ("u", s, lo, hi)
+
+    def i(s, lo, hi):
+        return ("i", s, lo, hi)
+
+    def b(*s):
+        return ("b", s)
+
+    E, F = "exact", "float"
+    out = [
+        ("add_n", lambda T, x, y, z: T.add_n([x, y, z]), [n(64, 64)] * 3, F),
+        ("hstack", lambda T, x, y: T.hstack([x, y]), [n(8, 3), n(8, 5)], E),
+        ("vstack", lambda T, x, y: T.vstack([x, y]), [n(5), n(3, 5)], E),
+        ("row_stack", lambda T, x, y: T.row_stack([x, y]), [n(2, 4), n(1, 4)], E),
+        ("column_stack", lambda T, x, y: T.column_stack([x, y]), [n(6), n(6, 2)], E),
+        ("dstack", lambda T, x, y: T.dstack([x, y]), [n(4), n(1, 4, 3)], E),
+        ("hsplit", lambda T, x: T.hsplit(x, [2, 5]), [n(4, 8)], E),
+        ("vsplit", lambda T, x: T.vsplit(x, 2), [n(6, 3)], E),
+        ("dsplit", lambda T, x: T.dsplit(x, [1]), [n(2, 2, 4)], E),
+        ("block_diag", lambda T, x, y, z: T.block_diag([x, y, z]), [n(3, 3), n(2, 4), n(5)], E),
+        ("cartesian_prod", lambda T, x, y: T.cartesian_prod([x, y]),
+         [i((5,), 0, 9), i((4,), 0, 9)], E),
+        ("combinations", lambda T, x: T.combinations(x, 3), [n(7)], E),
+        ("combinations_replacement", lambda T, x: T.combinations(x, 2, with_replacement=True),
+         [i((5,), 0, 9)], E),
+        ("diagonal_scatter", lambda T, x, y: T.diagonal_scatter(x, y, offset=1),
+         [n(64, 64), n(63)], E),
+        ("select_scatter", lambda T, x, y: T.select_scatter(x, y, 1, -1), [n(32, 16), n(32)], E),
+        ("slice_scatter", lambda T, x, y: T.slice_scatter(x, y, [1], [1], [9], [2]),
+         [n(16, 12), n(16, 4)], E),
+        ("take_raise_clips", lambda T, x, idx: T.take(x, idx), [n(32, 32), i((512,), -2000, 2000)],
+         E),
+        ("take_wrap", lambda T, x, idx: T.take(x, idx, mode="wrap"),
+         [n(32, 32), i((512,), -3000, 3000)], E),
+        ("unflatten", lambda T, x: T.unflatten(x, 1, [4, -1]), [n(8, 32)], E),
+        ("unfold", lambda T, x: T.unfold(x, 1, 16, 8), [n(4, 128)], E),
+        ("reverse", lambda T, x: T.reverse(x, [0, 1]), [n(8, 9)], E),
+        ("matrix_transpose", lambda T, x: T.matrix_transpose(x), [n(4, 8, 16)], E),
+        ("vecdot", lambda T, x, y: T.vecdot(x, y), [n(64, 16), n(64, 16)], F),
+        ("tensordot", lambda T, x, y: T.tensordot(x, y, 2), [n(16, 4, 3), n(4, 3, 16)], F),
+        ("cdist", lambda T, x, y: T.cdist(x, y), [n(64, 8), n(48, 8)], F),
+        ("cdist_p1", lambda T, x, y: T.cdist(x, y, p=1.0), [n(64, 8), n(48, 8)], F),
+        ("pdist", lambda T, x: T.pdist(x), [n(40, 4)], F),
+        ("sinc", lambda T, x: T.sinc(x), [n(4096)], F),
+        ("sgn", lambda T, x: T.sgn(x), [n(256)], E),
+        ("signbit", lambda T, x: T.signbit(x), [n(256)], E),
+        ("positive", lambda T, x: T.positive(x), [n(256)], E),
+        ("frexp", lambda T, x: T.frexp(x), [n(256)], E),
+        ("renorm", lambda T, x: T.renorm(x, 2.0, 0, 3.0), [n(16, 64)], F),
+        ("cumulative_trapezoid", lambda T, y: T.cumulative_trapezoid(y, dx=0.25), [n(64, 8)], F),
+        ("histogram_bin_edges", lambda T, x: T.histogram_bin_edges(x, bins=32), [n(4096)], F),
+        ("isin", lambda T, x, t: T.isin(x, t, invert=True), [i((256,), 0, 64), i((16,), 0, 64)], E),
+        ("isneginf", lambda T, x: T.isneginf(x),
+         [("a", [-float("inf"), float("inf"), float("nan"), 1.0])], E),
+        ("isposinf", lambda T, x: T.isposinf(x),
+         [("a", [-float("inf"), float("inf"), float("nan"), 1.0])], E),
+        ("isreal", lambda T, x: T.isreal(T.as_complex(x)), [n(64, 2)], E),
+        ("is_empty", lambda T, x: T.is_empty(x), [n(0, 3)], E),
+        ("as_complex", lambda T, x: T.as_complex(x), [n(64, 2)], E),
+        ("as_real", lambda T, x: T.as_real(T.as_complex(x)), [n(64, 2)], E),
+        ("gammaln", lambda T, x: T.gammaln(x), [u((1024,), 0.1, 8.0)], F),
+        ("gammainc", lambda T, a, x: T.gammainc(a, x), [u((1024,), 0.5, 6.0),
+                                                        u((1024,), 0.1, 8.0)], F),
+        ("gammaincc", lambda T, a, x: T.gammaincc(a, x), [u((1024,), 0.5, 6.0),
+                                                          u((1024,), 0.1, 8.0)], F),
+        ("multigammaln", lambda T, x: T.multigammaln(x, 4), [u((1024,), 2.0, 9.0)], F),
+        ("polygamma_0", lambda T, x: T.polygamma(x, 0), [u((1024,), 0.5, 6.0)], F),
+        ("polygamma_2", lambda T, x: T.polygamma(x, 2), [u((1024,), 0.5, 6.0)], F),
+        ("increment", lambda T, x: T.increment(x, 2.0), [n(64)], E),
+        ("bitwise_invert", lambda T, x: T.bitwise_invert(x), [i((64,), -99, 99)], E),
+        ("tolist", lambda T, x: T.to_tensor(T.tolist(x), place=x.device), [i((4, 5), 0, 9)], E),
+    ]
+    rows = [(name, fn, specs, kind, None) for name, fn, specs, kind in out]
+    # the generated in-place family and the stragglers: each keeps its storage
+    unary = {"abs_": n(256), "acos_": u((256,), -0.9, 0.9), "atan_": n(256), "cos_": n(256),
+             "sin_": n(256), "sinh_": n(256), "tan_": u((256,), -1.0, 1.0), "tanh_": n(256),
+             "digamma_": u((256,), 0.5, 4.0), "erf_": n(256), "expm1_": n(256),
+             "frac_": n(256), "i0_": n(256), "lgamma_": u((256,), 0.5, 4.0),
+             "log_": u((256,), 0.5, 4.0), "log10_": u((256,), 0.5, 4.0),
+             "log2_": u((256,), 0.5, 4.0), "logit_": u((256,), 0.1, 0.9), "neg_": n(256),
+             "square_": n(256), "trunc_": n(256), "gammaln_": u((256,), 0.5, 4.0),
+             "sinc_": n(256), "nan_to_num_": ("a", [float("nan"), 1.0, float("inf"), -2.0])}
+    for name, spec in unary.items():
+        rows.append((name, lambda T, x, _n=name: getattr(T, _n)(x), [spec], F, "keep"))
+    binary_f = {"copysign_": (n(256), n(256)), "hypot_": (n(256), n(256)),
+                "pow_": (u((256,), 0.5, 2.0), n(256)), "remainder_": (n(256), u((256,), 0.5, 2.0)),
+                "gammainc_": (u((256,), 0.5, 4.0), u((256,), 0.5, 4.0)),
+                "gammaincc_": (u((256,), 0.5, 4.0), u((256,), 0.5, 4.0)),
+                "ldexp_": (n(256), i((256,), -3, 4))}
+    for name, specs in binary_f.items():
+        rows.append((name, lambda T, x, y, _n=name: getattr(T, _n)(x, y), list(specs), F, "keep"))
+    binary_i = {"bitwise_and_": (-99, 99), "bitwise_or_": (-99, 99), "bitwise_xor_": (-99, 99),
+                "gcd_": (1, 60), "lcm_": (1, 12), "floor_divide_": (1, 9),
+                "floor_mod_": (1, 9), "mod_": (1, 9), "bitwise_left_shift_": (0, 4),
+                "bitwise_right_shift_": (0, 4)}
+    for name, (lo, hi) in binary_i.items():
+        rows.append((name, lambda T, x, y, _n=name: getattr(T, _n)(x, y),
+                     [i((256,), 0 if "shift" in name else -99, 99), i((256,), lo, hi)], E, "keep"))
+    rows += [
+        ("bitwise_not_", lambda T, x: T.bitwise_not_(x), [i((64,), -99, 99)], E, "keep"),
+        ("bitwise_invert_", lambda T, x: T.bitwise_invert_(x), [i((64,), -99, 99)], E, "keep"),
+        ("cumsum_", lambda T, x: T.cumsum_(x, 1), [n(64, 8)], F, "keep"),
+        ("cumprod_", lambda T, x: T.cumprod_(x, 0), [u((8, 16), 0.5, 1.5)], F, "keep"),
+        ("multigammaln_", lambda T, x: T.multigammaln_(x, 3), [u((256,), 2.0, 6.0)], F, "keep"),
+        ("polygamma_", lambda T, x: T.polygamma_(x, 1), [u((256,), 0.5, 4.0)], F, "keep"),
+        ("tril_", lambda T, x: T.tril_(x, -1), [n(16, 16)], E, "keep"),
+        ("triu_", lambda T, x: T.triu_(x, 2), [n(16, 16)], E, "keep"),
+        ("masked_fill_", lambda T, x, m: T.masked_fill_(x, m, 7.0), [n(16, 16), b(16, 16)], E,
+         True),
+        ("masked_scatter_", lambda T, x, m, v: T.masked_scatter_(x, m, v),
+         [n(16, 16), b(16, 16), n(256)], E, "keep"),
+        ("addmm_", lambda T, c, x, y: T.addmm_(c, x, y, beta=0.5, alpha=2.0),
+         [n(32, 32), n(32, 8), n(8, 32)], F, "keep"),
+        ("renorm_", lambda T, x: T.renorm_(x, 2.0, 1, 2.0), [n(16, 32)], F, "keep"),
+        ("index_add_", lambda T, x, idx, v: T.index_add_(x, idx, 0, v),
+         [n(16, 8), i((32,), 0, 16), n(32, 8)], F, "keep"),
+        ("index_put_", lambda T, x, idx, v: T.index_put_(x, (idx,), v),
+         [n(16, 8), ("a", list(range(0, 16, 3))), n(6, 8)], E, "keep"),
+        ("index_fill_", lambda T, x, idx: T.index_fill_(x, idx, 1, -3.0),
+         [n(16, 8), ("a", [0, 5, 7])], E, "keep"),
+    ]
+    # shape- and dtype-changing members (cast_, flatten_, the comparisons, ...)
+    # take the result's place: no storage to keep
+    for name, fn, specs in (
+            ("cast_", lambda T, x: T.cast_(x, "int32"), [n(64)]),
+            ("flatten_", lambda T, x: T.flatten_(x), [n(4, 16)]),
+            ("t_", lambda T, x: T.t_(x), [n(4, 16)]),
+            ("transpose_", lambda T, x: T.transpose_(x, [1, 0, 2]), [n(2, 3, 4)]),
+            ("equal_", lambda T, x, y: T.equal_(x, y), [i((64,), 0, 3), i((64,), 0, 3)]),
+            ("greater_equal_", lambda T, x, y: T.greater_equal_(x, y), [n(64), n(64)]),
+            ("greater_than_", lambda T, x, y: T.greater_than_(x, y), [n(64), n(64)]),
+            ("less_equal_", lambda T, x, y: T.less_equal_(x, y), [n(64), n(64)]),
+            ("less_than_", lambda T, x, y: T.less_than_(x, y), [n(64), n(64)]),
+            ("less_", lambda T, x, y: T.less_(x, y), [n(64), n(64)]),
+            ("logical_and_", lambda T, x, y: T.logical_and_(x, y), [b(64), b(64)]),
+            ("logical_or_", lambda T, x, y: T.logical_or_(x, y), [b(64), b(64)]),
+            ("logical_not_", lambda T, x: T.logical_not_(x), [b(64)]),
+            ("where_", lambda T, c, x, y: T.where_(c, x, y), [b(64), n(64), n(64)])):
+        rows.append((name, fn, specs, E, "swap"))
+    return rows
+
+
+def _surface_input(torch, spec, rng):
+    import numpy as np
+
+    kind = spec[0]
+    if kind == "n":
+        a = rng.standard_normal(spec[1]).astype(np.float32)
+    elif kind == "u":
+        a = rng.uniform(spec[2], spec[3], spec[1]).astype(np.float32)
+    elif kind == "i":
+        a = rng.randint(spec[2], spec[3], spec[1]).astype(np.int64)
+    elif kind == "b":
+        a = rng.rand(*spec[1]) > 0.5
+    else:
+        a = np.asarray(spec[1])
+        a = a.astype(np.float32) if a.dtype == np.float64 else a
+    return torch.from_numpy(a)
+
+
+def _flat(out):
+    if isinstance(out, (list, tuple)):
+        return [o for x in out for o in _flat(x)]
+    return [out]
+
+
+def op_surface_on_card(torch, T):
+    """(a): every case on CUDA and on CPU tensors from one seed."""
+    dev = "cuda"
+    import numpy as np
+
+    rows, worst = [], {}
+    for k, (name, fn, specs, kind, inplace) in enumerate(surface_cases()):
+        rng = np.random.RandomState(1000 + k)
+        host = [_surface_input(torch, s, rng) for s in specs]
+        card = [x.to(dev, copy=True) for x in host]
+        ptr = card[0].data_ptr() if card else None
+        cpu_out = _flat(fn(T, *host))
+        gpu_out = _flat(fn(T, *card))
+        if inplace is not None:
+            if gpu_out[0] is not card[0] or cpu_out[0] is not host[0]:
+                fail(f"surface {name}: the in-place op did not return its first argument")
+            if inplace == "keep" and card[0].data_ptr() != ptr:
+                fail(f"surface {name}: the in-place op moved its tensor's storage")
+        if len(cpu_out) != len(gpu_out):
+            fail(f"surface {name}: {len(gpu_out)} outputs on the card, {len(cpu_out)} on the CPU")
+        err = 0.0
+        for g, c in zip(gpu_out, cpu_out):
+            if g.device.type != dev:
+                fail(f"surface {name}: an output on {g.device}, not the card")
+            if g.dtype != c.dtype or tuple(g.shape) != tuple(c.shape):
+                fail(f"surface {name}: card {g.dtype} {tuple(g.shape)}, CPU {c.dtype} "
+                     f"{tuple(c.shape)}")
+            g = g.cpu()
+            if kind == "exact" or not (c.is_floating_point() or c.is_complex()):
+                same = torch.equal(g, c) if not (c.is_floating_point() or c.is_complex()) \
+                    else bool(((g == c) | (torch.isnan(g) & torch.isnan(c))).all())
+                if not same:
+                    fail(f"surface {name}: card and CPU differ where they must be equal")
+            else:
+                rtol, atol = TOL_SURFACE
+                if not torch.allclose(g, c, rtol=rtol, atol=atol, equal_nan=True):
+                    d = (g - c).abs().max().item()
+                    fail(f"surface {name}: card and CPU differ by {d} (rtol {rtol}, atol {atol})")
+                if c.numel():
+                    err = max(err, ((g - c).abs() / (c.abs() + atol / rtol)).max().item())
+        worst[name] = err
+        rows.append(name)
+    # the samplers on the card: a seeded draw repeats, moments within
+    # SAMPLER_SIGMAS standard errors of SURFACE_DRAWS draws
+    moments = {}
+    for name, draw, (mean, var), stat in (
+            ("standard_gamma", lambda: T.standard_gamma(torch.full((SURFACE_DRAWS,), 2.5,
+                                                                   device=dev)),
+             (2.5, 2.5), lambda v: v),
+            ("binomial", lambda: T.binomial(torch.full((SURFACE_DRAWS,), 10, device=dev),
+                                            torch.full((SURFACE_DRAWS,), 0.3, device=dev)),
+             (3.0, 2.1), lambda v: v),
+            ("log_normal", lambda: T.log_normal(0.5, 1.5, [SURFACE_DRAWS]), (0.5, 2.25),
+             torch.log)):
+        T.seed(29)
+        a = draw()
+        T.seed(29)
+        again = draw()
+        if a.device.type != dev or not torch.equal(a, again):
+            fail(f"sampler {name}: not on the card, or a seeded draw did not repeat")
+        v = stat(a.double())
+        m, s2 = v.mean().item(), v.var().item()
+        se = math.sqrt(var / SURFACE_DRAWS)
+        # the variance's standard error, allowing an excess kurtosis up to 6
+        se_var = var * math.sqrt(8.0 / SURFACE_DRAWS)
+        if abs(m - mean) > SAMPLER_SIGMAS * se or abs(s2 - var) > SAMPLER_SIGMAS * se_var:
+            fail(f"sampler {name}: mean {m} and variance {s2}, want {mean} and {var} within "
+                 f"{SAMPLER_SIGMAS} standard errors")
+        moments[name] = dict(mean=m, var=s2, want_mean=mean, want_var=var, dtype=str(a.dtype))
+    x = torch.randn(4096, device=dev)
+    y = T.from_dlpack(T.to_dlpack(x))
+    if y.data_ptr() != x.data_ptr() or y.device != x.device:
+        fail("dlpack: the round trip on the card copied the tensor")
+    return dict(cases=len(rows), worst_scaled_err=max(worst.values()),
+                moments=moments, samples=SURFACE_DRAWS, dlpack_shares_memory=True)
+
+
+def fuse_on_card(torch, T):
+    """(b): the fuse'd rope tables against their eager function."""
+    from paddle_tpu_torch.models.llama import _rope_cos_sin
+
+    P = T.profiler
+
+    def kernels(fn):
+        """The kernels of one call, from the port's Profiler."""
+        with P.Profiler(targets=[P.ProfilerTarget.CPU, P.ProfilerTarget.GPU]) as prof:
+            fn()
+        res = prof._last_result
+        names = sorted(e["name"][:80] for e in res.device_events())
+        if not names or res.lost_device_records:
+            fail(f"fuse: a profiled call recorded {len(names)} kernels and lost "
+                 f"{res.lost_device_records}")
+        return names
+
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        args = (ROPE_S, ROPE_D, 10000.0, dtype, "cuda")
+        t0 = time.perf_counter()
+        fc, fs = _rope_cos_sin(*args)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        ec, es = _rope_cos_sin.__wrapped__(*args)
+        if fc.dtype != dtype or fc.shape != (ROPE_S, ROPE_D) or fc.device.type != "cuda":
+            fail(f"fuse: the {dt} table is {fc.dtype} {tuple(fc.shape)} on {fc.device}")
+        err = max((fc.float() - ec.float()).abs().max().item(),
+                  (fs.float() - es.float()).abs().max().item())
+        if not err <= TOL_FUSE_ROPE[dt]:
+            fail(f"fuse: the {dt} rope tables part from eager by {err}, "
+                 f"more than {TOL_FUSE_ROPE[dt]}")
+        fused_k = kernels(lambda: _rope_cos_sin(*args))
+        eager_k = kernels(lambda: _rope_cos_sin.__wrapped__(*args))
+        out[dt] = dict(max_abs_err=err, tol=TOL_FUSE_ROPE[dt], compile_s=compile_s,
+                       fused_ms=call_ms(torch, lambda: _rope_cos_sin(*args)),
+                       eager_ms=call_ms(torch, lambda: _rope_cos_sin.__wrapped__(*args)),
+                       fused_kernels=fused_k, eager_kernels=eager_k)
+    out["variants"] = len(_rope_cos_sin.variants)
+    return out
+
+
+def profiled_training(torch, fa, models, T, AdamW):
+    """(c): phase 6's step under the port's Profiler."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    P = T.profiler
+    cfg = models.LlamaConfig(**FLAGSHIP, dtype="bfloat16", recompute=True,
+                             recompute_granularity="full")
+    L, B, S = cfg.num_hidden_layers, 8, 2048
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = models.LlamaForCausalLM(cfg, device="cuda", seed=0)
+    model.train()
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters(), multi_precision=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", generator=gen)
+    labels = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", generator=gen)
+
+    def step():
+        loss, _ = model(ids, labels=labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+
+    step()
+    results, times = [], []
+    with P.Profiler(targets=[P.ProfilerTarget.CPU, P.ProfilerTarget.GPU], scheduler=(1, 3),
+                    on_trace_ready=lambda prof: results.append(prof._last_result)) as prof:
+        for i in range(4):
+            if i == 1:   # the RECORD window opened at the step() before
+                reset_counts(fa)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if i == 2:   # before the step() that closes the window
+                counted = counts(fa)
+            prof.step(num_samples=B * S)
+        timer = prof.step_info(unit="tokens")
+    if len(results) != 1:
+        fail(f"profiler: {len(results)} finished windows, want 1")
+    res = results[0]
+    rows = res.device_op_stats()
+    table = tuple(sum(r["calls"] for r in rows if key in r["name"])
+                  for key in ("fa_fwd_wgmma", "fa_bwd_dq_wgmma", "fa_bwd_dkv_wgmma"))
+    if table != (4 * L, 2 * L, 2 * L) or table != counted or res.lost_device_records:
+        fail(f"profiler: the device table counts (fwd, dq, dk/dv) = {table} over two steps, "
+             f"the counters {counted}, {res.lost_device_records} launches without a record; "
+             f"want {(4 * L, 2 * L, 2 * L)} in both and none lost")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    try:
+        path = os.path.join(tmp, "flagship.json")
+        res.save(path)
+        size_mb = os.path.getsize(path) / 1e6
+        with open(path) as f:
+            spans = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+        host = [e for e in spans if e.get("cat") != "DeviceOp"]
+        ops = [e for e in host if e["name"].startswith("op::")]
+        dev = [e for e in spans if e.get("cat") == "DeviceOp"]
+        if not ops or not dev:
+            fail(f"profiler: the trace holds {len(ops)} op:: spans and {len(dev)} device spans")
+        if {e["pid"] for e in ops} & {e["pid"] for e in dev}:
+            fail("profiler: host and device spans share a pid")
+        lo = min(e["ts"] for e in host)
+        hi = max(e["ts"] + e["dur"] for e in host)
+        starts = sorted(e["ts"] for e in dev)
+        # a kernel starts after its launch; the tail may run past the last
+        # host span (the queue drains after the host moves on)
+        if starts[0] < lo - 1e3 or not lo <= starts[len(starts) // 2] <= hi:
+            fail(f"profiler: device spans start {starts[0] - lo:.1f} us from the host window "
+                 f"({hi - lo:.1f} us long), median at {starts[len(starts) // 2] - lo:.1f}")
+        tail = max(e["ts"] + e["dur"] for e in dev) - hi
+        loaded = P.load_profiler_result(path)
+        if len(loaded.events) != len(res.events):
+            fail(f"profiler: {len(loaded.events)} host events loaded back, "
+                 f"{len(res.events)} saved")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        prof.summary()
+    if "Device Op Summary" not in buf.getvalue():
+        fail("profiler: summary() printed no Device Op Summary")
+    device_ms = sum(r["total_ns"] for r in rows) / 1e6 / 2
+    unprofiled = (times[0] + times[3]) / 2
+    profiled = (times[1] + times[2]) / 2
+    del model, opt
+    return dict(device_table=dict(zip(("fa_fwd_wgmma", "fa_bwd_dq_wgmma", "fa_bwd_dkv_wgmma"),
+                                      table)),
+                counters=dict(zip(("fwd", "bwd_dq", "bwd_dkv"), counted)),
+                step_ms=times, profiled_step_ms=profiled, unprofiled_step_ms=unprofiled,
+                profiled_over_unprofiled=profiled / unprofiled, device_ms_per_step=device_ms,
+                host_events=len(res.events), op_spans=len(ops), device_events=len(dev),
+                lost_device_records=res.lost_device_records,
+                trace_mb=size_mb, device_tail_past_host_us=tail,
+                timer=timer.strip(),
+                top_kernels=[dict(name=r["name"][:80], calls=r["calls"],
+                                  total_ms=r["total_ns"] / 1e6) for r in rows[:8]])
+
+
+def phase_surface(torch, fa, models, T, AdamW, smi):
+    """Phase 18 (module docstring)."""
+    from paddle_tpu_torch.ops import _apply
+
+    out = {}
+    for key, fn in (("ops", lambda: op_surface_on_card(torch, T)),
+                    ("fuse", lambda: fuse_on_card(torch, T)),
+                    ("profiler", lambda: profiled_training(torch, fa, models, T, AdamW))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        out[key]["seconds"] = time.perf_counter() - t0
+        print(f"surface_{key} " + json.dumps(out[key]), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if _apply._PROFILER[0] is not None:
+        fail("profiler: the dispatch's slot is still set after the window closed")
+    out["dispatch"] = dict(dispatch_us(torch, T), card=smi)
+    print("surface_dispatch " + json.dumps(out["dispatch"]), flush=True)
+    return out
+
+
+
 def main():
     import torch
 
@@ -4900,6 +5424,16 @@ def main():
     print(f"phase_seconds 17 {master_s:.1f}", flush=True)
     if master_s > MASTER_SECONDS:
         fail(f"phase 17 took {master_s:.1f} s, more than its {MASTER_SECONDS} s")
+    # phase 18: the op surface and the profiler (launch counts set to 0 when
+    # the profiled flagship's RECORD window opens, read before it closes)
+    t0 = time.perf_counter()
+    op_surface = phase_surface(torch, fa, models, T, AdamW, smi)
+    surface_s = time.perf_counter() - t0
+    print(f"phase_seconds 18 {surface_s:.1f}", flush=True)
+    if surface_s > SURFACE_SECONDS:
+        fail(f"phase 18 took {surface_s:.1f} s, more than its {SURFACE_SECONDS} s")
+    profiled = op_surface["profiler"]["counters"]
+
     mg_total = master["training"]["launches_per_step"]
     mg_bf16 = master["training"]["launches_bf16"]
 
@@ -4924,6 +5458,7 @@ def main():
                               to_static_forward=compiled["forward"]["launches"],
                               deploy=deploy["flagship"]["launches_per_run"]["fwd"],
                               master_grad_bf16=mg_bf16["fwd"],
+                              profiled_two_steps=profiled["fwd"],
                               **{k: v["fwd"] for k, v in amp_launches.items()}),
         max_abs_err=main_row["max_abs_err"],
         tol=main_row["tol"], ms=main_row["kernel_ms"], kernel_ms=main_row["kernel_ms"],
@@ -4955,6 +5490,7 @@ def main():
                                   to_static_training=compiled["training"][
                                       "launches_per_step"][f"bwd_{key}"],
                                   master_grad_bf16=mg_bf16[f"bwd_{key}"],
+                                  profiled_two_steps=profiled[f"bwd_{key}"],
                                   **{k: v[f"bwd_{key}"] for k, v in amp_launches.items()}),
             max_abs_err=max(tr[f"{g}_max_abs_err"] for g in grads),
             norm_rel_err=max(tr[f"{g}_err"] for g in grads), tol=tr["tol"],

@@ -30,15 +30,17 @@ __all__ = [
     "empty_cache", "is_compiled_with_cuda", "is_compiled_with_rocm", "is_compiled_with_xpu",
     "is_compiled_with_ipu", "is_compiled_with_cinn", "is_compiled_with_distribute",
     "is_compiled_with_custom_device", "get_all_custom_device_type", "get_cudnn_version",
-    "XPUPlace", "IPUPlace", "cuda",
+    "CPUPlace", "CUDAPlace", "XPUPlace", "IPUPlace", "cuda",
 ]
 
 _CURRENT = [None]  # a torch.device, or None: the current card
 
 
 def set_device(device):
-    """``"cpu"``, ``"gpu"``, ``"gpu:N"``, ``"cuda:N"`` or a ``torch.device``;
+    """``"cpu"``, ``"gpu"``, ``"gpu:N"``, ``"cuda:N"``, a place or a ``torch.device``;
     returns the ``torch.device``. A card that is not there raises."""
+    if isinstance(device, (CPUPlace, CUDAPlace)):
+        device = device.device
     if isinstance(device, torch.device):
         name, idx = device.type, device.index or 0
     else:
@@ -300,6 +302,43 @@ def empty_cache():
     gc.collect()
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
+
+
+class CPUPlace:
+    """The host (the JAX package's ``CPUPlace``); ``to_tensor(place=...)``
+    takes it."""
+
+    device = torch.device("cpu")
+
+    def __repr__(self):
+        return "Place(cpu)"
+
+    def __eq__(self, other):
+        return isinstance(other, CPUPlace)
+
+    def __hash__(self):
+        return hash("cpu")
+
+
+class CUDAPlace:
+    """Card ``device_id``: ``cuda:<device_id>`` (the JAX package's
+    ``TPUPlace``, which ``TPUPlace`` names here too, so JAX-era code runs)."""
+
+    def __init__(self, device_id=0):
+        self.device_id = int(device_id)
+
+    @property
+    def device(self):
+        return torch.device("cuda", self.device_id)
+
+    def __repr__(self):
+        return f"Place(gpu:{self.device_id})"
+
+    def __eq__(self, other):
+        return isinstance(other, CUDAPlace) and other.device_id == self.device_id
+
+    def __hash__(self):
+        return hash(("gpu", self.device_id))
 
 
 class XPUPlace:

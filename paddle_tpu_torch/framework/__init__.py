@@ -1,7 +1,8 @@
 """The framework layer of the port: parameters that carry the JAX package's
 generated names (below), and the modules ``dtype`` (dtype names and the
 default dtype), ``flags`` (``set_flags``/``get_flags``), ``random`` (``seed``
-and the generators' states) and ``core`` (``to_tensor``).
+and the generators' states), ``core`` (``to_tensor``), ``enforce`` (the typed
+errors) and ``containers`` (``SelectedRows``, ``StringTensor``).
 
 The port has no tensor class of its own: its ``Tensor`` is ``torch.Tensor``,
 which every model, engine, optimizer and compiler path takes and returns.
@@ -77,3 +78,6 @@ def name_parameters(module: nn.Module) -> nn.Module:
         if not isinstance(p, Parameter):
             setattr(module, key, Parameter(p, p.requires_grad))
     return module
+
+
+from . import enforce  # noqa: E402,F401

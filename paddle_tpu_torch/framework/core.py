@@ -20,7 +20,10 @@ from . import dtype as dtype_mod
 
 def _place(place):
     from .. import resolve_device
+    from ..device import CPUPlace, CUDAPlace
 
+    if isinstance(place, (CPUPlace, CUDAPlace)):
+        place = place.device
     if isinstance(place, str):
         name, _, idx = place.lower().partition(":")
         if name in ("gpu", "cuda"):

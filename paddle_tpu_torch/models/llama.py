@@ -120,6 +120,22 @@ class LlamaConfig:
         return self.hidden_size // self.num_attention_heads
 
 
+@ops.fuse(static_argnums=(0, 1, 2, 3, 4))
+def _rope_cos_sin(seq_len, head_dim, theta, dtype, device):
+    """The JAX model's rotary cos/sin tables (``paddle_tpu/models/llama.py``
+    ``_rope_cos_sin``), each (seq_len, head_dim) in ``dtype``: one compiled
+    region per (seq_len, head_dim, theta, dtype, device), as the JAX model
+    builds them in one ``fuse``d region. The port's attention builds its
+    tables in ``incubate.nn.functional`` (``_rope_tables``); this is the JAX
+    function for code that calls it."""
+    inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                             device=device) / head_dim))
+    t = torch.arange(seq_len, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv_freq)            # (S, D/2)
+    emb = torch.cat([freqs, freqs], -1)       # (S, D)
+    return torch.cos(emb).to(dtype), torch.sin(emb).to(dtype)
+
+
 def _check_supported(config):
     """Raise for the parts of the JAX model this slice does not port."""
     unported = [
@@ -239,6 +255,9 @@ class LlamaModel(nn.Module):
 class LlamaLMHead(nn.Module):
     """logits = h @ W with W (hidden, vocab) in paddle's layout; stored here
     as (vocab, hidden), or the tied embedding itself."""
+
+    #: paddle's layout of ``weight`` is its transpose (``utils/weights.py``)
+    _transposed_weight = True
 
     def __init__(self, config: LlamaConfig, embedding=None, device=None, dtype=None):
         super().__init__()

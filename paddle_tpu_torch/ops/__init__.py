@@ -5,16 +5,20 @@ registry (``_apply``) and the operators that launch the hand-written kernels
 (``cuda``).
 
 The samplers (``random_ops``), paddle's ``getitem``/``setitem_``
-(``indexing``) and the linear-algebra half of ``linalg`` are here too. Not
-ported yet, in ROADMAP Queue A item 6 (c): ``compat``, ``parity`` and
-``fused``. The methods the JAX
+(``indexing``), the linear-algebra half of ``linalg``, the rest of the
+surface (``compat``: ``add_n``, ``hstack``, ``take``, ``tensordot``, the
+special functions, ...), the generated in-place family (``abs_``, ``sin_``,
+``where_``, ...), ``fuse`` (``fused``) and the TensorArray functions are here
+too. Not ported: ``parity`` (a report over the reference's yaml files, which
+are not in the repo). The methods the JAX
 package installs on its ``Tensor`` (``x.astype``, ``x.stop_gradient``, ...)
 are not installed on ``torch.Tensor``: the port never patches torch, and
-their function forms (``cast``, ...) are here.
+their function forms (``cast``, ``sin_``, ...) are here.
 """
 from __future__ import annotations
 
 from ._apply import apply, apply_raw, defop, get_registry, register_op  # noqa: F401
+from .fused import fuse  # noqa: F401
 from ..framework.core import to_tensor  # noqa: F401
 from .creation import (  # noqa: F401
     arange, assign, clone, complex, diag, diag_embed, diagflat, empty, empty_like, eye, full,
@@ -66,3 +70,89 @@ from .random_ops import (  # noqa: F401
 from .indexing import getitem, setitem_  # noqa: F401
 from .einsum_op import einsum  # noqa: F401
 from .optable import generate_op_docs, op_table  # noqa: F401
+
+import torch as _torch
+
+
+def item(x):
+    return x.item()
+
+
+def is_tensor(x):
+    return isinstance(x, _torch.Tensor)
+
+
+def is_floating_point(x):
+    from ..framework import dtype as _dt
+
+    return _dt.is_floating(x.dtype)
+
+
+def is_integer(x):
+    from ..framework import dtype as _dt
+
+    return _dt.is_integer(x.dtype)
+
+
+def is_complex(x):
+    from ..framework import dtype as _dt
+
+    return _dt.is_complex(x.dtype)
+
+
+def iinfo(dtype):
+    from ..framework import dtype as _dt
+
+    return _torch.iinfo(_dt.convert_dtype(dtype))
+
+
+def finfo(dtype):
+    from ..framework import dtype as _dt
+
+    return _torch.finfo(_dt.convert_dtype(dtype))
+
+
+def increment(x, value=1.0, name=None):
+    x.copy_(add(x, _torch.tensor(value, dtype=x.dtype, device=x.device)))
+    return x
+
+
+from . import compat as _compat  # noqa: E402
+from .compat import (  # noqa: F401,E402
+    add_n, as_complex, as_real, binomial, block_diag, cartesian_prod, cdist,
+    column_stack, combinations, cumulative_trapezoid, diagonal_scatter,
+    dsplit, dstack, frexp, from_dlpack, gammainc, gammaincc, gammaln,
+    histogram_bin_edges, hsplit, hstack, is_empty, isin, isneginf, isposinf,
+    isreal, log_normal, multigammaln, pdist, polygamma,
+    positive, renorm, reverse, row_stack, select_scatter, set_printoptions,
+    sgn, signbit, sinc, slice_scatter, standard_gamma, take, tensordot,
+    to_dlpack, tolist, unflatten, unfold, vsplit, vstack,
+)
+# the linalg namespace's functions, bound here as the JAX namespace binds them
+from ..linalg import matrix_transpose, vecdot  # noqa: F401,E402
+
+bitwise_invert = bitwise_not  # noqa: F405  (the reference's alias)
+globals().update(_compat._install_inplace(globals()))
+bitwise_invert_ = globals()["bitwise_not_"]
+
+# numeric constants (python/paddle/__init__ exports these)
+pi = 3.141592653589793
+e = 2.718281828459045
+inf = float("inf")
+nan = float("nan")
+newaxis = None
+
+# TensorArray (reference python/paddle/tensor/array.py)
+from ..tensor_array import (  # noqa: F401,E402
+    array_length, array_read, array_write, create_array,
+)
+
+# the last stragglers of the reference's top-level __all__, on the same
+# in-place helper
+from .math import _make_inplace as _mk_inplace  # noqa: E402
+
+addmm_ = _mk_inplace(addmm)
+renorm_ = _mk_inplace(renorm)
+index_add_ = _mk_inplace(index_add)
+index_put_ = _mk_inplace(index_put)
+index_fill_ = _mk_inplace(index_fill)

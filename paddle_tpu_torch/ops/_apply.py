@@ -16,8 +16,10 @@ around an op, in the same order:
   3. the NaN/Inf scan of the floating outputs when ``FLAGS_check_nan_inf``
      is on (``amp/debugging.py``), and the operator-stats record by output
      dtype while a collection is open.
-With AMP off, no scan and no collection, ``apply`` costs three checks over
-calling the function. PyTorch's autograd stands in for the JAX tape, so the
+With AMP off, no scan, no collection and no profiler, ``apply`` costs four
+checks over calling the function. While a ``paddle_tpu_torch.profiler``
+RECORD window is open, each call is an ``op::<name>`` Operator span in the
+profiler's host events (``_PROFILER``), as in the JAX dispatch. PyTorch's autograd stands in for the JAX tape, so the
 eager VJP cache (``_cached_pos_fns``/``_cached_op_fns``/``_LazyVjp``) has no
 counterpart, and ``jit.to_static`` (Dynamo) traces through ``apply``: the AMP
 state, the flag and the stats slot are guarded, so a step compiled outside
@@ -26,7 +28,7 @@ state, the flag and the stats slot are guarded, so a step compiled outside
 package they are ``Tensor`` methods that dispatch).
 
 Not ported here: graph capture (``to_static`` is Dynamo), the SPMD rules slot
-(ROADMAP Queue A item 10) and the profiler and monitor spans (item 7).
+(ROADMAP Queue A item 10) and the monitor's counters and spans (item 7).
 
 The JAX package registers its built-in ops when it is imported; the port
 registers those it has ported, under the same names, and keeps every JAX
@@ -36,6 +38,7 @@ taken.
 from __future__ import annotations
 
 import functools
+import time
 
 import torch
 
@@ -58,6 +61,11 @@ _NAN_INF_HOOK = [None]  # bound to amp.debugging._scan_op_outputs on first use
 _MASTER_GRAD = [False]
 _MASTER_CALL = [None]
 _STATS_COLUMN = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2}
+#: the profiler's host-event collector while a RECORD window is open, else
+#: None (``profiler/profiler.py`` sets it): the one check ``apply`` makes
+#: for the profiler
+_PROFILER = [None]
+_OPERATOR = [None]  # TracerEventType.Operator, bound at the first span
 
 
 class OpDef:
@@ -123,7 +131,33 @@ def _finish_outputs(name, out):
 
 
 def apply(opdef: OpDef, *args, **kwargs):
-    """Dispatch one op call: AMP cast, the function, scan and stats."""
+    """Dispatch one op call: AMP cast, the function, scan and stats; while a
+    profiler RECORD window is open, inside an ``op::<name>`` host span."""
+    if _PROFILER[0] is not None:
+        return _profiled(opdef, args, kwargs)
+    return _dispatch(opdef, args, kwargs)
+
+
+def _profiled(opdef, args, kwargs):
+    """``apply`` inside an Operator span (the reference records one per
+    generated op's forward, eager_gen.py's record-event preamble). A traced
+    call (``to_static``) records none, as the JAX trace records none."""
+    if torch.compiler.is_compiling():
+        return _dispatch(opdef, args, kwargs)
+    if _OPERATOR[0] is None:
+        from ..profiler.profiler import TracerEventType
+
+        _OPERATOR[0] = TracerEventType.Operator
+    t0 = time.perf_counter_ns()
+    try:
+        return _dispatch(opdef, args, kwargs)
+    finally:
+        collector = _PROFILER[0]
+        if collector is not None:
+            collector.emit(f"op::{opdef.name}", _OPERATOR[0], t0, time.perf_counter_ns())
+
+
+def _dispatch(opdef, args, kwargs):
     if _AMP_STATE:
         args, kwargs = _AMP_CAST[0](opdef, args, kwargs)
     if opdef.differentiable:

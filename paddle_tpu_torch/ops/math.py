@@ -584,8 +584,32 @@ def vander(x, n=None, increasing=False, name=None):
 
 # ---- in-place forms (paddle's ``x.add_(y)``) -------------------------------
 def _make_inplace(fn):
+    """``fn_``: the out-of-place op, then ``x.copy_`` of its (first) output,
+    so torch's autograd follows the write. Where autograd records it, the
+    op reads a clone of ``x`` (its backward may need the value the write
+    replaces, as torch's own in-place ops keep it). An output of another
+    shape or dtype (``cast_``, ``flatten_``, ``equal_``) takes ``x``'s place
+    as the JAX package's ``_replace_value`` swaps it; a tensor that
+    requires grad refuses that, as ``reshape_`` does."""
+
     def inplace(x, *args, **kwargs):
-        x.copy_(fn(x, *args, **kwargs))
+        src = x
+        if x.requires_grad and torch.is_grad_enabled():
+            src = x.clone()
+            args = tuple(src if a is x else a for a in args)
+        out = fn(src, *args, **kwargs)
+        if isinstance(out, (tuple, list)):
+            out = out[0]
+        if out.shape == x.shape and out.dtype == x.dtype:
+            x.copy_(out)
+            return x
+        if x.requires_grad:
+            raise RuntimeError(
+                f"{inplace.__name__} changes the shape or dtype of a tensor in place, "
+                f"which autograd cannot follow for a tensor that requires grad; use "
+                f"{fn.__name__}")
+        with torch.no_grad():
+            x.data = out
         return x
 
     inplace.__name__ = fn.__name__ + "_"

@@ -92,8 +92,10 @@ class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None, weight_decay=None,
                  grad_clip=None, multi_precision=False, name=None):
         if parameters is None:
-            raise ValueError("parameters is required: pass model.parameters() or "
-                             "model.named_parameters()")
+            from ..framework.enforce import InvalidArgumentError
+
+            raise InvalidArgumentError("parameters is required: pass model.parameters() or "
+                                       "model.named_parameters()")
         if not isinstance(learning_rate, LRScheduler) and (
                 isinstance(learning_rate, bool)
                 or not isinstance(learning_rate, (int, float, np.floating))):

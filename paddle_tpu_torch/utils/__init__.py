@@ -1,11 +1,9 @@
 """paddle.utils namespace of the port (counterpart of
 ``paddle_tpu/utils/__init__.py``; reference python/paddle/utils/__init__.py):
 the custom-op extension point, C++ extensions, the op table
-(``op_table``/``generate_op_docs``), try_import, deprecated, run_check and
-unique_name.
-
-Not ported yet: ``require_version`` (waits for a port of ``version.py``) and
-the ``download``/``weights`` helpers.
+(``op_table``/``generate_op_docs``), require_version, try_import, deprecated,
+run_check, unique_name, and the local-file readers ``download`` and
+``weights``.
 """
 import functools as _functools
 import importlib as _importlib
@@ -15,9 +13,47 @@ import torch as _torch
 
 from . import cpp_extension  # noqa: F401
 from . import custom_op  # noqa: F401
+from . import download  # noqa: F401
+from . import weights  # noqa: F401
 from .custom_op import get_custom_op, register_custom_op  # noqa: F401
 from ..ops.optable import generate_op_docs, op_table  # noqa: F401
 from .. import resolve_device as _resolve_device
+
+
+def require_version(min_version, max_version=None):
+    """reference base/framework.py:573 — assert the installed framework
+    version is within [min_version, max_version]. Pre-release suffixes
+    order below their release: 1.0.0rc0 < 1.0.0."""
+    from .. import version as _version
+
+    def parse(v):
+        v = str(v)
+        nums, suffix = [], ""
+        for p in v.split("."):
+            num = ""
+            for ch in p:
+                if ch.isdigit():
+                    num += ch
+                else:
+                    break
+            nums.append(int(num or 0))
+            rest = p[len(num):]
+            if rest:
+                suffix = rest
+        # a release ('' suffix) sorts AFTER any rc/dev/a/b of the same nums
+        return tuple((nums + [0, 0, 0])[:3]), (1, "") if not suffix \
+            else (0, suffix)
+
+    installed = getattr(_version, "full_version", "0.0.0")
+    cur = parse(installed)
+    if parse(min_version) > cur:
+        raise Exception(
+            f"installed version {installed!r} < required min_version "
+            f"{min_version!r}")
+    if max_version is not None and parse(max_version) < cur:
+        raise Exception(
+            f"installed version {installed!r} > allowed max_version "
+            f"{max_version!r}")
 
 
 def try_import(module_name, err_msg=None):
