@@ -288,6 +288,35 @@ Phases, each a hard check (the script exits nonzero on the first failure):
      summary() prints "Device Op Summary"; the profiled steps' ms beside the
      unprofiled ones' and the Benchmark timer's ips; (d) us of a dispatched
      add over torch.add with the profiler off (phase 16 (e)'s figure).
+ 19. observability (at most OBS_SECONDS): (a) phase 10's continuous cell
+     (bench.py:663-666's workload; the engine built with every sanitizer on,
+     so its submit lock is witnessed): with everything off a cold and a warm
+     pass, then a warm pass with the monitor, tracing and every sanitizer
+     on (PADDLE_TPU_SANITIZE=all's kinds), then a warm pass off again; the
+     monitored tokens equal the unmonitored ones bit for bit, no trip, the
+     snapshot's admissions, tokens, prefix hits and steps equal the
+     engine's (steps: its program calls, one numsan check each), the TTFT
+     histogram holds one sample a request, 0 attention launches; monitored
+     over unmonitored tokens/s and the sanctioned host reads a step (the
+     token readback and numsan's bool) are recorded; (b) phase 6's step
+     under trace.training_step with hostsync and numerics on: 3 steps
+     launch (16, 8, 8) each (counts set to 0 before them, read after), no
+     trip, the timeline finds 3 train.step spans; step ms on over off;
+     numsan's device ms a check over the loss and every parameter (CUDA
+     events); numsan's check finds a NaN, an inf and a -inf in a bf16 CUDA
+     tensor and passes 3e38; the numsan.check drill raises NumericsTrip
+     naming the poisoned region with every parameter bit for bit; .item(),
+     .cpu(), nonzero and a mask index inside the step raise
+     HostSyncInProtectedRegion, an allowed read passes; (c) phase 11's
+     three-replica fleet with slo=True, burn_aware_routing=True, per-replica
+     watchdogs and monitor.server.serve(0): every endpoint answers 200 while
+     the replicas serve, tools/obs_probe.py exits 0, HANG11's delay drill is
+     recovered by the watchdog and its flight dump names the open
+     serving.step span, fleet_prometheus_text() parses; (d) us of a
+     dispatched add with the monitor off, on, on with tracing, off again,
+     beside phase 16 (e)'s figure; (e) phase 6's step under the port's
+     Profiler with the monitor and tracing on: the merged trace holds the
+     monitor's counter tracks and its train.* spans beside the op:: spans.
 Phases 3, 9 and 13 time the decode engine's default, the captured path.
 The last line is the device JSON object; the line before it the card's name
 and power limit; before that the kernels JSON object.
@@ -5253,6 +5282,461 @@ def phase_surface(torch, fa, models, T, AdamW, smi):
 
 
 
+# phase 19: observability (module docstring). OBS_SECONDS is its share of the
+# script's time; the fleet's hang drill reuses phase 11's HANG11 delay
+OBS_SECONDS = 150
+OBS_TRAIN_STEPS = 3
+NUMSAN_REPS = 10
+
+
+def obs_reset(T):
+    """Monitor, tracing, sanitizers and fault points all off and empty."""
+    T.monitor.disable()
+    T.monitor.trace.disable()
+    T.monitor.reset()
+    T.analysis.sanitizers.disable()
+    T.analysis.sanitizers.reset()
+    T.analysis.faultinject.reset()
+
+
+def obs_on(T):
+    """The monitor, tracing and PADDLE_TPU_SANITIZE=all's kinds on."""
+    T.monitor.enable()
+    T.monitor.trace.enable()
+    T.analysis.sanitizers.enable()
+
+
+def metric(T, name, series=""):
+    doc = T.monitor.snapshot()["metrics"].get(name)
+    if doc is None:
+        return 0
+    v = doc["values"].get(series, 0)
+    return v["count"] if isinstance(v, dict) else v
+
+
+class SanctionedReads:
+    """Counts the ``allow_host_sync`` sections entered while installed: the
+    reads the sanitizer lets through (a serving step's token readback and
+    numsan's bool)."""
+
+    def __init__(self, san):
+        self.san, self.n, self.orig = san, 0, san.allow_host_sync
+
+    def __enter__(self):
+        def counting():
+            self.n += 1
+            return self.orig()
+
+        self.san.allow_host_sync = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.san.allow_host_sync = self.orig
+        return False
+
+
+def obs_serving(torch, fa, models, T):
+    """(a) Phase 10's continuous cell (bench.py:663-666's workload): the
+    engine built with every sanitizer on (its lock witnessed), then with
+    everything off a cold pass and a warm one, a warm pass with the monitor,
+    tracing and every sanitizer on, and a warm pass off again. Monitored
+    tokens equal the unmonitored bit for bit, no trip, and the snapshot's
+    admissions, tokens, prefix hits and program steps equal the engine's own
+    counts; the TTFT histogram holds one sample a request."""
+    import numpy as np
+
+    san = T.analysis.sanitizers
+    P = SERVE10
+    cfg = models.LlamaConfig(**FLAGSHIP, dtype="bfloat16")
+    model = models.LlamaForCausalLM(cfg, device="cuda", seed=0)
+    vocab, bs = cfg.vocab_size, P["block_size"]
+    rng = np.random.RandomState(0)
+    prompts, new_tokens, arrivals = serve10_workload(vocab, rng)
+    max_len = max(len(p) for p in prompts) + max(P["new_range"]) + bs
+    obs_reset(T)
+    san.enable()
+    cont = models.ContinuousBatchingEngine(
+        model, max_batch=P["max_batch"], max_len=max_len, block_size=bs,
+        chunk_size=P["chunk_size"], max_step_tokens=P["max_step_tokens"],
+        decode_burst=P["decode_burst"])
+    san.disable()
+    if not isinstance(cont._submit_lock, san.SanitizedLock):
+        fail("observability: the engine's submit lock is not witnessed under the sanitizers")
+    warm_prompt = rng.randint(0, vocab, (bs + 1,)).astype("int32")
+    cont.add_request(warm_prompt, max_new_tokens=2 * P["decode_burst"] + 2)
+    while cont.num_active:
+        cont.step()
+    cont.prefix_cache.clear()
+    cont._stats.clear()
+    calls = [0]
+    for key in ("step", "burst"):
+        prog = cont._jit_cache[key]
+
+        def counted(*a, _prog=prog):
+            calls[0] += 1
+            return _prog(*a)
+
+        cont._jit_cache[key] = counted
+    reset_counts(fa)
+    cold = drive_serving(cont, prompts, new_tokens, arrivals)
+    off1 = drive_serving(cont, prompts, new_tokens, arrivals)
+    pc = cont.prefix_cache
+    h0, calls[0] = pc.hits, 0
+    obs_on(T)
+    with SanctionedReads(san) as reads:
+        on = drive_serving(cont, prompts, new_tokens, arrivals)
+    snap = dict(admitted=metric(T, "paddle_tpu_serving_admitted_total"),
+                tokens=metric(T, "paddle_tpu_serving_generated_tokens_total"),
+                prefix_hits=metric(T, "paddle_tpu_serving_prefix_cache_hits_total"),
+                steps=metric(T, "paddle_tpu_serving_decode_step_latency_ns"),
+                ttft_count=metric(T, "paddle_tpu_serving_ttft_ns"),
+                numsan_checks=sum(san.numsan_counts().values()),
+                spans=len(T.monitor.trace.spans()))
+    trips = san.trips()
+    steps = calls[0]
+    want = dict(admitted=len(prompts), tokens=on[1], prefix_hits=pc.hits - h0,
+                steps=steps, ttft_count=len(prompts), numsan_checks=steps)
+    obs_reset(T)
+    off2 = drive_serving(cont, prompts, new_tokens, arrivals)
+    launches = counts(fa)
+    if launches != (0, 0, 0):
+        fail(f"observability: the continuous engine launched the attention kernels "
+             f"{launches} times, want 0")
+    if not (on[3] == off1[3] == off2[3] == cold[3]):
+        diff = [i for i, (a, b) in enumerate(zip(on[3], off1[3])) if a != b]
+        fail(f"observability: monitored tokens differ from unmonitored in requests {diff}")
+    if trips:
+        fail(f"observability: the monitored serving pass tripped {trips[:2]}")
+    if any(snap[k] != v for k, v in want.items()):
+        fail(f"observability: the snapshot {snap} disagrees with the engine's counts {want}")
+    tps = lambda r: r[1] / r[0]   # noqa: E731
+    off_tps = (tps(off1) + tps(off2)) / 2
+    del cont, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(requests=len(prompts), tokens=on[1], program_calls=steps,
+                unmonitored_tokens_per_sec=[tps(off1), tps(off2)],
+                monitored_tokens_per_sec=tps(on),
+                monitored_over_unmonitored=tps(on) / off_tps,
+                sanctioned_reads=reads.n, sanctioned_reads_per_step=reads.n / max(steps, 1),
+                snapshot=snap, tokens_bit_identical=True, trips=len(trips), launches=launches)
+
+
+def obs_training(torch, fa, models, T, AdamW):
+    """(b) Phase 6's step under trace.training_step with hostsync and
+    numerics on; (e) the same step profiled with the monitor on."""
+    san, trace, fi = T.analysis.sanitizers, T.monitor.trace, T.analysis.faultinject
+    num = importlib.import_module("paddle_tpu_torch.analysis.numerics")
+    cfg = models.LlamaConfig(**FLAGSHIP, dtype="bfloat16", recompute=True,
+                             recompute_granularity="full")
+    L, B, S = cfg.num_hidden_layers, 8, 2048
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = models.LlamaForCausalLM(cfg, device="cuda", seed=0)
+    model.train()
+    params = [p for p in model.parameters()]
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=params, multi_precision=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", generator=gen)
+    labels = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", generator=gen)
+    state = {"step": 0}
+
+    def step(checked, read=None):
+        i = state["step"]
+        state["step"] += 1
+        with trace.training_step(step=i) as ts:
+            with ts.stage("forward"):
+                loss, _ = model(ids, labels=labels)
+            if read is not None:
+                read(loss)
+            with ts.stage("backward"):
+                loss.backward()
+            with ts.stage("optimizer"):
+                opt.step()
+                opt.clear_grad()
+            if checked:
+                san.numsan_check("train.step", (("loss", loss), ("params", params)), step=i)
+        return loss
+
+    def timed(n, checked):
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(checked)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times
+
+    obs_reset(T)
+    step(False)                                    # warm-up, everything off
+    off = timed(OBS_TRAIN_STEPS, False)
+    trace.enable()
+    san.enable("hostsync", "numerics")
+    reset_counts(fa)
+    on = timed(OBS_TRAIN_STEPS, True)
+    torch.cuda.synchronize()
+    got = counts(fa)
+    want = (2 * L * OBS_TRAIN_STEPS, L * OBS_TRAIN_STEPS, L * OBS_TRAIN_STEPS)
+    if got != want or san.trips():
+        fail(f"observability: {OBS_TRAIN_STEPS} sanitized steps launched {got}, want {want}, "
+             f"trips {san.trips()[:2]}")
+    report = T.monitor.timeline.perf_report()
+    if report["train"]["phases"]["steps"] != OBS_TRAIN_STEPS:
+        fail(f"observability: the timeline found {report['train']['phases']['steps']} "
+             f"train.step spans")
+    # numsan: its device time a check, then what trips it on the card
+    regions = (("loss", torch.ones((), device="cuda")), ("params", params))
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(NUMSAN_REPS):
+        num.all_finite_device(regions)
+    e1.record()
+    torch.cuda.synchronize()
+    numsan_ms = e0.elapsed_time(e1) / NUMSAN_REPS
+    t0 = time.perf_counter()
+    num.all_finite(regions)
+    numsan_call_ms = (time.perf_counter() - t0) * 1e3
+    bad = {}
+    for name, val in (("nan", float("nan")), ("inf", float("inf")), ("-inf", -float("inf"))):
+        x = torch.ones(4096, device="cuda", dtype=torch.bfloat16)
+        x[1234] = val
+        bad[name] = num.all_finite((torch.ones(3, device="cuda"), x))
+    if any(bad.values()) or not num.all_finite(torch.full((1 << 20,), 3e38, device="cuda")):
+        fail(f"observability: numsan's check on the card: {bad} (want all False)")
+    before = [p.detach().clone() for p in params]
+    fi.arm("numsan.check", action="flag", seed=1)
+    try:
+        san.numsan_check("train.step", (("loss", regions[0][1]), ("params", params)), step=99)
+        fail("observability: the numsan.check drill did not trip")
+    except san.NumericsTrip as e:
+        drill = str(e)
+    fi.reset()
+    if "first non-finite region is 'params'" not in drill or \
+            not all(torch.equal(a, b) for a, b in zip(before, params)):
+        fail(f"observability: the numsan drill: {drill[:200]}")
+    del before
+    # the tripwire on the card: a read in the step, a copy to the host, a
+    # value-sized op and a mask index trip; the allowed read passes
+    x = torch.arange(8.0, device="cuda")
+    reads = {"item": lambda loss: loss.item(), "cpu": lambda loss: loss.cpu(),
+             "nonzero": lambda loss: torch.nonzero(x), "mask": lambda loss: x[x > 2]}
+    tripped = {}
+    for name, fn in reads.items():
+        try:
+            step(False, read=fn)
+            tripped[name] = False
+        except san.HostSyncInProtectedRegion:
+            tripped[name] = True
+        opt.clear_grad()
+    with trace.training_step(step=-1):
+        with san.allow_host_sync():
+            allowed = float(torch.ones((), device="cuda") * 2)
+    kinds = [k for k, _m in san.trips()]
+    if not all(tripped.values()) or allowed != 2.0 or kinds.count("hostsync") != len(reads):
+        fail(f"observability: the hostsync tripwire on the card: {tripped}, trips {kinds}")
+    obs_reset(T)
+    if torch._C._len_torch_dispatch_stack():
+        fail("observability: a dispatch mode is still pushed after the sanitizers stopped")
+    profiled = obs_profiled(torch, T, step, B * S)
+    n_leaves = len(params) + 1
+    del model, opt, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    off_ms, on_ms = sorted(off)[len(off) // 2], sorted(on)[len(on) // 2]
+    return dict(steps=OBS_TRAIN_STEPS, launches=dict(zip(("fwd", "bwd_dq", "bwd_dkv"), got)),
+                launches_per_step=dict(fwd=2 * L, bwd_dq=L, bwd_dkv=L),
+                step_ms_off=off, step_ms_on=on, step_ms_on_over_off=on_ms / off_ms,
+                numsan_device_ms_per_check=numsan_ms, numsan_call_ms=numsan_call_ms,
+                numsan_leaves=n_leaves, drill_region="params", params_bit_identical=True,
+                tripwire=tripped, trips=0, profiled=profiled)
+
+
+def obs_profiled(torch, T, step, tokens):
+    """(e) Four steps under the port's Profiler (two recorded) with the
+    monitor and tracing on: the exported chrome trace holds the monitor's counter tracks and
+    its train.* spans beside the op:: host spans."""
+    import shutil
+    import tempfile
+
+    P = T.profiler
+    T.monitor.enable()
+    T.monitor.trace.enable()
+    results = []
+    with P.Profiler(targets=[P.ProfilerTarget.CPU], scheduler=(1, 3),
+                    on_trace_ready=lambda prof: results.append(prof._last_result)) as prof:
+        for _ in range(4):
+            step(False)
+            torch.cuda.synchronize()
+            prof.step(num_samples=tokens)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    try:
+        path = os.path.join(tmp, "monitored.json")
+        results[-1].save(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    obs_reset(T)
+    counters = {e["name"].split("{")[0] for e in events if e.get("ph") == "C"}
+    spans = {e["name"] for e in events if e.get("cat") == "TraceSpan"}
+    ops = sum(1 for e in events if e.get("ph") == "X" and e["name"].startswith("op::"))
+    if "paddle_tpu_dispatch_op_calls_total" not in counters or "train.step" not in spans \
+            or not ops:
+        fail(f"observability: the profiled trace holds counters {sorted(counters)[:4]}, "
+             f"spans {sorted(spans)[:4]}, {ops} op spans")
+    return dict(counter_tracks=len(counters), trace_spans=sorted(spans), op_spans=ops,
+                counter_events=sum(1 for e in events if e.get("ph") == "C"))
+
+
+def http_get(port, path):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def prometheus_parses(text):
+    """Every sample line is ``name{labels} value`` with a float value and a
+    TYPE declared for its family."""
+    types, n = {}, 0
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split()
+            types[name] = kind
+        elif line and not line.startswith("#"):
+            key, val = line.rsplit(" ", 1)
+            float(val.replace("+Inf", "inf"))
+            name = re.match(r"^([a-z_][a-z0-9_]*)(\{.*\})?$", key)
+            if name is None:
+                return False
+            base = re.sub(r"_(bucket|sum|count)$", "", name.group(1))
+            if name.group(1) not in types and base not in types:
+                return False
+            n += 1
+    return n > 0
+
+
+def obs_fleet(torch, models, fleet, T, root, flight_dir):
+    """(c) Phase 11's three-replica fleet with slo=True,
+    burn_aware_routing=True, per-replica watchdogs and the debug server:
+    every endpoint answers while the replicas serve, tools/obs_probe.py
+    exits 0, a watchdog-recovered hang writes a flight dump that lists the
+    open serving.step span, and fleet_prometheus_text() parses."""
+    import numpy as np
+
+    P, H = FLEET11, HANG11
+    fi = T.analysis.faultinject
+    server = T.monitor.server
+    cfg = models.LlamaConfig(**FLAGSHIP, dtype="bfloat16")
+    model = models.LlamaForCausalLM(cfg, device="cuda", seed=0)
+    prompts, new_tokens, _arr = fleet11_workload(cfg.vocab_size, np.random.RandomState(0))
+    prompts, new_tokens = prompts[:H["n_requests"]], new_tokens[:H["n_requests"]]
+    obs_reset(T)
+    os.environ["PADDLE_TPU_FLIGHT_DIR"] = str(flight_dir)
+    fl = fleet.FleetRouter(
+        model, replicas=P["replicas"], max_new_tokens=P["max_new"], hang_timeout=1.0,
+        slo=True, burn_aware_routing=True,
+        engine_kwargs=dict(max_batch=P["max_batch"], max_len=P["max_len"],
+                           block_size=P["block_size"], chunk_size=P["chunk_size"],
+                           decode_burst=P["decode_burst"]))
+    port = None
+    try:
+        if not fl.warmup(prompts[0][:6], max_new_tokens=2 * P["decode_burst"] + 2, timeout=300):
+            fail("observability: fleet warmup did not finish")
+        T.monitor.enable()
+        T.monitor.trace.enable()
+        port = server.serve(0)
+        fi.arm("serving.step", action="delay", delay_s=H["delay_s"], nth=H["nth"])
+        scrapes = {}
+
+        def scrape(i):
+            # every endpoint once, half-way through the submissions, while the
+            # replicas serve (a scrape holds the GIL the replica threads' host
+            # work needs: a storm of them stretches their steps past the
+            # watchdog's timeout)
+            if i == len(prompts) // 2:
+                for path in server.ENDPOINTS:
+                    code, _body = http_get(port, path)
+                    scrapes.setdefault(path, []).append(code)
+
+        wall, out, _t, done = drive_fleet(fl, prompts, new_tokens, [0.0] * len(prompts),
+                                          on_submitted=scrape)
+        recs = [r for rep in fl.replicas for r in rep.engine.recovery_stats]
+        hang = [r for r in recs if "hang" in r["reason"]]
+        # the dump file merges every observer of the hang (the watchdog, the
+        # recovery, later ones within its window); the recovery's section
+        # names the serving spans open when it ran
+        dump_spans = []
+        for path in {r["dump"] for r in hang if r["dump"]}:
+            with open(path) as f:
+                doc = json.load(f)
+            for ex in doc.get("extras", [doc.get("extra") or {}]):
+                dump_spans += ex.get("open_serving_spans", [])
+            dump_spans += [s["name"] for s in doc["open_spans"]]
+        probe = subprocess.run([sys.executable, os.path.join(root, "tools", "obs_probe.py"),
+                                "--port", str(port), "--json"],
+                               capture_output=True, text=True, timeout=60)
+        text = fl.fleet_prometheus_text()
+        snap = fl.fleet_snapshot()
+        slo = fl.status()["slo"]
+        codes = {p: sorted(set(c)) for p, c in scrapes.items()}
+        final = {p: http_get(port, p)[0] for p in server.ENDPOINTS}
+    finally:
+        fi.reset()
+        fl.stop()
+        server.shutdown()
+        obs_reset(T)
+        os.environ.pop("PADDLE_TPU_FLIGHT_DIR", None)
+    res = dict(requests=len(prompts), complete=done, wall_s=wall, recoveries=len(recs),
+               recovery_reasons=[r["reason"][:70] for r in recs],
+               hang_recovered=bool(hang), dump_open_spans=sorted(set(dump_spans)),
+               endpoints=final, scrape_codes=codes, probe_exit=probe.returncode,
+               prometheus_parses=prometheus_parses(text),
+               prometheus_lines=len(text.splitlines()), failovers=fl.failovers,
+               slo_series=len(slo["series"]) if "series" in slo else len(slo),
+               snapshot_keys=sorted(snap))
+    ok = (done == len(prompts) and hang and "serving.step" in dump_spans
+          and all(c == 200 for c in final.values()) and probe.returncode == 0
+          and res["prometheus_parses"] and set(codes) == set(server.ENDPOINTS))
+    del fl, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        fail(f"observability: the fleet {res} (probe: {probe.stdout[-300:]})")
+    return res
+
+
+def phase_observe(torch, fa, models, T, AdamW, fleet, root, build_dir, amp_dispatch_us, smi):
+    """Phase 19 (module docstring)."""
+    out = {}
+    flight_dir = build_dir / "flight"
+    for key, fn in (("serving", lambda: obs_serving(torch, fa, models, T)),
+                    ("training", lambda: obs_training(torch, fa, models, T, AdamW)),
+                    ("fleet", lambda: obs_fleet(torch, models, fleet, T, root, flight_dir))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        out[key]["seconds"] = time.perf_counter() - t0
+        print(f"observe_{key} " + json.dumps(dict(out[key], card=smi)), flush=True)
+    # (d): us of a dispatched add with the monitor off, on, and on with tracing
+    disp = {"off": dispatch_us(torch, T)}
+    T.monitor.enable()
+    disp["monitor_on"] = dispatch_us(torch, T)
+    T.monitor.trace.enable()
+    disp["monitor_and_trace_on"] = dispatch_us(torch, T)
+    obs_reset(T)
+    disp["off_again"] = dispatch_us(torch, T)
+    disp["phase16e_dispatch_us"] = amp_dispatch_us
+    out["dispatch"] = dict(disp, card=smi)
+    print("observe_dispatch " + json.dumps(out["dispatch"]), flush=True)
+    return out
+
+
 def main():
     import torch
 
@@ -5434,6 +5918,17 @@ def main():
         fail(f"phase 18 took {surface_s:.1f} s, more than its {SURFACE_SECONDS} s")
     profiled = op_surface["profiler"]["counters"]
 
+    # phase 19: observability (launch counts set to 0 before the sanitized
+    # training steps and the monitored serving passes, read after them)
+    t0 = time.perf_counter()
+    observe = phase_observe(torch, fa, models, T, AdamW, fleet, root, _build.BUILD_DIR,
+                            amp["dispatch"]["calls"]["dispatch_us"], smi)
+    obs_s = time.perf_counter() - t0
+    print(f"phase_seconds 19 {obs_s:.1f}", flush=True)
+    if obs_s > OBS_SECONDS:
+        fail(f"phase 19 took {obs_s:.1f} s, more than its {OBS_SECONDS} s")
+    obs_launches = observe["training"]["launches"]
+
     mg_total = master["training"]["launches_per_step"]
     mg_bf16 = master["training"]["launches_bf16"]
 
@@ -5459,6 +5954,8 @@ def main():
                               deploy=deploy["flagship"]["launches_per_run"]["fwd"],
                               master_grad_bf16=mg_bf16["fwd"],
                               profiled_two_steps=profiled["fwd"],
+                              observed_training=obs_launches["fwd"],
+                              observed_serving=observe["serving"]["launches"][0],
                               **{k: v["fwd"] for k, v in amp_launches.items()}),
         max_abs_err=main_row["max_abs_err"],
         tol=main_row["tol"], ms=main_row["kernel_ms"], kernel_ms=main_row["kernel_ms"],
@@ -5491,6 +5988,7 @@ def main():
                                       "launches_per_step"][f"bwd_{key}"],
                                   master_grad_bf16=mg_bf16[f"bwd_{key}"],
                                   profiled_two_steps=profiled[f"bwd_{key}"],
+                                  observed_training=obs_launches[f"bwd_{key}"],
                                   **{k: v[f"bwd_{key}"] for k, v in amp_launches.items()}),
             max_abs_err=max(tr[f"{g}_max_abs_err"] for g in grads),
             norm_rel_err=max(tr[f"{g}_err"] for g in grads), tol=tr["tol"],

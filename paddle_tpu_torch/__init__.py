@@ -24,8 +24,12 @@ importable as ``paddle_tpu_torch.tensor``), ``_C_ops``/``_legacy_C_ops``
 and the subpackages (``jit``, ``profiler``, ``hub``, ``version``, ...). A
 bare import compiles and loads no CUDA library: the kernels build when a
 CUDA tensor first reaches them (``ops/cuda/_build.py``).
-Fault-injection points named in ``PADDLE_TPU_FAULTS`` are armed at import
-(``analysis/faultinject.py``), as the JAX package arms them.
+``monitor`` is the telemetry (metrics, spans, flight dumps, SLOs, the debug
+server). At import, as in the JAX package and in its order, the sanitizers
+named in ``PADDLE_TPU_SANITIZE`` are enabled (``analysis/sanitizers.py``),
+the fault-injection points named in ``PADDLE_TPU_FAULTS`` are armed
+(``analysis/faultinject.py``) and, with ``PADDLE_TPU_DEBUG_PORT`` set, the
+debug server starts (``monitor/server.py``).
 """
 from __future__ import annotations
 
@@ -132,6 +136,7 @@ from . import hub  # noqa: E402,F401
 from . import inference  # noqa: E402,F401
 from . import jit  # noqa: E402,F401
 from . import models  # noqa: E402,F401
+from . import monitor  # noqa: E402,F401
 from . import profiler  # noqa: E402,F401
 from . import regularizer  # noqa: E402,F401
 from . import sysconfig  # noqa: E402,F401
@@ -216,6 +221,16 @@ def check_shape(shape):
                 raise TypeError(
                     "All elements in ``shape`` must be integers when it's a list or tuple")
 
-from .analysis import faultinject as _faultinject  # noqa: E402
+# the sanitizers first: the lock wrapper swaps the monitor/trace module
+# globals imported above; then the fault points; then the debug server
+from .analysis.sanitizers import install_from_env as _san_install  # noqa: E402
 
-_faultinject.install_from_env()
+_san_install()
+
+from .analysis.faultinject import install_from_env as _fi_install  # noqa: E402
+
+_fi_install()
+
+from .monitor.server import install_from_env as _obs_install  # noqa: E402
+
+_obs_install()

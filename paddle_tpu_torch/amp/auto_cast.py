@@ -25,6 +25,7 @@ import contextlib
 
 import torch
 
+from .. import monitor as _monitor
 from ..autograd import master_grad as _master
 from ..framework import PARAM_EPOCH
 from ..framework import dtype as dtype_mod
@@ -54,9 +55,23 @@ def amp_state():
     return _amp_state()
 
 
+_MON = [None]  # the amp-cast counter, bound on the first counted cast
+
+
+def _count_cast():
+    """``paddle_tpu_dispatch_amp_casts_total``: one per input cast, as the
+    JAX ``cast_leaf`` counts (``paddle_tpu/amp/auto_cast.py``)."""
+    c = _MON[0]
+    if c is None:
+        c = _MON[0] = _monitor.counter("paddle_tpu_dispatch_amp_casts_total")
+    c.inc()
+
+
 def _cast_leaves(obj, target):
     if isinstance(obj, torch.Tensor):
         if obj.is_floating_point() and obj.dtype != target:
+            if _monitor._state.on:
+                _count_cast()
             return cast(obj, target)
         return obj
     if isinstance(obj, (tuple, list)):

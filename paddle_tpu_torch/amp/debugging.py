@@ -3,9 +3,8 @@
 
 The tensor checker sets ``FLAGS_check_nan_inf``; the op dispatch
 (``ops/_apply.py``) then scans every floating output of every op it runs
-(``_scan_op_outputs``: one ``torch.isfinite(...).all()`` on the device and
-one host read per scanned output, so it is a debug mode, off on every timed
-path) and raises ``FloatingPointError`` naming the op, or prints with
+(``_scan_op_outputs``: numsan's all-finite check on the device and one host
+read per scanned output, so it is a debug mode, off on every timed path) and raises ``FloatingPointError`` naming the op, or prints with
 ``CHECK_NAN_INF``. The operator stats count each dispatched op's calls by its
 output's dtype ([float16, bfloat16, float32, other]); the table is
 ``ops/_apply.py``'s ``_OP_STATS`` slot. ``compare_accuracy`` raises, as in
@@ -81,12 +80,16 @@ def _op_filter(op_name):
 
 
 def _scan_op_outputs(name, vals):
-    """The per-op scan behind ``FLAGS_check_nan_inf``: one device-side
-    all-finite reduction and one host read per floating output."""
+    """The per-op scan behind ``FLAGS_check_nan_inf``: numsan's device-side
+    all-finite check (``analysis/numerics.py``) and one host read per
+    floating output. For step-boundary coverage without the per-op read,
+    enable the numerics sanitizer instead (``PADDLE_TPU_SANITIZE=numerics``)."""
     if not _op_filter(name):
         return
+    from ..analysis import numerics as _num
+
     for v in vals:
-        if (v.is_floating_point() or v.is_complex()) and not bool(torch.isfinite(v).all()):
+        if (v.is_floating_point() or v.is_complex()) and not _num.all_finite(v):
             if flags.flag("check_nan_inf_level") > 0:
                 print(f"[paddle_tpu_torch] nan/inf detected in output of op {name}")
             else:

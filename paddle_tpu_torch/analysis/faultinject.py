@@ -24,10 +24,11 @@ Actions:
   error with local context (a real ``CowPoolExhausted`` carrying the live
   pools) or corrupts a value (the radix digest).
 
-Every trip is recorded (:func:`trips`). What differs from the JAX package:
-the catalog holds only the points the port fires (serving, fleet, paged KV,
-radix cache, checkpoint), and a trip is not exported to the monitor (its counter and
-span belong to the observability slice, ROADMAP Queue A item 7).
+Every trip is recorded (:func:`trips`) and mirrored best-effort into
+``paddle_tpu_monitor_fault_injections_total{point}`` plus a
+``monitor.fault_injection`` span, as in the JAX package. What differs from
+it: the catalog holds only the points the port fires (serving, fleet, paged
+KV, radix cache, checkpoint, the debug server and numsan).
 """
 from __future__ import annotations
 
@@ -92,6 +93,18 @@ POINTS = {
         "Entry of CheckpointManager.restore (checkpoint/manager.py). "
         "raise = the restore path itself dies (a recovery that cannot "
         "reload must propagate, not loop); delay = a slow restore."),
+    "obs.scrape": (
+        "The graftscope debug endpoint's request handler "
+        "(monitor/server.py do_GET, fired once per scrape before any "
+        "route dispatch). flag (or raise) = the endpoint answers 503 "
+        "while the engine underneath keeps serving untouched."),
+    "numsan.check": (
+        "numsan's step-boundary finiteness check "
+        "(analysis/sanitizers.py numsan_check, fired once per enabled "
+        "check before the device-side reduction). flag = the check sees "
+        "region ``seed % len(regions)`` with one NaN leaf appended "
+        "host-side — the trip/bisection drill; the engine's own values "
+        "are never touched, so outputs stay bit for bit."),
 }
 
 ACTIONS = ("raise", "delay", "flag")
@@ -212,6 +225,24 @@ def trips():
     return list(_trips)
 
 
+def _export(point):
+    """Best-effort telemetry for one trip: counter + span. Never raises —
+    the drill is the contract, the telemetry documents it."""
+    try:
+        from .. import monitor as _m
+
+        if _m._state.on:
+            _m.counter("paddle_tpu_monitor_fault_injections_total",
+                       labelnames=("point",)).labels(point).inc()
+        t = _m.trace
+        if t._state.on:
+            now = _m.now_ns()
+            t.record_span("monitor.fault_injection", now, now,
+                          attrs={"point": point})
+    except Exception:  # noqa: BLE001
+        pass
+
+
 def fire(point):
     """One call of the named injection point. Returns None when disarmed or
     not triggered. When triggered: ``raise`` raises :class:`InjectedFault`,
@@ -224,6 +255,7 @@ def fire(point):
         if spec is None or not spec.triggered():
             return None
         _trips.append((point, spec.action))
+    _export(point)
     if spec.action == "raise":
         raise InjectedFault(f"injected fault at {point!r} (trip {spec.trip_count})",
                             point=point)

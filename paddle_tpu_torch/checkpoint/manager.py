@@ -28,9 +28,11 @@ thread reads it. A bfloat16 tensor is stored as its uint16 bit pattern with
 ``"bfloat16"`` in the manifest entry, byte for byte what the JAX package
 writes for an ``ml_dtypes.bfloat16`` array; it decodes without ``ml_dtypes``
 (:meth:`RestoredCheckpoint.tensor`). Fault points ``ckpt.write`` and
-``ckpt.restore`` fire through the port's harness. The graftsan witnesses
-and the telemetry are no-op stubs until the port's observability slice
-(ROADMAP Queue A item 7).
+``ckpt.restore`` fire through the port's harness. The writer's error lock
+and its ``race_access`` calls are the graftsan witnesses (lock order, data
+race), and each commit and restore records the monitor's
+``paddle_tpu_ckpt_*`` metrics and a ``ckpt.save``/``ckpt.restore`` span, as
+in the JAX package.
 
 numpy and the standard library at import; torch is imported where a tensor
 is copied or decoded.
@@ -50,21 +52,9 @@ import time
 
 import numpy as np
 
+from .. import monitor as _m
 from ..analysis import faultinject as _fi
-
-
-class _san:  # noqa: N801 - module-shaped stub until ROADMAP Queue A item 7
-    """The JAX manager's graftsan witnesses (lock order, data race): the
-    port has no sanitizers yet (ROADMAP Queue A item 7), so a plain lock and
-    no witness."""
-
-    @staticmethod
-    def new_lock(name, factory=threading.Lock):
-        return factory()
-
-    @staticmethod
-    def race_access(owner, field, write=False):
-        return None
+from ..analysis import sanitizers as _san
 
 
 import itertools as _itertools
@@ -303,9 +293,22 @@ def reshard_rows(flat, dp_degree):
 
 
 def _telemetry(step, n_shards, total_bytes, seconds, kind):
-    """The JAX manager's counters, histogram and span per commit and restore:
-    a no-op until the port has a monitor (ROADMAP Queue A item 7)."""
-    return None
+    """Best-effort counter/gauge/histogram and span per commit and restore
+    (inert with the monitor and tracing off)."""
+    try:
+        if _m._state.on:
+            if kind == "save":
+                _m.counter("paddle_tpu_ckpt_saves_total").inc()
+                _m.gauge("paddle_tpu_ckpt_bytes").set(total_bytes)
+                _m.histogram("paddle_tpu_ckpt_save_seconds",
+                             buckets=_m.DEFAULT_SECONDS_BUCKETS).observe(seconds)
+        if _m.trace._state.on:
+            now = _m.now_ns()
+            _m.trace.record_span(
+                f"ckpt.{kind}", now - int(seconds * 1e9), now,
+                attrs={"step": step, "shards": n_shards, "bytes": total_bytes})
+    except Exception:  # noqa: BLE001 - telemetry never fails a checkpoint
+        pass
 
 
 class CheckpointManager:

@@ -6,21 +6,29 @@ collective's wait); one daemon scanner thread checks every section in flight
 each tick and fires the timeout callback once per stuck section. Finished
 sections land in a bounded history for ``dump()``.
 
-What differs from the JAX package: a timeout writes no flight-recorder file
-and a section opens no ``comm.wait`` span (both belong to the tracing slice,
-ROADMAP Queue A item 7), so ``last_flight_dump`` stays ``None``, and with it
-a serving engine's ``last_recovery_dump`` and the ``"dump"`` of its
-``recovery_stats``. ``flight_key`` is accepted and kept for that slice. The
+With span tracing on (``paddle_tpu_torch.monitor.trace``) each watched
+section opens a ``comm.wait`` span, and with tracing on or
+``PADDLE_TPU_FLIGHT_DIR`` set a timeout writes the flight-recorder dump (open
+spans, the last spans, the metrics snapshot) to the file of ``flight_key``
+(``last_flight_dump``), where the serving engine's recovery dump of the same
+hang lands too, as in the JAX package. The scanner thread writes the dump
+from host state only and touches no CUDA: the hung step may hold the card,
+and a dump that synchronised with it would hang as well. The lock is
+witnessed by the lock-order sanitizer when it is on at construction. The
 process-wide default watchdog of the eager collectives is not ported (the
-port has no collectives yet). The lock is a plain ``threading.Lock``.
+port has no collectives yet).
 """
 from __future__ import annotations
 
 import collections
 import itertools
+import os
 import sys
 import threading
 import time
+
+from ..analysis.sanitizers import new_lock as _new_lock
+from ..monitor import trace as _trace
 
 __all__ = ["CommWatchdog", "WatchdogTimeout"]
 
@@ -34,7 +42,9 @@ class CommWatchdog:
         self.timeout = timeout
         self.on_timeout = on_timeout
         self.flight_key = flight_key
-        self._lock = threading.Lock()
+        # a known-lock site: held by user threads (watch enter and exit) and
+        # by the scanner
+        self._lock = _new_lock("distributed.watchdog.CommWatchdog")
         self._inflight = {}                         # id -> (desc, start)
         self._ids = itertools.count()
         self.events = collections.deque(maxlen=max_history)  # (desc, start, end)
@@ -65,6 +75,7 @@ class CommWatchdog:
                 if now - start > self.timeout:
                     fired.add(wid)
                     self.timed_out.append(desc)
+                    self._flight_dump(desc)
                     try:
                         if self.on_timeout is not None:
                             self.on_timeout(desc, self.dump())
@@ -79,6 +90,20 @@ class CommWatchdog:
                         print(f"[comm watchdog] on_timeout callback for {desc} raised "
                               f"{type(e).__name__}: {e}\n{traceback.format_exc()}",
                               file=sys.stderr)
+
+    def _flight_dump(self, desc):
+        """Write the flight recorder (open spans: the hang candidates; the
+        recent spans; the metrics snapshot) to the file of ``flight_key``,
+        when tracing is on or PADDLE_TPU_FLIGHT_DIR is set. A dump failure
+        never masks the timeout it documents."""
+        try:
+            if _trace._state.on or os.environ.get("PADDLE_TPU_FLIGHT_DIR"):
+                self.last_flight_dump = _trace.flight_dump(
+                    reason=f"watchdog timeout: {desc} exceeded {self.timeout}s",
+                    extra={"watchdog": self.dump()},
+                    key=self.flight_key)
+        except Exception:  # noqa: BLE001
+            pass
 
     def stop(self):
         self._stop.set()
@@ -104,12 +129,16 @@ class _Watch:
     def __init__(self, dog, desc):
         self._dog = dog
         self._desc = desc
+        self._span = None
 
     def __enter__(self):
         dog = self._dog
         with dog._lock:
             self._id = next(dog._ids)
             dog._inflight[self._id] = (self._desc, time.monotonic())
+        if _trace._state.on:
+            # an open comm.wait span in a flight dump is the hang candidate
+            self._span = _trace.start_span("comm.wait", attrs={"desc": self._desc})
         dog._ensure_scanner()
         return self
 
@@ -118,4 +147,5 @@ class _Watch:
         with dog._lock:
             desc, start = dog._inflight.pop(self._id)
             dog.events.append((desc, start, time.monotonic()))
+        _trace.end_span(self._span)
         return False

@@ -13,7 +13,10 @@ layer's eval forward exported with ``torch.export`` as a pure function of
 weights once in ``.pdiparams`` (``paddle_tpu_torch.inference`` serves such a
 program compiled per input shape).
 
-Not ported yet: the monitor's compile counters and spans (Queue A item 7).
+With the monitor on, ``to_static`` counts its compiles and cache hits
+(``paddle_tpu_jit_*``) and, with tracing on, records a ``jit.compile`` span
+per signature miss; the recompile sanitizer counts every miss and every
+graph-broken capture (``analysis/sanitizers.py``), as in the JAX package.
 """
 from .api import (  # noqa: F401
     InputSpec,

@@ -44,6 +44,14 @@ Module class), as a new signature always traces in JAX. Under
 ``recompile_limit`` programs of its own raises instead of running eagerly.
 ``not_to_static`` only marks a function: it is traced through, as in JAX.
 ``input_spec`` and ``build_strategy`` are kept and not read, as in JAX.
+
+Telemetry, as in the JAX package: with the monitor on, a signature miss
+bumps ``paddle_tpu_jit_compiles_total{function}`` and lands its host time
+(Dynamo's trace, Inductor's compile, the first run) in
+``paddle_tpu_jit_trace_compile_seconds``, a hit bumps
+``paddle_tpu_jit_cache_hits_total``; with tracing on a miss is a
+``jit.compile`` span; with the recompile sanitizer on every miss is one
+``note_compile("to_static.<name>")``.
 """
 from __future__ import annotations
 
@@ -54,6 +62,8 @@ import torch
 from torch._dynamo.eval_frame import _debug_get_cache_entry_list
 from torch.utils import _pytree as pytree
 
+from .. import monitor as _monitor
+from ..analysis import sanitizers as _sanitizers
 from . import sot as _sot
 
 
@@ -150,7 +160,19 @@ class StaticFunction:
         key = self._signature(args, kwargs)
         if key in self._segmented:
             return self._segmented[key](*args, **kwargs)
-        entry = self._cache.get(key) or self._compile()
+        entry = self._cache.get(key)
+        miss = entry is None
+        if miss:
+            entry = self._compile()
+            if _sanitizers._state.recompile:
+                # graftsan's recompile sentinel: every signature miss is one
+                # trace+compile; past the threshold it raises with the recent
+                # signature history
+                _sanitizers.note_compile(
+                    "to_static." + getattr(self._function, "__name__", "fn"),
+                    signature=key[1])
+        mon = _monitor._state.on or _monitor.trace._state.on
+        t0 = _monitor.now_ns() if mon else 0
         try:
             with _recompile_budget(self._function, entry[1].graphs):
                 out = entry[0](*args, **kwargs)
@@ -160,12 +182,39 @@ class StaticFunction:
             if self._full_graph:
                 raise
             _sot.warn_graph_break(self._function, e)
-            seg = self._segmented[key] = _sot.SegmentedFunction(self._function,
-                                                                self._backend)
+            seg = self._segmented[key] = _sot.SegmentedFunction(
+                self._function, self._backend,
+                label="sot." + getattr(self._function, "__name__", "fn"))
             return seg(*args, **kwargs)
         # a signature is cached once its program has run
         self._cache.setdefault(key, entry)
+        if mon:
+            self._record(miss, t0)
         return out
+
+    def _record(self, miss, t0):
+        """The monitor's view of one whole-compiled call (the JAX
+        ``_traced_call_keyed``): a signature miss is one compile (Dynamo's
+        trace, Inductor's compile and the first run, timed on the host) and,
+        with tracing on, a ``jit.compile`` span; a hit bumps the hit
+        counter."""
+        fname = getattr(self._function, "__name__", "fn")
+        if miss:
+            t1 = _monitor.now_ns()
+            if _monitor.trace._state.on:
+                _monitor.trace.record_span("jit.compile", t0, t1,
+                                           attrs={"function": fname})
+            if _monitor._state.on:
+                _monitor.counter("paddle_tpu_jit_compiles_total",
+                                 labelnames=("function",)).labels(fname).inc()
+                _monitor.histogram("paddle_tpu_jit_trace_compile_seconds",
+                                   buckets=_monitor.DEFAULT_SECONDS_BUCKETS
+                                   ).observe((t1 - t0) / 1e9)
+                _monitor.gauge("paddle_tpu_jit_cached_signatures",
+                               labelnames=("function",)).labels(fname).set(len(self._cache))
+        elif _monitor._state.on:
+            _monitor.counter("paddle_tpu_jit_cache_hits_total",
+                             labelnames=("function",)).labels(fname).inc()
 
     # -- introspection -------------------------------------------------------
     @property

@@ -28,16 +28,25 @@ import warnings
 
 import torch
 
+from ..analysis import sanitizers as _sanitizers
+
 
 class CountingBackend:
     """A ``torch.compile`` backend that counts the graphs Dynamo hands it and
-    compiles each with ``backend`` (a name Dynamo knows, or a callable)."""
+    compiles each with ``backend`` (a name Dynamo knows, or a callable).
+    With ``label`` and the recompile sanitizer on, every graph is one
+    ``note_compile(label)``: a guard whose value drifts captures a graph per
+    call, which is exactly a recompile storm (the JAX package notes each
+    segment-variant capture the same way)."""
 
-    def __init__(self, backend):
+    def __init__(self, backend, label=None):
         self.backend = backend
         self.graphs = 0
+        self.label = label
 
     def __call__(self, gm, example_inputs):
+        if self.label is not None and _sanitizers._state.recompile:
+            _sanitizers.note_compile(self.label, signature=f"graph#{self.graphs}")
         self.graphs += 1
         backend = self.backend
         if isinstance(backend, str):
@@ -60,9 +69,9 @@ class SegmentedFunction:
     """One graph-broken signature: the function under ``torch.compile``
     without ``fullgraph``, its graphs counted."""
 
-    def __init__(self, function, backend):
+    def __init__(self, function, backend, label=None):
         self._function = function
-        self._backend = CountingBackend(backend)
+        self._backend = CountingBackend(backend, label)
         self._compiled = torch.compile(function, fullgraph=False, dynamic=False,
                                        backend=self._backend)
 

@@ -26,9 +26,10 @@ What differs from the JAX package:
   index with it directly, and a captured CUDA graph that reads it keeps
   reading the current tables.
 - ``read_blocks`` returns host (CPU) tensors: numpy has no bfloat16.
-- The fault-injection points ``paged_kv.ensure`` and ``paged_kv.cow`` fire
-  where the JAX package fires them; the monitor gauges are not ported (they
-  belong to the observability slice, ROADMAP Queue A item 7).
+- The fault-injection points ``paged_kv.ensure`` and ``paged_kv.cow`` fire,
+  and the monitor's ``paddle_tpu_kv_free_blocks`` gauge,
+  ``paddle_tpu_kv_cow_copies_total`` and ``paddle_tpu_kv_pool_exhausted_total``
+  record, where the JAX package's do (host counts only).
 """
 from __future__ import annotations
 
@@ -37,8 +38,10 @@ import math
 import numpy as np
 import torch
 
+from .. import monitor as _monitor
 from .. import resolve_device
 from ..analysis import faultinject as _fi
+from ..analysis import sanitizers as _sanitizers
 
 __all__ = ["PagedKVCache", "CowPoolExhausted", "alloc_blocks",
            "read_blocks",
@@ -46,6 +49,19 @@ __all__ = ["PagedKVCache", "CowPoolExhausted", "alloc_blocks",
            "paged_attention_decode", "paged_write_decode_int8",
            "paged_write_prefill_int8", "paged_write_mixed_int8",
            "paged_attention_decode_int8"]
+
+
+_MON = None  # (state, free-blocks gauge, CoW counter, exhaustion counter)
+
+
+def _mon():
+    global _MON
+    if _MON is None:
+        _MON = (_monitor._state,
+                _monitor.gauge("paddle_tpu_kv_free_blocks"),
+                _monitor.counter("paddle_tpu_kv_cow_copies_total"),
+                _monitor.counter("paddle_tpu_kv_pool_exhausted_total"))
+    return _MON
 
 
 class CowPoolExhausted(RuntimeError):
@@ -138,13 +154,18 @@ class PagedKVCache:
         owned = (tables > 0).sum(axis=1)
         need_arr = np.asarray(seq_lens_next)
         needed = -(-np.maximum(need_arr.astype(np.int64), 0) // self.block_size)
+        mon = _mon()
         if (needed <= owned).all():
+            if mon[0].on:
+                mon[1].set(len(self._free))
             return
         changed = False
         for b, need_tok in enumerate(need_arr):
             need = int(-(-int(need_tok) // self.block_size))  # ceil
             while owned[b] < need:
                 if not self._free:
+                    if mon[0].on:
+                        mon[3].inc()
                     if changed:
                         self._upload()
                     raise RuntimeError(
@@ -155,6 +176,8 @@ class PagedKVCache:
                 self._refs[blk] = 1
                 owned[b] += 1
                 changed = True
+        if mon[0].on:
+            mon[1].set(len(self._free))
         if changed:
             self._upload()
 
@@ -169,6 +192,12 @@ class PagedKVCache:
                     self._free.append(int(blk))
         tables[b] = 0
         self._upload()
+        self._gauge()
+
+    def _gauge(self):
+        mon = _mon()
+        if mon[0].on:
+            mon[1].set(len(self._free))
 
     # -- external references (radix/prefix cache) ----------------------------
     def retain_blocks(self, blocks):
@@ -193,6 +222,7 @@ class PagedKVCache:
             if self._refs[blk] == 0:
                 self._free.append(blk)
                 freed += 1
+        self._gauge()
         return freed
 
     def adopt_blocks(self, b, blocks):
@@ -223,6 +253,7 @@ class PagedKVCache:
         blks = [self._free.pop() for _ in range(n)]
         for blk in blks:
             self._refs[blk] = 1
+        self._gauge()
         return blks
 
     def place_blocks(self, b, blocks):
@@ -265,6 +296,7 @@ class PagedKVCache:
     def _make_exclusive(self, rows, bidxs, pools):
         """Give every (row, block index) whose block is shared a private copy;
         on exhaustion, apply the copies already remapped, then raise."""
+        mon = _mon()
         t = self._tables_np
         pairs = []
         exhausted = False
@@ -273,6 +305,8 @@ class PagedKVCache:
             phys = int(t[b, bidx])
             if phys > 0 and self._refs[phys] > 1:
                 if not self._free:
+                    if mon[0].on:
+                        mon[3].inc()
                     # apply-then-raise: the rows remapped so far look
                     # unshared now, so they must get their data copy
                     exhausted = True
@@ -283,6 +317,9 @@ class PagedKVCache:
                 t[b, bidx] = new
                 pairs.append((phys, new))
         if pairs:
+            if mon[0].on:
+                mon[2].inc(len(pairs))
+                mon[1].set(len(self._free))
             pools = self._cow_apply(pools, pairs)
             self._upload()
         if exhausted:
@@ -331,6 +368,7 @@ class PagedKVCache:
                 self._free.append(int(blk))
         self._tables_np = new
         self._upload()
+        self._gauge()
 
     def make_tail_exclusive(self, pos, pools):
         """Copy-on-write: before writing at position ``pos``, every row whose
@@ -359,11 +397,15 @@ def alloc_blocks(batch, max_len, block_size):
 def read_blocks(pools, blocks):
     """Download pool ``blocks`` to host RAM (the spill read): a per-layer list
     of pool-leaf tuples of CPU tensors ``[n, block_size, ...]``, ``(k, v)``
-    or the quantized ``(kq, ks, vq, vs)``, bit for bit the pool's."""
+    or the quantized ``(kq, ks, vq, vs)``, bit for bit the pool's. The copy
+    to the host is the spill's purpose, so it is a sanctioned read for the
+    host-sync tripwire (the JAX package reads the blocks with a raw
+    ``np.asarray`` its tripwire does not see)."""
     out = []
-    for entry in pools:
-        idx = torch.tensor(np.asarray(blocks, np.int64), device=entry[0].device)
-        out.append(tuple(leaf.index_select(0, idx).cpu() for leaf in entry))
+    with _sanitizers.allow_host_sync():
+        for entry in pools:
+            idx = torch.tensor(np.asarray(blocks, np.int64), device=entry[0].device)
+            out.append(tuple(leaf.index_select(0, idx).cpu() for leaf in entry))
     return out
 
 

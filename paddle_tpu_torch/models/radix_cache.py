@@ -32,8 +32,8 @@ fresh pool blocks in place (``PagedKVCache.write_block_contents``), so the
 pool tensors a captured CUDA graph holds stay the same tensors. The
 ``radix.digest`` fault point fires where the JAX package fires it.
 
-What differs from the JAX package: the monitor gauges are not ported (they
-belong to the observability slice, ROADMAP Queue A item 7).
+With the monitor on, the ``paddle_tpu_kv_spilled_blocks`` gauge and
+``paddle_tpu_kv_spill_restores_total`` record where the JAX package's do.
 """
 from __future__ import annotations
 
@@ -46,6 +46,20 @@ import torch
 from ..analysis import faultinject as _fi
 
 __all__ = ["PrefixCache"]
+
+
+_MON = None  # (state, spilled-blocks gauge, spill-restores counter)
+
+
+def _mon():
+    global _MON
+    if _MON is None:
+        from .. import monitor as _m
+
+        _MON = (_m._state,
+                _m.gauge("paddle_tpu_kv_spilled_blocks"),
+                _m.counter("paddle_tpu_kv_spill_restores_total"))
+    return _MON
 
 
 def _digest(parent, tokens):
@@ -268,6 +282,9 @@ class PrefixCache:
         if self.spill_capacity is not None:
             while len(self._spilled) > self.spill_capacity:
                 self._spilled.popitem(last=False)
+        mon = _mon()
+        if mon[0].on:
+            mon[1].set(len(self._spilled))
 
     def restore_chain(self, prompt, blocks, shared, pools):
         """Continue a :meth:`match` result through the spill store: every
@@ -315,6 +332,10 @@ class PrefixCache:
             # the lookup did match cached K/V, so count it as a hit
             self.hits += 1
             self.misses -= 1
+        mon = _mon()
+        if mon[0].on:
+            mon[1].set(len(self._spilled))
+            mon[2].inc(len(todo))
         return blocks + blks, shared + len(todo) * bs, pools
 
     def _drop(self, e):
@@ -347,3 +368,6 @@ class PrefixCache:
         self._nchildren.clear()
         self._children.clear()
         self._spilled.clear()
+        mon = _mon()
+        if mon[0].on:
+            mon[1].set(0)   # no phantom spilled blocks after a clear

@@ -49,23 +49,32 @@ kernel, lockstep decode) as the baseline the bench compares against. It runs
 eagerly.
 
 The fault points ``serving.step``, ``serving.drive``, ``serving.admission``
-and ``serving.spec_verify`` fire where the JAX package fires them. Not
-ported (the observability slice, ROADMAP Queue A item 7): the monitor
-metrics, the trace spans and flight dumps (``last_recovery_dump`` and a
-recovery's ``"dump"`` stay ``None``), the sanitizer hooks and the
-``/statusz`` registration.
+and ``serving.spec_verify`` fire where the JAX package fires them, and so
+does the telemetry: the monitor's serving metrics (queue depth, occupancy,
+TTFT, prefix hits, speculation, evictions, recoveries; gauges read host
+mirrors only, never a device tensor), the per-request trace trees
+(``serving.request`` with its queue wait, prefill, decode and eviction
+children), the ``serving.step`` span, the recovery's flight dump, the
+``/statusz`` section, and the sanitizers: ``new_lock``/``race_access`` on the
+submit lock and the shared tables, ``note_compile`` per program built, the
+step run as a ``protected_region`` (the one sanctioned host read a step is
+the readback of its sampled tokens, under ``allow_host_sync``), and numsan
+over the step's outputs and the KV pools at every step and burst boundary.
 """
 from __future__ import annotations
 
 import collections
 import itertools
+import os
 import threading
 import time
 
 import numpy as np
 import torch
 
+from .. import monitor as _monitor
 from ..analysis import faultinject as _fi
+from ..analysis import sanitizers as _sanitizers
 from ..incubate.nn.functional import _rope_tables
 from ..jit._cuda_graph import _Program
 from . import paged_kv as _pk
@@ -110,6 +119,77 @@ class RequestAborted(RuntimeError):
         self.tokens = list(tokens)
         self.tenant = tenant
         self.stats = stats
+
+
+class _Mon:
+    """Lazily bound monitor handles (one attribute load a metric on the
+    serving hot path; nothing is touched while the monitor is off)."""
+
+    __slots__ = ("mod", "state", "trace", "tstate", "queue_depth",
+                 "occupancy", "prefill", "decode", "tokens", "evictions",
+                 "ttft", "admitted", "rejected", "adm_rejected",
+                 "pack", "chunk_depth", "pc_hits", "pc_misses", "pc_shared",
+                 "pc_blocks", "pc_evictions",
+                 "shed", "tenant_depth", "aborted", "recoveries",
+                 "preemptions", "cancelled",
+                 "spec_drafted", "spec_accepted", "spec_rate", "pool_bytes",
+                 "jit_compiles", "jit_hits", "jit_sigs")
+
+
+_MON = None
+
+
+def _mon():
+    global _MON
+    if _MON is None:
+        m = _monitor
+        o = _Mon()
+        o.mod = m
+        o.state = m._state
+        o.trace = m.trace
+        o.tstate = m.trace._state
+        o.queue_depth = m.gauge("paddle_tpu_serving_queue_depth")
+        o.occupancy = m.gauge("paddle_tpu_serving_batch_occupancy")
+        o.prefill = m.histogram("paddle_tpu_serving_prefill_latency_ns")
+        o.decode = m.histogram("paddle_tpu_serving_decode_step_latency_ns")
+        o.tokens = m.counter("paddle_tpu_serving_generated_tokens_total")
+        o.evictions = m.counter("paddle_tpu_serving_evictions_total")
+        o.ttft = m.histogram("paddle_tpu_serving_ttft_ns")
+        o.admitted = m.counter("paddle_tpu_serving_admitted_total")
+        o.rejected = m.counter("paddle_tpu_serving_rejected_total")
+        o.adm_rejected = m.counter("paddle_tpu_serving_admission_rejected_total")
+        o.pack = m.histogram("paddle_tpu_serving_pack_tokens")
+        o.chunk_depth = m.histogram("paddle_tpu_serving_chunked_prefill_depth")
+        o.pc_hits = m.counter("paddle_tpu_serving_prefix_cache_hits_total")
+        o.pc_misses = m.counter("paddle_tpu_serving_prefix_cache_misses_total")
+        o.pc_shared = m.counter("paddle_tpu_serving_prefix_blocks_shared_total")
+        o.pc_blocks = m.gauge("paddle_tpu_kv_prefix_cache_blocks")
+        o.pc_evictions = m.counter("paddle_tpu_kv_prefix_cache_evictions_total")
+        o.shed = m.counter("paddle_tpu_serving_shed_total", labelnames=("tenant",))
+        o.tenant_depth = m.gauge("paddle_tpu_serving_tenant_queue_depth",
+                                 labelnames=("tenant",))
+        o.aborted = m.counter("paddle_tpu_serving_aborted_total")
+        o.recoveries = m.counter("paddle_tpu_serving_recoveries_total")
+        o.preemptions = m.counter("paddle_tpu_serving_preemptions_total")
+        o.cancelled = m.counter("paddle_tpu_serving_cancelled_total")
+        o.spec_drafted = m.counter("paddle_tpu_serving_spec_draft_tokens_total")
+        o.spec_accepted = m.counter("paddle_tpu_serving_spec_accepted_tokens_total")
+        o.spec_rate = m.gauge("paddle_tpu_serving_spec_accept_rate")
+        o.pool_bytes = m.gauge("paddle_tpu_serving_kv_pool_bytes")
+        o.jit_compiles = m.counter("paddle_tpu_jit_compiles_total", labelnames=("function",))
+        o.jit_hits = m.counter("paddle_tpu_jit_cache_hits_total", labelnames=("function",))
+        o.jit_sigs = m.gauge("paddle_tpu_jit_cached_signatures", labelnames=("function",))
+        _MON = o
+    return _MON
+
+
+def _read_back(out):
+    """The step's one sanctioned device-to-host read (the sampled tokens and
+    accept flags): the JAX engine reads them with a raw ``np.asarray`` its
+    tripwire never sees; here the read sits in ``allow_host_sync`` and every
+    other read inside the protected step trips."""
+    with _sanitizers.allow_host_sync():
+        return out.cpu().numpy()
 
 
 class _Request:
@@ -295,7 +375,14 @@ class ContinuousBatchingEngine:
         # bounded check and append only: nothing blocks under it
         self._tenants = {"": _Tenant("")}
         self._vnow = 0.0                # WFQ virtual clock (last pop)
-        self._submit_lock = threading.Lock()
+        # witnessed by graftsan (lock order and the race witness's held
+        # set) when the sanitizers are on at construction
+        self._submit_lock = _sanitizers.new_lock(f"serving.engine[{self._tag}]._submit_lock")
+        # numsan's step index: moves only while numsan is on, so a trip
+        # names the step the NaN crossed
+        self._san_steps = 0
+        # per-request trace trees: rid -> [root, queue_wait]
+        self._req_spans = {}
         self._stats = collections.OrderedDict()
         # -- resilience state (recover, the driving thread, shedding) --------
         self._epoch = 0                 # bumped by every recover()
@@ -326,14 +413,37 @@ class ContinuousBatchingEngine:
         # monotonic start of the step in flight (None between steps): the
         # fleet health monitor's step-staleness signal
         self.step_open_since = None
+        # every engine is a /statusz section (held weakly: an engine stays
+        # collectable while registered)
+        from ..monitor import server as _obs
+
+        _obs.register_status_provider(f"serving.{self._tag}", self.status)
 
     # -- the two programs ----------------------------------------------------
+    def _program_miss(self, name, n_cached, signature):
+        """The monitor's and the recompile sentinel's view of one program
+        lookup (the JAX engine's two ``jax.jit`` caches): a hit, or a build
+        (on the card, a CUDA graph capture at its first call)."""
+        mon = _mon()
+        if mon.state.on:
+            if name in self._jit_cache:
+                mon.jit_hits.labels("serving.step").inc()
+            else:
+                mon.jit_compiles.labels("serving.step").inc()
+                mon.jit_sigs.labels("serving.step").set(n_cached)
+        if name not in self._jit_cache and _sanitizers._state.recompile:
+            # the mixed step is one program by design, the burst a second
+            # one rebuilt only by a decode_burst knob change
+            _sanitizers.note_compile(f"serving.step[{self._tag}]", signature=signature)
+
     def _step_jit(self):
+        self._program_miss("step", 1, "step")
         if "step" not in self._jit_cache:
             self._jit_cache["step"] = _Program(self._inner.build_mixed_step(), self._pools)
         return self._jit_cache["step"]
 
     def _burst_jit(self):
+        self._program_miss("burst", 2, ("burst", self.decode_burst))
         if "burst" not in self._jit_cache:
             self._jit_cache["burst"] = _Program(
                 self._inner.build_decode_burst(self.decode_burst, rows=self._burst_rows),
@@ -395,14 +505,20 @@ class ContinuousBatchingEngine:
             return None
         return best, best.queue.pop()    # newest: it waited least
 
-    def _shed_locked(self, ten, req, why):
+    def _shed_locked(self, ten, req, mon, why):
         self._shed.append(RequestShed(
             f"request {req.rid} (tenant {ten.name!r}) shed under overload: {why}",
             tenant=ten.name, rid=req.rid))
+        entry = self._req_spans.pop(req.rid, None)
+        if entry is not None:
+            mon.trace.drop(entry[1])
+            mon.trace.end_span(entry[0])
         self._stats[req.rid] = {"rid": req.rid, "tenant": ten.name, "shed": True,
                                 "prompt_len": len(req.prompt), "submit_ns": req.t_submit}
         while len(self._stats) > 4096:
             self._stats.popitem(last=False)
+        if mon.state.on:
+            mon.shed.labels(ten.name).inc()
 
     def pop_shed(self):
         """Drain the :class:`RequestShed` records of queued requests displaced
@@ -414,15 +530,18 @@ class ContinuousBatchingEngine:
         when the batch is full. The prompt's KV is built by chunked prefill
         inside later step() packs."""
         prompt = self._check_prompt(prompt_ids)
+        mon = _mon()
         self._drain_pending()
         slot = self._free_slot()
         if slot is None:
+            if mon.state.on:
+                mon.rejected.inc()
             return None
         with self._submit_lock:
             ten = self._tenant_locked(tenant)
             rid = self._next_rid
             self._next_rid += 1
-        req = _Request(rid, prompt, max_new_tokens, time.perf_counter_ns(), tenant=tenant,
+        req = _Request(rid, prompt, max_new_tokens, mon.mod.now_ns(), tenant=tenant,
                        priority=ten.priority)
         self._admit(slot, req)
         return rid
@@ -437,7 +556,8 @@ class ContinuousBatchingEngine:
         else after waiting up to ``timeout`` seconds: :class:`RequestShed`
         when priority lanes are configured, else :class:`AdmissionTimeout`."""
         prompt = self._check_prompt(prompt_ids)
-        t_submit = time.perf_counter_ns()
+        mon = _mon()
+        t_submit = mon.mod.now_ns()
         deadline = None if timeout is None else time.monotonic() + timeout
         while True:
             with self._submit_lock:
@@ -449,20 +569,29 @@ class ContinuousBatchingEngine:
                 if self.max_queue is None or total < self.max_queue or victim is not None:
                     if victim is not None:
                         self._shed_locked(
-                            victim[0], victim[1],
+                            victim[0], victim[1], mon,
                             f"displaced by a priority-{ten.priority} arrival (queue full "
                             f"at {self.max_queue})")
                     rid = self._next_rid
                     self._next_rid += 1
                     req = _Request(rid, prompt, max_new_tokens, t_submit, tenant=tenant,
                                    priority=ten.priority)
+                    if mon.tstate.on:
+                        root = mon.trace.start_span("serving.request", attrs={"rid": rid})
+                        _sanitizers.race_access(self._tag, "_req_spans", write=True)
+                        self._req_spans[rid] = [
+                            root, mon.trace.start_span("serving.queue_wait", parent=root)]
                     if not ten.queue:
                         # an idle lane re-syncs to the virtual clock
                         ten.vtime = max(ten.vtime, self._vnow)
                     ten.queue.append(req)
-                    return rid
+                    break
             if deadline is None or time.monotonic() >= deadline:
+                if mon.state.on:
+                    mon.adm_rejected.inc()
                 if self._prioritized():
+                    if mon.state.on:
+                        mon.shed.labels(tenant).inc()
                     raise RequestShed(
                         f"load shed: admission queue full ({self.max_queue} requests) "
                         f"and tenant {tenant!r} (priority {ten.priority}) outranks no "
@@ -471,6 +600,11 @@ class ContinuousBatchingEngine:
                     f"admission queue full ({self.max_queue} requests)"
                     + ("" if timeout is None else f" after {timeout}s wait"))
             time.sleep(0.0005)   # poll; the lock is never held while waiting
+        # no _drain_pending here: admission changes slot, pager and cache
+        # state and belongs to the driving thread alone
+        if mon.state.on:
+            self._update_gauges(mon)
+        return rid
 
     def _free_slot(self):
         for b in range(self.max_batch):
@@ -531,8 +665,18 @@ class ContinuousBatchingEngine:
                 self._admit(slot, req)
 
     def _admit(self, slot, req):
-        req.t_admit = time.perf_counter_ns()
+        mon = _mon()
+        req.t_admit = mon.mod.now_ns()
         L = len(req.prompt)
+        with self._submit_lock:
+            if req.rid not in self._req_spans and mon.tstate.on:
+                # add_request path: the root opens at admission (no queue)
+                self._req_spans[req.rid] = [
+                    mon.trace.start_span("serving.request", attrs={"rid": req.rid}), None]
+            entry = self._req_spans.get(req.rid)
+        if entry is not None and entry[1] is not None:
+            mon.trace.end_span(entry[1], t1_ns=req.t_admit)
+            entry[1] = None
         # radix descent: map every cached prefix block read-only into the new
         # request's table; a full (block-aligned) hit still re-runs the last
         # prompt token, whose write copies the shared tail block
@@ -547,6 +691,10 @@ class ContinuousBatchingEngine:
                 self._pager.adopt_blocks(slot, blocks)
                 req.shared_tokens = shared
                 req.prefill_pos = min(shared, L - 1)
+            if mon.state.on:
+                (mon.pc_hits if blocks else mon.pc_misses).inc()
+                if blocks:
+                    mon.pc_shared.inc(len(blocks))
         self.lens[slot] = req.prefill_pos
         self._slots[slot] = req
         self._active[slot] = True
@@ -555,17 +703,30 @@ class ContinuousBatchingEngine:
         if self._drafter is not None:
             self._drafter.admit(req.rid, req.prompt)
         with self._submit_lock:
+            _sanitizers.race_access(self._tag, "_stats", write=True)
             self._stats[req.rid] = {
                 "rid": req.rid, "slot": slot, "prompt_len": L, "tenant": req.tenant,
                 "shared_tokens": req.shared_tokens, "submit_ns": req.t_submit}
             if len(self._stats) > 4096:
                 self._stats.popitem(last=False)
+        if mon.state.on:
+            mon.admitted.inc()
+            self._update_gauges(mon)
 
     def pop_stats(self, rid):
         """Per-request stats (ttft_ns, prefill_chunks, shared prefix tokens,
         tokens), kept until popped."""
         with self._submit_lock:
+            _sanitizers.race_access(self._tag, "_stats", write=True)
             return self._stats.pop(rid, None)
+
+    def _span_entry(self, rid):
+        """The [root, queue_wait] span pair of one in-flight request (the
+        table is shared with submit and abort, so it is read under the
+        submit lock)."""
+        with self._submit_lock:
+            _sanitizers.race_access(self._tag, "_req_spans")
+            return self._req_spans.get(rid)
 
     def status(self):
         """Host-readable state (counters, pool headroom, programs built,
@@ -628,6 +789,8 @@ class ContinuousBatchingEngine:
         if not cands:
             return None
         slot = min(cands, key=lambda b: (self._slots[b].priority, -self._slots[b].rid))
+        mon = _mon()
+        t0 = mon.mod.now_ns()
         req = self._slots[slot]
         n_tok = int(self.lens[slot])
         nblk = -(-n_tok // self.block_size) if n_tok else 0
@@ -648,6 +811,16 @@ class ContinuousBatchingEngine:
         self.preemptions += 1
         self.spilled_bytes += 0 if contents is None else int(sum(
             leaf.numel() * leaf.element_size() for entry in contents for leaf in entry))
+        if mon.tstate.on:
+            with self._submit_lock:
+                entry = self._req_spans.get(req.rid)
+            mon.trace.record_span(
+                "serving.preempt", t0, mon.mod.now_ns(),
+                parent=None if entry is None else entry[0],
+                attrs={"slot": slot, "rid": req.rid, "tokens_in_kv": n_tok})
+        if mon.state.on:
+            mon.preemptions.inc()
+            self._update_gauges(mon)
         return slot
 
     def _restore(self, slot, req):
@@ -662,11 +835,12 @@ class ContinuousBatchingEngine:
         if nblk:
             blks = self._pager.take_blocks(nblk)
             if blks is None and self.prefix_cache is not None and len(self.prefix_cache):
-                self.prefix_cache.evict(nblk, pools=self._pools)
+                self._note_evicted(self.prefix_cache.evict(nblk, pools=self._pools))
                 blks = self._pager.take_blocks(nblk)
             if blks is None:
                 return False
-        req.t_admit = time.perf_counter_ns()
+        mon = _mon()
+        req.t_admit = mon.mod.now_ns()
         if nblk:
             self._pager.place_blocks(slot, blks)
             self._pager.write_block_contents(self._pools, blks, contents)
@@ -693,7 +867,16 @@ class ContinuousBatchingEngine:
             st["slot"] = slot
             st["restored"] = True
         self.preempt_restores += 1
+        if mon.state.on:
+            self._update_gauges(mon)
         return True
+
+    def _note_evicted(self, freed):
+        """Radix-cache relief telemetry: blocks the cache handed back."""
+        mon = _mon()
+        if mon.state.on and freed:
+            mon.pc_evictions.inc(freed)
+            mon.pc_blocks.set(len(self.prefix_cache))
 
     # -- staged knob changes -------------------------------------------------
     _KNOB_NAMES = ("chunk_size", "decode_burst", "decode_priority", "max_queue")
@@ -744,15 +927,28 @@ class ContinuousBatchingEngine:
         at the fault point, in a program call, or crashing on state the
         recovery tore down) returns ``[]``: the new epoch owns the slots."""
         epoch = self._epoch
+        mon = _mon()
         self._apply_pending_knobs()
+        sp = None
         self.step_open_since = time.monotonic()
+        if mon.tstate.on:
+            # an open serving.step span is what a flight dump names when the
+            # driving thread hangs or dies mid-step
+            sp = mon.trace.start_span("serving.step", attrs={"engine": self._tag})
         try:
+            # the drills kill or hang the step inside the open span
             _fi.fire("serving.step")
             if epoch != self._epoch:
                 return []
             try:
                 with torch.inference_mode():
-                    finished = self._step_impl(eos_token_id, max_new_tokens)
+                    if _sanitizers._state.hostsync:
+                        # the step is device-resident by contract: a host
+                        # read inside it other than the token readback trips
+                        with _sanitizers.protected_region("serving.step"):
+                            finished = self._step_impl(eos_token_id, max_new_tokens)
+                    else:
+                        finished = self._step_impl(eos_token_id, max_new_tokens)
             except Exception:
                 if epoch != self._epoch:
                     return []
@@ -762,6 +958,7 @@ class ContinuousBatchingEngine:
             return finished
         finally:
             self.step_open_since = None
+            mon.trace.end_span(sp)
 
     def _ensure(self, need):
         """ensure_capacity with radix-cache relief: on pool exhaustion, evict
@@ -777,7 +974,7 @@ class ContinuousBatchingEngine:
         owned = (pager._tables_np > 0).sum(axis=1)
         want = -(-np.maximum(np.asarray(need, np.int64), 0) // self.block_size)
         shortfall = int(np.maximum(want - owned, 0).sum()) - len(pager._free)
-        self.prefix_cache.evict(max(shortfall, 1), pools=self._pools)
+        self._note_evicted(self.prefix_cache.evict(max(shortfall, 1), pools=self._pools))
         self._pager.ensure_capacity(need)
 
     def _step_impl(self, eos_token_id, max_new_tokens):
@@ -785,12 +982,16 @@ class ContinuousBatchingEngine:
         # step can touch (the microseconds of pack assembly before it are
         # the accepted window, as in the JAX engine)
         epoch = self._epoch
+        mon = _mon()
         # cancellations first: a cancelled queued request must not be
         # admitted below, and a cancelled active slot frees its lane
         self._apply_cancels()
         self._drain_pending()
         if not self._active.any():
+            if mon.state.on:
+                self._update_gauges(mon)
             return []
+        t0 = mon.mod.now_ns()
         T = self.max_step_tokens
         decode_slots = np.flatnonzero(self._decode_ready)
         prefill_slots = np.flatnonzero(self._active & ~self._decode_ready).tolist()
@@ -835,7 +1036,7 @@ class ContinuousBatchingEngine:
                                           zip(decode_slots, first, last)])
                 if not (self._pager._refs[targets] > 1).any():
                     return self._burst_impl(decode_slots, eos_token_id, max_new_tokens,
-                                            epoch)
+                                            mon, t0, epoch)
         if self.policy == "spf":
             prefill_slots.sort(key=lambda b: (
                 -self._slots[b].priority,
@@ -950,7 +1151,7 @@ class ContinuousBatchingEngine:
                 # cache-only blocks back and retry
                 if self.prefix_cache is None or not len(self.prefix_cache):
                     raise
-                self.prefix_cache.evict(n_lanes, pools=self._pools)
+                self._note_evicted(self.prefix_cache.evict(n_lanes, pools=self._pools))
                 self._pager.make_positions_exclusive(rows, positions[:n_lanes], self._pools)
         key = (decode_slots.tobytes(),
                () if dec_lanes is None else tuple(kb for _b, _l, kb in dec_lanes),
@@ -976,26 +1177,53 @@ class ContinuousBatchingEngine:
             if len(self._lane_cache) > 256:
                 self._lane_cache.clear()
             self._lane_cache[key] = cached
-        out = self._step_jit()(torch.from_numpy(pack_np), self._pager.block_tables,
-                               *cached).cpu().numpy()
+        if mon.tstate.on:
+            mon.trace.record_span(
+                "serving.pack_tokens", t0, mon.mod.now_ns(),
+                attrs={"n_decode": nd, "n_draft": n_dec_lanes - nd,
+                       "n_prefill": n_lanes - n_dec_lanes, "budget": T})
+        out_dev = self._step_jit()(torch.from_numpy(pack_np), self._pager.block_tables,
+                                   *cached)
+        if _sanitizers._state.numerics:
+            self._san_steps += 1
+            _sanitizers.numsan_check("serving.mixed_step",
+                                     (("tokens", out_dev), ("kv_pools", self._pools)),
+                                     step=self._san_steps)
+        out = _read_back(out_dev)
         if epoch != self._epoch:
             # a recovery superseded this step during the call: its writes
             # went only to blocks its own lanes held, all freed by the
             # recovery; every host-side change now belongs to the new epoch
             return []
         toks, acc = out[0], out[1]
-        t1 = time.perf_counter_ns()
+        t1 = mon.mod.now_ns()
+        if mon.tstate.on:
+            for b in decode_slots:
+                entry = self._span_entry(self._slots[b].rid)
+                if entry is not None:
+                    mon.trace.record_span(
+                        "serving.decode_step", t0, t1, parent=entry[0],
+                        attrs={"slot": int(b), "n_active": nd})
+            for b, start, take in chunks:
+                entry = self._span_entry(self._slots[b].rid)
+                if entry is not None:
+                    mon.trace.record_span(
+                        "serving.prefill_chunk", t0, t1, parent=entry[0],
+                        attrs={"slot": int(b), "start": start, "tokens": take})
         # route decode results: every slot emits its base token plus one
         # token per accepted draft (the longest agreeing prefix)
         finished = []
+        emitted = 0
         n_draft = n_dec_lanes - nd
         n_accept = 0
         if dec_lanes is None:
             for i, b in enumerate(decode_slots):
                 pre = int(self.lens[b])
                 self.lens[b] += 1
-                self._note_token(b, int(toks[i]), eos_token_id, max_new_tokens, finished)
-                self._register_decode_blocks(b, pre)
+                emitted += 1
+                self._note_token(b, int(toks[i]), eos_token_id, max_new_tokens, finished,
+                                 mon, t1)
+                self._register_decode_blocks(b, pre, mon)
         else:
             for b, lane0, kb in dec_lanes:
                 a = int(acc[lane0 + 1:lane0 + 1 + kb].sum()) if kb else 0
@@ -1005,16 +1233,25 @@ class ContinuousBatchingEngine:
                     if self._slots[b] is None:
                         break           # finished mid-verify: the rest of
                     self.lens[b] += 1   # its lane is discarded
+                    emitted += 1
                     routed += 1
                     self._note_token(b, int(toks[lane0 + j]), eos_token_id,
-                                     max_new_tokens, finished)
+                                     max_new_tokens, finished, mon, t1)
                 # accepted = draft tokens delivered (an eos mid-chain
                 # discards the rest)
                 n_accept += max(routed - 1, 0)
-                self._register_decode_blocks(b, pre)
+                self._register_decode_blocks(b, pre, mon)
         if n_draft:
             self.spec_drafted += n_draft
             self.spec_accepted += n_accept
+            if mon.state.on:
+                mon.spec_drafted.inc(n_draft)
+                mon.spec_accepted.inc(n_accept)
+                mon.spec_rate.set(self.spec_accepted / max(self.spec_drafted, 1))
+            if mon.tstate.on:
+                mon.trace.record_span(
+                    "serving.spec_verify", t0, t1,
+                    attrs={"drafted": n_draft, "accepted": n_accept, "lanes": nd})
         # route prefill progress and the first tokens of completed prefills
         for b, start, take in chunks:
             req = self._slots[b]
@@ -1022,21 +1259,40 @@ class ContinuousBatchingEngine:
             req.chunks += 1
             self.lens[b] = req.prefill_pos
             if self.prefix_cache is not None:
-                self.prefix_cache.register(req.prompt, req.prefill_pos,
-                                           self._pager._tables_np[b])
+                n = self.prefix_cache.register(req.prompt, req.prefill_pos,
+                                               self._pager._tables_np[b])
+                if mon.state.on and n:
+                    mon.pc_blocks.set(len(self.prefix_cache))
             if req.prefilled:
                 req.t_first = t1
                 self._decode_ready[b] = True
+                emitted += 1
                 with self._submit_lock:
                     st = self._stats.get(req.rid)
                     if st is not None:
                         st["ttft_ns"] = t1 - req.t_submit
                         st["prefill_chunks"] = req.chunks
+                if mon.state.on:
+                    mon.ttft.observe(t1 - req.t_submit)
+                    mon.prefill.observe(t1 - req.t_admit)
+                    mon.chunk_depth.observe(req.chunks)
+                entry = self._span_entry(req.rid)
+                if entry is not None:
+                    mon.trace.record_span(
+                        "serving.prefill", req.t_admit, t1, parent=entry[0],
+                        attrs={"slot": int(b), "prompt_len": len(req.prompt),
+                               "chunks": req.chunks, "shared_tokens": req.shared_tokens})
                 self._note_token(b, int(toks[emit_lanes[b]]), eos_token_id,
-                                 max_new_tokens, finished)
+                                 max_new_tokens, finished, mon, t1)
+        if mon.state.on:
+            mon.decode.observe(t1 - t0)
+            mon.tokens.inc(emitted)
+            mon.pack.observe(n_lanes)
+            self._update_gauges(mon)
+            mon.mod.sample()   # the chrome-trace counter timeline, a step
         return finished
 
-    def _register_decode_blocks(self, slot, pre_lens):
+    def _register_decode_blocks(self, slot, pre_lens, mon):
         """With speculation on, generated full blocks join the radix chain
         too, so a repeated prompt drafts its previous run's continuation.
         ``pre_lens=None`` registers unconditionally (the eviction-time
@@ -1059,9 +1315,11 @@ class ContinuousBatchingEngine:
                                    np.asarray(req.outputs, np.int32)])
         else:
             tail = np.asarray(req.outputs[start - lp:], np.int32)
-        _n, cursor = self.prefix_cache.register_from(
+        n, cursor = self.prefix_cache.register_from(
             cursor, tail, int(self.lens[slot]), self._pager._tables_np[slot])
         self._chain_cursors[slot] = cursor
+        if mon.state.on and n:
+            mon.pc_blocks.set(len(self.prefix_cache))
 
     def _collect_drafts(self, decode_slots, budget, max_new_tokens):
         """Up to ``spec_lookahead`` drafted tokens a decode lane, bounded by
@@ -1115,30 +1373,51 @@ class ContinuousBatchingEngine:
             useful += K if limit is None else min(K, max(limit - len(req.outputs), 0))
         return 2 * useful >= K * len(decode_slots)
 
-    def _burst_impl(self, decode_slots, eos_token_id, max_new_tokens, epoch):
+    def _burst_impl(self, decode_slots, eos_token_id, max_new_tokens, mon, t0, epoch):
         """Steady-state path: K fused decode iterations, one (2, B) upload,
         one (B, K) download."""
         K = self.decode_burst
         pack = np.empty((2, self.max_batch), np.int32)
         pack[0] = self._last_tok
         pack[1] = self.lens
-        toks = self._burst_jit()(torch.from_numpy(pack),
-                                 self._pager.block_tables).cpu().numpy()   # (B, K)
+        toks_dev = self._burst_jit()(torch.from_numpy(pack), self._pager.block_tables)
+        if _sanitizers._state.numerics:
+            self._san_steps += 1
+            _sanitizers.numsan_check("serving.decode_burst",
+                                     (("tokens", toks_dev), ("kv_pools", self._pools)),
+                                     step=self._san_steps)
+        toks = _read_back(toks_dev)     # (B, K)
         if epoch != self._epoch:
             return []                   # superseded mid-call: as the mixed step
+        t1 = mon.mod.now_ns()
+        nd = len(decode_slots)
+        if mon.tstate.on:
+            for b in decode_slots:
+                entry = self._span_entry(self._slots[b].rid)
+                if entry is not None:
+                    mon.trace.record_span(
+                        "serving.decode_step", t0, t1, parent=entry[0],
+                        attrs={"slot": int(b), "n_active": nd, "burst": K})
         finished = []
+        emitted = 0
         for b in decode_slots:
             pre = int(self.lens[b])
             for i in range(K):
                 if self._slots[b] is None:
                     break               # finished mid-burst: the rest of
                 self.lens[b] += 1       # its lane is discarded
+                emitted += 1
                 self._note_token(b, int(toks[b, i]), eos_token_id, max_new_tokens,
-                                 finished)
-            self._register_decode_blocks(b, pre)
+                                 finished, mon, t1)
+            self._register_decode_blocks(b, pre, mon)
+        if mon.state.on:
+            mon.decode.observe(t1 - t0)
+            mon.tokens.inc(emitted)
+            self._update_gauges(mon)
+            mon.mod.sample()
         return finished
 
-    def _note_token(self, slot, tok, eos_token_id, max_new_tokens, finished):
+    def _note_token(self, slot, tok, eos_token_id, max_new_tokens, finished, mon, t_now):
         req = self._slots[slot]
         req.outputs.append(tok)
         req.last_token = tok
@@ -1150,17 +1429,22 @@ class ContinuousBatchingEngine:
                 or (limit is not None and len(req.outputs) >= limit) \
                 or self.lens[slot] + 1 >= self.max_len:
             finished.append((req.rid, list(req.outputs)))
-            self._evict(slot)
+            self._evict(slot, t_now)
 
-    def _evict(self, slot):
+    def _evict(self, slot, t0=None):
+        mon = _mon()
         req = self._slots[slot]
         with self._submit_lock:
+            _sanitizers.race_access(self._tag, "_req_spans", write=True)
+            _sanitizers.race_access(self._tag, "_stats", write=True)
+            entry = self._req_spans.pop(req.rid, None)
             st = self._stats.get(req.rid)
             if st is not None:
                 st["tokens"] = len(req.outputs)
+        t0 = t0 or (mon.mod.now_ns() if entry is not None else 0)
         # last chance to chain the generation's tail blocks before the row
         # is freed
-        self._register_decode_blocks(slot, None)
+        self._register_decode_blocks(slot, None, mon)
         self._pager.free_sequence(slot)
         self._slots[slot] = None
         self._active[slot] = False
@@ -1169,6 +1453,28 @@ class ContinuousBatchingEngine:
         self._chain_cursors.pop(slot, None)
         if self._drafter is not None:
             self._drafter.drop(req.rid)
+        if entry is not None:
+            t1 = mon.mod.now_ns()
+            mon.trace.drop(entry[1])   # open only if tracing was toggled off
+            mon.trace.record_span("serving.evict", t0, t1, parent=entry[0],
+                                  attrs={"slot": slot, "tokens": len(req.outputs)})
+            mon.trace.end_span(entry[0], t1_ns=t1)   # the request tree is complete
+        if mon.state.on:
+            mon.evictions.inc()
+            self._update_gauges(mon)
+
+    def _update_gauges(self, mon):
+        """The engine's gauges, from host mirrors only (the tenant lanes,
+        the active-slot mask, the pool size): no device tensor is read."""
+        depth = 0
+        with self._submit_lock:
+            lanes = [(t.name, len(t.queue)) for t in self._tenants.values()]
+        for name, n in lanes:
+            depth += n
+            mon.tenant_depth.labels(name).set(n)
+        mon.queue_depth.set(depth)
+        mon.occupancy.set(float(self._active.sum()) / self.max_batch)
+        mon.pool_bytes.set(self.kv_pool_bytes)
 
     @property
     def num_active(self):
@@ -1192,6 +1498,7 @@ class ContinuousBatchingEngine:
         rids = set(_drain(self._cancel_q))
         if not rids:
             return
+        mon = _mon()
         n = 0
         with self._submit_lock:
             for ten in self._tenants.values():
@@ -1199,6 +1506,10 @@ class ContinuousBatchingEngine:
                     ten.queue.remove(req)
                     rids.discard(req.rid)
                     self._stats.pop(req.rid, None)
+                    entry = self._req_spans.pop(req.rid, None)
+                    if entry is not None:
+                        mon.trace.drop(entry[1])
+                        mon.trace.end_span(entry[0])
                     n += 1
         for b in range(self.max_batch):
             req = self._slots[b]
@@ -1207,7 +1518,11 @@ class ContinuousBatchingEngine:
                 with self._submit_lock:
                     self._stats.pop(req.rid, None)
                 n += 1
-        self.cancelled += n
+        if n:
+            self.cancelled += n
+            if mon.state.on:
+                mon.cancelled.inc(n)
+                self._update_gauges(mon)
 
     def withdraw_pending(self):
         """Pull every queued (not yet admitted) request out of the tenant
@@ -1216,20 +1531,29 @@ class ContinuousBatchingEngine:
         "tenant", "outputs"}`` dicts (``outputs`` is non-empty for a
         preempted request queued again mid-generation): what a fleet router
         moves off a draining or failed replica."""
+        mon = _mon()
         out = []
         with self._submit_lock:
             for ten in self._tenants.values():
                 while ten.queue:
                     req = ten.queue.popleft()
                     self._stats.pop(req.rid, None)
+                    entry = self._req_spans.pop(req.rid, None)
+                    if entry is not None:
+                        mon.trace.drop(entry[1])
+                        mon.trace.end_span(entry[0])
                     out.append({"rid": req.rid, "prompt": req.prompt, "max_new": req.max_new,
                                 "tenant": req.tenant, "outputs": list(req.outputs)})
+        if out and mon.state.on:
+            self._update_gauges(mon)
         return out
 
     # -- crash and hang recovery ---------------------------------------------
     def recover(self, reason="", stuck=""):
         """Tear down the slot state of a dead or hung epoch and restart warm:
-        every in-flight request is aborted with a typed
+        a flight dump documents what was running (with tracing on, or
+        ``PADDLE_TPU_FLIGHT_DIR`` set; it merges with the watchdog's dump of
+        the same hang into one file), every in-flight request is aborted with a typed
         :class:`RequestAborted` carrying its partial tokens and stats
         (drained by :meth:`pop_aborted`), slots and pager rows are freed, and
         the radix cache survives, so re-submissions of the same prompts hit
@@ -1239,16 +1563,33 @@ class ContinuousBatchingEngine:
         observers of one failure (the dying driving thread, the hang
         watchdog) collapse to one recovery, the loser returns None. A step
         this recovery supersedes sees the new epoch and applies nothing.
-        ``stuck`` names the stuck section (kept for the flight dump of the
-        observability slice). Returns the number of aborted requests."""
-        del stuck
+        ``stuck`` names the stuck section in the dump. Returns the number of
+        aborted requests. The dump reads host state only: a hung step may
+        still hold the card."""
         if not self._recover_lock.acquire(blocking=False):
             return None
         try:
-            t0 = time.perf_counter_ns()
+            mon = _mon()
+            t0 = mon.mod.now_ns()
             # the epoch moves first: a step stuck at its fault point wakes,
             # sees it, and returns without touching what this recovery owns
             self._epoch += 1
+            open_serving = [s.name for s in mon.trace.open_spans()
+                            if s.name.startswith("serving.")]
+            path = None
+            try:
+                if mon.tstate.on or os.environ.get("PADDLE_TPU_FLIGHT_DIR"):
+                    path = mon.trace.flight_dump(
+                        reason=f"serving recovery ({self._tag}): {reason}"
+                               + (f"; stuck span: {stuck}" if stuck else ""),
+                        extra={"engine": self._tag, "open_serving_spans": open_serving,
+                               "active": int(self._active.sum()), "epoch": self._epoch},
+                        # one dump file an engine: it merges with this
+                        # engine's watchdog dump, never with a sibling's
+                        key=self._tag)
+            except Exception:  # noqa: BLE001 - a dump failure never masks
+                pass           # the recovery it documents
+            self.last_recovery_dump = path
             aborted = 0
             for b in range(self.max_batch):
                 req = self._slots[b]
@@ -1261,10 +1602,14 @@ class ContinuousBatchingEngine:
                     if st is not None:
                         st["aborted"] = True
                         st["tokens"] = len(req.outputs)
+                    entry = self._req_spans.pop(req.rid, None)
                 self._aborted.append(RequestAborted(
                     f"request {req.rid} aborted by engine recovery: {reason}",
                     rid=req.rid, tokens=req.outputs, tenant=req.tenant, stats=st))
                 aborted += 1
+                if entry is not None:
+                    mon.trace.drop(entry[1])
+                    mon.trace.end_span(entry[0])
                 self._pager.free_sequence(b)
                 self._slots[b] = None
                 if self._drafter is not None:
@@ -1278,9 +1623,19 @@ class ContinuousBatchingEngine:
             # kept: the programs, the admission queues, and the radix cache
             # with its pinned blocks; that is what makes the restart warm
             cold = self.prefix_cache is None or not len(self.prefix_cache)
+            t1 = mon.mod.now_ns()
             self.recovery_stats.append({
-                "reason": reason, "ms": (time.perf_counter_ns() - t0) / 1e6,
-                "aborted": aborted, "cold": cold, "dump": None})
+                "reason": reason, "ms": (t1 - t0) / 1e6,
+                "aborted": aborted, "cold": cold, "dump": path})
+            if mon.tstate.on:
+                mon.trace.record_span(
+                    "serving.recover", t0, t1,
+                    attrs={"reason": reason[:120], "aborted": aborted, "cold": cold})
+            if mon.state.on:
+                mon.recoveries.inc()
+                if aborted:
+                    mon.aborted.inc(aborted)
+                self._update_gauges(mon)
             return aborted
         finally:
             self._recover_lock.release()
@@ -1335,7 +1690,9 @@ class ContinuousBatchingEngine:
         t.start()
 
     def _on_hang(self, desc, dump):
-        """Watchdog callback: a watched step exceeded the hang timeout."""
+        """Watchdog callback: a watched step exceeded the hang timeout. The
+        watchdog already wrote its flight dump; recover()'s dump merges with
+        it (the same file, both reasons)."""
         del dump
         self.recover(f"watchdog-detected hang: {desc} exceeded {self._dog.timeout}s",
                      stuck=desc)
@@ -1401,6 +1758,17 @@ class StaticBatchEngine:
         self._pending = collections.deque()
         self._next_rid = 0
         self._stats = collections.OrderedDict()
+        self._tag = f"e{next(_ENGINE_SEQ)}"
+        # the shapes the two paths have run: the JAX engine's per-bucket
+        # prefill programs and its decode program, whose first use the
+        # recompile sentinel counts (bounded by the bucket list by design)
+        self._programs = set()
+
+    def _note_program(self, key, label):
+        if key not in self._programs:
+            self._programs.add(key)
+            if _sanitizers._state.recompile:
+                _sanitizers.note_compile(f"{label}[{self._tag}]", signature=key)
 
     # -- the two paths: per-bucket prefill, lockstep ragged decode -----------
     def _prefill_slot(self, ids, row_tables, length):
@@ -1457,6 +1825,7 @@ class StaticBatchEngine:
             need = np.where([s is not None for s in self._slots], self.lens + 1, 0)
             need[b] = L + 1
             self._pager.ensure_capacity(need)
+            self._note_program(("prefill", bucket), "serving.prefill")
             tok = int(self._prefill_slot(torch.from_numpy(padded).to(self.device),
                                          self._pager.block_tables[b:b + 1], L))
             req.prefill_pos = L
@@ -1495,6 +1864,7 @@ class StaticBatchEngine:
             tokens[b, 0] = self._slots[b].last_token
         need = np.where([s is not None for s in self._slots], self.lens + 1, 0)
         self._pager.ensure_capacity(need)
+        self._note_program("step", "serving.decode_step")
         toks = self._step_all(torch.from_numpy(tokens).to(self.device),
                               self._pager.block_tables,
                               torch.from_numpy(self.lens.astype(np.int32)).to(self.device))

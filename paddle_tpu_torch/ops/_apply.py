@@ -16,10 +16,16 @@ around an op, in the same order:
   3. the NaN/Inf scan of the floating outputs when ``FLAGS_check_nan_inf``
      is on (``amp/debugging.py``), and the operator-stats record by output
      dtype while a collection is open.
-With AMP off, no scan, no collection and no profiler, ``apply`` costs four
-checks over calling the function. While a ``paddle_tpu_torch.profiler``
-RECORD window is open, each call is an ``op::<name>`` Operator span in the
-profiler's host events (``_PROFILER``), as in the JAX dispatch. PyTorch's autograd stands in for the JAX tape, so the
+With AMP off, no scan, no collection, no profiler and no monitor, ``apply``
+costs six slot loads over calling the function. While a
+``paddle_tpu_torch.profiler`` RECORD window is open, each call is an
+``op::<name>`` Operator span in the profiler's host events (``_PROFILER``),
+as in the JAX dispatch. With the monitor on, each call bumps
+``paddle_tpu_dispatch_op_calls_total{op}`` and lands in the
+``paddle_tpu_dispatch_latency_ns`` histogram; with tracing on, one call in
+``trace.dispatch_sample_every()`` is a ``dispatch.op`` span. One clock
+(``monitor.now_ns``) feeds all three. The latency is host time: the op's
+CUDA kernels run on after the call returns. PyTorch's autograd stands in for the JAX tape, so the
 eager VJP cache (``_cached_pos_fns``/``_cached_op_fns``/``_LazyVjp``) has no
 counterpart, and ``jit.to_static`` (Dynamo) traces through ``apply``: the AMP
 state, the flag and the stats slot are guarded, so a step compiled outside
@@ -27,8 +33,8 @@ state, the flag and the stats slot are guarded, so a step compiled outside
 (``a @ b``, ``a + b``) are torch's own and bypass this dispatch (in the JAX
 package they are ``Tensor`` methods that dispatch).
 
-Not ported here: graph capture (``to_static`` is Dynamo), the SPMD rules slot
-(ROADMAP Queue A item 10) and the monitor's counters and spans (item 7).
+Not ported here: graph capture (``to_static`` is Dynamo) and the SPMD rules
+slot (ROADMAP Queue A item 10).
 
 The JAX package registers its built-in ops when it is imported; the port
 registers those it has ported, under the same names, and keeps every JAX
@@ -38,10 +44,10 @@ taken.
 from __future__ import annotations
 
 import functools
-import time
 
 import torch
 
+from .. import monitor as _monitor
 from ..framework import flags as _flags
 from ._builtin_names import BUILTIN_OP_NAMES
 
@@ -66,6 +72,10 @@ _STATS_COLUMN = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2}
 #: for the profiler
 _PROFILER = [None]
 _OPERATOR = [None]  # TracerEventType.Operator, bound at the first span
+_MON_STATE = _monitor._state
+_TRACE = _monitor.trace
+_TRACE_STATE = _TRACE._state
+_MON = [None]  # (op-calls counter, latency histogram), bound on first use
 
 
 class OpDef:
@@ -132,29 +142,54 @@ def _finish_outputs(name, out):
 
 def apply(opdef: OpDef, *args, **kwargs):
     """Dispatch one op call: AMP cast, the function, scan and stats; while a
-    profiler RECORD window is open, inside an ``op::<name>`` host span."""
-    if _PROFILER[0] is not None:
-        return _profiled(opdef, args, kwargs)
+    profiler RECORD window is open, or the monitor or tracing is on, timed
+    and recorded by ``_observed``."""
+    if _PROFILER[0] is not None or _MON_STATE.on or _TRACE_STATE.on:
+        return _observed(opdef, args, kwargs)
     return _dispatch(opdef, args, kwargs)
 
 
-def _profiled(opdef, args, kwargs):
-    """``apply`` inside an Operator span (the reference records one per
-    generated op's forward, eager_gen.py's record-event preamble). A traced
-    call (``to_static``) records none, as the JAX trace records none."""
+def _observed(opdef, args, kwargs):
+    """``apply`` under the profiler, the monitor or tracing. The profiler's
+    Operator span is the reference's per-op record event (eager_gen.py's
+    record-event preamble); the monitor's counter and histogram and the
+    sampled ``dispatch.op`` span are the JAX dispatch's
+    (``paddle_tpu/ops/_apply.py`` ``apply``). The span ticket is drawn
+    before any timing, so unsampled calls with only tracing on read no
+    clock. A traced call (``to_static``) records nothing, as the JAX trace
+    records no Operator span."""
     if torch.compiler.is_compiling():
         return _dispatch(opdef, args, kwargs)
-    if _OPERATOR[0] is None:
-        from ..profiler.profiler import TracerEventType
-
-        _OPERATOR[0] = TracerEventType.Operator
-    t0 = time.perf_counter_ns()
+    trace_this = (_TRACE_STATE.on and next(_TRACE._dispatch_tick)
+                  % _TRACE._DISPATCH_SAMPLE_EVERY == 0)
+    if _PROFILER[0] is None and not _MON_STATE.on and not trace_this:
+        return _dispatch(opdef, args, kwargs)
+    now_ns = _monitor.now_ns
+    t0 = now_ns()
     try:
         return _dispatch(opdef, args, kwargs)
     finally:
+        t1 = now_ns()
+        if _MON_STATE.on:
+            mon = _MON[0]
+            if mon is None:
+                mon = _MON[0] = (
+                    _monitor.counter("paddle_tpu_dispatch_op_calls_total",
+                                     labelnames=("op",)),
+                    _monitor.histogram("paddle_tpu_dispatch_latency_ns"))
+            mon[0].labels(opdef.name).inc()
+            mon[1].observe_ns(t1 - t0)
+        if trace_this:
+            _TRACE.record_span("dispatch.op", t0, t1,
+                               attrs={"op": opdef.name,
+                                      "sample_every": _TRACE._DISPATCH_SAMPLE_EVERY})
         collector = _PROFILER[0]
         if collector is not None:
-            collector.emit(f"op::{opdef.name}", _OPERATOR[0], t0, time.perf_counter_ns())
+            if _OPERATOR[0] is None:
+                from ..profiler.profiler import TracerEventType
+
+                _OPERATOR[0] = TracerEventType.Operator
+            collector.emit(f"op::{opdef.name}", _OPERATOR[0], t0, t1)
 
 
 def _dispatch(opdef, args, kwargs):

@@ -22,9 +22,10 @@ min and max ns, ratio of the device time). ``ProfilerTarget.GPU`` (or
 ``TPU``, which JAX-era code passes and which names the card here) without a
 card raises: there is no CPU-only fallback for a device profile.
 
-The monitor's counter and span tracks (the JAX package merges them into the
-same trace) wait for the port of ``monitor/``, ROADMAP Queue A item 7: the
-merges below are guarded imports that find no module and merge nothing.
+The monitor's counter tracks (``monitor.sample()`` runs once a profiled
+step) and its trace spans (``cat: "TraceSpan"``) inside the profiled window
+are merged into the same chrome trace, on the same perf_counter_ns clock, as
+the JAX package merges them.
 """
 from __future__ import annotations
 
@@ -37,6 +38,8 @@ from enum import Enum
 from typing import Any, Callable, Iterable, Sequence
 
 import torch
+
+from .. import monitor as _monitor
 
 
 class SummaryView(Enum):
@@ -435,20 +438,14 @@ def _write_chrome_trace(events, path, device_events=None):
         })
     if device_events:
         trace_events.extend(chrome_events(device_events))
-    try:
-        # the monitor's counter and span tracks (Queue A item 7; the module
-        # docstring): nothing to merge until monitor/ is ported
-        from .. import monitor as _monitor  # noqa: F401
-
-        if events:
-            w0 = min(e.start_ns for e in events) - 10_000_000
-            w1 = max(e.end_ns for e in events) + 10_000_000
-            trace_events.extend(
-                ev for ev in _monitor.chrome_counter_events() if w0 <= ev["ts"] * 1e3 <= w1)
-            trace_events.extend(
-                ev for ev in _monitor.trace.chrome_span_events() if w0 <= ev["ts"] * 1e3 <= w1)
-    except ImportError:
-        pass
+    if events:
+        # the monitor's counter and span tracks inside the profiled window
+        w0 = min(e.start_ns for e in events) - 10_000_000
+        w1 = max(e.end_ns for e in events) + 10_000_000
+        trace_events.extend(
+            ev for ev in _monitor.chrome_counter_events() if w0 <= ev["ts"] * 1e3 <= w1)
+        trace_events.extend(
+            ev for ev in _monitor.trace.chrome_span_events() if w0 <= ev["ts"] * 1e3 <= w1)
     with open(path, "w") as f:
         json.dump({"traceEvents": trace_events, "displayTimeUnit": "ms"}, f)
 
@@ -588,14 +585,7 @@ class Profiler:
             self.step_num += 1
             return
         self._close_step_span()
-        try:
-            # one monitor sample a profiled step (Queue A item 7; the module
-            # docstring): no monitor yet
-            from .. import monitor as _monitor
-
-            _monitor.sample()
-        except ImportError:
-            pass
+        _monitor.sample()   # one counter-track sample a profiled step
         _collector.current_step = self.step_num + 1
         next_state = self._scheduler(self.step_num + 1)
         self._trigger_action(self.current_state, next_state, self.step_num + 1)

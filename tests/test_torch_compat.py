@@ -609,8 +609,6 @@ def test_sampler_dtypes_match_jax():
 
 # -- the top level: what the port still lacks, each with the item that brings it
 DEFERRED = {
-    # Queue A item 7: observability
-    "monitor": 7,
     # item 7b: the nn core
     "ParamAttr": "7b", "create_parameter": "7b",
     # item 8: the remaining models and domains (hapi, static, io, vision, ...)

@@ -220,13 +220,6 @@ def test_route_fault_surfaces_typed_then_routes(clock):
     assert got[1][:3] == (0, [("fleet.route", "raise")], None)
 
 
-def test_prometheus_and_snapshot_name_item_7():
-    fl = _fleet(start=False)
-    for fn in (fl.fleet_prometheus_text, fl.fleet_snapshot):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            fn()
-
-
 # -- the health state machine (scans by hand, on both routers) ------------------
 
 def test_stale_heartbeat_suspects_then_heals(clock):
