@@ -119,8 +119,9 @@ Phases, each a hard check (the script exits nonzero on the first failure):
      cache on (evicted prefixes spill to host RAM and a re-admission
      restores them on the card; streams equal a run without spill) and a
      serving.step delay
-     past hang_timeout on one replica of a fleet, recovered by its
-     watchdog with the reference's tokens; (d) block_multihead_attention,
+     past hang_timeout on one replica of a fleet (warmed with the watchdogs'
+     timeout held long, as captures wait on each other), recovered once by
+     its watchdog with the reference's tokens; (d) block_multihead_attention,
      prefill then decode, card against CPU at fp32 within 1e-5, after a
      mixed batch with host lengths is rejected on the host
      (NotImplementedError) and the process's CUDA context survives it.
@@ -308,11 +309,16 @@ Phases, each a hard check (the script exits nonzero on the first failure):
      naming the poisoned region with every parameter bit for bit; .item(),
      .cpu(), nonzero and a mask index inside the step raise
      HostSyncInProtectedRegion, an allowed read passes; (c) phase 11's
-     three-replica fleet with slo=True, burn_aware_routing=True, per-replica
-     watchdogs and monitor.server.serve(0): every endpoint answers 200 while
-     the replicas serve, tools/obs_probe.py exits 0, HANG11's delay drill is
-     recovered by the watchdog and its flight dump names the open
-     serving.step span, fleet_prometheus_text() parses; (d) us of a
+     hang drill fleet (HANG11's replicas, per-replica watchdogs) with
+     slo=True and burn_aware_routing=True runs the delay drill twice, with
+     everything off and then with the monitor, tracing, flight dumps and
+     monitor.server.serve(0) on: each pass trips the delay once, recovers
+     exactly one replica (warmup, whose captures can outlast the hang
+     timeout, recovers none) and returns phase 11's reference tokens; in
+     the monitored pass every endpoint answers 200 while the replicas
+     serve, tools/obs_probe.py exits 0, the recovery's flight dump holds
+     the recovered replica's open serving.step span, and
+     fleet_prometheus_text() parses; (d) us of a
      dispatched add with the monitor off, on, on with tracing, off again,
      beside phase 16 (e)'s figure; (e) phase 6's step under the port's
      Profiler with the monitor and tracing on: the merged trace holds the
@@ -2354,40 +2360,100 @@ def fleet_drills(torch, fleet, fi, serving_mod, model, dev="cuda"):
     return kill, drain, (prompts, new_tokens, ref_out)
 
 
-def hang_drill(fleet, fi, model, workload):
-    """(c) A ``serving.step`` delay past ``hang_timeout`` on one replica of a
-    fleet with per-replica watchdogs: the scanner recovers the stuck engine,
-    its requests move to the other replica, and the outputs equal the
-    reference fleet's."""
+def hang_fleet(fleet, model, **kw):
+    """HANG11's fleet: its replicas with per-replica hang watchdogs."""
     P, H = FLEET11, HANG11
-    prompts, new_tokens, ref_out = workload
-    prompts, ref_out = prompts[:H["n_requests"]], ref_out[:H["n_requests"]]
-    fl = fleet.FleetRouter(
+    return fleet.FleetRouter(
         model, replicas=H["replicas"], max_new_tokens=P["max_new"],
         hang_timeout=H["hang_timeout"],
         engine_kwargs=dict(max_batch=P["max_batch"], max_len=P["max_len"],
                            block_size=P["block_size"], chunk_size=P["chunk_size"],
-                           decode_burst=P["decode_burst"]))
+                           decode_burst=P["decode_burst"]), **kw)
+
+
+def warm_watched(fl, prompt, what):
+    """Warm a fleet with hang watchdogs until every replica is idle with both
+    programs captured. A replica's warmup step waits for the process-wide
+    capture lock while its peers capture, which can outlast the drill's hang
+    timeout: the watchdogs hold a long timeout until then, so warmup
+    recovers nothing and the drill window starts from healthy replicas."""
+    P, H = FLEET11, HANG11
+    dogs = [rep.dog for rep in fl.replicas]
+    for dog in dogs:
+        dog.timeout = 600.0
+    ok = fl.warmup(prompt, max_new_tokens=2 * P["decode_burst"] + 2, timeout=300)
+
+    def settled():
+        return all(rep.engine.num_active == 0 and rep.engine.num_pending == 0
+                   and rep.engine.step_open_since is None
+                   and len(rep.engine._jit_cache) == 2
+                   and all(prog.captured for prog in rep.engine._jit_cache.values())
+                   for rep in fl.replicas) and set(fl.states().values()) == {"healthy"}
+
+    t0 = time.perf_counter()
+    while not settled() and time.perf_counter() - t0 < 60:
+        time.sleep(0.01)
+    for dog in dogs:
+        dog.timeout = H["hang_timeout"]
+    recs = sum(len(rep.engine.recovery_stats) for rep in fl.replicas)
+    if not (ok and settled() and recs == 0):
+        fail(f"{what}: warmup done {ok}, settled {settled()}, {recs} recoveries, "
+             f"states {fl.states()}")
+
+
+def hang_window(fl, fi, prompts, new_tokens, on_submitted=None):
+    """HANG11's delay on the nth ``serving.step`` of a warmed fleet, the
+    requests submitted at once: the outputs, the trips, and the recoveries
+    made in the window as (replica tag, record)."""
+    H = HANG11
+    before = {rep.tag: len(rep.engine.recovery_stats) for rep in fl.replicas}
+    f0 = fl.failovers
+    fi.arm("serving.step", action="delay", delay_s=H["delay_s"], nth=H["nth"])
+    try:
+        wall, out, _t, done = drive_fleet(fl, prompts, new_tokens, [0.0] * len(prompts),
+                                          on_submitted=on_submitted)
+        trips = fi.trips()
+    finally:
+        fi.reset()
+    recs = [(rep.tag, r) for rep in fl.replicas
+            for r in list(rep.engine.recovery_stats)[before[rep.tag]:]]
+    return dict(wall=wall, out=out, done=done, trips=trips, recs=recs,
+                failovers=fl.failovers - f0)
+
+
+def hang_ok(w, ref_out):
+    """One delay, every request complete with the reference's tokens, and
+    exactly one recovery in the window, by the watchdog."""
+    return (w["trips"] == [("serving.step", "delay")] and w["done"] == len(ref_out)
+            and w["out"] == ref_out and len(w["recs"]) == 1
+            and "hang" in w["recs"][0][1]["reason"])
+
+
+def hang_drill(fleet, fi, model, workload):
+    """(c) A ``serving.step`` delay past ``hang_timeout`` on one replica of a
+    fleet with per-replica watchdogs: the scanner recovers the stuck engine
+    (once), its requests move to the other replica, and the outputs equal
+    the reference fleet's."""
+    H = HANG11
+    prompts, new_tokens, ref_out = workload
+    prompts, ref_out = prompts[:H["n_requests"]], ref_out[:H["n_requests"]]
+    fl = hang_fleet(fleet, model)
     fi.reset()
     try:
-        if not fl.warmup(prompts[0][:6], max_new_tokens=2 * P["decode_burst"] + 2, timeout=300):
-            fail("hang drill: warmup did not finish")
-        fi.arm("serving.step", action="delay", delay_s=H["delay_s"], nth=H["nth"])
-        wall, out, _t, done = drive_fleet(fl, prompts, new_tokens[:len(prompts)],
-                                          [0.0] * len(prompts))
-        trips = fi.trips()
-        recs = [rec for r in fl.replicas for rec in r.engine.recovery_stats]
-        res = dict(delayed=trips == [("serving.step", "delay")], all_complete=done == len(out),
-                   tokens_match_reference=out == ref_out, recoveries=len(recs),
-                   recovered_hang=any("hang" in r["reason"] for r in recs),
-                   recovery_ms=recs[0]["ms"] if recs else None, failovers=fl.failovers,
-                   wall_s=wall, hang_timeout_s=H["hang_timeout"], delay_s=H["delay_s"],
-                   states=fl.states())
+        warm_watched(fl, prompts[0][:6], "hang drill")
+        w = hang_window(fl, fi, prompts, new_tokens[:len(prompts)])
+        res = dict(delayed=w["trips"] == [("serving.step", "delay")],
+                   all_complete=w["done"] == len(prompts),
+                   tokens_match_reference=w["out"] == ref_out, recoveries=len(w["recs"]),
+                   recovered=[tag for tag, _r in w["recs"]],
+                   recovered_hang=any("hang" in r["reason"] for _t, r in w["recs"]),
+                   recovery_ms=w["recs"][0][1]["ms"] if w["recs"] else None,
+                   failovers=w["failovers"], wall_s=w["wall"], hang_timeout_s=H["hang_timeout"],
+                   delay_s=H["delay_s"], states=fl.states())
     finally:
         fi.reset()
         fl.stop()
-    if not (res["delayed"] and res["all_complete"] and res["tokens_match_reference"]
-            and res["recovered_hang"]):
+    if not hang_ok(w, ref_out):
         fail(f"hang drill: {res}")
     return res
 
@@ -2694,6 +2760,8 @@ def phase_resilience(torch, fa, models, fleet, fi, serving_mod, IF, smi):
     out["spill_hang"] = dict(spill=spill_drill(models, model),
                              radix_spill=radix_spill_drill(models, model),
                              hang=hang_drill(fleet, fi, model, workload))
+    # phase 19's hang drills hold their outputs to the same reference
+    out["fleet_workload"] = workload
     print("spill_hang " + json.dumps(dict(out["spill_hang"], card=smi)), flush=True)
     out["launches"] = counts(fa)
     if out["launches"] != (0, 0, 0):
@@ -5283,7 +5351,8 @@ def phase_surface(torch, fa, models, T, AdamW, smi):
 
 
 # phase 19: observability (module docstring). OBS_SECONDS is its share of the
-# script's time; the fleet's hang drill reuses phase 11's HANG11 delay
+# script's time; the fleet's hang drill reuses phase 11's HANG11 fleet, delay
+# and reference
 OBS_SECONDS = 150
 OBS_TRAIN_STEPS = 3
 NUMSAN_REPS = 10
@@ -5495,6 +5564,9 @@ def obs_training(torch, fa, models, T, AdamW):
     e1.record()
     torch.cuda.synchronize()
     numsan_ms = e0.elapsed_time(e1) / NUMSAN_REPS
+    # the bytes a check reads: every floating leaf once
+    leaves = [regions[0][1]] + [p for p in params if p.is_floating_point()]
+    numsan_bytes = sum(x.numel() * x.element_size() for x in leaves)
     t0 = time.perf_counter()
     num.all_finite(regions)
     numsan_call_ms = (time.perf_counter() - t0) * 1e3
@@ -5549,6 +5621,8 @@ def obs_training(torch, fa, models, T, AdamW):
                 launches_per_step=dict(fwd=2 * L, bwd_dq=L, bwd_dkv=L),
                 step_ms_off=off, step_ms_on=on, step_ms_on_over_off=on_ms / off_ms,
                 numsan_device_ms_per_check=numsan_ms, numsan_call_ms=numsan_call_ms,
+                numsan_bytes=numsan_bytes,
+                numsan_gb_per_s=numsan_bytes / (numsan_ms * 1e-3) / 1e9,
                 numsan_leaves=n_leaves, drill_region="params", params_bit_identical=True,
                 tripwire=tripped, trips=0, profiled=profiled)
 
@@ -5622,63 +5696,61 @@ def prometheus_parses(text):
     return n > 0
 
 
-def obs_fleet(torch, models, fleet, T, root, flight_dir):
-    """(c) Phase 11's three-replica fleet with slo=True,
-    burn_aware_routing=True, per-replica watchdogs and the debug server:
-    every endpoint answers while the replicas serve, tools/obs_probe.py
-    exits 0, a watchdog-recovered hang writes a flight dump that lists the
-    open serving.step span, and fleet_prometheus_text() parses."""
-    import numpy as np
-
-    P, H = FLEET11, HANG11
+def obs_fleet(torch, models, fleet, T, root, flight_dir, workload):
+    """(c) HANG11's fleet with slo=True, burn_aware_routing=True and
+    per-replica watchdogs runs its delay drill twice: with everything off,
+    then with the monitor, tracing, PADDLE_TPU_FLIGHT_DIR and the debug
+    server on. Each pass trips the delay once, recovers exactly one replica
+    and returns phase 11's reference tokens, so turning the monitor on
+    changes neither what the fleet serves nor how often it recovers. In the
+    monitored pass every endpoint answers while the replicas serve,
+    tools/obs_probe.py exits 0, the recovery's flight dump holds the open
+    serving.step span of the replica it recovered, and
+    fleet_prometheus_text() parses."""
+    H = HANG11
     fi = T.analysis.faultinject
     server = T.monitor.server
     cfg = models.LlamaConfig(**FLAGSHIP, dtype="bfloat16")
     model = models.LlamaForCausalLM(cfg, device="cuda", seed=0)
-    prompts, new_tokens, _arr = fleet11_workload(cfg.vocab_size, np.random.RandomState(0))
-    prompts, new_tokens = prompts[:H["n_requests"]], new_tokens[:H["n_requests"]]
+    n = H["n_requests"]
+    prompts, new_tokens, ref_out = (x[:n] for x in workload)
     obs_reset(T)
+    fi.reset()
+    fl = hang_fleet(fleet, model, slo=True, burn_aware_routing=True)
+    try:
+        warm_watched(fl, prompts[0][:6], "observability: the unmonitored fleet")
+        off = hang_window(fl, fi, prompts, new_tokens)
+    finally:
+        fl.stop()
     os.environ["PADDLE_TPU_FLIGHT_DIR"] = str(flight_dir)
-    fl = fleet.FleetRouter(
-        model, replicas=P["replicas"], max_new_tokens=P["max_new"], hang_timeout=1.0,
-        slo=True, burn_aware_routing=True,
-        engine_kwargs=dict(max_batch=P["max_batch"], max_len=P["max_len"],
-                           block_size=P["block_size"], chunk_size=P["chunk_size"],
-                           decode_burst=P["decode_burst"]))
+    fl = hang_fleet(fleet, model, slo=True, burn_aware_routing=True)
     port = None
     try:
-        if not fl.warmup(prompts[0][:6], max_new_tokens=2 * P["decode_burst"] + 2, timeout=300):
-            fail("observability: fleet warmup did not finish")
+        warm_watched(fl, prompts[0][:6], "observability: the monitored fleet")
         T.monitor.enable()
         T.monitor.trace.enable()
         port = server.serve(0)
-        fi.arm("serving.step", action="delay", delay_s=H["delay_s"], nth=H["nth"])
         scrapes = {}
 
         def scrape(i):
             # every endpoint once, half-way through the submissions, while the
-            # replicas serve (a scrape holds the GIL the replica threads' host
-            # work needs: a storm of them stretches their steps past the
-            # watchdog's timeout)
+            # replicas serve
             if i == len(prompts) // 2:
                 for path in server.ENDPOINTS:
                     code, _body = http_get(port, path)
                     scrapes.setdefault(path, []).append(code)
 
-        wall, out, _t, done = drive_fleet(fl, prompts, new_tokens, [0.0] * len(prompts),
-                                          on_submitted=scrape)
-        recs = [r for rep in fl.replicas for r in rep.engine.recovery_stats]
-        hang = [r for r in recs if "hang" in r["reason"]]
-        # the dump file merges every observer of the hang (the watchdog, the
-        # recovery, later ones within its window); the recovery's section
-        # names the serving spans open when it ran
-        dump_spans = []
-        for path in {r["dump"] for r in hang if r["dump"]}:
-            with open(path) as f:
-                doc = json.load(f)
-            for ex in doc.get("extras", [doc.get("extra") or {}]):
-                dump_spans += ex.get("open_serving_spans", [])
-            dump_spans += [s["name"] for s in doc["open_spans"]]
+        on = hang_window(fl, fi, prompts, new_tokens, on_submitted=scrape)
+        # the dump file merges the watchdog's and the recovery's views of the
+        # hang; the recovered replica's step is still open in it
+        dump_steps = {}
+        for tag, rec in on["recs"]:
+            if rec["dump"]:
+                with open(rec["dump"]) as f:
+                    doc = json.load(f)
+                dump_steps[tag] = sorted(
+                    str(sp.get("attrs", {}).get("engine")) for sp in doc["open_spans"]
+                    if sp["name"] == "serving.step")
         probe = subprocess.run([sys.executable, os.path.join(root, "tools", "obs_probe.py"),
                                 "--port", str(port), "--json"],
                                capture_output=True, text=True, timeout=60)
@@ -5693,15 +5765,25 @@ def obs_fleet(torch, models, fleet, T, root, flight_dir):
         server.shutdown()
         obs_reset(T)
         os.environ.pop("PADDLE_TPU_FLIGHT_DIR", None)
-    res = dict(requests=len(prompts), complete=done, wall_s=wall, recoveries=len(recs),
-               recovery_reasons=[r["reason"][:70] for r in recs],
-               hang_recovered=bool(hang), dump_open_spans=sorted(set(dump_spans)),
+
+    def row(w):
+        return dict(complete=w["done"], wall_s=w["wall"], trips=w["trips"],
+                    tokens_match_reference=w["out"] == ref_out,
+                    recoveries=len(w["recs"]), recovered=[tag for tag, _r in w["recs"]],
+                    recovery_reasons=[r["reason"][:70] for _t, r in w["recs"]],
+                    recovery_ms=[r["ms"] for _t, r in w["recs"]], failovers=w["failovers"])
+
+    hung = [tag for tag, _r in on["recs"]]
+    res = dict(requests=n, replicas=H["replicas"], unmonitored=row(off), monitored=row(on),
+               dump_open_serving_steps=dump_steps,
+               dump_holds_the_hung_step=len(hung) == 1 and hung[0] in dump_steps.get(hung[0], []),
                endpoints=final, scrape_codes=codes, probe_exit=probe.returncode,
                prometheus_parses=prometheus_parses(text),
-               prometheus_lines=len(text.splitlines()), failovers=fl.failovers,
+               prometheus_lines=len(text.splitlines()),
                slo_series=len(slo["series"]) if "series" in slo else len(slo),
                snapshot_keys=sorted(snap))
-    ok = (done == len(prompts) and hang and "serving.step" in dump_spans
+    ok = (hang_ok(off, ref_out) and hang_ok(on, ref_out)
+          and len(on["recs"]) <= len(off["recs"]) and res["dump_holds_the_hung_step"]
           and all(c == 200 for c in final.values()) and probe.returncode == 0
           and res["prometheus_parses"] and set(codes) == set(server.ENDPOINTS))
     del fl, model
@@ -5712,19 +5794,26 @@ def obs_fleet(torch, models, fleet, T, root, flight_dir):
     return res
 
 
-def phase_observe(torch, fa, models, T, AdamW, fleet, root, build_dir, amp_dispatch_us, smi):
+def phase_observe(torch, fa, models, T, AdamW, fleet, root, build_dir, amp_dispatch_us, smi,
+                  workload):
     """Phase 19 (module docstring)."""
+    import threading
+
     out = {}
     flight_dir = build_dir / "flight"
+    # (d)'s "off" reading before (a)-(c) as well as after: what they leave
+    # behind (threads, heap) shows as the difference
+    off_first = dispatch_us(torch, T)
     for key, fn in (("serving", lambda: obs_serving(torch, fa, models, T)),
                     ("training", lambda: obs_training(torch, fa, models, T, AdamW)),
-                    ("fleet", lambda: obs_fleet(torch, models, fleet, T, root, flight_dir))):
+                    ("fleet", lambda: obs_fleet(torch, models, fleet, T, root, flight_dir,
+                                                workload))):
         t0 = time.perf_counter()
         out[key] = fn()
         out[key]["seconds"] = time.perf_counter() - t0
         print(f"observe_{key} " + json.dumps(dict(out[key], card=smi)), flush=True)
     # (d): us of a dispatched add with the monitor off, on, and on with tracing
-    disp = {"off": dispatch_us(torch, T)}
+    disp = {"off_before_a": off_first, "off": dispatch_us(torch, T)}
     T.monitor.enable()
     disp["monitor_on"] = dispatch_us(torch, T)
     T.monitor.trace.enable()
@@ -5732,6 +5821,7 @@ def phase_observe(torch, fa, models, T, AdamW, fleet, root, build_dir, amp_dispa
     obs_reset(T)
     disp["off_again"] = dispatch_us(torch, T)
     disp["phase16e_dispatch_us"] = amp_dispatch_us
+    disp["threads"] = sorted(t.name for t in threading.enumerate())
     out["dispatch"] = dict(disp, card=smi)
     print("observe_dispatch " + json.dumps(out["dispatch"]), flush=True)
     return out
@@ -5922,7 +6012,8 @@ def main():
     # training steps and the monitored serving passes, read after them)
     t0 = time.perf_counter()
     observe = phase_observe(torch, fa, models, T, AdamW, fleet, root, _build.BUILD_DIR,
-                            amp["dispatch"]["calls"]["dispatch_us"], smi)
+                            amp["dispatch"]["calls"]["dispatch_us"], smi,
+                            resilience["fleet_workload"])
     obs_s = time.perf_counter() - t0
     print(f"phase_seconds 19 {obs_s:.1f}", flush=True)
     if obs_s > OBS_SECONDS:

@@ -28,11 +28,11 @@ __all__ = ["Counter", "Gauge", "Histogram", "Registry", "now_ns",
            "DEFAULT_NS_BUCKETS", "DEFAULT_SECONDS_BUCKETS"]
 
 
-def now_ns() -> int:
-    """Monotonic span clock (perf_counter_ns) — one implementation for every
-    instrumented site; also the timestamp base of chrome-trace counter
-    events, so metric samples land on the profiler's span timeline."""
-    return time.perf_counter_ns()
+#: Monotonic span clock (perf_counter_ns) — one implementation for every
+#: instrumented site; also the timestamp base of chrome-trace counter
+#: events, so metric samples land on the profiler's span timeline. The
+#: builtin itself: a dispatched op reads it twice with the monitor on.
+now_ns = time.perf_counter_ns
 
 
 # 1us .. 10s in nanoseconds: covers sub-40us dispatch through multi-second
@@ -103,6 +103,12 @@ class _Metric:
                     child = self._make_child()
                     self._children[values] = child
         return child
+
+    def child(self, values):
+        """``labels(*values)`` for a tuple of label-value strings in label
+        order: the hot path's form, one dict read once the child exists."""
+        child = self._children.get(values)
+        return child if child is not None else self.labels(*values)
 
     def _make_child(self):
         return type(self)(self.name, self.help)

@@ -79,10 +79,12 @@ _MON = [None]  # (op-calls counter, latency histogram), bound on first use
 
 
 class OpDef:
-    __slots__ = ("name", "fn", "differentiable", "amp_category")
+    __slots__ = ("name", "fn", "differentiable", "amp_category", "series")
 
     def __init__(self, name, fn, differentiable=True, amp_category=None):
         self.name = name
+        # the label values of the op's series in the calls counter
+        self.series = (name,)
         self.fn = fn
         self.differentiable = differentiable
         self.amp_category = amp_category
@@ -177,7 +179,7 @@ def _observed(opdef, args, kwargs):
                     _monitor.counter("paddle_tpu_dispatch_op_calls_total",
                                      labelnames=("op",)),
                     _monitor.histogram("paddle_tpu_dispatch_latency_ns"))
-            mon[0].labels(opdef.name).inc()
+            mon[0].child(opdef.series).inc()
             mon[1].observe_ns(t1 - t0)
         if trace_this:
             _TRACE.record_span("dispatch.op", t0, t1,

@@ -65,7 +65,9 @@ def _pair(clock, slo="custom", replicas=2, **kw):
 
 def _steps(fl, n=1):
     """What the replica driver loops do, by hand on this thread."""
-    mon = (jfleet_mod if isinstance(fl, JaxFleetRouter) else fleet_mod)._mon()
+    # the JAX router threads its monitor handles through; the port's looks
+    # them up
+    extra = (jfleet_mod._mon(),) if isinstance(fl, JaxFleetRouter) else ()
     for _ in range(n):
         for rep in fl.replicas:
             if rep.state == DOWN:
@@ -75,7 +77,7 @@ def _steps(fl, n=1):
             if finished:
                 with fl._lock:
                     for rid, toks in finished:
-                        fl._complete_locked(rep, rid, toks, mon)
+                        fl._complete_locked(rep, rid, toks, *extra)
 
 
 def _beat(fl):

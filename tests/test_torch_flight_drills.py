@@ -3,7 +3,8 @@ killed driving thread's recovery and the watchdog-recovered hang write their
 flight dumps where the JAX engine writes them (``recovery_stats[i]["dump"]``,
 ``last_recovery_dump``, the watchdog's ``last_flight_dump``; one file per
 engine, the watchdog's and the recovery's reasons merged in it), the hang's
-dump lists the open ``serving.step`` span, and the streams stay the JAX
+dump lists the open ``serving.step`` span (in a fleet, the one whose engine
+attribute is the recovered replica's tag), and the streams stay the JAX
 engine's undisturbed ones. With tracing off and no flight directory the dumps
 stay ``None`` (test_torch_faultinject.py)."""
 import json
@@ -14,6 +15,8 @@ from paddle_tpu import monitor as jmon
 from paddle_tpu_torch import monitor as tmon
 from paddle_tpu_torch.analysis import faultinject as tfi
 from test_torch_faultinject import _collect, _engine, _prompt, _reference, _run_all
+from test_torch_fleet import _collect as _fleet_collect
+from test_torch_fleet import _fleet, _jax_streams, _prompts
 
 
 @pytest.fixture(autouse=True)
@@ -76,6 +79,31 @@ def test_watchdog_hang_dump_lists_the_open_step(_traced):
     step = next(s for s in doc["open_spans"] if s["name"] == "serving.step")
     assert step["attrs"] == {"engine": eng._tag}
     assert "serving.step" in doc["extras"][1]["open_serving_spans"]
+
+
+def test_fleet_hang_dump_holds_the_recovered_replicas_step(_traced):
+    # three replicas serve at once, so other replicas' serving.step spans may
+    # be open in the dump too: the hung one is told by its engine attribute
+    prompts = _prompts(3, 6, 10)
+    want = _jax_streams(prompts, 6)
+    fl = _fleet(replicas=3, hang_timeout=0.2)
+    try:
+        assert fl.warmup(prompts[0][:6])
+        tfi.arm("serving.step", action="delay", delay_s=1.0, nth=4)
+        out = _fleet_collect(fl, [fl.submit(p, max_new_tokens=6) for p in prompts])
+        trips = tfi.trips()
+    finally:
+        fl.stop()
+    assert out == want and trips == [("serving.step", "delay")]
+    recs = [(rep.tag, r) for rep in fl.replicas for r in rep.engine.recovery_stats]
+    assert recs
+    for tag, rec in recs:
+        assert "hang" in rec["reason"] and rec["dump"].endswith(f"_{tag}.json")
+        doc = json.load(open(rec["dump"]))
+        steps = [s.get("attrs", {}).get("engine") for s in doc["open_spans"]
+                 if s["name"] == "serving.step"]
+        assert tag in steps
+        assert doc["extras"][-1]["engine"] == tag
 
 
 def test_dump_with_a_flight_dir_and_tracing_off(monkeypatch, tmp_path):
