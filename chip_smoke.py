@@ -119,9 +119,10 @@ Phases, each a hard check (the script exits nonzero on the first failure):
      cache on (evicted prefixes spill to host RAM and a re-admission
      restores them on the card; streams equal a run without spill) and a
      serving.step delay
-     past hang_timeout on one replica of a fleet (warmed with the watchdogs'
-     timeout held long, as captures wait on each other), recovered once by
-     its watchdog with the reference's tokens; (d) block_multihead_attention,
+     past hang_timeout on one replica of a fleet (its 1 s watchdogs armed
+     from start(); warmup, whose captures wait on each other with the
+     waiting replicas' watchdog sections paused, recovers none), recovered
+     once by its watchdog with the reference's tokens; (d) block_multihead_attention,
      prefill then decode, card against CPU at fp32 within 1e-5, after a
      mixed batch with host lengths is rejected on the host
      (NotImplementedError) and the process's CUDA context survives it.
@@ -313,8 +314,8 @@ Phases, each a hard check (the script exits nonzero on the first failure):
      slo=True and burn_aware_routing=True runs the delay drill twice, with
      everything off and then with the monitor, tracing, flight dumps and
      monitor.server.serve(0) on: each pass trips the delay once, recovers
-     exactly one replica (warmup, whose captures can outlast the hang
-     timeout, recovers none) and returns phase 11's reference tokens; in
+     exactly one replica (warmup, with the 1 s watchdogs armed from
+     start(), recovers none) and returns phase 11's reference tokens; in
      the monitored pass every endpoint answers 200 while the replicas
      serve, tools/obs_probe.py exits 0, the recovery's flight dump holds
      the recovered replica's open serving.step span, and
@@ -323,6 +324,34 @@ Phases, each a hard check (the script exits nonzero on the first failure):
      beside phase 16 (e)'s figure; (e) phase 6's step under the port's
      Profiler with the monitor and tracing on: the merged trace holds the
      monitor's counter tracks and its train.* spans beside the op:: spans.
+ 20. the controller and the nn core (at most CONTROL_SECONDS): (a) three
+     replicas of the flagship with FLEET11's engine settings and 1 s hang
+     watchdogs from start(), warmed, serve phase 11's 24-request burst
+     (2 ms mean inter-arrival) and a quiet tail of 8 requests 200 ms apart,
+     first with three fixed replicas and no controller, then scaled to 1
+     under a started build_serving_controller (hbm_fn: the card's allocated
+     bytes against its memory): every request returns phase 11's reference
+     tokens, the active replicas rise above 1 in the burst and fall back to
+     1 on quiet ticks, every decision lies inside KNOB_BOUNDS, replay of the
+     record through fresh serving_rules() gives the identical decisions,
+     /controlz answers 200 with the record, no graph is captured after
+     warmup and no replica is recovered; the tick's host ms p50/p99, the
+     decisions by knob, tokens/s and TTFT beside the fixed pass; (b) with
+     control.tick armed the controller degrades to static after
+     max_failures while 8 requests return the reference's tokens; with
+     control.actuate armed a scale-up decision holds the knob and the
+     fleet; (c) the hbm_fn budget just below the live bytes: the replan
+     callable fires once, engine.max_queue halves on each of 3 pressured
+     ticks and doubles back to its baseline once the budget clears; (d)
+     every ported activation, norm and loss functional and layer, forward
+     and gradient, card against CPU in fp32 at B8 S128 hidden 2048 (losses
+     over 32000-wide logits), the worst scaled error by family; then the
+     net of tests/test_torch_nn_core.py at full width (Embedding(32000,
+     2048), 4 blocks of Linear(2048, 5632)/Linear(5632, 2048), a
+     Linear(2048, 32000) head; about 222M parameters) trains 5 AdamW steps
+     at B8 S128: step 0's loss equals the CPU's within 1e-4 relative, the
+     loss falls, a state_dict round trip through paddle.save/load is bit for
+     bit, to_static (Inductor) equals eager in eval; step_ms and peak memory.
 Phases 3, 9 and 13 time the decode engine's default, the captured path.
 The last line is the device JSON object; the line before it the card's name
 and power limit; before that the kernels JSON object.
@@ -2371,16 +2400,15 @@ def hang_fleet(fleet, model, **kw):
                            decode_burst=P["decode_burst"]), **kw)
 
 
-def warm_watched(fl, prompt, what):
-    """Warm a fleet with hang watchdogs until every replica is idle with both
-    programs captured. A replica's warmup step waits for the process-wide
-    capture lock while its peers capture, which can outlast the drill's hang
-    timeout: the watchdogs hold a long timeout until then, so warmup
-    recovers nothing and the drill window starts from healthy replicas."""
-    P, H = FLEET11, HANG11
-    dogs = [rep.dog for rep in fl.replicas]
-    for dog in dogs:
-        dog.timeout = 600.0
+def warm_settled(fl, prompt, what):
+    """Warm a fleet whose hang watchdogs run at HANG11's timeout from
+    ``start()``, and wait until every replica is idle with both programs
+    captured. A replica's warmup step waits for the process-wide capture
+    lock while its peers capture, which can outlast the timeout: that wait
+    and the capture pause the replica's watchdog section
+    (``jit/_cuda_graph.py`` ``_capture_section``), so warmup must recover
+    nothing and the drill window starts from healthy replicas."""
+    P = FLEET11
     ok = fl.warmup(prompt, max_new_tokens=2 * P["decode_burst"] + 2, timeout=300)
 
     def settled():
@@ -2393,12 +2421,11 @@ def warm_watched(fl, prompt, what):
     t0 = time.perf_counter()
     while not settled() and time.perf_counter() - t0 < 60:
         time.sleep(0.01)
-    for dog in dogs:
-        dog.timeout = H["hang_timeout"]
     recs = sum(len(rep.engine.recovery_stats) for rep in fl.replicas)
     if not (ok and settled() and recs == 0):
-        fail(f"{what}: warmup done {ok}, settled {settled()}, {recs} recoveries, "
-             f"states {fl.states()}")
+        fail(f"{what}: warmup done {ok}, settled {settled()}, {recs} recoveries with the "
+             f"{fl.replicas[0].dog.timeout} s hang timeout, states {fl.states()}")
+    return recs
 
 
 def hang_window(fl, fi, prompts, new_tokens, on_submitted=None):
@@ -2440,7 +2467,7 @@ def hang_drill(fleet, fi, model, workload):
     fl = hang_fleet(fleet, model)
     fi.reset()
     try:
-        warm_watched(fl, prompts[0][:6], "hang drill")
+        warm_recoveries = warm_settled(fl, prompts[0][:6], "hang drill")
         w = hang_window(fl, fi, prompts, new_tokens[:len(prompts)])
         res = dict(delayed=w["trips"] == [("serving.step", "delay")],
                    all_complete=w["done"] == len(prompts),
@@ -2449,7 +2476,8 @@ def hang_drill(fleet, fi, model, workload):
                    recovered_hang=any("hang" in r["reason"] for _t, r in w["recs"]),
                    recovery_ms=w["recs"][0][1]["ms"] if w["recs"] else None,
                    failovers=w["failovers"], wall_s=w["wall"], hang_timeout_s=H["hang_timeout"],
-                   delay_s=H["delay_s"], states=fl.states())
+                   delay_s=H["delay_s"], states=fl.states(),
+                   warmup_recoveries=warm_recoveries)
     finally:
         fi.reset()
         fl.stop()
@@ -5718,7 +5746,7 @@ def obs_fleet(torch, models, fleet, T, root, flight_dir, workload):
     fi.reset()
     fl = hang_fleet(fleet, model, slo=True, burn_aware_routing=True)
     try:
-        warm_watched(fl, prompts[0][:6], "observability: the unmonitored fleet")
+        warm_settled(fl, prompts[0][:6], "observability: the unmonitored fleet")
         off = hang_window(fl, fi, prompts, new_tokens)
     finally:
         fl.stop()
@@ -5726,7 +5754,7 @@ def obs_fleet(torch, models, fleet, T, root, flight_dir, workload):
     fl = hang_fleet(fleet, model, slo=True, burn_aware_routing=True)
     port = None
     try:
-        warm_watched(fl, prompts[0][:6], "observability: the monitored fleet")
+        warm_settled(fl, prompts[0][:6], "observability: the monitored fleet")
         T.monitor.enable()
         T.monitor.trace.enable()
         port = server.serve(0)
@@ -5824,6 +5852,538 @@ def phase_observe(torch, fa, models, T, AdamW, fleet, root, build_dir, amp_dispa
     disp["threads"] = sorted(t.name for t in threading.enumerate())
     out["dispatch"] = dict(disp, card=smi)
     print("observe_dispatch " + json.dumps(out["dispatch"]), flush=True)
+    return out
+
+
+# phase 20: the controller over a live fleet (control/) and the nn core.
+# CONTROL20 is (a)'s fleet and traffic: FLEET11's engine settings (with an
+# admission cap the traffic never reaches, so (c) can halve it), HANG11's
+# hang timeout from start(), the burst of FLEET11's 24 requests at its 2 ms
+# mean inter-arrival, then a quiet tail of 8 requests 200 ms apart
+CONTROL20 = dict(replicas=3, hang_timeout=1.0, max_queue=64, interval_s=0.1, tail=8,
+                 tail_gap_s=0.2, quiet_deadline_s=20.0, drill_failures=3)
+# (d): the nn core at the flagship's widths, card against CPU in fp32, then
+# the net of tests/test_torch_nn_core.py at full width (about 222M
+# parameters), 5 AdamW steps at B8 S128
+NN20 = dict(batch=8, seq=128, hidden=2048, inter=5632, vocab=32000, blocks=4, steps=5,
+            lr=1e-4)
+# |card - CPU| <= TOL_NN * max(1, |CPU|) per output and gradient: fp32 on
+# both sides, sums in another order (2048- and 32000-wide reductions)
+TOL_NN = 1e-4
+CONTROL_SECONDS = 180      # phase 20's share of the script's time
+
+
+def control_fleet(fleet, model):
+    P, C = FLEET11, CONTROL20
+    return fleet.FleetRouter(
+        model, replicas=C["replicas"], max_new_tokens=P["max_new"],
+        hang_timeout=C["hang_timeout"],
+        engine_kwargs=dict(max_batch=P["max_batch"], max_len=P["max_len"],
+                           block_size=P["block_size"], chunk_size=P["chunk_size"],
+                           decode_burst=P["decode_burst"], max_queue=C["max_queue"]))
+
+
+def control_traffic(vocab, workload):
+    """(a)'s traffic: FLEET11's burst (its prompts, lengths and arrivals,
+    from the same seed as phase 11's) and the quiet tail (its first
+    ``tail`` requests again), with phase 11's reference tokens."""
+    import numpy as np
+
+    C = CONTROL20
+    prompts, new_tokens, arrivals = fleet11_workload(vocab, np.random.RandomState(0))
+    ref = list(workload[2])
+    k = C["tail"]
+    tail = [arrivals[-1] + C["tail_gap_s"] * (i + 1) for i in range(k)]
+    return (list(prompts) + list(prompts[:k]), list(new_tokens) + list(new_tokens[:k]),
+            list(arrivals) + tail, ref + ref[:k])
+
+
+def controlled_pass(T, fl, traffic, smi):
+    """The traffic through ``fl`` scaled to 1 replica under a started
+    ``build_serving_controller`` (its hbm_fn: the card's allocated bytes
+    against its memory), then quiet until it scales back to 1."""
+    C = CONTROL20
+    prompts, new_tokens, arrivals, _want = traffic
+    total = T.device.cuda.get_device_properties().total_memory
+    fl.scale_to(1)
+    ctl = T.control.build_serving_controller(
+        fl, interval_s=C["interval_s"], hbm_fn=lambda: (T.device.memory_allocated(), total))
+    tick_ms, active = [], []
+    tick = ctl.tick
+
+    def timed_tick(*a, **kw):
+        t = time.perf_counter()
+        out = tick(*a, **kw)
+        tick_ms.append((time.perf_counter() - t) * 1e3)
+        active.append(fl.active_replicas())
+        return out
+
+    ctl.tick = timed_tick
+    port = T.monitor.server.serve(0)
+    try:
+        ctl.start()
+        wall, out, ttft, done = drive_fleet(fl, prompts, new_tokens, arrivals)
+        peak = max(active) if active else 1
+        t0 = time.perf_counter()
+        while fl.active_replicas() > 1 and time.perf_counter() - t0 < C["quiet_deadline_s"]:
+            time.sleep(0.05)
+        quiet_s = time.perf_counter() - t0
+        ctl.stop()
+        code, body = http_get(port, "/controlz")
+        doc = json.loads(body) if code == 200 else {}
+    finally:
+        ctl.close()
+        T.monitor.server.shutdown()
+        fl.hedge_after_s = None     # the drills after this pass run unhedged
+    rec = ctl.recorder.export()
+    return ctl, rec, dict(wall=wall, out=out, ttft=ttft, done=done, peak_active=peak,
+                          final_active=fl.active_replicas(), quiet_s=quiet_s,
+                          tick_ms=tick_ms, controlz=code,
+                          controlz_ticks=len(doc.get("controllers", {}).get(
+                              "control", {}).get("record", {}).get("ticks", [])))
+
+
+def control_drills(T, fl, workload):
+    """(b): with ``control.tick`` armed a started controller degrades to
+    static after ``max_failures`` while the fleet serves the reference
+    tokens; with ``control.actuate`` armed a scale-up decision leaves the
+    knob and the fleet as they were."""
+    C = CONTROL20
+    fi = T.analysis.faultinject
+    prompts, new_tokens, ref = (list(x[:C["tail"]]) for x in workload)
+    ctl = T.control.build_serving_controller(fl, interval_s=C["interval_s"],
+                                             max_failures=C["drill_failures"],
+                                             name="control_drill")
+    try:
+        fi.arm("control.tick", action="raise", nth=1, times=C["drill_failures"])
+        ctl.start()
+        _w, out, _t, done = drive_fleet(fl, prompts, new_tokens, [0.0] * len(prompts))
+        t0 = time.perf_counter()
+        while not ctl.degraded and time.perf_counter() - t0 < 10:
+            time.sleep(0.01)
+        ctl.stop()
+        tick = dict(degraded=ctl.degraded, enabled=ctl.enabled, trips=len(fi.trips()),
+                    served=done, tokens_match_reference=out == ref,
+                    knobs_held=ctl.knobs["fleet.replicas"].value == fl.active_replicas())
+        fi.reset()
+        ctl.enable()
+        before = (ctl.knobs["fleet.replicas"].value, fl.active_replicas())
+        fi.arm("control.actuate", action="raise", nth=1)
+        rows = ctl.tick(telemetry={"replicas_active": before[1], "replicas_total": 3,
+                                   "queue_depth": 100})
+        last = ctl.recorder.export()["ticks"][-1]["decisions"]
+        act = dict(held=(ctl.knobs["fleet.replicas"].value, fl.active_replicas()) == before,
+                   trips=len(fi.trips()), recorded=[(d["knob"], d["old"], d["new"],
+                                                     d["outcome"][:40]) for d in last],
+                   returned=len(rows))
+    finally:
+        fi.reset()
+        ctl.close()
+    ok = (tick["degraded"] and not tick["enabled"] and tick["served"] == len(prompts)
+          and tick["tokens_match_reference"] and tick["knobs_held"]
+          and tick["trips"] == C["drill_failures"] and act["held"] and act["trips"] == 1
+          and any(r[3].startswith("error") for r in act["recorded"]))
+    if not ok:
+        fail(f"phase 20 (b) fail-static drills: tick {tick}, actuate {act}")
+    return dict(tick=tick, actuate=act)
+
+
+def control_hbm_guard(T, fl):
+    """(c): the budget just below the live bytes the device statistics
+    read: the re-plan callable fires once and engine.max_queue halves on
+    each of 3 pressured ticks; with the budget cleared it doubles back to
+    its baseline."""
+    C = CONTROL20
+    total = T.device.cuda.get_device_properties().total_memory
+    live = T.device.memory_allocated()
+    budget = [int(live * 0.95)]
+    plans = []
+    ctl = T.control.build_serving_controller(
+        fl, hbm_fn=lambda: (T.device.memory_allocated(), budget[0]),
+        replan=lambda snap: plans.append(snap["hbm_live_bytes"]), name="control_hbm")
+    queue = []
+    try:
+        for i in range(6):
+            if i == 3:
+                budget[0] = total
+            ctl.tick()
+            queue.append(ctl.knobs["engine.max_queue"].value)
+    finally:
+        ctl.close()
+    base = C["max_queue"]
+    want = [base // 2, base // 4, base // 8, base // 4, base // 2, base]
+    res = dict(live_bytes=live, card_bytes=total, live_share=live / total,
+               pressured_budget=int(live * 0.95), replans=len(plans), max_queue=queue,
+               want=want, staged=[r.engine._pending_knobs.get("max_queue")
+                                  for r in fl.replicas])
+    if len(plans) != 1 or queue != want:
+        fail(f"phase 20 (c) HBM guard: {res}")
+    return res
+
+
+def nn_cases(torch, T, shapes):
+    """(family, name, fn, inputs) of every ported functional and layer:
+    inputs are CPU tensors; a layer case's fn builds the layer on the given
+    device from one seed."""
+    import copy
+
+    F, nn = T.nn.functional, T.nn
+    B, S, H, V = shapes
+    g = torch.Generator().manual_seed(20)
+
+    def rn(*shape, lo=None, hi=None):
+        if lo is None:
+            return torch.randn(*shape, generator=g)
+        return torch.rand(*shape, generator=g) * (hi - lo) + lo
+
+    def ri(hi, *shape):
+        return torch.randint(0, hi, shape, generator=g)
+
+    def pm(*shape):
+        return torch.where(torch.rand(*shape, generator=g) > 0.5, 1.0, -1.0)
+
+    x = rn(B, S, H)
+    logits, labels = rn(B * S, V), ri(V, B * S)
+    acts = ["relu", "relu6", "sigmoid", "tanh", "silu", "swish", "mish", "hardswish",
+            "hardsigmoid", "hardtanh", "tanhshrink", "softsign", "selu", "celu", "elu",
+            "leaky_relu", "gelu", "softplus", "softshrink", "hardshrink",
+            "thresholded_relu"]
+    cases = [("activation", n, getattr(F, n), [x * 3]) for n in acts]
+    cases += [
+        ("activation", "gelu_tanh", lambda a: F.gelu(a, approximate=True), [x]),
+        ("activation", "softmax", lambda a: F.softmax(a, -1), [x]),
+        ("activation", "log_softmax", lambda a: F.log_softmax(a, -1), [x]),
+        ("activation", "prelu", F.prelu, [x.transpose(1, 2).contiguous(), rn(H, lo=0.1, hi=0.5)]),
+        ("activation", "maxout", lambda a: F.maxout(a, 2, axis=2), [x]),
+        ("activation", "glu", F.glu, [x]),
+        ("activation", "swiglu", F.swiglu, [x]),
+        ("norm", "layer_norm", lambda a, w, b: F.layer_norm(a, H, w, b), [x, rn(H), rn(H)]),
+        ("norm", "rms_norm", lambda a, w: F.rms_norm(a, w), [x, rn(H)]),
+        ("norm", "batch_norm", lambda a, w, b: F.batch_norm(
+            a, torch.zeros(H, device=a.device), torch.ones(H, device=a.device), w, b,
+            training=True, data_format="NLC"), [x, rn(H), rn(H)]),
+        ("norm", "instance_norm", lambda a: F.instance_norm(a, data_format="NLC"), [x]),
+        ("norm", "group_norm", lambda a: F.group_norm(a, 32, data_format="NLC"), [x]),
+        ("norm", "local_response_norm", lambda a: F.local_response_norm(a, 5), [x]),
+        ("loss", "cross_entropy", F.cross_entropy, [logits, labels]),
+        ("loss", "cross_entropy_smoothing", lambda a, y: F.cross_entropy(
+            a, y, ignore_index=7, label_smoothing=0.1), [logits, labels]),
+        ("loss", "cross_entropy_weight", lambda a, y, w: F.cross_entropy(a, y, weight=w),
+         [logits, labels, rn(V, lo=0.5, hi=2)]),
+        ("loss", "cross_entropy_soft", lambda a, y: F.cross_entropy(
+            a, F.softmax(y, -1), soft_label=True), [logits, rn(B * S, V)]),
+        ("loss", "softmax_with_cross_entropy", F.softmax_with_cross_entropy,
+         [logits, labels[:, None]]),
+        ("loss", "nll_loss", lambda a, y: F.nll_loss(F.log_softmax(a, -1), y),
+         [logits, labels]),
+        ("loss", "kl_div", lambda a, y: F.kl_div(F.log_softmax(a, -1), F.softmax(y, -1),
+                                                 "batchmean"), [logits, rn(B * S, V)]),
+        ("loss", "ctc_loss", lambda a, y, il, ll: F.ctc_loss(
+            F.log_softmax(a, -1), y, il, ll), [rn(S, B, V), ri(V - 1, B, 16) + 1,
+                                               torch.full((B,), S) - ri(32, B),
+                                               torch.full((B,), 16) - ri(8, B)]),
+        ("loss", "mse_loss", F.mse_loss, [x, rn(B, S, H)]),
+        ("loss", "l1_loss", F.l1_loss, [x, rn(B, S, H)]),
+        ("loss", "smooth_l1_loss", F.smooth_l1_loss, [x, rn(B, S, H)]),
+        ("loss", "huber_loss", F.huber_loss, [x, rn(B, S, H)]),
+        ("loss", "square_error_cost", F.square_error_cost, [x, rn(B, S, H)]),
+        ("loss", "binary_cross_entropy", F.binary_cross_entropy,
+         [rn(B, S, H, lo=0.05, hi=0.95), rn(B, S, H, lo=0, hi=1)]),
+        ("loss", "binary_cross_entropy_with_logits", F.binary_cross_entropy_with_logits,
+         [x, rn(B, S, H, lo=0, hi=1)]),
+        ("loss", "sigmoid_cross_entropy_with_logits", F.sigmoid_cross_entropy_with_logits,
+         [x, rn(B, S, H, lo=0, hi=1)]),
+        ("loss", "margin_ranking_loss", F.margin_ranking_loss, [x, rn(B, S, H), pm(B, S, H)]),
+        ("loss", "hinge_embedding_loss", F.hinge_embedding_loss, [x, pm(B, S, H)]),
+        ("loss", "cosine_embedding_loss", F.cosine_embedding_loss,
+         [x.reshape(B * S, H), rn(B * S, H), pm(B * S)]),
+        ("loss", "triplet_margin_loss", F.triplet_margin_loss,
+         [x.reshape(B * S, H), rn(B * S, H), rn(B * S, H)]),
+        ("loss", "soft_margin_loss", F.soft_margin_loss, [x, pm(B, S, H)]),
+        ("loss", "multi_label_soft_margin_loss", F.multi_label_soft_margin_loss,
+         [x, (rn(B, S, H) > 0).float()]),
+        ("loss", "poisson_nll_loss", lambda a, y: F.poisson_nll_loss(a, y, full=True),
+         [x, rn(B, S, H, lo=0, hi=4)]),
+        ("loss", "gaussian_nll_loss", F.gaussian_nll_loss,
+         [x, rn(B, S, H), rn(B, S, H, lo=0.1, hi=2)]),
+        ("loss", "log_loss", F.log_loss, [rn(B * S, 1, lo=0.05, hi=0.95),
+                                          rn(B * S, 1, lo=0, hi=1)]),
+        ("loss", "dice_loss", lambda a, y: F.dice_loss(F.softmax(a, -1), y),
+         [rn(B, S, 64), ri(64, B, S, 1)]),
+    ]
+
+    def layer(make):
+        def fn(*args):
+            dev = args[0].device
+            T.seed(20)
+            m = make()
+            m = copy.deepcopy(m).to(dev)
+            return m(*args)
+        return fn
+
+    xc = x.transpose(1, 2).contiguous()
+    acts_l = ["ReLU", "ReLU6", "Sigmoid", "Tanh", "Silu", "Swish", "Mish", "Hardswish",
+              "Hardsigmoid", "Hardtanh", "Tanhshrink", "Softsign", "Softshrink", "Hardshrink",
+              "Softplus", "ELU", "CELU", "SELU", "LeakyReLU", "GELU", "LogSoftmax", "Softmax",
+              "ThresholdedReLU"]
+    cases += [("activation", n, layer(getattr(nn, n)), [x * 3]) for n in acts_l]
+    cases += [
+        ("activation", "Maxout", layer(lambda: nn.Maxout(2)), [xc]),
+        ("activation", "GLU", layer(lambda: nn.GLU(1)), [xc]),
+        ("activation", "PReLU", layer(lambda: nn.PReLU(H, 0.2)), [xc]),
+        ("activation", "Softmax2D", layer(nn.Softmax2D), [x[:, None]]),
+        ("norm", "LayerNorm", layer(lambda: nn.LayerNorm(H)), [x]),
+        ("norm", "RMSNorm", layer(lambda: nn.RMSNorm(H)), [x]),
+        ("norm", "BatchNorm", layer(lambda: nn.BatchNorm(H)), [x.reshape(B * S, H)]),
+        ("norm", "BatchNorm1D", layer(lambda: nn.BatchNorm1D(H)), [xc]),
+        ("norm", "BatchNorm2D", layer(lambda: nn.BatchNorm2D(H)), [xc[..., None]]),
+        ("norm", "BatchNorm3D", layer(lambda: nn.BatchNorm3D(H)), [xc[..., None, None]]),
+        ("norm", "SyncBatchNorm", layer(lambda: nn.SyncBatchNorm(H)), [xc]),
+        ("norm", "GroupNorm", layer(lambda: nn.GroupNorm(32, H)), [xc]),
+        ("norm", "InstanceNorm1D", layer(lambda: nn.InstanceNorm1D(H)), [xc]),
+        ("norm", "InstanceNorm2D", layer(lambda: nn.InstanceNorm2D(H)), [xc[..., None]]),
+        ("norm", "InstanceNorm3D", layer(lambda: nn.InstanceNorm3D(H)), [xc[..., None, None]]),
+        ("norm", "LocalResponseNorm", layer(lambda: nn.LocalResponseNorm(5)), [xc]),
+        ("norm", "SpectralNorm", layer(lambda: nn.SpectralNorm([H, 5632], power_iters=2)),
+         [rn(H, 5632)]),
+        ("loss", "CrossEntropyLoss", layer(lambda: nn.CrossEntropyLoss(label_smoothing=0.1)),
+         [logits, labels]),
+        ("loss", "NLLLoss", layer(nn.NLLLoss), [logits.log_softmax(-1), labels]),
+        ("loss", "KLDivLoss", layer(lambda: nn.KLDivLoss("batchmean")),
+         [logits.log_softmax(-1), rn(B * S, V).softmax(-1)]),
+        ("loss", "CTCLoss", layer(nn.CTCLoss), [rn(S, B, V).log_softmax(-1),
+                                                ri(V - 1, B, 16) + 1, torch.full((B,), S),
+                                                torch.full((B,), 16)]),
+    ]
+    two = [("MSELoss", rn(B, S, H)), ("L1Loss", rn(B, S, H)), ("SmoothL1Loss", rn(B, S, H)),
+           ("HuberLoss", rn(B, S, H)), ("BCEWithLogitsLoss", rn(B, S, H, lo=0, hi=1)),
+           ("HingeEmbeddingLoss", pm(B, S, H)), ("SoftMarginLoss", pm(B, S, H)),
+           ("MultiLabelSoftMarginLoss", (rn(B, S, H) > 0).float()),
+           ("PoissonNLLLoss", rn(B, S, H, lo=0, hi=4))]
+    cases += [("loss", n, layer(getattr(nn, n)), [x, y]) for n, y in two]
+    cases += [
+        ("loss", "BCELoss", layer(nn.BCELoss), [rn(B, S, H, lo=0.05, hi=0.95),
+                                                rn(B, S, H, lo=0, hi=1)]),
+        ("loss", "MarginRankingLoss", layer(nn.MarginRankingLoss),
+         [x, rn(B, S, H), pm(B, S, H)]),
+        ("loss", "CosineEmbeddingLoss", layer(nn.CosineEmbeddingLoss),
+         [x.reshape(B * S, H), rn(B * S, H), pm(B * S)]),
+        ("loss", "TripletMarginLoss", layer(nn.TripletMarginLoss),
+         [x.reshape(B * S, H), rn(B * S, H), rn(B * S, H)]),
+        ("loss", "GaussianNLLLoss", layer(nn.GaussianNLLLoss),
+         [x, rn(B, S, H), rn(B, S, H, lo=0.1, hi=2)]),
+    ]
+    return cases
+
+
+def scaled_err(torch, a, ref):
+    a, ref = a.detach().double().cpu(), ref.detach().double()
+    return float((a - ref).abs().max() / max(1.0, float(ref.abs().max())))
+
+
+def nn_card_vs_cpu(torch, T):
+    """(d), first half: every case forward and backward (the sum of each
+    output times one random cotangent) on the card and on the CPU; the worst
+    scaled error over outputs and input gradients, by family."""
+    C = NN20
+    cases = nn_cases(torch, T, (C["batch"], C["seq"], C["hidden"], C["vocab"]))
+    worst, rows = {}, {}
+    for family, name, fn, inputs in cases:
+        got = []
+        for dev in ("cuda", "cpu"):
+            xs = [t.detach().to(dev, copy=True).requires_grad_(t.is_floating_point())
+                  for t in inputs]
+            outs = fn(*xs)
+            outs = list(outs) if isinstance(outs, (tuple, list)) else [outs]
+            g = torch.Generator().manual_seed(1)
+            cts = [torch.randn(o.shape, generator=g).to(dev) for o in outs]
+            loss = sum((o * ct).sum() for o, ct in zip(outs, cts))
+            loss.backward()
+            got.append([o.detach() for o in outs] + [x.grad for x in xs if x.grad is not None])
+        if len(got[0]) != len(got[1]):
+            fail(f"phase 20 (d) {name}: {len(got[0])} card results against {len(got[1])}")
+        err = max(scaled_err(torch, a, b) for a, b in zip(got[0], got[1]))
+        rows[name] = err
+        worst[family] = max(worst.get(family, 0.0), err)
+        if not math.isfinite(err) or err > TOL_NN:
+            fail(f"phase 20 (d) {family} {name}: card against CPU {err:.3g} > {TOL_NN}")
+    return dict(cases=len(cases), worst_by_family=worst, tol=TOL_NN,
+                worst_case=max(rows, key=rows.get))
+
+
+def nn_net(T):
+    """The net of tests/test_torch_nn_core.py at NN20's widths."""
+    C = NN20
+    nn = T.nn
+
+    class Block(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.norm = nn.LayerNorm(C["hidden"])
+            self.up = nn.Linear(C["hidden"], C["inter"])
+            self.act = nn.GELU()
+            self.down = nn.Linear(C["inter"], C["hidden"])
+
+        def forward(self, x):
+            return T.add(x, self.down(self.act(self.up(self.norm(x)))))
+
+    class Net(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(C["vocab"], C["hidden"])
+            self.blocks = nn.LayerList([Block() for _ in range(C["blocks"])])
+            self.norm = nn.LayerNorm(C["hidden"])
+            self.head = nn.Linear(C["hidden"], C["vocab"])
+            self.loss = nn.CrossEntropyLoss()
+
+        def forward(self, ids):
+            h = self.embed(ids)
+            for blk in self.blocks:
+                h = blk(h)
+            return self.head(self.norm(h))
+
+    return Net()
+
+
+def nn_net_on_card(torch, T, tmp):
+    """(d), second half: the full-width net trains NN20's steps of AdamW on
+    the card (one batch); step 0's loss against the CPU's, a state_dict
+    round trip through paddle.save/load bit for bit, to_static (Inductor)
+    against eager in eval."""
+    import copy
+
+    C = NN20
+    T.seed(20)
+    net = nn_net(T)
+    n_params = sum(p.numel() for p in net.parameters())
+    g = torch.Generator().manual_seed(20)
+    ids = torch.randint(0, C["vocab"], (C["batch"], C["seq"]), generator=g)
+    labels = torch.randint(0, C["vocab"], (C["batch"] * C["seq"],), generator=g)
+
+    def loss_of(m, dev):
+        logits = m(ids.to(dev))
+        return m.loss(logits.reshape(-1, C["vocab"]), labels.to(dev))
+
+    cpu = copy.deepcopy(net).to("cpu")
+    with torch.no_grad():
+        cpu_loss = float(loss_of(cpu, "cpu"))
+    del cpu
+    opt = T.optimizer.AdamW(learning_rate=C["lr"], parameters=net.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(C["steps"]):
+        t0 = time.perf_counter()
+        loss = loss_of(net, "cuda")
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    path = os.path.join(tmp, "nn20.pdparams")
+    T.save(net.state_dict(), path)
+    T.seed(21)
+    twin = nn_net(T)
+    twin.set_state_dict(T.load(path))
+    os.remove(path)
+    same = all(torch.equal(a, twin.state_dict()[k]) for k, a in net.state_dict().items())
+    del twin
+    net.eval()
+    with torch.no_grad():
+        eager = net(ids.cuda())
+    t0 = time.perf_counter()
+    static = T.jit.to_static(net)
+    with torch.no_grad():
+        compiled = static(ids.cuda())
+    compile_s = time.perf_counter() - t0
+    static_err = scaled_err(torch, compiled, eager.cpu())
+    res = dict(params=n_params, cpu_loss=cpu_loss, losses=losses,
+               step0_rel=abs(losses[0] - cpu_loss) / abs(cpu_loss),
+               step_ms=step_ms, step_ms_median=sorted(step_ms[1:])[len(step_ms[1:]) // 2],
+               peak_gb=peak / 1e9, state_dict_bit_for_bit=same,
+               to_static_scaled_err=static_err, to_static_first_call_s=compile_s)
+    del net, opt, static, eager, compiled
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (res["step0_rel"] <= 1e-4 and losses[-1] < losses[0] and same
+            and static_err <= TOL_NN):
+        fail(f"phase 20 (d) the full-width net: {res}")
+    return res
+
+
+def phase_control(torch, fa, models, fleet, T, serving_mod, workload, smi):
+    """Phase 20 (module docstring); ``workload`` is phase 11's (prompts,
+    new tokens, reference tokens)."""
+    import collections
+    import tempfile
+
+    importlib.import_module("paddle_tpu_torch.control")     # T.control
+    C = CONTROL20
+    cfg = models.LlamaConfig(**FLAGSHIP, dtype="bfloat16")
+    model = models.LlamaForCausalLM(cfg, device="cuda", seed=0)
+    traffic = control_traffic(cfg.vocab_size, workload)
+    want = traffic[3]
+    reset_counts(fa)
+    fl = control_fleet(fleet, model)
+    out = {}
+    try:
+        warm_settled(fl, traffic[0][0][:6], "phase 20")
+        c0 = serving_mod._Program.captures
+        # the controller off, three replicas serving
+        off_wall, off_out, off_ttft, off_done = drive_fleet(fl, *traffic[:3])
+        ctl, rec, on = controlled_pass(T, fl, traffic, smi)
+        sets = [d for t in rec["ticks"] for d in t["decisions"] if d["action"] == "set"]
+        bounded = all(T.control.KNOB_BOUNDS[d["knob"]]["min"] <= d["new"]
+                      <= T.control.KNOB_BOUNDS[d["knob"]]["max"] for d in sets)
+        replayed = (T.control.decision_sequence(T.control.replay(rec, T.control.serving_rules()))
+                    == T.control.decision_sequence(rec))
+        tick_ms = on["tick_ms"]
+        out["controller"] = dict(
+            requests=len(want), complete=on["done"], tokens_match_reference=on["out"] == want,
+            off_tokens_match_reference=off_out == want, peak_active=on["peak_active"],
+            final_active=on["final_active"], quiet_s=on["quiet_s"], ticks=len(rec["ticks"]),
+            decisions_by_knob=dict(collections.Counter(d["knob"] for d in sets)),
+            replicas_path=[(d["old"], d["new"]) for d in sets if d["knob"] == "fleet.replicas"],
+            bounded=bounded, replay_identical=replayed, controlz=on["controlz"],
+            controlz_ticks=on["controlz_ticks"],
+            tick_host_ms=dict(p50=percentile(tick_ms, 50), p99=percentile(tick_ms, 99)),
+            tokens_per_sec=sum(len(t) for t in on["out"] if t) / on["wall"],
+            ttft_ms=dict(p50=percentile(on["ttft"], 50), p99=percentile(on["ttft"], 99)),
+            off_tokens_per_sec=sum(len(t) for t in off_out if t) / off_wall,
+            off_ttft_ms=dict(p50=percentile(off_ttft, 50), p99=percentile(off_ttft, 99)),
+            graphs_captured_after_warmup=serving_mod._Program.captures - c0,
+            hang_recoveries=sum(len(r.engine.recovery_stats) for r in fl.replicas),
+            hang_timeout_s=C["hang_timeout"], launches=counts(fa), card=smi)
+        print("control_fleet " + json.dumps(out["controller"]), flush=True)
+        o = out["controller"]
+        if not (o["complete"] == len(want) and o["tokens_match_reference"]
+                and off_done == len(want) and o["off_tokens_match_reference"]
+                and o["peak_active"] > 1 and o["final_active"] == 1 and bounded and replayed
+                and o["controlz"] == 200 and o["controlz_ticks"] > 0
+                and o["graphs_captured_after_warmup"] == 0 and o["hang_recoveries"] == 0):
+            fail(f"phase 20 (a) the controller over the live fleet: {o}")
+        out["drills"] = control_drills(T, fl, workload)
+        print("control_drills " + json.dumps(dict(out["drills"], card=smi)), flush=True)
+        out["hbm_guard"] = control_hbm_guard(T, fl)
+        print("control_hbm_guard " + json.dumps(dict(out["hbm_guard"], card=smi)), flush=True)
+        recs = sum(len(r.engine.recovery_stats) for r in fl.replicas)
+        if recs:
+            fail(f"phase 20: {recs} hang recoveries on a fleet that never hung")
+    finally:
+        fl.stop()
+    out["launches"] = counts(fa)
+    del fl, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts(fa)
+    out["nn_card_vs_cpu"] = nn_card_vs_cpu(torch, T)
+    print("nn_card_vs_cpu " + json.dumps(dict(out["nn_card_vs_cpu"], card=smi)), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["nn_net"] = nn_net_on_card(torch, T, tmp)
+    out["nn_launches"] = counts(fa)
+    print("nn_net " + json.dumps(dict(out["nn_net"], launches=out["nn_launches"], card=smi)),
+          flush=True)
     return out
 
 
@@ -6020,6 +6580,17 @@ def main():
         fail(f"phase 19 took {obs_s:.1f} s, more than its {OBS_SECONDS} s")
     obs_launches = observe["training"]["launches"]
 
+    # phase 20: the controller over a live fleet and the nn core (launch
+    # counts set to 0 before the fleet is built and before the nn cases,
+    # read after each)
+    t0 = time.perf_counter()
+    control = phase_control(torch, fa, models, fleet, T, serving_mod,
+                            resilience["fleet_workload"], smi)
+    control_s = time.perf_counter() - t0
+    print(f"phase_seconds 20 {control_s:.1f}", flush=True)
+    if control_s > CONTROL_SECONDS:
+        fail(f"phase 20 took {control_s:.1f} s, more than its {CONTROL_SECONDS} s")
+
     mg_total = master["training"]["launches_per_step"]
     mg_bf16 = master["training"]["launches_bf16"]
 
@@ -6047,6 +6618,8 @@ def main():
                               profiled_two_steps=profiled["fwd"],
                               observed_training=obs_launches["fwd"],
                               observed_serving=observe["serving"]["launches"][0],
+                              controlled_fleet=control["launches"][0],
+                              nn_core=control["nn_launches"][0],
                               **{k: v["fwd"] for k, v in amp_launches.items()}),
         max_abs_err=main_row["max_abs_err"],
         tol=main_row["tol"], ms=main_row["kernel_ms"], kernel_ms=main_row["kernel_ms"],

@@ -103,6 +103,7 @@ import importlib  # noqa: E402
 # module is ``paddle_tpu_torch/linalg.py``
 linalg = importlib.import_module(".linalg", __name__)
 from . import nn  # noqa: E402,F401
+from .nn.initializer import ParamAttr  # noqa: E402,F401
 from . import optimizer  # noqa: E402,F401
 from . import utils  # noqa: E402,F401
 
@@ -160,6 +161,21 @@ def in_dynamic_mode():
 
 def disable_signal_handler():
     pass
+
+
+def create_parameter(shape, dtype="float32", name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    """paddle.create_parameter: a trainable ``Parameter`` through the pipeline
+    of ``Layer.create_parameter`` (the attribute, the global initializer,
+    the defaults), on the card unless ``set_device("cpu")``."""
+    from .nn.layer.layers import Layer
+
+    holder = Layer(dtype=dtype)
+    p = holder.create_parameter(list(shape), attr=attr, dtype=dtype, is_bias=is_bias,
+                                default_initializer=default_initializer)
+    if name is not None and p is not None:
+        p.name = name
+    return p
 
 
 def reduce_as(x, target, name=None):

@@ -98,6 +98,20 @@ POINTS = {
         "(monitor/server.py do_GET, fired once per scrape before any "
         "route dispatch). flag (or raise) = the endpoint answers 503 "
         "while the engine underneath keeps serving untouched."),
+    "control.tick": (
+        "The graftpilot controller's decision site (control/controller.py "
+        "Controller.tick, fired once per cycle before the telemetry read). "
+        "raise = the whole tick fails: recorded as an error decision, and "
+        "max_failures consecutive trips degrade the controller to the static "
+        "configuration while serving continues untouched; delay = a slow "
+        "controller, which never blocks a request path (the loop runs on its "
+        "own thread)."),
+    "control.actuate": (
+        "The graftpilot actuation site (control/controller.py "
+        "Controller._actuate, fired once per knob move or hook action before "
+        "the setter runs). raise = the actuation fails after the decision: "
+        "the knob holds its old value, the decision records outcome=error, "
+        "and the rules keep proposing."),
     "numsan.check": (
         "numsan's step-boundary finiteness check "
         "(analysis/sanitizers.py numsan_check, fired once per enabled "

@@ -21,6 +21,7 @@ port has no collectives yet).
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 import os
 import sys
@@ -30,7 +31,10 @@ import time
 from ..analysis.sanitizers import new_lock as _new_lock
 from ..monitor import trace as _trace
 
-__all__ = ["CommWatchdog", "WatchdogTimeout"]
+__all__ = ["CommWatchdog", "WatchdogTimeout", "paused"]
+
+# the watch sections each thread has open (innermost last)
+_OPEN = threading.local()
 
 
 class WatchdogTimeout(RuntimeError):
@@ -70,7 +74,7 @@ class CommWatchdog:
                 if not inflight:
                     continue
             for wid, (desc, start) in inflight:
-                if wid in fired:
+                if wid in fired or start is None:  # None: paused
                     continue
                 if now - start > self.timeout:
                     fired.add(wid)
@@ -118,11 +122,26 @@ class CommWatchdog:
         """In-flight sections first, then the recent history."""
         with self._lock:
             now = time.monotonic()
-            lines = [f"[comm] {desc}: {(now - start) * 1000:.1f} ms (IN FLIGHT)"
+            lines = [f"[comm] {desc}: PAUSED" if start is None else
+                     f"[comm] {desc}: {(now - start) * 1000:.1f} ms (IN FLIGHT)"
                      for desc, start in self._inflight.values()]
             lines += [f"[comm] {desc}: {(end - start) * 1000:.1f} ms (done)"
                       for desc, start, end in self.events]
             return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def paused():
+    """Stop the clock of the calling thread's open watch sections while the
+    block runs (module docstring)."""
+    watches = list(getattr(_OPEN, "stack", ()))
+    for w in watches:
+        w._pause()
+    try:
+        yield
+    finally:
+        for w in watches:
+            w._resume()
 
 
 class _Watch:
@@ -130,12 +149,32 @@ class _Watch:
         self._dog = dog
         self._desc = desc
         self._span = None
+        self._elapsed = 0.0     # seconds counted before a pause
+
+    def _pause(self):
+        dog = self._dog
+        with dog._lock:
+            desc, start = dog._inflight[self._id]
+            if start is not None:
+                self._elapsed = time.monotonic() - start
+                dog._inflight[self._id] = (desc, None)
+
+    def _resume(self):
+        dog = self._dog
+        with dog._lock:
+            desc, start = dog._inflight[self._id]
+            if start is None:
+                dog._inflight[self._id] = (desc, time.monotonic() - self._elapsed)
 
     def __enter__(self):
         dog = self._dog
         with dog._lock:
             self._id = next(dog._ids)
             dog._inflight[self._id] = (self._desc, time.monotonic())
+        stack = getattr(_OPEN, "stack", None)
+        if stack is None:
+            stack = _OPEN.stack = []
+        stack.append(self)
         if _trace._state.on:
             # an open comm.wait span in a flight dump is the hang candidate
             self._span = _trace.start_span("comm.wait", attrs={"desc": self._desc})
@@ -144,8 +183,10 @@ class _Watch:
 
     def __exit__(self, exc_type, exc, tb):
         dog = self._dog
+        _OPEN.stack.remove(self)
         with dog._lock:
             desc, start = dog._inflight.pop(self._id)
-            dog.events.append((desc, start, time.monotonic()))
+            end = time.monotonic()
+            dog.events.append((desc, end - self._elapsed if start is None else start, end))
         _trace.end_span(self._span)
         return False

@@ -11,7 +11,9 @@ under capture; the run writes what the replay writes again; one stream, as
 the caching allocator keeps what a stream freed for that stream) and
 captures it into a CUDA graph, under the
 process-wide capture lock and in ``thread_local`` error mode, so other
-threads' CUDA work does not break it; every call then copies its inputs into
+threads' CUDA work does not break it (the wait for the lock and the capture
+pause the calling thread's hang-watchdog sections: a fleet replica whose
+peers capture is waiting, not hung); every call then copies its inputs into
 the buffers and replays. A capture that fails raises: nothing falls back to
 eager execution on the card. The garbage collector is off during a capture:
 a program dropped in a reference cycle would otherwise have its graph
@@ -37,6 +39,7 @@ old storage; build the engine again.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import threading
 
@@ -59,6 +62,17 @@ _COUNTERS = (("flash_attention", "launches"), ("flash_attention", "launches_bwd_
              ("flash_attention", "launches_bwd_dkv_f32"),
              ("flash_attention", "copies_for_alignment"),
              ("flash_attention", "pads_for_head_dim"), ("axpy", "launches"))
+
+
+@contextlib.contextmanager
+def _capture_section():
+    """The capture lock, held with the calling thread's hang-watchdog
+    sections paused from the moment it starts to wait for it (module
+    docstring)."""
+    from ..distributed.watchdog import paused
+
+    with paused(), _CAPTURE_LOCK:
+        yield
 
 
 def _counter_modules():
@@ -110,7 +124,7 @@ class _Program:
 
     def _capture(self, inputs):
         dev = self._device
-        with _CAPTURE_LOCK:
+        with _capture_section():
             static = [torch.empty_like(x, device=dev) for x in inputs]
             for buf, x in zip(static, inputs):
                 buf.copy_(x)

@@ -1,7 +1,7 @@
 """paddle.linalg for the port: the namespace of ``paddle_tpu/linalg.py``.
 
 ``matrix_transpose`` and ``vecdot`` are the JAX package's ``ops/compat.py``
-ops of those names (the rest of that file is ROADMAP Queue A item 6 (c)).
+ops of those names (the rest of that file is the port's ``ops/compat.py``).
 ``pca_lowrank`` draws its random projection from the device's default
 generator (``framework/random.py``). ``fp8_fp8_half_gemm_fused`` keeps the
 JAX arithmetic: both operands rounded to float8 e4m3, their product summed

@@ -15,9 +15,11 @@ Every step of the forward is one of the port's ops under the JAX op's name
 JAX dispatch casts it and the operator stats of the two models agree.
 
 Differences from the JAX module, by design:
-  * Linear layers are the port's ``nn.Linear`` (torch's, weight (out, in),
-    y = x @ W^T, through the ``linear`` op); paddle stores (in, out).
-    ``models/convert.py`` transposes on transfer.
+  * Linear layers are torch's, weight (out, in), y = x @ W^T through the
+    ``linear`` op (``nn/layer/common.py``'s private ``_TorchLinear``; the
+    embedding is ``_TorchEmbedding``); paddle, and the port's public
+    ``nn.Linear``, store (in, out). ``models/convert.py`` transposes on
+    transfer.
   * The untied LM head stores its weight as (vocab, hidden), the layout of
     the tied embedding, so both heads are one ``F.linear``.
   * Initialisation draws from a ``torch.Generator`` seeded by ``seed``; it
@@ -49,7 +51,8 @@ from ..framework import Parameter
 from ..incubate.nn.functional import (_rotate_half, fused_linear_cross_entropy,
                                      fused_rotary_position_embedding)
 from ..nn import functional as F
-from ..nn.layer.common import Embedding, Linear
+from ..nn.layer.common import _TorchEmbedding as Embedding
+from ..nn.layer.common import _TorchLinear as Linear
 from ..nn.layer.norm import RMSNorm
 
 _PARALLEL_SLICE = "the distributed slice of the port (ROADMAP Queue A item 10)"
@@ -212,9 +215,9 @@ class LlamaDecoderLayer(nn.Module):
         self.self_attn = LlamaAttention(config, device, dtype)
         self.mlp = LlamaMLP(config, device, dtype)
         self.input_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps,
-                                       device, dtype)
-        self.post_attention_layernorm = RMSNorm(config.hidden_size,
-                                                config.rms_norm_eps, device, dtype)
+                                       device=device, dtype=dtype)
+        self.post_attention_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps,
+                                                device=device, dtype=dtype)
         self._recompute = config.recompute
         # "full_attn"/"core_attn" keep the products' outputs and recompute
         # the rest, as the JAX model maps them onto an XLA remat policy
@@ -243,7 +246,8 @@ class LlamaModel(nn.Module):
         self.layers = nn.ModuleList(
             [LlamaDecoderLayer(config, device, dtype)
              for _ in range(config.num_hidden_layers)])
-        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device, dtype)
+        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device=device,
+                            dtype=dtype)
 
     def forward(self, input_ids, attn_mask=None):
         h = self.embed_tokens(input_ids)

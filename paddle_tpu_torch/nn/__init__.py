@@ -1,5 +1,13 @@
-"""Neural-network layers, functionals and gradient clipping of the port."""
+"""Neural-network layers, functionals, initializers and gradient clipping of
+the port (counterpart of paddle_tpu.nn): ``Layer``, a ``torch.nn.Module``
+with paddle's methods (``nn/layer/layers.py``), its containers,
+``ParamAttr`` and the initializers, ``Linear`` and ``Embedding`` in the JAX
+layout, and the activation, norm and loss families. Conv, pooling,
+``common``/``extras``, ``transformer``, ``rnn``, ``decode``, ``nn/utils``,
+``quant`` and ``RNNTLoss`` are ROADMAP Queue A item 7b's next part."""
 from . import functional  # noqa: F401
-from .layer import Embedding, Linear, RMSNorm  # noqa: F401
+from . import initializer  # noqa: F401
+from .initializer import ParamAttr  # noqa: F401
+from .layer import *  # noqa: F401,F403
 from .clip import (  # noqa: F401
     ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue, clip_grad_norm_, clip_grad_value_)

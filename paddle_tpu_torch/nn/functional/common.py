@@ -2,9 +2,10 @@
 paddle_tpu/nn/functional/common.py), the ops ``linear`` (white-listed under
 AMP) and ``embedding_op``.
 
-``linear`` takes paddle's weight layout, (in_features, out_features): the
-port's ``nn.Linear`` keeps torch's (out, in) weight and passes its
-transpose, a view. ``embedding`` gathers rows of ``weight``; a
+``linear`` takes paddle's weight layout, (in_features, out_features), the
+layout of the port's ``nn.Linear``; the LLaMA's torch-layout linears
+(``nn/layer/common.py`` ``_TorchLinear``) pass the transpose of their
+(out, in) weight, a view. ``embedding`` gathers rows of ``weight``; a
 ``padding_idx`` zeroes the output rows (and so the gradient) of that id, as
 the JAX function does.
 """

@@ -19,9 +19,9 @@ num_batches_tracked is dropped.
 
 ``load_pretrained`` loads into the port's modules, which are torch modules:
 it checks the file against the model's state in paddle's layout (each
-``torch.nn.Linear`` weight transposed, the port's ``nn.Linear`` and the
-LLaMA's projections included, and the LLaMA head's) and writes each array back in the
-module's own layout. Not ported: ``load_zoo_pretrained``, the vision zoo's
+``torch.nn.Linear`` weight transposed, the LLaMA's projections included, and
+the LLaMA head's; the port's ``nn.Linear`` is a ``Layer`` already in
+paddle's layout) and writes each array back in the module's own layout. Not ported: ``load_zoo_pretrained``, the vision zoo's
 hook (ROADMAP Queue A item 8, ``vision``).
 """
 from __future__ import annotations

@@ -177,7 +177,7 @@ class TestLinearReluNet:
         t1, t2 = T.nn.Linear(4, 8, device="cpu"), T.nn.Linear(8, 2, device="cpu")
         with torch.no_grad():
             for j, t in ((j1, t1), (j2, t2)):
-                t.weight.copy_(torch.from_numpy(np.asarray(j.weight.numpy()).T.copy()))
+                t.weight.copy_(torch.from_numpy(np.array(j.weight.numpy())))
                 t.bias.copy_(torch.from_numpy(np.asarray(j.bias.numpy())))
         return (j1, j2), (t1, t2)
 
@@ -205,7 +205,7 @@ class TestLinearReluNet:
         assert {"linear", "mean", "square"} <= set(tables[1])
         np.testing.assert_allclose(losses[1], losses[0], rtol=TOL[dtype])
         for j, t in ((j1, t1), (j2, t2)):
-            assert _norm_rel(t.weight.grad.numpy().T, j.weight.grad.numpy()) <= TOL[dtype]
+            assert _norm_rel(t.weight.grad.numpy(), j.weight.grad.numpy()) <= TOL[dtype]
             assert _norm_rel(t.bias.grad.numpy(), j.bias.grad.numpy()) <= TOL[dtype]
 
 

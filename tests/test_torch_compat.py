@@ -609,8 +609,6 @@ def test_sampler_dtypes_match_jax():
 
 # -- the top level: what the port still lacks, each with the item that brings it
 DEFERRED = {
-    # item 7b: the nn core
-    "ParamAttr": "7b", "create_parameter": "7b",
     # item 8: the remaining models and domains (hapi, static, io, vision, ...)
     "Model": 8, "summary": 8, "flops": 8, "callbacks": 8, "hapi": 8,
     "static": 8, "base": 8, "enable_static": 8, "disable_static": 8, "in_static_mode": 8,
@@ -635,3 +633,68 @@ def test_missing_top_level_names_are_the_deferred_list():
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == sorted(DEFERRED)
     assert set(map(str, DEFERRED.values())) <= {"7", "7b", "8", "10"}
+
+
+# -- nn and nn.functional: what the port still lacks, each with the item (and
+# the JAX module) that brings it
+def _tagged(item, groups):
+    return {name: item for names in groups.values() for name in names.split()}
+
+
+NN_DEFERRED = _tagged("7b", {
+    "layer/common": "AlphaDropout Bilinear ChannelShuffle CosineSimilarity Dropout Dropout2D "
+                    "Dropout3D Flatten Fold Identity Pad1D Pad2D Pad3D PairwiseDistance "
+                    "PixelShuffle PixelUnshuffle Unflatten Unfold Upsample "
+                    "UpsamplingBilinear2D UpsamplingNearest2D ZeroPad2D",
+    "layer/extras": "AdaptiveLogSoftmaxWithLoss FeatureAlphaDropout FractionalMaxPool2D "
+                    "FractionalMaxPool3D HSigmoidLoss LPPool1D LPPool2D LogSigmoid "
+                    "MaxUnPool1D MaxUnPool2D MaxUnPool3D MultiMarginLoss RReLU "
+                    "TripletMarginWithDistanceLoss ZeroPad1D ZeroPad3D",
+    "layer/conv": "Conv1D Conv1DTranspose Conv2D Conv2DTranspose Conv3D Conv3DTranspose",
+    "layer/pooling": "AdaptiveAvgPool1D AdaptiveAvgPool2D AdaptiveAvgPool3D AdaptiveMaxPool1D "
+                     "AdaptiveMaxPool2D AdaptiveMaxPool3D AvgPool1D AvgPool2D AvgPool3D "
+                     "MaxPool1D MaxPool2D MaxPool3D",
+    "layer/transformer": "MultiHeadAttention Transformer TransformerDecoder "
+                         "TransformerDecoderLayer TransformerEncoder TransformerEncoderLayer",
+    "layer/rnn": "BiRNN GRU GRUCell LSTM LSTMCell RNN RNNCellBase SimpleRNN SimpleRNNCell",
+    "decode": "BeamSearchDecoder Decoder decode dynamic_decode",
+    "quant": "quant",
+    # needs functional/extras.rnnt_loss
+    "layer/loss": "RNNTLoss",
+})
+
+NN_FUNCTIONAL_DEFERRED = _tagged("7b", {
+    "common": "alpha_dropout channel_shuffle cosine_similarity dropout dropout2d dropout3d "
+              "fold interpolate label_smooth normalize one_hot pixel_shuffle pixel_unshuffle "
+              "sequence_mask unfold upsample pad",
+    "extras": "adaptive_log_softmax_with_loss affine_grid bilinear class_center_sample elu_ "
+              "feature_alpha_dropout flashmask_attention fractional_max_pool2d "
+              "fractional_max_pool3d gather_tree grid_sample hardtanh_ hsigmoid_loss "
+              "leaky_relu_ log_sigmoid lp_pool1d lp_pool2d margin_cross_entropy max_unpool1d "
+              "max_unpool2d max_unpool3d multi_margin_loss npair_loss pairwise_distance "
+              "rnnt_loss rrelu sigmoid_focal_loss sparse_attention tanh_ temporal_shift "
+              "thresholded_relu_ triplet_margin_with_distance_loss zeropad2d",
+    "conv": "conv conv1d conv1d_transpose conv2d conv2d_transpose conv3d conv3d_transpose",
+    "pooling": "pooling adaptive_avg_pool1d adaptive_avg_pool2d adaptive_avg_pool3d "
+               "adaptive_max_pool1d adaptive_max_pool2d adaptive_max_pool3d avg_pool1d "
+               "avg_pool2d avg_pool3d max_pool1d max_pool2d max_pool3d",
+})
+
+
+@pytest.mark.parametrize("module,deferred", [("nn", NN_DEFERRED),
+                                             ("nn.functional", NN_FUNCTIONAL_DEFERRED)])
+def test_missing_nn_names_are_the_deferred_lists(module, deferred):
+    """In a fresh interpreter (as above): the public names of
+    ``paddle_tpu.<module>`` that ``paddle_tpu_torch.<module>`` lacks are
+    exactly the tagged list."""
+    code = ("import importlib, json, paddle_tpu, paddle_tpu_torch\n"
+            "pub = lambda m: {n for n in dir(m) if not n.startswith('_')}\n"
+            f"j = importlib.import_module('paddle_tpu.{module}')\n"
+            f"t = importlib.import_module('paddle_tpu_torch.{module}')\n"
+            "print(json.dumps(sorted(pub(j) - pub(t))))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == sorted(deferred)
+    assert set(deferred.values()) == {"7b"}

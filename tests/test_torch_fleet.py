@@ -592,3 +592,50 @@ def test_done_request_not_reinserted_into_ledger(clock):
     assert got[1] == got[0]
     frid, view, results, inflight = got[1]
     assert results == [(frid, [9, 9])] and inflight == 0 and view["ledger"] == {}
+
+
+def test_a_step_waiting_for_the_capture_lock_is_not_a_hang():
+    """A replica whose step waits for the process-wide CUDA-graph capture
+    lock (held here by the test, as a peer's capture holds it on the card)
+    five times its ``hang_timeout`` is not recovered; a replica whose step
+    hangs outside the lock still is, and every request ends with the JAX
+    engine's tokens."""
+    from paddle_tpu_torch.jit import _cuda_graph
+
+    prompts = _prompts(2, 4, 10)
+    want = _jax_streams(prompts, 6)
+    fl = _fleet(replicas=2, hang_timeout=0.2, start=False)
+    r0, r1 = fl.replicas
+    step0, step1 = r0.engine.step, r1.engine.step
+    hung = []
+
+    def waits_for_the_lock(*a, **k):
+        # what a capture does first (_Program._capture)
+        with _cuda_graph._capture_section():
+            pass
+        return step0(*a, **k)
+
+    def hangs(*a, **k):
+        if not hung:
+            hung.append(True)
+            time.sleep(1.0)
+        return step1(*a, **k)
+
+    r0.engine.step, r1.engine.step = waits_for_the_lock, hangs
+    lock = _cuda_graph._CAPTURE_LOCK
+    lock.acquire()
+    held = True
+    try:
+        fl.start()
+        frids = [fl.submit(p, max_new_tokens=6) for p in prompts]
+        time.sleep(1.0)
+        lock.release()
+        held = False
+        assert _collect(fl, frids) == want
+        reasons = [[r["reason"] for r in rep.engine.recovery_stats] for rep in fl.replicas]
+        assert reasons[0] == [], reasons
+        assert any("hang" in r for r in reasons[1]), reasons
+    finally:
+        if held:
+            lock.release()
+        fl.stop()

@@ -8,6 +8,7 @@ modules), take the same submissions, steps, failures and scans; burn rates,
 alerts, routing, the status section, the snapshot and the Prometheus
 document (but for times, and with replica tags replaced by their indices)
 equal JAX's after each phase."""
+import itertools
 import re
 
 import pytest
@@ -110,7 +111,7 @@ def _state(fl):
     """The router's whole state (test_torch_fleet.py's ``_view``), untimed,
     with the replica tags the SLO section holds as tenants replaced by their
     indices."""
-    return _sub_tags(repr(_untimed(_view(fl))), _tags(fl))
+    return _renamed(_untimed(_view(fl)), _tags(fl))
 
 
 def _tags(fl):
@@ -123,11 +124,30 @@ def _sub_tags(s, tags):
     return s
 
 
+def _renamed(obj, tags):
+    """``obj`` with every replica tag in a string, a dict key or a tuple
+    replaced by its index. A list of strings that was sorted is sorted again
+    after the renaming: each package numbers its engines from its own
+    counter, so the tags of the two fleets may sort in different orders
+    (``e10`` before ``e9``, ``e8`` before ``e9``) while the indices sort
+    alike. Dicts compare without order; every value is kept."""
+    if isinstance(obj, str):
+        return _sub_tags(obj, tags)
+    if isinstance(obj, dict):
+        return {_renamed(k, tags): _renamed(v, tags) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        out = [_renamed(v, tags) for v in obj]
+        if isinstance(obj, list) and all(isinstance(v, str) for v in obj) \
+                and list(obj) == sorted(obj):
+            out.sort()
+        return type(obj)(out)
+    return obj
+
+
 def _slo_view(fl):
     slo = fl._slo
     tags = _tags(fl)
-    rows = [{k: (_sub_tags(v, tags) if isinstance(v, str) else v) for k, v in r.items()}
-            for r in slo.scan()]
+    rows = _renamed(slo.scan(), tags)
     series = sorted({(o, t) for o, t in slo._buckets})
     burns = {(o, _sub_tags(t, tags)): (slo.burn_rate(o, slo.fast_window_s, t),
                                        slo.burn_rate(o, slo.slow_window_s, t),
@@ -135,7 +155,7 @@ def _slo_view(fl):
              for o, t in series}
     st = slo.statusz()
     return dict(rows=rows, burns=burns,
-                status=_sub_tags(repr(st), tags), alerts=_sub_tags(repr(list(slo.alerts)), tags))
+                status=_renamed(st, tags), alerts=_renamed(list(slo.alerts), tags))
 
 
 _TIMED = re.compile(r"^paddle_tpu_\w+_(ns|seconds)(_bucket|_sum)")
@@ -146,12 +166,13 @@ def _prom(fl):
     (the port's CPU programs run their ops eagerly, the JAX engine's are
     compiled), the time-valued histogram lines or the series at 0 (the
     registry also holds, at 0, what earlier code of the process registered),
-    replica tags as indices."""
+    replica tags as indices, sorted after the renaming (the registry sorts
+    the children of a metric by their tags; ``_renamed``)."""
     tags = _tags(fl)
     keep = [line for line in fl.fleet_prometheus_text().splitlines()
             if line and not line.startswith("#") and "paddle_tpu_dispatch_" not in line
             and not _TIMED.match(line) and float(line.rsplit(" ", 1)[1]) != 0]
-    return _sub_tags("\n".join(keep), tags)
+    return "\n".join(sorted(_sub_tags(line, tags) for line in keep))
 
 
 def _snapshot(fl):
@@ -171,7 +192,7 @@ def _snapshot(fl):
             vals = {k: v for k, v in m["values"].items() if v}
         if vals:
             metrics[name] = vals
-    return _sub_tags(repr((metrics, sorted(doc))), _tags(fl)), fleet
+    return _renamed((metrics, sorted(doc)), _tags(fl)), fleet
 
 
 def test_burn_aware_routing_alerts_and_documents_equal_jax(clock):
@@ -180,6 +201,33 @@ def test_burn_aware_routing_alerts_and_documents_equal_jax(clock):
     resumed and the burn-aware router sends new work to replica 1 while
     replica 0 alerts; after each phase the SLO state, the router's state
     and the fleet's documents equal JAX's."""
+    _burn_aware_routing(clock)
+
+
+def cross_a_digit_boundary(monkeypatch):
+    """Move each package's engine counter (``models/serving.py``
+    ``_ENGINE_SEQ``) far past the tags of the engines the process has
+    built, so that the port's next two engines are ``e999999`` and
+    ``e1000000`` (which the registry sorts in the other order) and JAX's
+    ``e999997`` and ``e999998``."""
+    from paddle_tpu.models import serving as jserving
+    from paddle_tpu_torch.models import serving as tserving
+
+    monkeypatch.setattr(tserving, "_ENGINE_SEQ", itertools.count(999999))
+    monkeypatch.setattr(jserving, "_ENGINE_SEQ", itertools.count(999997))
+
+
+def test_burn_aware_documents_equal_jax_across_a_tag_digit_boundary(clock, monkeypatch):
+    """The same case with the port's two replica tags across a digit
+    boundary and JAX's not: the tags then sort in different orders in the
+    two registries, and the documents must still compare equal."""
+    cross_a_digit_boundary(monkeypatch)
+    jax_fleet, port_fleet = _burn_aware_routing(clock)
+    assert [r.tag for r in port_fleet.replicas] == ["e999999", "e1000000"]
+    assert [r.tag for r in jax_fleet.replicas] == ["e999997", "e999998"]
+
+
+def _burn_aware_routing(clock):
     for m in MONS:
         m.enable()
         m.trace.enable()
@@ -237,6 +285,7 @@ def test_burn_aware_routing_alerts_and_documents_equal_jax(clock):
     assert 'replica="r0"' in last["prom"] and "paddle_tpu_monitor_slo_burn_rate" in last["prom"]
     assert tmon.trace.spans() and {"fleet.route", "fleet.failover", "fleet.health"} <= {
         s.name for s in tmon.trace.spans()}
+    return pair
 
 
 def test_routing_without_burn_awareness_stays_least_depth(clock):

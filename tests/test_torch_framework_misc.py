@@ -420,8 +420,8 @@ def test_load_checkpoint_safetensors(tmp_path):
 @pytest.mark.parametrize("source", ["paddle", "torch", "auto"])
 def test_load_pretrained_linear_matches_jax(tmp_path, source):
     """A paddle-layout (in, out) or torch-layout (out, in) checkpoint loads
-    into the JAX Linear and into the port's (torch) Linear with equal
-    outputs."""
+    into the JAX Linear and into the port's Linear (paddle's layout, as
+    JAX's) with equal outputs and JAX's weight."""
     rng = np.random.RandomState(2)
     w, b = rng.randn(4, 3).astype("float32"), rng.randn(3).astype("float32")
     sd = {"weight": w if source == "paddle" else w.T.copy(), "bias": b}
@@ -437,7 +437,7 @@ def test_load_pretrained_linear_matches_jax(tmp_path, source):
     x = rng.randn(5, 4).astype("float32")
     np.testing.assert_allclose(_np(tl(torch.from_numpy(x))), _np(jl(paddle.to_tensor(x))),
                                rtol=1e-6, atol=1e-6)
-    np.testing.assert_array_equal(tl.weight.detach().numpy(), w.T)
+    np.testing.assert_array_equal(tl.weight.detach().numpy(), w)
 
 
 def test_load_pretrained_llama_matches_jax_logits(tmp_path):
@@ -508,7 +508,7 @@ def test_hub_local_roundtrip(tmp_path):
     assert T.hub.list(str(tmp_path), source="local") == ["tiny_model"]
     assert "tiny" in T.hub.help(str(tmp_path), "tiny_model", source="local")
     m = T.hub.load(str(tmp_path), "tiny_model", source="local", scale=2)
-    assert tuple(m.weight.shape) == (2, 4)  # torch's (out, in)
+    assert tuple(m.weight.shape) == (4, 2)  # paddle's (in, out), as JAX's
     with pytest.raises(RuntimeError, match="no callable entrypoint"):
         T.hub.load(str(tmp_path), "NOT_CALLABLE", source="local")
     with pytest.raises(RuntimeError, match="network"):
