@@ -352,6 +352,27 @@ Phases, each a hard check (the script exits nonzero on the first failure):
      at B8 S128: step 0's loss equals the CPU's within 1e-4 relative, the
      loss falls, a state_dict round trip through paddle.save/load is bit for
      bit, to_static (Inductor) equals eager in eval; step_ms and peak memory.
+ 21. the rest of the nn core (at most NN2_SECONDS): (a) every functional and
+     layer of common/extras, conv, pooling, transformer and RNNTLoss,
+     forward and gradient, card against CPU in fp32 at the nets' shapes
+     (ResNet-50's stage shapes at B2, a 224x224 image resized to 112, 331
+     and 97 in every mode, an encoder and a decoder layer at 768 wide and
+     S512, whose unmasked attentions reach the fp32 kernels), the worst
+     scaled error by family; (b) a BERT-base encoder (bert-base-uncased's
+     config.json widths) at B8 S512: eval forwards in fp32 and under
+     auto_cast bf16 launch kernel 1 once a layer and never take the math
+     path, a padding mask takes the math path once a layer (its ms beside the
+     unmasked forward's), 5 O1 bf16 AdamW steps launch kernels 1-3 once a
+     layer each and the loss falls, 2 layers at B2 in fp32 give the CPU's
+     loss within 1e-4 relative; step_ms, tokens/s, peak memory; (c)
+     Transformer()'s defaults (Vaswani et al. 2017's base) at B8, 256 and
+     256, eval fp32: the encoder's and the cross-attention's 12 launches of
+     kernel 1 a forward, the masked decoder self-attention on the math path,
+     32 steps of gen_cache decoding equal to the full forward's positions;
+     ms a forward and a decode step; (d) ResNet-50 from the port's layers:
+     3 Momentum steps at B32 3x224x224 fp32 on one batch, the loss falls and
+     the stem BatchNorm's running statistics follow paddle's rule, eval
+     logits at B2 against the CPU; step_ms, images/s, peak memory.
 Phases 3, 9 and 13 time the decode engine's default, the captured path.
 The last line is the device JSON object; the line before it the card's name
 and power limit; before that the kernels JSON object.
@@ -6021,12 +6042,21 @@ def control_hbm_guard(T, fl):
     return res
 
 
+def seeded_layer(T, make, seed):
+    """A case's fn for a layer: ``make()`` under ``T.seed(seed)`` on the
+    current device, copied to its first input's device and called."""
+    import copy
+
+    def fn(*args):
+        T.seed(seed)
+        return copy.deepcopy(make()).to(args[0].device)(*args)
+    return fn
+
+
 def nn_cases(torch, T, shapes):
     """(family, name, fn, inputs) of every ported functional and layer:
     inputs are CPU tensors; a layer case's fn builds the layer on the given
     device from one seed."""
-    import copy
-
     F, nn = T.nn.functional, T.nn
     B, S, H, V = shapes
     g = torch.Generator().manual_seed(20)
@@ -6113,13 +6143,7 @@ def nn_cases(torch, T, shapes):
     ]
 
     def layer(make):
-        def fn(*args):
-            dev = args[0].device
-            T.seed(20)
-            m = make()
-            m = copy.deepcopy(m).to(dev)
-            return m(*args)
-        return fn
+        return seeded_layer(T, make, 20)
 
     xc = x.transpose(1, 2).contiguous()
     acts_l = ["ReLU", "ReLU6", "Sigmoid", "Tanh", "Silu", "Swish", "Mish", "Hardswish",
@@ -6181,34 +6205,45 @@ def scaled_err(torch, a, ref):
     return float((a - ref).abs().max() / max(1.0, float(ref.abs().max())))
 
 
-def nn_card_vs_cpu(torch, T):
-    """(d), first half: every case forward and backward (the sum of each
-    output times one random cotangent) on the card and on the CPU; the worst
-    scaled error over outputs and input gradients, by family."""
-    C = NN20
-    cases = nn_cases(torch, T, (C["batch"], C["seq"], C["hidden"], C["vocab"]))
+def cases_card_vs_cpu(torch, cases, where):
+    """Every case forward and backward (the sum of each floating output times
+    one random cotangent) on the card and on the CPU; the worst scaled error
+    over outputs and input gradients, by family. Integer outputs, such as
+    masks and indices, must agree exactly."""
     worst, rows = {}, {}
     for family, name, fn, inputs in cases:
         got = []
-        for dev in ("cuda", "cpu"):
-            xs = [t.detach().to(dev, copy=True).requires_grad_(t.is_floating_point())
+        for d in ("cuda", "cpu"):
+            xs = [t.detach().to(d, copy=True).requires_grad_(t.is_floating_point())
                   for t in inputs]
             outs = fn(*xs)
-            outs = list(outs) if isinstance(outs, (tuple, list)) else [outs]
+            outs = [o for o in (outs if isinstance(outs, (tuple, list)) else [outs])
+                    if isinstance(o, torch.Tensor)]
             g = torch.Generator().manual_seed(1)
-            cts = [torch.randn(o.shape, generator=g).to(dev) for o in outs]
-            loss = sum((o * ct).sum() for o, ct in zip(outs, cts))
-            loss.backward()
+            loss = sum((o * torch.randn(o.shape, generator=g).to(d, o.dtype)).sum()
+                       for o in outs if o.is_floating_point())
+            if isinstance(loss, torch.Tensor) and loss.requires_grad:
+                loss.backward()
             got.append([o.detach() for o in outs] + [x.grad for x in xs if x.grad is not None])
         if len(got[0]) != len(got[1]):
-            fail(f"phase 20 (d) {name}: {len(got[0])} card results against {len(got[1])}")
+            fail(f"{where} {name}: {len(got[0])} card results against {len(got[1])}")
+        for a, b in zip(got[0], got[1]):
+            if not a.is_floating_point() and not torch.equal(a.cpu(), b):
+                fail(f"{where} {family} {name}: integer outputs differ, card against CPU")
         err = max(scaled_err(torch, a, b) for a, b in zip(got[0], got[1]))
         rows[name] = err
         worst[family] = max(worst.get(family, 0.0), err)
         if not math.isfinite(err) or err > TOL_NN:
-            fail(f"phase 20 (d) {family} {name}: card against CPU {err:.3g} > {TOL_NN}")
+            fail(f"{where} {family} {name}: card against CPU {err:.3g} > {TOL_NN}")
     return dict(cases=len(cases), worst_by_family=worst, tol=TOL_NN,
                 worst_case=max(rows, key=rows.get))
+
+
+def nn_card_vs_cpu(torch, T):
+    """(d), first half: every case of ``nn_cases`` card against CPU."""
+    C = NN20
+    return cases_card_vs_cpu(torch, nn_cases(torch, T, (C["batch"], C["seq"], C["hidden"],
+                                                        C["vocab"])), "phase 20 (d)")
 
 
 def nn_net(T):
@@ -6384,6 +6419,654 @@ def phase_control(torch, fa, models, fleet, T, serving_mod, workload, smi):
     out["nn_launches"] = counts(fa)
     print("nn_net " + json.dumps(dict(out["nn_net"], launches=out["nn_launches"], card=smi)),
           flush=True)
+    return out
+
+
+# phase 21: the rest of the nn core (module docstring). NN2_SECONDS is its
+# share of the script's time.
+NN2_SECONDS = 180
+# (a): card against CPU at the nets' shapes: ResNet-50's stage shapes at B2,
+# a 224x224 image resized, one encoder and one decoder layer at 768 wide, S512
+NN2 = dict(batch=2, image=224, sizes=(112, 331, 97), hidden=768, heads=12, ffn=3072,
+           seq=512)
+# (a)'s unmasked attentions, each kernel 1 forward and kernels 2-3 backward in
+# fp32: the encoder layer 1, the decoder layer's cross-attention 1,
+# MultiHeadAttention_cross 1, TransformerEncoder 2, TransformerDecoder 2 self
+# + 2 cross, Transformer 1 + 1 self + 1 cross
+NN2_A_LAUNCHES = 12
+# (b): bert-base-uncased's published config.json: vocab_size 30522,
+# hidden_size 768, num_hidden_layers 12, num_attention_heads 12,
+# intermediate_size 3072, hidden_act gelu, layer_norm_eps 1e-12,
+# max_position_embeddings 512; at B8 S512, 5 steps of O1 bf16 AdamW on one
+# batch, 2 layers at B2 in fp32 card against CPU, a padding mask over the
+# last ``pad`` positions of every other row
+BERT21 = dict(vocab=30522, hidden=768, layers=12, heads=12, ffn=3072, eps=1e-12,
+              positions=512, batch=8, seq=512, steps=5, lr=1e-4, cpu_layers=2, cpu_batch=2,
+              pad=64, timed=3)
+# (c): Transformer()'s defaults, the base model of Vaswani et al. 2017
+# (d_model 512, 8 heads, 6+6 layers, FFN 2048), at B8 with source and target
+# 256, eval, fp32; ``decode`` steps of incremental decoding through gen_cache
+TRANSFORMER21 = dict(batch=8, src=256, tgt=256, decode=32, timed=3)
+# (d): ResNet-50 (He et al. 2016: bottlenecks [3, 4, 6, 3], widths 64-2048,
+# 1000 classes), 3 Momentum steps at B32 3x224x224 fp32 on one batch, eval
+# logits at B2 card against CPU
+RESNET21 = dict(blocks=(3, 4, 6, 3), widths=(64, 128, 256, 512), classes=1000, batch=32,
+                image=224, steps=3, lr=0.01, momentum=0.9, cpu_batch=2)
+
+
+# profile_step's groups for phase 21's nets: cuDNN's convolutions and the
+# BatchNorm and pooling passes before the default groups
+_NN2_GROUPS = (("fprop", "convolution"), ("dgrad", "convolution"), ("wgrad", "convolution"),
+               ("conv", "convolution"), ("batch_norm", "batch norm"), ("bn_", "batch norm"),
+               ("pool", "pooling")) + _KERNEL_GROUPS
+
+
+def nn2_cases(torch, T):
+    """(family, name, fn, inputs) of every functional and layer phase 21
+    ports, at the nets' shapes: the random ones in their deterministic forms
+    (eval, p = 0, a given ``random_u``)."""
+    F, nn = T.nn.functional, T.nn
+    C = NN2
+    B, H, S = C["batch"], C["hidden"], C["seq"]
+    g = torch.Generator().manual_seed(21)
+
+    def rn(*shape, lo=None, hi=None):
+        if lo is None:
+            return torch.randn(*shape, generator=g)
+        return torch.rand(*shape, generator=g) * (hi - lo) + lo
+
+    def ri(hi, *shape):
+        return torch.randint(0, hi, shape, generator=g)
+
+    def layer(make):
+        return seeded_layer(T, make, 21)
+
+    img = rn(B, 3, C["image"], C["image"])
+    c64 = rn(B, 64, 56, 56)
+    c64big = rn(B, 64, 112, 112)
+    c256 = rn(B, 256, 56, 56)
+    seq = rn(B, S, H)
+    cases = []
+    # -- common: interpolate from 224 to 112, 331 and 97 in every mode
+    for n in C["sizes"]:
+        for mode in ("nearest", "bilinear", "bicubic", "area"):
+            cases.append(("common", f"interpolate_{mode}_{n}",
+                          lambda a, m=mode, n=n: F.interpolate(a, size=[n, n], mode=m), [img]))
+        cases.append(("common", f"interpolate_bilinear_align_{n}", lambda a, n=n: F.interpolate(
+            a, size=[n, n], mode="bilinear", align_corners=True), [img]))
+    cases += [
+        ("common", "interpolate_scale_1_5", lambda a: F.interpolate(
+            a, scale_factor=1.5, mode="bilinear"), [c64]),
+        ("common", "interpolate_nhwc", lambda a: F.interpolate(
+            a, size=[97, 131], mode="bilinear", data_format="NHWC"), [img.permute(0, 2, 3, 1)]),
+        ("common", "interpolate_linear_1d", lambda a: F.interpolate(a, size=[200], mode="linear"),
+         [seq.transpose(1, 2)]),
+        ("common", "interpolate_trilinear", lambda a: F.interpolate(
+            a, size=[4, 40, 40], mode="trilinear"), [rn(B, 8, 8, 56, 56)]),
+        ("common", "upsample", lambda a: F.upsample(a, scale_factor=2), [c64]),
+        ("common", "one_hot", lambda y: F.one_hot(y, 1000), [ri(1000, B, 64)]),
+        ("common", "cosine_similarity", F.cosine_similarity, [rn(B, 2048), rn(B, 2048)]),
+        ("common", "normalize", F.normalize, [rn(B, 2048, 7, 7)]),
+        ("common", "pixel_shuffle", lambda a: F.pixel_shuffle(a, 2), [c256]),
+        ("common", "pixel_unshuffle", lambda a: F.pixel_unshuffle(a, 2), [c64]),
+        ("common", "channel_shuffle", lambda a: F.channel_shuffle(a, 8), [c256]),
+        ("common", "unfold", lambda a: F.unfold(a, 3, paddings=1), [c64]),
+        ("common", "fold", lambda a: F.fold(a, [56, 56], 3, paddings=1),
+         [rn(B, 64 * 9, 56 * 56)]),
+        ("common", "label_smooth", F.label_smooth, [rn(B * 64, 1000, lo=0, hi=1)]),
+        ("common", "sequence_mask", lambda a: F.sequence_mask(a, S), [ri(S, B, 4)]),
+        ("common", "pad", lambda a: F.pad(a, [1, 2, 3, 0], mode="reflect"), [c64]),
+        ("common", "dropout_eval", lambda a: F.dropout(a, 0.1, training=False,
+                                                       mode="downscale_in_infer"), [seq]),
+        ("common", "dropout2d_eval", lambda a: F.dropout2d(a, 0.2, training=False), [c64]),
+        ("common", "dropout3d_eval", lambda a: F.dropout3d(a, 0.2, training=False),
+         [c64[:, :, None]]),
+        ("common", "alpha_dropout_eval", lambda a: F.alpha_dropout(a, 0.2, training=False),
+         [seq]),
+    ]
+    # -- conv at ResNet-50's stage shapes
+    cases += [
+        ("conv", "conv2d_stem", lambda a, w: F.conv2d(a, w, stride=2, padding=3),
+         [img, rn(64, 3, 7, 7) * 0.1]),
+        ("conv", "conv2d_3x3_64", lambda a, w: F.conv2d(a, w, padding=1),
+         [c64, rn(64, 64, 3, 3) * 0.05]),
+        ("conv", "conv2d_1x1_256_512_s2", lambda a, w, b: F.conv2d(a, w, b, stride=2),
+         [c256, rn(512, 256, 1, 1) * 0.05, rn(512)]),
+        ("conv", "conv2d_same_s2_nhwc", lambda a, w: F.conv2d(
+            a, w, stride=2, padding="SAME", data_format="NHWC"),
+         [c64.permute(0, 2, 3, 1), rn(128, 64, 3, 3) * 0.05]),
+        ("conv", "conv2d_groups_dilation", lambda a, w: F.conv2d(
+            a, w, padding=2, dilation=2, groups=32), [c256, rn(256, 8, 3, 3) * 0.1]),
+        ("conv", "conv2d_transpose", lambda a, w, b: F.conv2d_transpose(
+            a, w, b, stride=2, padding=1, output_padding=1), [rn(B, 256, 14, 14),
+                                                              rn(256, 128, 3, 3) * 0.05,
+                                                              rn(128)]),
+        ("conv", "conv1d", lambda a, w: F.conv1d(a, w, padding=1),
+         [seq.transpose(1, 2), rn(256, H, 3) * 0.02]),
+        ("conv", "conv1d_transpose", lambda a, w: F.conv1d_transpose(a, w, stride=2),
+         [rn(B, 64, 128), rn(64, 32, 4) * 0.1]),
+        ("conv", "conv3d", lambda a, w: F.conv3d(a, w, padding=1),
+         [rn(B, 16, 8, 28, 28), rn(32, 16, 3, 3, 3) * 0.05]),
+        ("conv", "conv3d_transpose", lambda a, w: F.conv3d_transpose(a, w, stride=2),
+         [rn(B, 16, 4, 14, 14), rn(16, 8, 2, 2, 2) * 0.1]),
+        ("conv", "Conv2D", layer(lambda: nn.Conv2D(64, 64, 3, padding=1)), [c64]),
+        ("conv", "Conv2D_nhwc", layer(lambda: nn.Conv2D(64, 128, 1, stride=2, data_format="NHWC")),
+         [c64.permute(0, 2, 3, 1)]),
+        ("conv", "Conv1D", layer(lambda: nn.Conv1D(H, 256, 3, padding=1)), [seq.transpose(1, 2)]),
+        ("conv", "Conv3D", layer(lambda: nn.Conv3D(16, 32, 3, padding=1)), [rn(B, 16, 8, 28, 28)]),
+        ("conv", "Conv1DTranspose", layer(lambda: nn.Conv1DTranspose(64, 32, 4, stride=2)),
+         [rn(B, 64, 128)]),
+        ("conv", "Conv2DTranspose", layer(lambda: nn.Conv2DTranspose(256, 128, 2, stride=2)),
+         [rn(B, 256, 14, 14)]),
+        ("conv", "Conv3DTranspose", layer(lambda: nn.Conv3DTranspose(16, 8, 2, stride=2)),
+         [rn(B, 16, 4, 14, 14)]),
+    ]
+    # -- pooling
+    ties = torch.ones(B, 64, 56, 56)
+    cases += [
+        ("pooling", "max_pool2d_stem", lambda a: F.max_pool2d(a, 3, 2, 1), [c64big]),
+        ("pooling", "max_pool2d_ceil_mask", lambda a: F.max_pool2d(
+            a, 3, 2, 1, ceil_mode=True, return_mask=True), [c64]),
+        ("pooling", "max_pool2d_mask_ties", lambda a: F.max_pool2d(a, 3, 2, 1, return_mask=True),
+         [ties]),
+        ("pooling", "max_pool1d", lambda a: F.max_pool1d(a, 3, 2, 1), [seq.transpose(1, 2)]),
+        ("pooling", "max_pool3d_mask", lambda a: F.max_pool3d(a, 2, return_mask=True),
+         [rn(B, 16, 8, 28, 28)]),
+        ("pooling", "avg_pool2d_exclusive", lambda a: F.avg_pool2d(a, 3, 2, 1), [c64big]),
+        ("pooling", "avg_pool2d_same", lambda a: F.avg_pool2d(a, 3, 2, "SAME"), [c256]),
+        ("pooling", "avg_pool1d", lambda a: F.avg_pool1d(a, 4), [seq.transpose(1, 2)]),
+        ("pooling", "avg_pool3d", lambda a: F.avg_pool3d(a, 2, 2, 1, exclusive=False),
+         [rn(B, 16, 8, 28, 28)]),
+        ("pooling", "adaptive_avg_pool2d_gap", lambda a: F.adaptive_avg_pool2d(a, 1),
+         [rn(B, 2048, 7, 7)]),
+        ("pooling", "adaptive_avg_pool2d_ragged", lambda a: F.adaptive_avg_pool2d(a, [5, 6]),
+         [rn(B, 512, 28, 28)]),
+        ("pooling", "adaptive_avg_pool1d", lambda a: F.adaptive_avg_pool1d(a, 7),
+         [seq.transpose(1, 2)]),
+        ("pooling", "adaptive_avg_pool3d", lambda a: F.adaptive_avg_pool3d(a, [3, 5, 5]),
+         [rn(B, 16, 8, 28, 28)]),
+        ("pooling", "adaptive_max_pool2d", lambda a: F.adaptive_max_pool2d(a, [5, 6]),
+         [rn(B, 512, 28, 28)]),
+        ("pooling", "adaptive_max_pool1d", lambda a: F.adaptive_max_pool1d(a, 7),
+         [seq.transpose(1, 2)]),
+        ("pooling", "adaptive_max_pool3d", lambda a: F.adaptive_max_pool3d(a, 3),
+         [rn(B, 16, 8, 28, 28)]),
+    ]
+    for name, make, x in (
+            ("MaxPool2D", lambda: nn.MaxPool2D(3, 2, 1), c64big),
+            ("MaxPool1D", lambda: nn.MaxPool1D(2), seq.transpose(1, 2)),
+            ("MaxPool3D", lambda: nn.MaxPool3D(2), rn(B, 16, 8, 28, 28)),
+            ("AvgPool2D", lambda: nn.AvgPool2D(2), c256),
+            ("AvgPool1D", lambda: nn.AvgPool1D(2), seq.transpose(1, 2)),
+            ("AvgPool3D", lambda: nn.AvgPool3D(2), rn(B, 16, 8, 28, 28)),
+            ("AdaptiveAvgPool2D", lambda: nn.AdaptiveAvgPool2D(1), rn(B, 2048, 7, 7)),
+            ("AdaptiveAvgPool1D", lambda: nn.AdaptiveAvgPool1D(3), seq.transpose(1, 2)),
+            ("AdaptiveAvgPool3D", lambda: nn.AdaptiveAvgPool3D(2), rn(B, 16, 8, 28, 28)),
+            ("AdaptiveMaxPool2D", lambda: nn.AdaptiveMaxPool2D(3), rn(B, 512, 28, 28)),
+            ("AdaptiveMaxPool1D", lambda: nn.AdaptiveMaxPool1D(3), seq.transpose(1, 2)),
+            ("AdaptiveMaxPool3D", lambda: nn.AdaptiveMaxPool3D(2), rn(B, 16, 8, 28, 28))):
+        cases.append(("pooling", name, layer(make), [x]))
+    # -- common layers
+    for name, make, xs in (
+            ("Identity", nn.Identity, [seq]), ("Flatten", nn.Flatten, [rn(B, 2048, 1, 1)]),
+            ("Unflatten", lambda: nn.Unflatten(2, [12, 64]), [seq]),
+            ("Upsample", lambda: nn.Upsample(size=[112, 112], mode="bilinear"), [img]),
+            ("UpsamplingBilinear2D", lambda: nn.UpsamplingBilinear2D(scale_factor=2), [c64]),
+            ("UpsamplingNearest2D", lambda: nn.UpsamplingNearest2D(scale_factor=2), [c64]),
+            ("PixelShuffle", lambda: nn.PixelShuffle(2), [c256]),
+            ("PixelUnshuffle", lambda: nn.PixelUnshuffle(2), [c64]),
+            ("ChannelShuffle", lambda: nn.ChannelShuffle(4), [c256]),
+            ("Bilinear", lambda: nn.Bilinear(H, 256, 64), [rn(B * 64, H), rn(B * 64, 256)]),
+            ("CosineSimilarity", nn.CosineSimilarity, [rn(B, 2048), rn(B, 2048)]),
+            ("PairwiseDistance", nn.PairwiseDistance, [rn(B * 64, H), rn(B * 64, H)]),
+            ("Fold", lambda: nn.Fold([56, 56], 2, strides=2), [rn(B, 64 * 4, 28 * 28)]),
+            ("Unfold", lambda: nn.Unfold(2, strides=2), [c64]),
+            ("Pad1D", lambda: nn.Pad1D([2, 1], mode="replicate"), [seq.transpose(1, 2)]),
+            ("Pad2D", lambda: nn.Pad2D(1, mode="circular"), [c64]),
+            ("Pad3D", lambda: nn.Pad3D(1), [rn(B, 16, 8, 28, 28)]),
+            ("ZeroPad2D", lambda: nn.ZeroPad2D([1, 2, 0, 1]), [c64]),
+            ("Dropout_p0", lambda: nn.Dropout(0.0), [seq]),
+            ("Dropout2D_eval", lambda: nn.Dropout2D(0.5).eval(), [c64]),
+            ("Dropout3D_eval", lambda: nn.Dropout3D(0.5).eval(), [c64[:, :, None]]),
+            ("AlphaDropout_eval", lambda: nn.AlphaDropout(0.5).eval(), [seq])):
+        cases.append(("common", name, layer(make), xs))
+    # -- extras
+    lab = ri(1000, B * 64)
+    cases += [
+        ("extras", "log_sigmoid", F.log_sigmoid, [seq]),
+        ("extras", "rrelu_eval", F.rrelu, [seq]),
+        ("extras", "pairwise_distance", F.pairwise_distance, [rn(B * 64, H), rn(B * 64, H)]),
+        ("extras", "npair_loss", F.npair_loss, [rn(256, 128), rn(256, 128), ri(64, 256)]),
+        ("extras", "sigmoid_focal_loss", F.sigmoid_focal_loss,
+         [rn(B * 64, 80), rn(B * 64, 80, lo=0, hi=1)]),
+        ("extras", "multi_margin_loss", F.multi_margin_loss, [rn(B * 64, 1000), lab]),
+        ("extras", "triplet_margin_with_distance_loss", lambda a, b, c:
+         F.triplet_margin_with_distance_loss(a, b, c, swap=True),
+         [rn(256, H), rn(256, H), rn(256, H)]),
+        ("extras", "margin_cross_entropy", lambda a, y: F.margin_cross_entropy(
+            a, y, return_softmax=True), [rn(B * 64, 1000, lo=-0.95, hi=0.95), lab]),
+        ("extras", "affine_grid", lambda t: F.affine_grid(t, [B, 64, 56, 56]), [rn(B, 2, 3)]),
+        ("extras", "temporal_shift", lambda a: F.temporal_shift(a, 2), [c64]),
+        ("extras", "zeropad2d", lambda a: F.zeropad2d(a, [1, 1, 2, 0]), [c64]),
+        ("extras", "gather_tree", F.gather_tree, [ri(30522, 32, B, 4), ri(4, 32, B, 4)]),
+        ("extras", "lp_pool1d", lambda a: F.lp_pool1d(a, 2, 4), [seq.transpose(1, 2).abs() + 0.1]),
+        ("extras", "lp_pool2d", lambda a: F.lp_pool2d(a, 3, 2), [c64.abs() + 0.1]),
+        ("extras", "max_unpool2d", lambda a: F.max_unpool2d(*F.max_pool2d(
+            a, 2, return_mask=True), 2), [c64]),
+        ("extras", "max_unpool1d", lambda a, i: F.max_unpool1d(a, i, 2),
+         [rn(B, H, 256), (2 * torch.arange(256) + ri(2, B, H, 256))]),
+        ("extras", "max_unpool3d", lambda a: F.max_unpool3d(*F.max_pool3d(
+            a, 2, return_mask=True), 2), [rn(B, 16, 8, 28, 28)]),
+        ("extras", "hsigmoid_loss", lambda a, w, b: F.hsigmoid_loss(a, lab, 1000, w, b),
+         [rn(B * 64, 256), rn(999, 256) * 0.1, rn(999)]),
+        ("extras", "rnnt_loss", F.rnnt_loss, [rn(B, 48, 17, 64), ri(63, B, 16) + 1,
+                                              torch.tensor([48, 37]), torch.tensor([16, 11])]),
+        ("extras", "fractional_max_pool2d", lambda a: F.fractional_max_pool2d(
+            a, 56, random_u=0.3, return_mask=True), [c64big]),
+        ("extras", "fractional_max_pool3d", lambda a: F.fractional_max_pool3d(
+            a, [5, 20, 20], random_u=0.6, return_mask=True), [rn(B, 16, 8, 28, 28)]),
+        ("extras", "feature_alpha_dropout_eval", lambda a: F.feature_alpha_dropout(
+            a, 0.3, training=False), [c64]),
+        ("extras", "bilinear", F.bilinear, [rn(B * 64, H), rn(B * 64, 256), rn(64, H, 256) * 0.02,
+                                            rn(64)]),
+        ("extras", "class_center_sample", lambda y: F.class_center_sample(y, 1000, 16), [lab]),
+        ("extras", "sparse_attention", lambda q, k, v: F.sparse_attention(
+            q, k, v, torch.arange(0, 65 * 4, 4).repeat(B, 4, 1),
+            (torch.arange(64 * 4) % 64).repeat(B, 4, 1)),
+         [rn(B, 4, 64, 64), rn(B, 4, 64, 64), rn(B, 4, 64, 64)]),
+        ("extras", "flashmask_attention", lambda q, k, v, s: F.flashmask_attention(
+            q, k, v, s, causal=True), [rn(B, S, C["heads"], 64), rn(B, S, C["heads"], 64),
+                                      rn(B, S, C["heads"], 64),
+                                      torch.full((B, 1, S, 1), S) - ri(64, B, 1, S, 1)]),
+        ("extras", "adaptive_log_softmax_with_loss", lambda a, y, h, p0, o0, p1, o1:
+         F.adaptive_log_softmax_with_loss(a, y, h, [(p0, o0), (p1, o1)], [500, 800]),
+         [rn(B * 64, 256), lab, rn(256, 502) * 0.05, rn(256, 64) * 0.05, rn(64, 300) * 0.1,
+          rn(256, 16) * 0.05, rn(16, 200) * 0.1]),
+    ]
+    for name, args in (("elu_", (0.7,)), ("tanh_", ()), ("leaky_relu_", (0.2,)),
+                       ("hardtanh_", (-0.5, 0.5)), ("thresholded_relu_", (0.3, 0.0))):
+        cases.append(("extras", name, lambda a, n=name, args=args: getattr(F, n)(
+            a.clone(), *args), [seq]))
+    for name, make, xs in (
+            ("LogSigmoid", nn.LogSigmoid, [seq]),
+            ("RReLU_eval", lambda: nn.RReLU().eval(), [seq]),
+            ("LPPool1D", lambda: nn.LPPool1D(2, 4), [seq.transpose(1, 2).abs() + 0.1]),
+            ("LPPool2D", lambda: nn.LPPool2D(2, 2), [c64.abs() + 0.1]),
+            ("MaxUnPool1D", lambda: nn.MaxUnPool1D(2),
+             [rn(B, H, 256), (2 * torch.arange(256)).repeat(B, H, 1)]),
+            ("MaxUnPool2D", lambda: nn.MaxUnPool2D(2),
+             [rn(B, 64, 28, 28), (torch.arange(28)[:, None] * 112 + 2 * torch.arange(28))
+              .repeat(B, 64, 1, 1)]),
+            ("MaxUnPool3D", lambda: nn.MaxUnPool3D(2),
+             [rn(B, 16, 4, 14, 14), torch.arange(4 * 14 * 14).reshape(4, 14, 14).repeat(
+                 B, 16, 1, 1, 1) * 2]),
+            ("MultiMarginLoss", lambda: nn.MultiMarginLoss(p=2), [rn(B * 64, 1000), lab]),
+            ("TripletMarginWithDistanceLoss", nn.TripletMarginWithDistanceLoss,
+             [rn(256, H), rn(256, H), rn(256, H)]),
+            ("FeatureAlphaDropout_eval", lambda: nn.FeatureAlphaDropout(0.3).eval(), [c64]),
+            ("ZeroPad1D", lambda: nn.ZeroPad1D(2), [seq.transpose(1, 2)]),
+            ("ZeroPad3D", lambda: nn.ZeroPad3D(1), [rn(B, 16, 8, 28, 28)]),
+            ("HSigmoidLoss", lambda: nn.HSigmoidLoss(256, 1000), [rn(B * 64, 256), lab]),
+            ("AdaptiveLogSoftmaxWithLoss", lambda: nn.AdaptiveLogSoftmaxWithLoss(
+                256, 1000, [500, 800], head_bias=True), [rn(B * 64, 256), lab]),
+            ("FractionalMaxPool2D", lambda: nn.FractionalMaxPool2D(56, random_u=0.5), [c64big]),
+            ("FractionalMaxPool3D", lambda: nn.FractionalMaxPool3D(4, random_u=0.5),
+             [rn(B, 16, 8, 28, 28)]),
+            ("RNNTLoss", nn.RNNTLoss, [rn(B, 48, 17, 64), ri(63, B, 16) + 1,
+                                       torch.tensor([48, 40]), torch.tensor([16, 9])])):
+        cases.append(("extras", name, layer(make), xs))
+    # -- transformer: one encoder and one decoder layer at 768 wide, S512 (the
+    # unmasked attentions reach the fp32 kernels on the card)
+    mask = torch.zeros(S, S).masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(),
+                                         float("-inf"))
+    pad = torch.ones(B, 1, 1, S, dtype=torch.bool)
+    pad[1, ..., -64:] = False
+    enc = dict(dropout=0.0, activation="gelu", layer_norm_eps=1e-12)
+    cases += [
+        ("transformer", "TransformerEncoderLayer", layer(lambda: nn.TransformerEncoderLayer(
+            H, C["heads"], C["ffn"], **enc)), [seq]),
+        ("transformer", "TransformerEncoderLayer_padding_mask", layer(
+            lambda: nn.TransformerEncoderLayer(H, C["heads"], C["ffn"], **enc)), [seq, pad]),
+        ("transformer", "TransformerDecoderLayer", layer(lambda: nn.TransformerDecoderLayer(
+            H, C["heads"], C["ffn"], dropout=0.0, normalize_before=True)),
+         [seq, rn(B, S, H), mask]),
+        ("transformer", "MultiHeadAttention_cross", layer(lambda: nn.MultiHeadAttention(
+            H, C["heads"], kdim=256, vdim=128)), [seq, rn(B, 300, 256), rn(B, 300, 128)]),
+        ("transformer", "TransformerEncoder", layer(lambda: nn.TransformerEncoder(
+            nn.TransformerEncoderLayer(256, 4, 512, dropout=0.0), 2, nn.LayerNorm(256))),
+         [rn(B, S, 256)]),
+        ("transformer", "TransformerDecoder", layer(lambda: nn.TransformerDecoder(
+            nn.TransformerDecoderLayer(256, 4, 512, dropout=0.0), 2)),
+         [rn(B, 256, 256), rn(B, S, 256)]),
+        ("transformer", "Transformer", layer(lambda: nn.Transformer(
+            256, 4, 1, 1, 512, dropout=0.0)), [rn(B, S, 256), rn(B, 256, 256)]),
+    ]
+    return cases
+
+
+def nn2_card_vs_cpu(torch, fa, T):
+    """(a): every case card against CPU; the card's side launches kernels
+    1-3 in fp32 ``NN2_A_LAUNCHES`` times each (the transformer cases'
+    unmasked attentions)."""
+    reset_counts(fa)
+    res = cases_card_vs_cpu(torch, nn2_cases(torch, T), "phase 21 (a)")
+    res["launches"] = counts(fa)
+    res["launches_f32"] = counts_f32(fa)
+    want = (NN2_A_LAUNCHES,) * 3
+    if not (res["launches"] == want and res["launches_f32"] == want):
+        fail(f"phase 21 (a) kernel launches {res['launches']} (fp32 {res['launches_f32']}), "
+             f"want {want}")
+    return res
+
+
+def bert21(T, layers):
+    """BERT21's encoder: token and position embeddings, LayerNorm, a
+    TransformerEncoder, a Linear head over the vocabulary."""
+    C = BERT21
+    nn = T.nn
+
+    class Bert(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(C["vocab"], C["hidden"])
+            self.pos = nn.Embedding(C["positions"], C["hidden"])
+            self.norm = nn.LayerNorm(C["hidden"], C["eps"])
+            self.encoder = nn.TransformerEncoder(nn.TransformerEncoderLayer(
+                C["hidden"], C["heads"], C["ffn"], dropout=0.1, activation="gelu",
+                attn_dropout=0.0, layer_norm_eps=C["eps"]), layers)
+            self.head = nn.Linear(C["hidden"], C["vocab"])
+            self.loss = nn.CrossEntropyLoss()
+
+        def forward(self, ids, mask=None):
+            import torch
+
+            pos = self.pos(torch.arange(ids.shape[1], device=ids.device))
+            return self.head(self.encoder(self.norm(T.add(self.embed(ids), pos)), mask))
+
+    return Bert()
+
+
+def bert_on_card(torch, fa, T, math_calls):
+    """(b): BERT-base at B8 S512: eval forwards in fp32 and bf16, unmasked
+    (kernel 1 in every layer, no math path) and masked (the math path);
+    O1 bf16 AdamW steps (kernels 1-3 in every layer); 2 layers card
+    against CPU."""
+    import copy
+
+    C = BERT21
+    g = torch.Generator().manual_seed(21)
+    ids = torch.randint(0, C["vocab"], (C["batch"], C["seq"]), generator=g).cuda()
+    labels = torch.randint(0, C["vocab"], (C["batch"] * C["seq"],), generator=g).cuda()
+    pad = torch.ones(C["batch"], 1, 1, C["seq"], dtype=torch.bool)
+    pad[1::2, ..., -C["pad"]:] = False
+    pad = pad.cuda()
+    T.seed(21)
+    bert = bert21(T, C["layers"])
+    n_params = sum(p.numel() for p in bert.parameters())
+    bert.eval()
+    out = dict(params=n_params)
+
+    def forward(name, mask=None, amp=None):
+        def run():
+            with torch.no_grad():
+                if amp:
+                    with T.amp.auto_cast(level="O1", dtype=amp):
+                        return bert(ids, mask)
+                return bert(ids, mask)
+
+        reset_counts(fa)
+        math_calls[0] = 0
+        logits = run()
+        torch.cuda.synchronize()
+        row = dict(launches=counts(fa), launches_f32=counts_f32(fa), math_calls=math_calls[0],
+                   finite=bool(torch.isfinite(logits).all()), dtype=str(logits.dtype))
+        row["ms"], row["ms_all"] = timed_runs(torch, run, C["timed"])
+        out[name] = row
+        return row
+
+    L = C["layers"]
+    f32, bf16 = forward("eval_fp32"), forward("eval_bf16", amp="bfloat16")
+    masked = forward("eval_fp32_padding_mask", mask=pad)
+    if not (f32["launches"] == (L, 0, 0) and f32["launches_f32"][0] == L
+            and bf16["launches"] == (L, 0, 0) and bf16["launches_f32"][0] == 0
+            and f32["math_calls"] == 0 and bf16["math_calls"] == 0
+            and masked["launches"] == (0, 0, 0) and masked["math_calls"] == L
+            and f32["finite"] and bf16["finite"] and masked["finite"]):
+        fail(f"phase 21 (b) BERT-base eval forwards: {out}")
+    # 2 layers in fp32, card against CPU (the card's attention on kernel 1)
+    T.seed(22)
+    small = bert21(T, C["cpu_layers"]).eval()
+    twin = copy.deepcopy(small).to("cpu")
+    b = C["cpu_batch"]
+    with torch.no_grad():
+        card = small.loss(small(ids[:b]).reshape(-1, C["vocab"]), labels[:b * C["seq"]])
+        cpu = twin.loss(twin(ids[:b].cpu()).reshape(-1, C["vocab"]), labels[:b * C["seq"]].cpu())
+    out["two_layers_loss"] = dict(card=float(card), cpu=float(cpu),
+                                  rel=abs(float(card) - float(cpu)) / abs(float(cpu)))
+    del small, twin
+    if not out["two_layers_loss"]["rel"] <= TOL_NN:
+        fail(f"phase 21 (b) 2 layers card against CPU: {out['two_layers_loss']}")
+    # O1 bf16 training: kernels 1-3 once a layer a step
+    bert.train()
+    opt = T.optimizer.AdamW(learning_rate=C["lr"], parameters=bert.parameters())
+    torch.cuda.reset_peak_memory_stats()
+
+    def step():
+        with T.amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = bert.loss(bert(ids).reshape(-1, C["vocab"]), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    losses, step_ms, launches = [], [], []
+    for _ in range(C["steps"]):
+        reset_counts(fa)
+        math_calls[0] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step().detach()))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(counts(fa) + (math_calls[0],))
+    med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    out["train_o1_bf16"] = dict(
+        losses=losses, step_ms=step_ms, step_ms_median=med,
+        tokens_per_sec=C["batch"] * C["seq"] / (med / 1e3),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches_per_step=launches,
+        profile=profile_step(torch, step, med, _NN2_GROUPS))
+    del bert, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (all(tuple(s) == (L, L, L, 0) for s in launches) and losses[-1] < losses[0]
+            and all(math.isfinite(v) for v in losses)):
+        fail(f"phase 21 (b) BERT-base O1 bf16 training: {out['train_o1_bf16']}")
+    return out
+
+
+def transformer_on_card(torch, fa, T, math_calls):
+    """(c): Transformer() at B8, source and target 256, eval fp32: the
+    encoder's self-attention and the decoder's cross-attention on kernel 1,
+    the masked decoder self-attention on the math path; incremental decoding
+    through gen_cache against the full forward."""
+    C = TRANSFORMER21
+    T.seed(23)
+    model = T.nn.Transformer()
+    model.eval()
+    g = torch.Generator().manual_seed(23)
+    src = torch.randn(C["batch"], C["src"], model.d_model, generator=g).cuda()
+    tgt = torch.randn(C["batch"], C["tgt"], model.d_model, generator=g).cuda()
+    mask = T.nn.Transformer.generate_square_subsequent_mask(C["tgt"]).cuda()
+
+    def forward():
+        with torch.no_grad():
+            return model(src, tgt, tgt_mask=mask)
+
+    reset_counts(fa)
+    math_calls[0] = 0
+    full = forward()
+    torch.cuda.synchronize()
+    out = dict(params=sum(p.numel() for p in model.parameters()), launches=counts(fa),
+               launches_f32=counts_f32(fa), math_calls=math_calls[0],
+               finite=bool(torch.isfinite(full).all()))
+    out["forward_ms"], out["forward_ms_all"] = timed_runs(torch, forward, C["timed"])
+    steps = []
+    with torch.no_grad():
+        memory = model.encoder(src)
+        cache = model.decoder.gen_cache(memory)
+        reset_counts(fa)
+        math_calls[0] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(C["decode"]):
+            o, cache = model.decoder(tgt[:, i:i + 1], memory, None, None, cache)
+            steps.append(o)
+        torch.cuda.synchronize()
+    out["decode_step_ms"] = (time.perf_counter() - t0) * 1e3 / C["decode"]
+    out["decode_launches"] = counts(fa)
+    out["decode_math_calls"] = math_calls[0]
+    out["decode_scaled_err"] = scaled_err(torch, torch.cat(steps, 1), full[:, :C["decode"]].cpu())
+    n = model.encoder.num_layers
+    del model, memory, cache, full
+    gc.collect()
+    if not (out["launches"] == (2 * n, 0, 0) and out["math_calls"] == n and out["finite"]
+            and out["decode_launches"] == (0, 0, 0)):
+        fail(f"phase 21 (c) Transformer base forward: {out}")
+    if not out["decode_scaled_err"] <= TOL_NN:
+        fail(f"phase 21 (c) incremental decoding against the full forward: {out}")
+    return out
+
+
+def resnet50(T):
+    """ResNet-50 (He et al. 2016) from the port's layers, RESNET21's
+    widths: a 7x7 stem, [3, 4, 6, 3] bottlenecks of expansion 4, global
+    average pooling and a 1000-way Linear."""
+    C = RESNET21
+    nn = T.nn
+
+    class Bottleneck(nn.Layer):
+        def __init__(self, cin, width, stride):
+            super().__init__()
+            self.conv1 = nn.Conv2D(cin, width, 1, bias_attr=False)
+            self.bn1 = nn.BatchNorm2D(width)
+            self.conv2 = nn.Conv2D(width, width, 3, stride=stride, padding=1, bias_attr=False)
+            self.bn2 = nn.BatchNorm2D(width)
+            self.conv3 = nn.Conv2D(width, 4 * width, 1, bias_attr=False)
+            self.bn3 = nn.BatchNorm2D(4 * width)
+            self.relu = nn.ReLU()
+            self.downsample = None
+            if stride != 1 or cin != 4 * width:
+                self.downsample = nn.Sequential(
+                    nn.Conv2D(cin, 4 * width, 1, stride=stride, bias_attr=False),
+                    nn.BatchNorm2D(4 * width))
+
+        def forward(self, x):
+            h = self.relu(self.bn1(self.conv1(x)))
+            h = self.relu(self.bn2(self.conv2(h)))
+            h = self.bn3(self.conv3(h))
+            return self.relu(T.add(h, x if self.downsample is None else self.downsample(x)))
+
+    class ResNet(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.conv1 = nn.Conv2D(3, 64, 7, stride=2, padding=3, bias_attr=False)
+            self.bn1 = nn.BatchNorm2D(64)
+            self.relu = nn.ReLU()
+            self.maxpool = nn.MaxPool2D(3, 2, 1)
+            blocks, cin = [], 64
+            for i, (n, width) in enumerate(zip(C["blocks"], C["widths"])):
+                for j in range(n):
+                    blocks.append(Bottleneck(cin, width, 2 if j == 0 and i > 0 else 1))
+                    cin = 4 * width
+            self.layers = nn.Sequential(*blocks)
+            self.avgpool = nn.AdaptiveAvgPool2D(1)
+            self.flatten = nn.Flatten()
+            self.fc = nn.Linear(cin, C["classes"])
+            self.loss = nn.CrossEntropyLoss()
+
+        def forward(self, x):
+            h = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+            return self.fc(self.flatten(self.avgpool(self.layers(h))))
+
+    return ResNet()
+
+
+def resnet_on_card(torch, fa, T):
+    """(d): ResNet-50 trains RESNET21's Momentum steps on one batch (the loss
+    falls; the stem BatchNorm's running statistics follow paddle's momentum
+    rule), then its eval logits at B2 card against CPU."""
+    import copy
+
+    C = RESNET21
+    T.seed(24)
+    net = resnet50(T)
+    n_params = sum(p.numel() for p in net.parameters())
+    g = torch.Generator().manual_seed(24)
+    x = torch.randn(C["batch"], 3, C["image"], C["image"], generator=g).cuda()
+    y = torch.randint(0, C["classes"], (C["batch"],), generator=g).cuda()
+    seen = []
+    hook = net.bn1.register_forward_pre_hook(lambda layer, inp: seen.append(inp[0].detach()))
+    mean = torch.zeros(64, dtype=torch.float64)
+    var = torch.ones(64, dtype=torch.float64)
+    opt = T.optimizer.Momentum(learning_rate=C["lr"], momentum=C["momentum"],
+                               parameters=net.parameters())
+    reset_counts(fa)
+    torch.cuda.reset_peak_memory_stats()
+
+    def step():
+        loss = net.loss(net(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    losses, step_ms = [], []
+    for _ in range(C["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step().detach()))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        # paddle's rule: 0.9 * running + 0.1 * the batch's (unbiased variance)
+        batch = seen[-1].double().cpu()
+        mean = 0.9 * mean + 0.1 * batch.mean((0, 2, 3))
+        var = 0.9 * var + 0.1 * batch.var((0, 2, 3))
+    hook.remove()
+    stats_err = max(scaled_err(torch, net.bn1._mean, mean), scaled_err(torch, net.bn1._variance,
+                                                                        var))
+    med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    out = dict(params=n_params, losses=losses, step_ms=step_ms, step_ms_median=med,
+               images_per_sec=C["batch"] / (med / 1e3),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               running_stats_scaled_err=stats_err, launches=counts(fa),
+               profile=profile_step(torch, step, med, _NN2_GROUPS))
+    net.eval()
+    twin = copy.deepcopy(net).to("cpu")
+    b = C["cpu_batch"]
+    with torch.no_grad():
+        card = net(x[:b])
+        cpu = twin(x[:b].cpu())
+    out["logits_scaled_err"] = scaled_err(torch, card, cpu)
+    del net, twin, opt, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (losses[-1] < losses[0] and all(math.isfinite(v) for v in losses)
+            and stats_err <= TOL_NN and out["logits_scaled_err"] <= TOL_NN
+            and out["launches"] == (0, 0, 0)):
+        fail(f"phase 21 (d) ResNet-50: {out}")
+    return out
+
+
+def phase_nn2(torch, fa, T, port_F, smi):
+    """Phase 21 (module docstring)."""
+    math_calls = count_math_path(port_F)
+    out = {}
+    for key, run in (("card_vs_cpu", lambda: nn2_card_vs_cpu(torch, fa, T)),
+                     ("bert", lambda: bert_on_card(torch, fa, T, math_calls)),
+                     ("transformer", lambda: transformer_on_card(torch, fa, T, math_calls)),
+                     ("resnet", lambda: resnet_on_card(torch, fa, T))):
+        t0 = time.perf_counter()
+        out[key] = run()
+        print(f"nn2_{key} " + json.dumps(dict(out[key], card=smi,
+                                              seconds=time.perf_counter() - t0)), flush=True)
     return out
 
 
@@ -6591,6 +7274,18 @@ def main():
     if control_s > CONTROL_SECONDS:
         fail(f"phase 20 took {control_s:.1f} s, more than its {CONTROL_SECONDS} s")
 
+    # phase 21: the rest of the nn core (launch counts and the math-path count
+    # set to 0 before (a), each counted forward and each training step, read
+    # after each)
+    t0 = time.perf_counter()
+    nn2 = phase_nn2(torch, fa, T, port_F, smi)
+    nn2_s = time.perf_counter() - t0
+    print(f"phase_seconds 21 {nn2_s:.1f}", flush=True)
+    if nn2_s > NN2_SECONDS:
+        fail(f"phase 21 took {nn2_s:.1f} s, more than its {NN2_SECONDS} s")
+    bert_train = nn2["bert"]["train_o1_bf16"]["launches_per_step"][-1]
+    nn2_f32 = nn2["card_vs_cpu"]["launches_f32"]
+
     mg_total = master["training"]["launches_per_step"]
     mg_bf16 = master["training"]["launches_bf16"]
 
@@ -6620,6 +7315,8 @@ def main():
                               observed_serving=observe["serving"]["launches"][0],
                               controlled_fleet=control["launches"][0],
                               nn_core=control["nn_launches"][0],
+                              bert_base_eval_bf16=nn2["bert"]["eval_bf16"]["launches"][0],
+                              bert_base_train_o1_bf16=bert_train[0],
                               **{k: v["fwd"] for k, v in amp_launches.items()}),
         max_abs_err=main_row["max_abs_err"],
         tol=main_row["tol"], ms=main_row["kernel_ms"], kernel_ms=main_row["kernel_ms"],
@@ -6653,6 +7350,7 @@ def main():
                                   master_grad_bf16=mg_bf16[f"bwd_{key}"],
                                   profiled_two_steps=profiled[f"bwd_{key}"],
                                   observed_training=obs_launches[f"bwd_{key}"],
+                                  bert_base_train_o1_bf16=bert_train[1 + (key == "dkv")],
                                   **{k: v[f"bwd_{key}"] for k, v in amp_launches.items()}),
             max_abs_err=max(tr[f"{g}_max_abs_err"] for g in grads),
             norm_rel_err=max(tr[f"{g}_err"] for g in grads), tol=tr["tol"],
@@ -6756,7 +7454,10 @@ def main():
         name="flash_attention_fwd_f32", route="cuda",
         source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
         replaces="paddle_tpu/ops/pallas/flash_attention.py:48", launches=mg_f32["fwd"],
-        launches_by_path=dict(master_grad=mg_f32["fwd"], master_grad_all=mg_total["fwd"]),
+        launches_by_path=dict(master_grad=mg_f32["fwd"], master_grad_all=mg_total["fwd"],
+                              nn2_card_vs_cpu=nn2_f32[0],
+                              bert_base_eval_fp32=nn2["bert"]["eval_fp32"]["launches_f32"][0],
+                              transformer_base=nn2["transformer"]["launches_f32"][0]),
         max_abs_err=f32["max_abs_err"], max_scaled_err=f32["max_scaled_err"], tol=f32["tol"],
         ms=f32["kernel_ms"], call_ms=f32["kernel_call_ms"], plain_ms=f32["plain_ms"],
         bound_ms=f32["bound_ms"], bound_by=f32["bound_by"],
@@ -6773,7 +7474,8 @@ def main():
             source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
             replaces=f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
             launches=mg_f32[f"bwd_{key}"],
-            launches_by_path=dict(master_grad=mg_f32[f"bwd_{key}"]),
+            launches_by_path=dict(master_grad=mg_f32[f"bwd_{key}"],
+                                  nn2_card_vs_cpu=nn2_f32[1 + (key == "dkv")]),
             max_abs_err=max(b32[f"{g}_max_abs_err"] for g in grads),
             norm_rel_err=max(b32[f"{g}_err"] for g in grads), tol=b32["tol"],
             ms=b32[f"{key}_ms"], call_ms=b32[f"{key}_call_ms"], plain_ms=b32["plain_ms"],

@@ -1,10 +1,10 @@
 """Neural-network layers, functionals, initializers and gradient clipping of
 the port (counterpart of paddle_tpu.nn): ``Layer``, a ``torch.nn.Module``
 with paddle's methods (``nn/layer/layers.py``), its containers,
-``ParamAttr`` and the initializers, ``Linear`` and ``Embedding`` in the JAX
-layout, and the activation, norm and loss families. Conv, pooling,
-``common``/``extras``, ``transformer``, ``rnn``, ``decode``, ``nn/utils``,
-``quant`` and ``RNNTLoss`` are ROADMAP Queue A item 7b's next part."""
+``ParamAttr`` and the initializers, and the common, activation, norm, conv,
+pooling, loss, ``extras`` and transformer layers in the JAX layout, with
+their functionals. ``rnn``, ``decode``, ``nn/utils`` and ``quant`` are what
+is left of ROADMAP Queue A item 7b."""
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
 from .initializer import ParamAttr  # noqa: F401

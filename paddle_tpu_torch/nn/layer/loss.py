@@ -1,7 +1,7 @@
 """Loss layers: the port of paddle_tpu/nn/layer/loss.py, each a ``Layer``
 calling its functional (``nn/functional/loss.py``) with the arguments it was
-built with. ``RNNTLoss`` comes with ``nn.functional.rnnt_loss`` (ROADMAP
-Queue A item 7b, ``extras``)."""
+built with; ``RNNTLoss`` calls ``nn.functional.rnnt_loss``
+(``nn/functional/extras.py``)."""
 from __future__ import annotations
 
 from .. import functional as F
@@ -11,7 +11,7 @@ __all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "NLLLoss", "BCELoss", "BCEWi
            "SmoothL1Loss", "HuberLoss", "KLDivLoss", "MarginRankingLoss",
            "HingeEmbeddingLoss", "CosineEmbeddingLoss", "TripletMarginLoss",
            "SoftMarginLoss", "MultiLabelSoftMarginLoss", "PoissonNLLLoss",
-           "GaussianNLLLoss", "CTCLoss"]
+           "GaussianNLLLoss", "CTCLoss", "RNNTLoss"]
 
 
 class CrossEntropyLoss(Layer):
@@ -199,3 +199,17 @@ class CTCLoss(Layer):
     def forward(self, log_probs, labels, input_lengths, label_lengths, norm_by_times=False):
         return F.ctc_loss(log_probs, labels, input_lengths, label_lengths, self.blank,
                           self.reduction, norm_by_times)
+
+
+class RNNTLoss(Layer):
+    """The layer form of ``nn.functional.rnnt_loss``."""
+
+    def __init__(self, blank=0, fastemit_lambda=0.001, reduction="mean", name=None):
+        super().__init__()
+        self.blank = blank
+        self.fastemit_lambda = fastemit_lambda
+        self.reduction = reduction
+
+    def forward(self, input, label, input_lengths, label_lengths):  # noqa: A002
+        return F.rnnt_loss(input, label, input_lengths, label_lengths, blank=self.blank,
+                           reduction=self.reduction, fastemit_lambda=self.fastemit_lambda)

@@ -53,8 +53,8 @@ give the replica-labeled document in-process. The router lock is a
 ``new_lock`` (witnessed by the lock-order sanitizer when it is on at
 construction) and the request ledger reports its accesses to the race
 witness. ``recent_ttft_ms`` and ``recent_arrivals`` are the rolling
-host-side windows a controller reads; the controller is not ported yet
-(``control/``, the rest of ROADMAP Queue A item 7).
+host-side windows the controller reads (``control/``,
+``control.build_serving_controller``).
 """
 from __future__ import annotations
 

@@ -642,43 +642,12 @@ def _tagged(item, groups):
 
 
 NN_DEFERRED = _tagged("7b", {
-    "layer/common": "AlphaDropout Bilinear ChannelShuffle CosineSimilarity Dropout Dropout2D "
-                    "Dropout3D Flatten Fold Identity Pad1D Pad2D Pad3D PairwiseDistance "
-                    "PixelShuffle PixelUnshuffle Unflatten Unfold Upsample "
-                    "UpsamplingBilinear2D UpsamplingNearest2D ZeroPad2D",
-    "layer/extras": "AdaptiveLogSoftmaxWithLoss FeatureAlphaDropout FractionalMaxPool2D "
-                    "FractionalMaxPool3D HSigmoidLoss LPPool1D LPPool2D LogSigmoid "
-                    "MaxUnPool1D MaxUnPool2D MaxUnPool3D MultiMarginLoss RReLU "
-                    "TripletMarginWithDistanceLoss ZeroPad1D ZeroPad3D",
-    "layer/conv": "Conv1D Conv1DTranspose Conv2D Conv2DTranspose Conv3D Conv3DTranspose",
-    "layer/pooling": "AdaptiveAvgPool1D AdaptiveAvgPool2D AdaptiveAvgPool3D AdaptiveMaxPool1D "
-                     "AdaptiveMaxPool2D AdaptiveMaxPool3D AvgPool1D AvgPool2D AvgPool3D "
-                     "MaxPool1D MaxPool2D MaxPool3D",
-    "layer/transformer": "MultiHeadAttention Transformer TransformerDecoder "
-                         "TransformerDecoderLayer TransformerEncoder TransformerEncoderLayer",
     "layer/rnn": "BiRNN GRU GRUCell LSTM LSTMCell RNN RNNCellBase SimpleRNN SimpleRNNCell",
     "decode": "BeamSearchDecoder Decoder decode dynamic_decode",
     "quant": "quant",
-    # needs functional/extras.rnnt_loss
-    "layer/loss": "RNNTLoss",
 })
 
-NN_FUNCTIONAL_DEFERRED = _tagged("7b", {
-    "common": "alpha_dropout channel_shuffle cosine_similarity dropout dropout2d dropout3d "
-              "fold interpolate label_smooth normalize one_hot pixel_shuffle pixel_unshuffle "
-              "sequence_mask unfold upsample pad",
-    "extras": "adaptive_log_softmax_with_loss affine_grid bilinear class_center_sample elu_ "
-              "feature_alpha_dropout flashmask_attention fractional_max_pool2d "
-              "fractional_max_pool3d gather_tree grid_sample hardtanh_ hsigmoid_loss "
-              "leaky_relu_ log_sigmoid lp_pool1d lp_pool2d margin_cross_entropy max_unpool1d "
-              "max_unpool2d max_unpool3d multi_margin_loss npair_loss pairwise_distance "
-              "rnnt_loss rrelu sigmoid_focal_loss sparse_attention tanh_ temporal_shift "
-              "thresholded_relu_ triplet_margin_with_distance_loss zeropad2d",
-    "conv": "conv conv1d conv1d_transpose conv2d conv2d_transpose conv3d conv3d_transpose",
-    "pooling": "pooling adaptive_avg_pool1d adaptive_avg_pool2d adaptive_avg_pool3d "
-               "adaptive_max_pool1d adaptive_max_pool2d adaptive_max_pool3d avg_pool1d "
-               "avg_pool2d avg_pool3d max_pool1d max_pool2d max_pool3d",
-})
+NN_FUNCTIONAL_DEFERRED = _tagged("7b", {})
 
 
 @pytest.mark.parametrize("module,deferred", [("nn", NN_DEFERRED),
@@ -697,4 +666,4 @@ def test_missing_nn_names_are_the_deferred_lists(module, deferred):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == sorted(deferred)
-    assert set(deferred.values()) == {"7b"}
+    assert set(deferred.values()) <= {"7b"}

@@ -322,16 +322,19 @@ def test_optimizer_state_roundtrip(tmp_path):
 
 
 def _to_numpy_state(state):
+    """The state as numpy copies: a CPU tensor's ``.numpy()`` shares its
+    memory, which ``jnp.asarray`` aliases without a copy, so the source
+    optimizer's in-place updates would race the other package's reads."""
     out = {}
     for k, v in state.items():
         if k == "master_weights":
-            out[k] = {n: np.asarray(t.numpy() if not isinstance(t, torch.Tensor)
-                                    else t.detach().cpu().numpy()) for n, t in v.items()}
+            out[k] = {n: np.array(t.numpy() if not isinstance(t, torch.Tensor)
+                                  else t.detach().cpu().numpy()) for n, t in v.items()}
         elif k in ("LR_Scheduler", "@step"):
             out[k] = v
         else:
-            out[k] = np.asarray(v.numpy() if not isinstance(v, torch.Tensor)
-                                else v.detach().cpu().numpy())
+            out[k] = np.array(v.numpy() if not isinstance(v, torch.Tensor)
+                              else v.detach().cpu().numpy())
     return out
 
 
