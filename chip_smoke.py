@@ -373,6 +373,33 @@ Phases, each a hard check (the script exits nonzero on the first failure):
      3 Momentum steps at B32 3x224x224 fp32 on one batch, the loss falls and
      the stem BatchNorm's running statistics follow paddle's rule, eval
      logits at B2 against the CPU; step_ms, images/s, peak memory.
+ 22. the last of the nn core, quantization, GPT and BERT (at most
+     MODELS_SECONDS): (a) every ported layer and function of rnn, nn.utils
+     and quantization, forward and gradient, card against CPU in fp32 (RNNs
+     at B16 T64, 512 wide, weight-only at the flagship's 2048 x 5632), beam
+     search with a GRUCell of 512 over 32000 tokens at B8 K4, 32 steps in
+     float64 (ids, parents and lengths bit for bit), int8/int4 tensors
+     quantized from CUDA weights equal to those from CPU weights bit for
+     bit; (b) GPT-3 XL (Brown et al. 2020, Table 2.1: 24 layers, d_model
+     2048, 16 heads x 128, FFN 8192, tied, vocab 50304): an eval forward at
+     B4 S2048 under auto_cast bf16 launches kernel 1 24 times and never takes
+     the math path; 5 O1 bf16 AdamW steps with recompute and hidden dropout
+     0.1 launch kernels 1-3 48/24/24 times a step, the loss falls; one
+     training forward at 2 layers with attention dropout 0.1 takes the math
+     path (its ms beside the kernel forward's); 2 layers in fp32 at B2 S256
+     card against CPU and fused_head_ce against the standard loss, within
+     1e-4 relative; (c) BERT-base pretraining (BertConfig(), B32 S128, 15%
+     MLM labels, NSP labels): the fp32 eval forward launches kernel 1 12
+     times, a padding mask takes the math path 12 times, 5 O1 bf16 AdamW
+     steps at the published dropouts take the math path 12 times a forward
+     and the loss falls, a state_dict round trip keeps the tied weight one
+     tensor; (d) the flagship quantized int8 and int4 and served by
+     LlamaDecodeEngine at phase 3's shape (8 launches a prefill, graphs
+     captured), tokens/s and greedy agreement beside the dense engine's, the
+     model's own forward through weight_only_linear (8 launches, its logits'
+     error against dense), a decoder block int8 within 0.05 of dense (the
+     JAX test's bar); (e) a 2-layer bidirectional LSTM (512 -> 1024, B32
+     T256, fp32) forward and backward on torch's fused recurrent op.
 Phases 3, 9 and 13 time the decode engine's default, the captured path.
 The last line is the device JSON object; the line before it the card's name
 and power limit; before that the kernels JSON object.
@@ -7070,6 +7097,578 @@ def phase_nn2(torch, fa, T, port_F, smi):
     return out
 
 
+# phase 22: the last of the nn core, quantization, GPT and BERT (module
+# docstring). MODELS_SECONDS is its share of the script's time.
+MODELS_SECONDS = 120
+# (a): card against CPU: the RNNs at B16 T64, 512 wide; weight-only at the
+# flagship's 2048 x 5632; beam search with a GRUCell of 512 over 32000
+# tokens, B8 K4, 32 steps, float64
+RNN22 = dict(batch=16, steps=64, width=512)
+WOL22 = dict(k=2048, n=5632, rows=256, group=64)
+BEAM22 = dict(hidden=512, vocab=32000, batch=8, beam=4, steps=32)
+# (b): GPT-3 XL, Brown et al. 2020, Table 2.1: 24 layers, d_model 2048,
+# d_head 128 (16 heads: the table's 24 does not divide 2048), context 2048;
+# FFN 4 d_model, tied; GPTConfig's vocabulary (GPT-2's 50257 padded to a
+# multiple of 64). B4 S2048, 5 O1 bf16 AdamW steps on one batch with
+# recompute and hidden dropout 0.1, attention dropout 0 (the kernels' path);
+# 2 layers with the published attention dropout 0.1 (the math path); 2 layers
+# fp32 at B2 S256 card against CPU
+GPT22 = dict(vocab=50304, hidden=2048, layers=24, heads=16, ffn=8192, positions=2048,
+             batch=4, seq=2048, steps=5, lr=1e-4, hidden_dropout=0.1, attn_dropout=0.1,
+             small_layers=2, cpu_batch=2, cpu_seq=256, timed=3)
+# (c): BASELINE config 3 as bench_suite.py:172-174 runs it: BertConfig()
+# (bert-base-uncased's widths, 2 token types), B32 S128, 15% MLM labels, NSP
+# labels, 5 O1 bf16 AdamW steps at the published dropouts on one batch; a
+# padding mask over the last ``pad`` positions of every other row
+BERT22 = dict(batch=32, seq=128, steps=5, lr=1e-4, mlm=0.15, pad=32, timed=3)
+# (d): phase 3's shape through the weight-only engines; tests/test_quantization.py's
+# int8 bar (a decoder block's output within 0.05 of dense, relative to its
+# largest value) held at the flagship's width on layer 0, in fp32, h ~ 0.5 N(0, 1)
+SERVE22 = dict(batch=8, prompt=128, new=32, timed=3, tol_int8_block=0.05)
+# (e): a recogniser's acoustic LSTM: 2 bidirectional layers, 512 -> 1024,
+# B32 T256, fp32, forward and backward
+LSTM22 = dict(layers=2, input=512, hidden=1024, batch=32, steps=256, timed=3)
+TOL_GPT_LOSS = 1e-4        # relative; (b)'s fp32 card against CPU and fused head
+
+
+def flat_outputs(fn):
+    """``fn`` with its nested tuple outputs flattened (``cases_card_vs_cpu``
+    reads a flat list)."""
+    def flat(out):
+        if isinstance(out, (tuple, list)):
+            return [o for x in out for o in flat(x)]
+        return [out]
+    return lambda *args: tuple(flat(fn(*args)))
+
+
+def models22_cases(torch, T):
+    """(family, name, fn, inputs) of every layer and function of rnn,
+    nn.utils and quantization at (a)'s shapes."""
+    nn, Q, U = T.nn, T.quantization, T.nn.utils
+    C, W = RNN22, WOL22
+    B, S, H = C["batch"], C["steps"], C["width"]
+    g = torch.Generator().manual_seed(22)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g)
+
+    def layer(make, seed=22):
+        return flat_outputs(seeded_layer(T, make, seed))
+
+    class Call(nn.Layer):
+        """``call(inner, *xs)`` as a layer's forward."""
+
+        def __init__(self, inner, call):
+            super().__init__()
+            self.inner, self._call = inner, call
+
+        def forward(self, *xs):
+            return self._call(self.inner, *xs)
+
+    def normed(norm, make, **kw):
+        def build():
+            lyr = make()
+            norm(lyr, **kw)
+            return lyr
+        return layer(build)
+
+    cases = []
+    for mode in ("LSTM", "GRU", "SimpleRNN"):
+        cases.append(("rnn", f"{mode}_2_bidirect", layer(lambda m=mode: getattr(nn, m)(
+            H, H, num_layers=2, direction="bidirect")), [rn(B, S, H)]))
+    cases += [
+        ("rnn", "LSTM_time_major_states", layer(lambda: Call(
+            nn.LSTM(H, H, time_major=True), lambda m, x, h, c: m(x, (h, c)))),
+         [rn(S, B, H), rn(1, B, H), rn(1, B, H)]),
+        ("rnn", "LSTMCell", layer(lambda: nn.LSTMCell(H, H)), [rn(B, H)]),
+        ("rnn", "GRUCell", layer(lambda: nn.GRUCell(H, H)), [rn(B, H), rn(B, H)]),
+        ("rnn", "SimpleRNNCell_relu", layer(lambda: nn.SimpleRNNCell(H, H, activation="relu")),
+         [rn(B, H), rn(B, H)]),
+        ("rnn", "RNN_GRUCell", layer(lambda: nn.RNN(nn.GRUCell(H, H))), [rn(B, S, H)]),
+        ("rnn", "BiRNN_LSTMCell", layer(lambda: nn.BiRNN(nn.LSTMCell(H, H),
+                                                         nn.LSTMCell(H, H))), [rn(B, S, H)]),
+        ("utils", "weight_norm_dim0", normed(U.weight_norm, lambda: nn.Linear(H, H), dim=0),
+         [rn(B, H)]),
+        ("utils", "weight_norm_none", normed(U.weight_norm, lambda: nn.Linear(H, H), dim=None),
+         [rn(B, H)]),
+        ("utils", "weight_norm_conv", normed(U.weight_norm, lambda: nn.Conv2D(16, 32, 3)),
+         [rn(2, 16, 32, 32)]),
+        ("utils", "spectral_norm", normed(U.spectral_norm, lambda: nn.Linear(H, H),
+                                          n_power_iterations=4), [rn(B, H)]),
+        ("utils", "parameters_to_vector", lambda a, b: U.parameters_to_vector([a, b]) * 1.0,
+         [rn(H, H), rn(H)]),
+    ]
+    w = rn(W["k"], W["n"]) * 0.02
+    for algo, dt in (("int8", "weight_only_int8"), ("int4", "weight_only_int4")):
+        q, s = Q.weight_quantize(w, dt)
+        cases.append(("quantization", f"weight_only_linear_{algo}",
+                      lambda x, b, q=q, s=s, a=algo: Q.weight_only_linear(
+                          x, q.to(x.device), b, s.to(x.device), weight_dtype=a),
+                      [rn(W["rows"], W["k"]), rn(W["n"])]))
+    qg, sg = Q.weight_quantize(w, group_size=W["group"])
+    cases += [
+        ("quantization", "weight_only_linear_group64",
+         lambda x, q=qg, s=sg: Q.weight_only_linear(x, q.to(x.device), None, s.to(x.device)),
+         [rn(W["rows"], W["k"])]),
+        ("quantization", "WeightOnlyLinear", layer(lambda: Q.WeightOnlyLinear(
+            nn.Linear(W["k"], W["n"]))), [rn(W["rows"], W["k"])]),
+        ("quantization", "weight_dequantize_int4", lambda s, q=Q.weight_quantize(
+            w, "weight_only_int4")[0]: Q.weight_dequantize(q.to(s.device), s,
+                                                          "weight_only_int4", k=W["k"]),
+         [rn(W["n"]).abs()]),
+        ("quantization", "quant_dequant", lambda x: Q.quant_dequant(
+            x, torch.tensor(2.5, device=x.device)), [rn(B, S, H)]),
+        ("quantization", "FakeQuanterWithAbsMax", layer(
+            lambda: Q.FakeQuanterWithAbsMax().train()), [rn(B, S, H)]),
+        ("quantization", "FakeQuanterChannelWiseAbsMax", layer(
+            lambda: Q.FakeQuanterChannelWiseAbsMax(axis=-1).train()), [rn(B, S, H)]),
+        ("quantization", "QAT_Linear", layer(lambda: Q.QAT().quantize(
+            nn.Sequential(nn.Linear(H, H), nn.ReLU(), nn.Linear(H, 64))).train()),
+         [rn(B, H)]),
+    ]
+    return cases
+
+
+def quantize_bits_card_vs_cpu(torch, T):
+    """int8 (per channel and group-wise) and int4 tensors and scales from
+    CUDA weights against those from the same weights on the CPU, bit for
+    bit, in fp32 and bf16."""
+    Q, W = T.quantization, WOL22
+    w = torch.randn(W["k"], W["n"], generator=torch.Generator().manual_seed(23)) * 0.02
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for algo, group in (("weight_only_int8", -1), ("weight_only_int8", W["group"]),
+                            ("weight_only_int4", -1)):
+            src = w.to(dt)
+            card = Q.weight_quantize(src.cuda(), algo, group_size=group)
+            cpu = Q.weight_quantize(src, algo, group_size=group)
+            same = all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))
+            rows[f"{algo}_g{group}_{str(dt)[6:]}"] = same
+            if not same:
+                fail(f"phase 22 (a) {algo} group {group} {dt}: card tensors differ from CPU's")
+    return rows
+
+
+def beam_card_vs_cpu(torch, T):
+    """Beam search with a GRUCell, float64, card against CPU: every step's
+    ids and parents, the backtracked ids and the lengths bit for bit; the
+    scores' largest relative difference."""
+    import copy
+
+    C = BEAM22
+    T.seed(24)
+    parts = [T.nn.GRUCell(C["hidden"], C["hidden"]), T.nn.Embedding(C["vocab"], C["hidden"]),
+             T.nn.Linear(C["hidden"], C["vocab"])]
+    parts = [p.to(dtype="float64") for p in parts]
+    init = torch.randn(C["batch"], C["hidden"], generator=torch.Generator().manual_seed(24),
+                       dtype=torch.float64)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        cell, emb, proj = [copy.deepcopy(p).to(dev) for p in parts]
+        dec = T.nn.BeamSearchDecoder(cell, start_token=0, end_token=1, beam_size=C["beam"],
+                                     embedding_fn=emb, output_fn=proj)
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            preds, states, lengths = T.nn.dynamic_decode(dec, inits=init.to(dev),
+                                                         max_step_num=C["steps"],
+                                                         return_length=True)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            inputs, st, _ = dec.initialize(init.to(dev))
+            steps = []
+            for t in range(C["steps"]):
+                o, st, inputs, fin = dec.step(t, inputs, st)
+                steps.append([v.cpu() for v in o])
+        got[dev] = dict(preds=preds.cpu(), lengths=lengths.cpu(), log_probs=states.log_probs.cpu(),
+                        steps=steps, seconds=secs)
+    a, b = got["cuda"], got["cpu"]
+    same = (torch.equal(a["preds"], b["preds"]) and torch.equal(a["lengths"], b["lengths"])
+            and all(torch.equal(x[1], y[1]) and torch.equal(x[2], y[2])
+                    for x, y in zip(a["steps"], b["steps"])))
+    score_rel = max(float(((x[0] - y[0]).abs() / y[0].abs().clamp_min(1e-30)).max())
+                    for x, y in zip(a["steps"], b["steps"]))
+    out = dict(shape=list(a["preds"].shape), ids_parents_lengths_equal=same,
+               score_max_rel=score_rel, card_s=a["seconds"], cpu_s=b["seconds"])
+    if not same or not score_rel <= 1e-10:
+        fail(f"phase 22 (a) beam search card against CPU: {out}")
+    return out
+
+
+def models22_card_vs_cpu(torch, fa, T):
+    """(a): the cases card against CPU, the quantized bits, the beams."""
+    from paddle_tpu_torch.nn.layer import rnn as rnn_mod
+
+    reset_counts(fa)
+    fused = rnn_mod.ROUTES["fused"]
+    res = cases_card_vs_cpu(torch, models22_cases(torch, T), "phase 22 (a)")
+    res["rnn_scan_fused_calls"] = rnn_mod.ROUTES["fused"] - fused
+    res["quantized_bits_equal"] = quantize_bits_card_vs_cpu(torch, T)
+    res["beam_search"] = beam_card_vs_cpu(torch, T)
+    res["launches"] = counts(fa)
+    if res["rnn_scan_fused_calls"] < 4 or res["launches"] != (0, 0, 0):
+        fail(f"phase 22 (a): {res}")
+    return res
+
+
+def gpt22(T, models, layers, **kw):
+    C = GPT22
+    cfg = dict(vocab_size=C["vocab"], hidden_size=C["hidden"], intermediate_size=C["ffn"],
+               num_hidden_layers=layers, num_attention_heads=C["heads"],
+               max_position_embeddings=C["positions"], tie_word_embeddings=True)
+    cfg.update(kw)
+    return models.GPTForCausalLM(models.GPTConfig(**cfg))
+
+
+def gpt_on_card(torch, fa, T, models, math_calls):
+    """(b): GPT-3 XL eval and O1 bf16 training at B4 S2048; the attention
+    dropout's math path at 2 layers; 2 layers fp32 card against CPU."""
+    import copy
+
+    C = GPT22
+    L = C["layers"]
+    g = torch.Generator().manual_seed(25)
+    ids = torch.randint(0, C["vocab"], (C["batch"], C["seq"]), generator=g).cuda()
+    labels = torch.randint(0, C["vocab"], (C["batch"], C["seq"]), generator=g).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    T.seed(25)
+    gpt = gpt22(T, models, L, hidden_dropout_prob=C["hidden_dropout"],
+                attention_probs_dropout_prob=0.0, recompute=True)
+    out = dict(params=sum(p.numel() for p in gpt.parameters()))
+
+    def eval_forward():
+        with torch.no_grad(), T.amp.auto_cast(level="O1", dtype="bfloat16"):
+            return gpt(ids)
+
+    gpt.eval()
+    reset_counts(fa)
+    math_calls[0] = 0
+    logits = eval_forward()
+    torch.cuda.synchronize()
+    row = dict(launches=counts(fa), launches_f32=counts_f32(fa), math_calls=math_calls[0],
+               finite=bool(torch.isfinite(logits).all()), dtype=str(logits.dtype),
+               shape=list(logits.shape))
+    del logits
+    row["ms"], row["ms_all"] = timed_runs(torch, lambda: eval_forward(), C["timed"])
+    row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["eval_bf16"] = row
+    if not (row["launches"] == (L, 0, 0) and row["launches_f32"] == (0, 0, 0)
+            and row["math_calls"] == 0 and row["finite"]):
+        fail(f"phase 22 (b) GPT-3 XL eval forward: {row}")
+    # O1 bf16 AdamW with recompute: kernel 1 twice a layer (forward and
+    # recompute), dq and dk/dv once
+    gpt.train()
+    opt = T.optimizer.AdamW(learning_rate=C["lr"], parameters=gpt.parameters())
+    torch.cuda.reset_peak_memory_stats()
+
+    def step():
+        with T.amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss, _ = gpt(ids, labels=labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    losses, step_ms, launches = [], [], []
+    for _ in range(C["steps"]):
+        reset_counts(fa)
+        math_calls[0] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step().detach()))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(counts(fa) + (math_calls[0],))
+    med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    tokens = C["batch"] * C["seq"]
+    out["train_o1_bf16"] = dict(
+        losses=losses, step_ms=step_ms, step_ms_median=med, tokens_per_sec=tokens / (med / 1e3),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches_per_step=launches)
+    del gpt, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (all(tuple(s) == (2 * L, L, L, 0) for s in launches) and losses[-1] < losses[0]
+            and all(math.isfinite(v) for v in losses)):
+        fail(f"phase 22 (b) GPT-3 XL O1 bf16 training: {out['train_o1_bf16']}")
+    # the published attention dropout: a training forward on the math path,
+    # beside the same forward on kernel 1
+    T.seed(26)
+    small = gpt22(T, models, C["small_layers"], hidden_dropout_prob=C["hidden_dropout"],
+                  attention_probs_dropout_prob=C["attn_dropout"]).train()
+    rows = {}
+    for name, p in (("dropout_math_path", C["attn_dropout"]), ("no_dropout_kernel", 0.0)):
+        small.config.attention_probs_dropout_prob = p
+
+        def fwd():
+            with torch.no_grad(), T.amp.auto_cast(level="O1", dtype="bfloat16"):
+                return small(ids)
+
+        reset_counts(fa)
+        math_calls[0] = 0
+        fwd()
+        torch.cuda.synchronize()
+        rows[name] = dict(launches=counts(fa), math_calls=math_calls[0])
+        rows[name]["ms"], rows[name]["ms_all"] = timed_runs(torch, fwd, C["timed"])
+    out["train_forward_2_layers"] = rows
+    n = C["small_layers"]
+    if not (rows["dropout_math_path"]["launches"] == (0, 0, 0)
+            and rows["dropout_math_path"]["math_calls"] == n
+            and rows["no_dropout_kernel"]["launches"] == (n, 0, 0)
+            and rows["no_dropout_kernel"]["math_calls"] == 0):
+        fail(f"phase 22 (b) attention dropout routing: {rows}")
+    del small
+    # 2 layers in fp32, card against CPU, and the fused head on the card
+    T.seed(27)
+    small = gpt22(T, models, C["small_layers"], hidden_dropout_prob=0.0,
+                  attention_probs_dropout_prob=0.0).eval()
+    twin = copy.deepcopy(small).to("cpu")
+    b, s_ = C["cpu_batch"], C["cpu_seq"]
+    with torch.no_grad():
+        reset_counts(fa)
+        card, card_logits = small(ids[:b, :s_], labels=labels[:b, :s_])
+        launches_f32 = counts_f32(fa)
+        cpu, cpu_logits = twin(ids[:b, :s_].cpu(), labels=labels[:b, :s_].cpu())
+        small.config.fused_head_ce = True
+        fused, none_logits = small(ids[:b, :s_], labels=labels[:b, :s_])
+    card, cpu, fused = float(card), float(cpu), float(fused)
+    out["two_layers_fp32"] = dict(card=card, cpu=cpu, rel=abs(card - cpu) / abs(cpu),
+                                  logits_scaled_err=scaled_err(torch, card_logits, cpu_logits),
+                                  fused=fused, fused_rel=abs(fused - card) / abs(card),
+                                  launches_f32=launches_f32, tol=TOL_GPT_LOSS)
+    del small, twin, card_logits, cpu_logits
+    n = C["small_layers"]
+    if not (out["two_layers_fp32"]["rel"] <= TOL_GPT_LOSS and none_logits is None
+            and out["two_layers_fp32"]["logits_scaled_err"] <= TOL_GPT_LOSS
+            and launches_f32 == (n, 0, 0)
+            and out["two_layers_fp32"]["fused_rel"] <= TOL_GPT_LOSS):
+        fail(f"phase 22 (b) 2 layers fp32: {out['two_layers_fp32']}")
+    return out
+
+
+def bert_pretraining_on_card(torch, fa, T, models, math_calls):
+    """(c): BERT-base pretraining at B32 S128: the fp32 eval forward on
+    kernel 1, masked on the math path, O1 bf16 AdamW steps at the published
+    dropouts (the math path), a state_dict round trip."""
+    C = BERT22
+    cfg = models.BertConfig()
+    L = cfg.num_hidden_layers
+    g = torch.Generator().manual_seed(28)
+    B, S = C["batch"], C["seq"]
+    ids = torch.randint(0, cfg.vocab_size, (B, S), generator=g)
+    types = torch.zeros(B, S, dtype=torch.int64)
+    mlm = torch.where(torch.rand(B, S, generator=g) < C["mlm"],
+                      torch.randint(0, cfg.vocab_size, (B, S), generator=g), -100)
+    nsp = torch.randint(0, 2, (B,), generator=g)
+    mask = torch.ones(B, S, dtype=torch.int64)
+    mask[1::2, -C["pad"]:] = 0
+    ids, types, mlm, nsp, mask = (t.cuda() for t in (ids, types, mlm, nsp, mask))
+    torch.cuda.reset_peak_memory_stats()
+    T.seed(28)
+    bert = models.BertForPretraining(cfg)
+    crit = models.BertPretrainingCriterion(cfg.vocab_size)
+    out = dict(params=sum(p.numel() for p in bert.parameters()))
+    bert.eval()
+
+    def forward(name, attention_mask=None):
+        def run():
+            with torch.no_grad():
+                return bert(ids, token_type_ids=types, attention_mask=attention_mask)
+
+        reset_counts(fa)
+        math_calls[0] = 0
+        scores, rel = run()
+        torch.cuda.synchronize()
+        row = dict(launches=counts(fa), launches_f32=counts_f32(fa), math_calls=math_calls[0],
+                   finite=bool(torch.isfinite(scores).all() and torch.isfinite(rel).all()))
+        row["ms"], row["ms_all"] = timed_runs(torch, run, C["timed"])
+        out[name] = row
+        return row
+
+    f32, masked = forward("eval_fp32"), forward("eval_fp32_padding_mask", mask)
+    if not (f32["launches"] == (L, 0, 0) and f32["launches_f32"] == (L, 0, 0)
+            and f32["math_calls"] == 0 and masked["launches"] == (0, 0, 0)
+            and masked["math_calls"] == L and f32["finite"] and masked["finite"]):
+        fail(f"phase 22 (c) BERT-base eval forwards: {out}")
+    # a state_dict round trip into a fresh model keeps the tie
+    state = bert.state_dict()
+    T.seed(29)
+    fresh = models.BertForPretraining(cfg)
+    missing, unexpected = fresh.set_state_dict(state)
+    tied = (fresh.cls.decoder_weight is fresh.bert.embeddings.word_embeddings.weight
+            and fresh.cls.decoder_weight.is_cuda
+            and torch.equal(fresh.cls.decoder_weight, bert.cls.decoder_weight))
+    out["state_dict"] = dict(keys=len(state), missing=missing, unexpected=unexpected, tied=tied)
+    del fresh, state
+    # embeddings 5, a layer 16, the pooler 2, the heads 7: no decoder weight
+    if missing or unexpected or not tied or out["state_dict"]["keys"] != 5 + 16 * L + 2 + 7:
+        fail(f"phase 22 (c) state_dict round trip: {out['state_dict']}")
+    bert.train()
+    opt = T.optimizer.AdamW(learning_rate=C["lr"], parameters=bert.parameters())
+    torch.cuda.reset_peak_memory_stats()
+
+    def step():
+        with T.amp.auto_cast(level="O1", dtype="bfloat16"):
+            scores, rel = bert(ids, token_type_ids=types)
+            loss = crit(scores, rel, mlm, nsp)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    losses, step_ms, launches = [], [], []
+    for _ in range(C["steps"]):
+        reset_counts(fa)
+        math_calls[0] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step().detach()))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(counts(fa) + (math_calls[0],))
+    med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    out["train_o1_bf16"] = dict(
+        losses=losses, step_ms=step_ms, step_ms_median=med,
+        tokens_per_sec=B * S / (med / 1e3), peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches_per_step=launches)
+    del bert, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (all(tuple(s) == (0, 0, 0, L) for s in launches) and losses[-1] < losses[0]
+            and all(math.isfinite(v) for v in losses)):
+        fail(f"phase 22 (c) BERT-base O1 bf16 training: {out['train_o1_bf16']}")
+    return out
+
+
+def weight_only_serving(torch, fa, T, models):
+    """(d): the flagship quantized int8 and int4, served by the decode
+    engine at phase 3's shape beside the dense engine; the model's own
+    forward through weight_only_linear."""
+    import copy
+
+    from paddle_tpu_torch.jit import _cuda_graph
+
+    C = SERVE22
+    cfg = models.LlamaConfig(**FLAGSHIP, dtype="bfloat16")
+    L = cfg.num_hidden_layers
+    torch.cuda.reset_peak_memory_stats()
+    dense = models.LlamaForCausalLM(cfg, device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    prompts = torch.randint(0, cfg.vocab_size, (C["batch"], C["prompt"]), device="cuda",
+                            generator=gen)
+    out, ref = {}, {}
+    for name in ("dense", "weight_only_int8", "weight_only_int4"):
+        model = dense
+        row = {}
+        if name != "dense":
+            model = copy.deepcopy(dense)
+            row["swapped"] = T.quantization.quantize_for_inference(model, algo=name)
+        captures = _cuda_graph._Program.captures
+        engine = models.LlamaDecodeEngine(model, max_len=C["prompt"] + C["new"] + 1)
+        run = serve_timed(torch, fa, engine, prompts, C["new"], torch.cuda.synchronize)
+        row.update(run["numbers"])
+        row["graphs_captured"] = _cuda_graph._Program.captures - captures
+        toks = run["toks"]
+        del run, engine
+
+        def fwd(model=model):
+            with torch.no_grad():
+                return model(prompts)
+
+        reset_counts(fa)
+        logits = fwd()
+        torch.cuda.synchronize()
+        row["forward_launches"] = counts(fa)
+        row["forward_ms"], row["forward_ms_all"] = timed_runs(torch, fwd, C["timed"])
+        if name == "dense":
+            ref = dict(toks=toks, logits=logits.float())
+        else:
+            row["greedy_equal_share"] = float((toks == ref["toks"]).float().mean())
+            row["logit_rel_err"] = float((logits.float() - ref["logits"]).abs().max()
+                                         / ref["logits"].abs().max())
+            del model
+        del logits
+        out[name] = row
+        ok = (row["launches_prefill"] == L and row["launches_generate"] == L
+              and row["launches_decode"] == 0 and row["graphs_captured"] > 0
+              and row["forward_launches"] == (L, 0, 0))
+        if name != "dense":
+            ok = ok and row["swapped"] == 7 * L
+        if not ok:
+            fail(f"phase 22 (d) {name} serving: {row}")
+    # tests/test_quantization.py's bar on layer 0 at the flagship's width
+    block = copy.deepcopy(dense.llama.layers[0]).float()
+    h = torch.randn(2, C["prompt"], cfg.hidden_size, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(8)) * 0.5
+    with torch.no_grad():
+        want = block(h)
+        T.quantization.quantize_for_inference(block, algo="weight_only_int8")
+        got = block(h)
+    out["int8_block_rel_err"] = float((got - want).abs().max() / want.abs().max())
+    out["int8_block_tol"] = C["tol_int8_block"]
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del dense, ref, block
+    if not out["int8_block_rel_err"] < C["tol_int8_block"]:
+        fail(f"phase 22 (d) int8 decoder block: {out}")
+    return out
+
+
+def lstm_on_card(torch, T):
+    """(e): a 2-layer bidirectional LSTM forward and backward; the route
+    ``rnn_scan`` took."""
+    from paddle_tpu_torch.nn.layer import rnn as rnn_mod
+
+    C = LSTM22
+    T.seed(30)
+    lstm = T.nn.LSTM(C["input"], C["hidden"], num_layers=C["layers"], direction="bidirect")
+    x = torch.randn(C["batch"], C["steps"], C["input"], device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    routes = dict(rnn_mod.ROUTES)
+
+    def step():
+        y, (h, c) = lstm(x)
+        (y.float().square().mean() + h.sum() * 0 + c.sum() * 0).backward()
+        return y
+
+    y = step()
+    torch.cuda.synchronize()
+    ms, ms_all = timed_runs(torch, step, C["timed"])
+    fwd_ms, fwd_all = timed_runs(torch, lambda: lstm(x), C["timed"])
+    route = {k: rnn_mod.ROUTES[k] - routes[k] for k in routes}
+    out = dict(params=sum(p.numel() for p in lstm.parameters()), shape=list(y.shape),
+               ms_per_step=ms, ms_all=ms_all, forward_ms=fwd_ms, forward_ms_all=fwd_all,
+               route="fused" if route["fused"] and not route["loop"] else "loop",
+               route_calls=route, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               finite=bool(torch.isfinite(y).all()
+                           and all(torch.isfinite(p.grad).all() for p in lstm.parameters())))
+    del lstm, x, y
+    if not (out["finite"] and out["shape"] == [C["batch"], C["steps"], 2 * C["hidden"]]):
+        fail(f"phase 22 (e) LSTM: {out}")
+    return out
+
+
+def phase_models(torch, fa, T, port_F, smi):
+    """Phase 22 (module docstring)."""
+    import paddle_tpu_torch.models as models
+
+    math_calls = count_math_path(port_F)
+    out = {}
+    for key, run in (("card_vs_cpu", lambda: models22_card_vs_cpu(torch, fa, T)),
+                     ("gpt3_xl", lambda: gpt_on_card(torch, fa, T, models, math_calls)),
+                     ("bert_pretraining", lambda: bert_pretraining_on_card(torch, fa, T, models,
+                                                                           math_calls)),
+                     ("weight_only_serving", lambda: weight_only_serving(torch, fa, T, models)),
+                     ("lstm", lambda: lstm_on_card(torch, T))):
+        if key == "gpt3_xl":
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out[key] = run()
+        out[key]["part_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"models_{key} " + json.dumps(dict(out[key], card=smi,
+                                                 seconds=time.perf_counter() - t0)),
+              flush=True)
+    return out
+
+
 def main():
     import torch
 
@@ -7286,6 +7885,18 @@ def main():
     bert_train = nn2["bert"]["train_o1_bf16"]["launches_per_step"][-1]
     nn2_f32 = nn2["card_vs_cpu"]["launches_f32"]
 
+    # phase 22: the last of the nn core, quantization, GPT and BERT (launch
+    # counts and the math-path count set to 0 before (a), each counted
+    # forward, each training step and each engine's serving, read after each)
+    t0 = time.perf_counter()
+    models22 = phase_models(torch, fa, T, port_F, smi)
+    models_s = time.perf_counter() - t0
+    print(f"phase_seconds 22 {models_s:.1f}", flush=True)
+    if models_s > MODELS_SECONDS:
+        fail(f"phase 22 took {models_s:.1f} s, more than its {MODELS_SECONDS} s")
+    gpt_train = models22["gpt3_xl"]["train_o1_bf16"]["launches_per_step"][-1]
+    wol = models22["weight_only_serving"]
+
     mg_total = master["training"]["launches_per_step"]
     mg_bf16 = master["training"]["launches_bf16"]
 
@@ -7317,6 +7928,12 @@ def main():
                               nn_core=control["nn_launches"][0],
                               bert_base_eval_bf16=nn2["bert"]["eval_bf16"]["launches"][0],
                               bert_base_train_o1_bf16=bert_train[0],
+                              gpt3_xl_eval_bf16=models22["gpt3_xl"]["eval_bf16"]["launches"][0],
+                              gpt3_xl_train_o1_bf16=gpt_train[0],
+                              weight_only_int8_prefill=wol["weight_only_int8"][
+                                  "launches_prefill"],
+                              weight_only_int4_prefill=wol["weight_only_int4"][
+                                  "launches_prefill"],
                               **{k: v["fwd"] for k, v in amp_launches.items()}),
         max_abs_err=main_row["max_abs_err"],
         tol=main_row["tol"], ms=main_row["kernel_ms"], kernel_ms=main_row["kernel_ms"],
@@ -7351,6 +7968,7 @@ def main():
                                   profiled_two_steps=profiled[f"bwd_{key}"],
                                   observed_training=obs_launches[f"bwd_{key}"],
                                   bert_base_train_o1_bf16=bert_train[1 + (key == "dkv")],
+                                  gpt3_xl_train_o1_bf16=gpt_train[1 + (key == "dkv")],
                                   **{k: v[f"bwd_{key}"] for k, v in amp_launches.items()}),
             max_abs_err=max(tr[f"{g}_max_abs_err"] for g in grads),
             norm_rel_err=max(tr[f"{g}_err"] for g in grads), tol=tr["tol"],
@@ -7457,7 +8075,9 @@ def main():
         launches_by_path=dict(master_grad=mg_f32["fwd"], master_grad_all=mg_total["fwd"],
                               nn2_card_vs_cpu=nn2_f32[0],
                               bert_base_eval_fp32=nn2["bert"]["eval_fp32"]["launches_f32"][0],
-                              transformer_base=nn2["transformer"]["launches_f32"][0]),
+                              transformer_base=nn2["transformer"]["launches_f32"][0],
+                              bert_pretraining_eval_fp32=models22["bert_pretraining"][
+                                  "eval_fp32"]["launches_f32"][0]),
         max_abs_err=f32["max_abs_err"], max_scaled_err=f32["max_scaled_err"], tol=f32["tol"],
         ms=f32["kernel_ms"], call_ms=f32["kernel_call_ms"], plain_ms=f32["plain_ms"],
         bound_ms=f32["bound_ms"], bound_by=f32["bound_by"],

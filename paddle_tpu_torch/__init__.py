@@ -139,6 +139,7 @@ from . import jit  # noqa: E402,F401
 from . import models  # noqa: E402,F401
 from . import monitor  # noqa: E402,F401
 from . import profiler  # noqa: E402,F401
+from . import quantization  # noqa: E402,F401
 from . import regularizer  # noqa: E402,F401
 from . import sysconfig  # noqa: E402,F401
 from . import version  # noqa: E402,F401

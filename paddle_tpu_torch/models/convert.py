@@ -6,6 +6,13 @@ stores a Linear weight as (in, out) with y = x @ W; torch.nn.Linear as
 vocab) in paddle and (vocab, hidden) here; a tied model has no
 ``lm_head.weight`` at all. ``llama_to_numpy`` goes the other way, for
 parameters or their gradients, so that tests compare both by the JAX names.
+
+A JAX model that ``quantize_for_inference`` quantized has, in place of a
+projection's ``weight``, its ``WeightOnlyLinear``'s ``quant_weight`` (int8
+``[in, out]``, or int4 packed ``[ceil(in / 2), out]``) and ``weight_scale``
+(float32 ``[out]``) buffers: ``llama_from_numpy`` swaps that projection for
+a ``WeightOnlyLinear`` holding those buffers as they are, so the model
+carries across quantized.
 """
 from __future__ import annotations
 
@@ -43,8 +50,15 @@ def llama_from_numpy(state, config: LlamaConfig, device=None, dtype=None):
     that does not match ``config``. ``dtype`` defaults to ``config.dtype``.
     """
     names = name_map(config)
-    unknown = sorted(set(state) - set(names))
-    missing = sorted(set(names) - set(state))
+    quantized = [src[:-len(".weight")] for src, (_, transpose) in names.items()
+                 if transpose and src.startswith("llama.")
+                 and src[:-len(".weight")] + ".quant_weight" in state]
+    for prefix in quantized:
+        del names[prefix + ".weight"]
+    expected = set(names) | {f"{p}.{b}" for p in quantized
+                             for b in ("quant_weight", "weight_scale")}
+    unknown = sorted(set(state) - expected)
+    missing = sorted(expected - set(state))
     if unknown or missing:
         raise KeyError(f"LLaMA state does not match the config: unknown names "
                        f"{unknown}, missing names {missing}")
@@ -61,7 +75,30 @@ def llama_from_numpy(state, config: LlamaConfig, device=None, dtype=None):
                 raise ValueError(f"{src}: shape {tuple(arr.shape)} does not fit "
                                  f"{dst} {tuple(p.shape)}")
             p.copy_(t.to(p.dtype))
+    for prefix in quantized:
+        _load_weight_only(model, prefix, state)
     return model
+
+
+def _load_weight_only(model, prefix, state):
+    """Swap the projection ``prefix`` for a ``WeightOnlyLinear`` holding the
+    JAX buffers ``state[prefix + ".quant_weight"]`` and ``".weight_scale"``."""
+    from ..quantization.weight_only import WeightOnlyLinear
+
+    linear = model.get_submodule(prefix)
+    qw = np.asarray(state[prefix + ".quant_weight"])
+    scale = np.asarray(state[prefix + ".weight_scale"])
+    k, n = linear.in_features, linear.out_features
+    if qw.dtype != np.int8 or scale.shape != (n,) or qw.shape not in ((k, n), ((k + 1) // 2, n)):
+        raise ValueError(f"{prefix}: quant_weight {qw.dtype} {qw.shape} and weight_scale "
+                         f"{scale.shape} fit neither int8 nor int4 of a {k} x {n} weight")
+    wol = WeightOnlyLinear(linear, "weight_only_int8" if qw.shape[0] == k
+                           else "weight_only_int4")
+    with torch.no_grad():
+        wol.quant_weight.copy_(torch.from_numpy(qw.copy()))
+        wol.weight_scale.copy_(torch.from_numpy(scale.astype(np.float32)))
+    parent, _, name = prefix.rpartition(".")
+    setattr(model.get_submodule(parent), name, wol)
 
 
 def llama_to_numpy(model, grads=False):

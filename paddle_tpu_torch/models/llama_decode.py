@@ -58,6 +58,14 @@ lane's token must not depend on the program that computes it, so both
 compute every lane with the same shapes: the burst runs at the mixed step's
 lane count, and both attend in groups of ``LANE_GROUP`` lanes, the burst
 only the groups that hold its rows (``_attend_lane_groups``).
+
+A model whose projections ``quantize_for_inference`` swapped for
+``WeightOnlyLinear``s serves too: the engine dequantizes each one once, at
+build, as the JAX engine's ``_w`` does (float32 ``q * s`` in paddle's ``[in,
+out]`` layout), then casts it to the model's dtype and transposes it to
+torch's ``[out, in]``. The engine then decodes with those dense weights; the
+bandwidth saving of the int8/int4 form belongs to the model's own forward
+through ``weight_only_linear``.
 """
 from __future__ import annotations
 
@@ -162,7 +170,7 @@ def _reorder_dense(parent, cache):
 class LlamaDecodeEngine:
     """Greedy/temperature decoding and beam search with a per-layer KV cache
     on the model's device. The engine holds the model's parameters, not
-    copies."""
+    copies (but for the dense weights of a weight-only model)."""
 
     #: released slots kept for reuse, with their buffers and graphs
     max_free_slots = 2
@@ -187,16 +195,27 @@ class LlamaDecodeEngine:
         self.head_dim = cfg.head_dim
         self.eps = cfg.rms_norm_eps
         self.theta = cfg.rope_theta
+        self.emb = model.llama.embed_tokens.weight
+
+        def _w(layer):
+            """(out, in) weight of a ``_TorchLinear``, or of a
+            ``WeightOnlyLinear`` dequantized once (module docstring)."""
+            if hasattr(layer, "weight"):
+                return layer.weight
+            from ..quantization.weight_only import weight_dequantize
+
+            w = weight_dequantize(layer.quant_weight, layer.weight_scale, algo=layer.algo,
+                                  k=layer.in_features)
+            return w.to(self.emb.dtype).t().contiguous()
+
         self.layers = []
         for lyr in model.llama.layers:
             a, m = lyr.self_attn, lyr.mlp
             # torch.nn.Linear weights: (out, in), applied with F.linear
             self.layers.append(dict(
                 ln1=lyr.input_layernorm.weight, ln2=lyr.post_attention_layernorm.weight,
-                wq=a.q_proj.weight, wk=a.k_proj.weight, wv=a.v_proj.weight,
-                wo=a.o_proj.weight, gate=m.gate_proj.weight, up=m.up_proj.weight,
-                down=m.down_proj.weight))
-        self.emb = model.llama.embed_tokens.weight
+                wq=_w(a.q_proj), wk=_w(a.k_proj), wv=_w(a.v_proj), wo=_w(a.o_proj),
+                gate=_w(m.gate_proj), up=_w(m.up_proj), down=_w(m.down_proj)))
         self.norm_w = model.llama.norm.weight
         head = model.lm_head
         self.head_w = self.emb if head._tied else head.weight   # (vocab, hidden)

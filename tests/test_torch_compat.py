@@ -17,7 +17,9 @@ tolerance.
 Also: tests/test_export_surface.py:74-98's straggler and ``no_grad`` cases
 on both packages, the JAX in-place tape caveat (ROADMAP Queue C), and the
 top-level names the port still lacks, each tagged with the ROADMAP Queue A
-item that brings it.
+item that brings it, and the same for ``nn``, ``nn.functional`` (none left)
+and ``models`` (the pipeline-parallel LLaMA); ``__all__`` of ``nn.utils``,
+``quantization`` and ``nn.quant`` equal to the JAX modules'.
 """
 import json
 import math
@@ -614,7 +616,7 @@ DEFERRED = {
     "static": 8, "base": 8, "enable_static": 8, "disable_static": 8, "in_static_mode": 8,
     "io": 8, "reader": 8, "dataset": 8, "text_datasets": 8, "vision": 8, "audio": 8,
     "text": 8, "metric": 8, "distribution": 8, "fft": 8, "signal": 8, "sparse": 8,
-    "geometric": 8, "onnx": 8, "quantization": 8,
+    "geometric": 8, "onnx": 8,
     # item 10: distributed and mesh
     "DataParallel": 10, "cost_model": 10,
 }
@@ -641,11 +643,7 @@ def _tagged(item, groups):
     return {name: item for names in groups.values() for name in names.split()}
 
 
-NN_DEFERRED = _tagged("7b", {
-    "layer/rnn": "BiRNN GRU GRUCell LSTM LSTMCell RNN RNNCellBase SimpleRNN SimpleRNNCell",
-    "decode": "BeamSearchDecoder Decoder decode dynamic_decode",
-    "quant": "quant",
-})
+NN_DEFERRED = _tagged("7b", {})
 
 NN_FUNCTIONAL_DEFERRED = _tagged("7b", {})
 
@@ -667,3 +665,40 @@ def test_missing_nn_names_are_the_deferred_lists(module, deferred):
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == sorted(deferred)
     assert set(deferred.values()) <= {"7b"}
+
+
+# -- models: what the port still lacks, each with its Queue A item
+MODELS_DEFERRED = {"LlamaForCausalLMPipe": 10}  # pipeline parallelism
+
+
+def _missing_in_fresh_interpreter(module):
+    code = ("import importlib, json, paddle_tpu, paddle_tpu_torch\n"
+            "pub = lambda m: {n for n in dir(m) if not n.startswith('_')}\n"
+            f"j = importlib.import_module('paddle_tpu.{module}')\n"
+            f"t = importlib.import_module('paddle_tpu_torch.{module}')\n"
+            "print(json.dumps(sorted(pub(j) - pub(t))))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_missing_models_names_are_the_deferred_list():
+    """In a fresh interpreter (as above): the public names of
+    ``paddle_tpu.models`` that ``paddle_tpu_torch.models`` lacks are exactly
+    the tagged list."""
+    assert _missing_in_fresh_interpreter("models") == sorted(MODELS_DEFERRED)
+    assert set(MODELS_DEFERRED.values()) <= {10}
+
+
+@pytest.mark.parametrize("module", ["nn.utils", "quantization", "nn.quant"])
+def test_all_lists_equal_jax(module):
+    """``__all__`` of the port's ``nn.utils``, ``quantization`` and
+    ``nn.quant`` is the JAX module's, in its order."""
+    import importlib
+
+    j = importlib.import_module(f"paddle_tpu.{module}")
+    t = importlib.import_module(f"paddle_tpu_torch.{module}")
+    assert list(t.__all__) == list(j.__all__)
+    assert all(hasattr(t, n) for n in t.__all__)
