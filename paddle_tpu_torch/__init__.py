@@ -21,7 +21,8 @@ The rest of the JAX package's top level is here too: the places
 code runs), ``rank``/``shape``/``check_shape``/``reduce_as``/``batch``,
 ``finfo``/``iinfo``, the constants, ``tensor`` (the op namespace, also
 importable as ``paddle_tpu_torch.tensor``), ``_C_ops``/``_legacy_C_ops``
-and the subpackages (``jit``, ``profiler``, ``hub``, ``version``, ...). A
+and the subpackages (``jit``, ``profiler``, ``hub``, ``version``, ``io``
+with the DataLoader, the legacy ``reader`` combinators, ``geometric``, ...). A
 bare import compiles and loads no CUDA library: the kernels build when a
 CUDA tensor first reaches them (``ops/cuda/_build.py``).
 ``monitor`` is the telemetry (metrics, spans, flight dumps, SLOs, the debug
@@ -133,13 +134,16 @@ _sys.modules[__name__ + ".tensor"] = tensor
 from . import _C_ops, _legacy_C_ops  # noqa: E402,F401
 from . import distributed  # noqa: E402,F401
 from . import framework_io  # noqa: E402,F401
+from . import geometric  # noqa: E402,F401
 from . import hub  # noqa: E402,F401
 from . import inference  # noqa: E402,F401
+from . import io  # noqa: E402,F401
 from . import jit  # noqa: E402,F401
 from . import models  # noqa: E402,F401
 from . import monitor  # noqa: E402,F401
 from . import profiler  # noqa: E402,F401
 from . import quantization  # noqa: E402,F401
+from . import reader  # noqa: E402,F401
 from . import regularizer  # noqa: E402,F401
 from . import sysconfig  # noqa: E402,F401
 from . import version  # noqa: E402,F401

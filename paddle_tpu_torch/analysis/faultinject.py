@@ -93,6 +93,10 @@ POINTS = {
         "Entry of CheckpointManager.restore (checkpoint/manager.py). "
         "raise = the restore path itself dies (a recovery that cannot "
         "reload must propagate, not loop); delay = a slow restore."),
+    "data.next": (
+        "CursorLoader.__next__ (io/dataloader.py): the resumable batch "
+        "cursor the trainer checkpoints. raise = the data pipeline dies "
+        "mid-epoch; delay = a stalled fetch."),
     "obs.scrape": (
         "The graftscope debug endpoint's request handler "
         "(monitor/server.py do_GET, fired once per scrape before any "

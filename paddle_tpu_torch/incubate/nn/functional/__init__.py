@@ -1,12 +1,28 @@
 """Fused functionals (counterpart of paddle_tpu/incubate/nn/functional).
 
-Ported so far: ``fused_rotary_position_embedding`` with both pairings (the
-interleaved rotate-every-two of ``use_neox_rotary_style=True``, the default,
-and the rotate-half of ``False``, which the LLaMA model uses),
-``block_multihead_attention`` over the paged KV pool, and the fused LM-head
-cross-entropy (``fused_linear_cross_entropy``). The rotary embedding is the
-op ``fused_rotary_position_embedding`` (white-listed under AMP) and the
-fused cross-entropy the op ``fused_linear_cross_entropy`` (black-listed).
+``fused_rotary_position_embedding`` with both pairings (the interleaved
+rotate-every-two of ``use_neox_rotary_style=True``, the default, and the
+rotate-half of ``False``, which the LLaMA model uses),
+``block_multihead_attention`` over the paged KV pool, the fused LM-head
+cross-entropy (``fused_linear_cross_entropy``), and the rest of the JAX
+module: the norms, dropout-add, linear, bias-activation and gate-attention
+ops, the fused transformer functionals (``fused_multi_head_attention``,
+``fused_feedforward``, ``fused_multi_transformer`` with its cached
+generation contract), ``masked_multihead_attention``, ``fused_moe``,
+``variable_length_memory_efficient_attention`` and ``blha_get_max_len``.
+Every JAX ``defop`` keeps its name and AMP category here (the rotary
+embedding and the gate attention white, the norms fp32, the cross-entropy
+black).
+
+The attention of ``fused_dot_product_attention``,
+``fused_multi_head_attention`` and the uncached ``fused_multi_transformer``
+is the port's ``scaled_dot_product_attention``: a CUDA query of 128 or more
+rows with no mask and no dropout runs the flash kernels (forward, and under
+autograd the backward), anything else the math path, as in the JAX package.
+The cached ``fused_multi_transformer`` and ``masked_multihead_attention``
+take the JAX package's plain attention over the cache and return new caches:
+the caller's caches are never written. The dropout variants draw their masks
+from the port's generator, not JAX's key stream.
 """
 from __future__ import annotations
 
@@ -354,3 +370,656 @@ def fused_linear_cross_entropy(hidden, weight, labels, ignore_index=-100, chunk_
     ``_fused_linear_cross_entropy``. ``weight`` is [hidden, vocab]."""
     return _fused_linear_cross_entropy(hidden, weight, labels, ignore_index=int(ignore_index),
                                        chunk_size=int(chunk_size))
+
+
+# -- norms, dropout-add, linear, bias-activation ------------------------------
+from ....nn.functional.activation import swiglu  # noqa: E402,F401  (already fused)
+
+
+@defop("fused_rms_norm", amp_category="fp32")
+def _fused_rms_norm(x, norm_weight, norm_bias=None, epsilon=1e-6, begin_norm_axis=-1):
+    dims = tuple(range(begin_norm_axis % x.dim(), x.dim()))
+    # promote, don't demote: bf16 -> f32 for stability, f64 stays f64
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    var = (xf * xf).mean(dim=dims, keepdim=True)
+    y = (xf * torch.rsqrt(var + epsilon)).to(x.dtype)
+    if norm_weight is not None:
+        y = y * norm_weight
+    if norm_bias is not None:
+        y = y + norm_bias
+    return y
+
+
+def fused_rms_norm(x, norm_weight, norm_bias=None, epsilon=1e-6, begin_norm_axis=-1,
+                   name=None):
+    return _fused_rms_norm(x, norm_weight, norm_bias, epsilon=epsilon,
+                           begin_norm_axis=begin_norm_axis)
+
+
+@defop("fused_layer_norm", amp_category="fp32")
+def _fused_layer_norm(x, norm_weight=None, norm_bias=None, epsilon=1e-5, begin_norm_axis=-1,
+                      residual=None):
+    if residual is not None:
+        x = x + residual
+    dims = tuple(range(begin_norm_axis % x.dim(), x.dim()))
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean = xf.mean(dim=dims, keepdim=True)
+    var = (xf - mean).square().mean(dim=dims, keepdim=True)
+    y = ((xf - mean) * torch.rsqrt(var + epsilon)).to(x.dtype)
+    if norm_weight is not None:
+        y = y * norm_weight
+    if norm_bias is not None:
+        y = y + norm_bias
+    return y
+
+
+def fused_layer_norm(x, norm_weight=None, norm_bias=None, epsilon=1e-5, begin_norm_axis=-1,
+                     residual=None, name=None):
+    return _fused_layer_norm(x, norm_weight, norm_bias, epsilon=epsilon,
+                             begin_norm_axis=begin_norm_axis, residual=residual)
+
+
+@defop("fused_dropout_add")
+def _fused_dropout_add(x, y, keep=None, p=0.5, training=True, mode="upscale_in_train"):
+    """``keep`` is the boolean mask of kept elements (None: no dropout)."""
+    if not training or p == 0.0 or keep is None:
+        return x + y
+    if mode == "upscale_in_train":
+        dropped = torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
+    else:
+        dropped = torch.where(keep, x, 0.0).to(x.dtype)
+    return dropped + y
+
+
+def fused_dropout_add(x, y, p=0.5, training=True, mode="upscale_in_train", name=None):
+    """dropout(x) + y; the mask comes from the port's generator for x's
+    device (in eval, or at p = 0, x + y in every mode, as in JAX)."""
+    from ....nn.functional.common import _keep_mask
+
+    keep = _keep_mask(x, 1.0 - p, x.shape) if (training and p > 0.0) else None
+    return _fused_dropout_add(x, y, keep=keep, p=p, training=training, mode=mode)
+
+
+@defop("fused_linear")
+def _fused_linear(x, weight, bias=None, transpose_weight=False):
+    y = torch.matmul(x, weight.t() if transpose_weight else weight)
+    if bias is not None:
+        y = y + bias
+    return y
+
+
+def fused_linear(x, weight, bias=None, transpose_weight=False, name=None):
+    return _fused_linear(x, weight, bias, transpose_weight=transpose_weight)
+
+
+@defop("fused_bias_act")
+def _fused_bias_act(x, bias=None, act_method="gelu"):
+    if bias is not None:
+        x = x + bias
+    if act_method in ("gelu", "geglu"):
+        return torch.nn.functional.gelu(x)
+    if act_method == "relu":
+        return torch.relu(x)
+    if act_method in ("swiglu",):
+        a, b = torch.chunk(x, 2, dim=-1)
+        return torch.nn.functional.silu(a) * b
+    if act_method in ("silu", "swish"):
+        return torch.nn.functional.silu(x)
+    raise ValueError(f"unsupported act_method {act_method}")
+
+
+def fused_bias_act(x, bias=None, act_method="gelu", name=None, **kwargs):
+    return _fused_bias_act(x, bias, act_method=act_method)
+
+
+def fused_matmul_bias(x, y, bias=None, transpose_x=False, transpose_y=False, name=None):
+    """fused_matmul_bias.py: the port's ``matmul`` and the bias."""
+    from ....ops.linalg import matmul
+
+    out = matmul(x, y, transpose_x=transpose_x, transpose_y=transpose_y)
+    return out + bias if bias is not None else out
+
+
+def fused_linear_activation(x, y, bias=None, trans_x=False, trans_y=False, activation=None,
+                            name=None):
+    """reference fused_ops fused_linear_activation: matmul + bias + act."""
+    out = fused_matmul_bias(x, y, bias, transpose_x=trans_x, transpose_y=trans_y)
+    if activation in (None, "", "none"):
+        return out
+    from ....nn import functional as F
+
+    act = {"relu": F.relu, "gelu": F.gelu, "swish": F.silu, "silu": F.silu}.get(activation)
+    if act is None:
+        raise ValueError(f"unsupported activation {activation!r}")
+    return act(out)
+
+
+# -- attention ------------------------------------------------------------------
+@defop("fused_gate_attention", amp_category="white")
+def _fused_gate_attention(query, key=None, query_weight=None, key_weight=None,
+                          value_weight=None, qkv_weight=None, gate_linear_weight=None,
+                          gate_linear_bias=None, out_linear_weight=None, out_linear_bias=None,
+                          nonbatched_bias=None, attn_mask=None, has_gating=True,
+                          merge_qkv=True):
+    """AlphaFold-style gated MSA self-attention (reference
+    fused_gate_attention.py:26) as one op, in the JAX package's einsums:
+    query [N, B, Q, A]; merged qkv_weight [3, H, D, A]; separate
+    query/key/value weights [A, H, D]; gating [A, H, D] + [H, D]; output
+    [H, D, A_out]; nonbatched_bias [N, H, Q, M]; attn_mask added as a bias."""
+    if merge_qkv:
+        qkv = torch.einsum("nbqa,thda->tnbqhd", query, qkv_weight)
+        q, k, v = qkv[0], qkv[1], qkv[2]
+    else:
+        kin = query if key is None else key
+        q = torch.einsum("nbqa,ahd->nbqhd", query, query_weight)
+        k = torch.einsum("nbka,ahd->nbkhd", kin, key_weight)
+        v = torch.einsum("nbka,ahd->nbkhd", kin, value_weight)
+    q = q * (q.shape[-1] ** -0.5)
+    logits = torch.einsum("nbqhd,nbkhd->nbhqk", q, k)
+    if attn_mask is not None:
+        logits = logits + attn_mask
+    if nonbatched_bias is not None:
+        logits = logits + nonbatched_bias[:, None]
+    ct = torch.promote_types(logits.dtype, torch.float32)
+    probs = torch.softmax(logits.to(ct), -1).to(logits.dtype)
+    out = torch.einsum("nbhqk,nbkhd->nbqhd", probs, v)
+    if has_gating:
+        gate = torch.einsum("nbqa,ahd->nbqhd", query, gate_linear_weight)
+        if gate_linear_bias is not None:
+            gate = gate + gate_linear_bias
+        out = out * torch.sigmoid(gate)
+    out = torch.einsum("nbqhd,hdo->nbqo", out, out_linear_weight)
+    if out_linear_bias is not None:
+        out = out + out_linear_bias
+    return out
+
+
+def fused_gate_attention(query, key=None, query_weight=None, key_weight=None,
+                         value_weight=None, qkv_weight=None, gate_linear_weight=None,
+                         gate_linear_bias=None, out_linear_weight=None, out_linear_bias=None,
+                         nonbatched_bias=None, attn_mask=None, has_gating=True,
+                         merge_qkv=True, use_flash_attn=False):
+    """reference incubate/nn/functional/fused_gate_attention.py:26 public
+    surface; ``use_flash_attn`` is accepted and changes nothing (as in the
+    JAX package). The shape checks and refusals are the JAX function's."""
+    if merge_qkv and key is not None:
+        # the merged path is self-attention only (reference contract):
+        # silently dropping `key` would return plausible-but-wrong numbers
+        raise ValueError(
+            "fused_gate_attention: merge_qkv=True is self-attention only "
+            "(qkv projected from `query`); pass merge_qkv=False with "
+            "query/key/value weights for cross-attention over `key`")
+    if merge_qkv and qkv_weight is None:
+        raise ValueError(
+            "fused_gate_attention: merge_qkv=True needs qkv_weight "
+            "([3, num_heads, head_dim, q_dim])")
+    if not merge_qkv and (query_weight is None or key_weight is None
+                          or value_weight is None):
+        raise ValueError(
+            "fused_gate_attention: merge_qkv=False needs query_weight, "
+            "key_weight and value_weight ([dim, num_heads, head_dim])")
+    if has_gating and gate_linear_weight is None:
+        raise ValueError(
+            "fused_gate_attention: has_gating=True needs "
+            "gate_linear_weight (pass has_gating=False to skip gating)")
+    if out_linear_weight is None:
+        raise ValueError("fused_gate_attention: out_linear_weight is "
+                         "required ([num_heads, head_dim, out_dim])")
+    return _fused_gate_attention(
+        query, key, query_weight, key_weight, value_weight, qkv_weight,
+        gate_linear_weight, gate_linear_bias, out_linear_weight, out_linear_bias,
+        nonbatched_bias, attn_mask, has_gating=bool(has_gating), merge_qkv=bool(merge_qkv))
+
+
+def fused_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0, is_causal=False,
+                                training=True, scaling_factor=None, name=None):
+    """fused_dot_product_attention.py: the port's sdpa (the flash kernels for
+    a CUDA query of 128 or more rows, no mask and no dropout).
+    ``scaling_factor`` is accepted and not applied, as in the JAX package."""
+    from ....nn.functional.flash_attention import scaled_dot_product_attention
+
+    return scaled_dot_product_attention(q, k, v, attn_mask=attn_mask, dropout_p=dropout_p,
+                                        is_causal=is_causal, training=training)
+
+
+def variable_length_memory_efficient_attention(query, key, value, seq_lens, kv_seq_lens,
+                                               mask=None, scale=None, causal=False,
+                                               name=None):
+    """variable_length_memory_efficient_attention.py on (B, H, S, D) inputs:
+    key columns at or past a row's ``kv_seq_lens`` (``seq_lens`` when that is
+    None) are masked out. The mask sends sdpa to the math path, as in JAX."""
+    from ....nn.functional.flash_attention import _sdpa, _use_kernel
+    from ....ops.manipulation import transpose
+
+    q = transpose(query, [0, 2, 1, 3])
+    k = transpose(key, [0, 2, 1, 3])
+    v = transpose(value, [0, 2, 1, 3])
+    sk = int(k.shape[1])
+    kv_lens = kv_seq_lens if kv_seq_lens is not None else seq_lens
+    if kv_lens is not None:
+        lens = torch.as_tensor(kv_lens).to(q.device).reshape(-1)
+        # keep key column j for batch b iff j < kv_len[b]; (B, 1, 1, Sk)
+        keep = (torch.arange(sk, device=q.device)[None, :] < lens[:, None])[:, None, None, :]
+        if mask is None:
+            mask = keep
+        else:
+            # a mask is data here: no gradient reaches it (as in JAX)
+            mv = torch.as_tensor(mask).detach().to(q.device)
+            if mv.dtype == torch.bool:
+                mask = mv & keep
+            else:
+                mask = mv + torch.where(keep, 0.0, -1e30).to(mv.dtype)
+    out = _sdpa(q, k, v, mask, dropout_p=0.0, causal=bool(causal), scale=scale,
+                use_kernel=_use_kernel(q))
+    return transpose(out, [0, 2, 1, 3])
+
+
+def _topk_lowest_index_first(probs, k):
+    """``jax.lax.top_k``: the k largest along the last axis, ties broken
+    lowest index first (a stable descending sort; ``torch.topk`` on CUDA
+    gives no tie order)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def fused_moe(x, gate_weight, ffn1_weight, ffn2_weight, ffn1_bias=None, ffn2_bias=None,
+              quant_method="None", moe_topk=2, norm_topk_prob=True, name=None):
+    """fused_moe.py: token top-k routing and expert FFNs, dispatched densely
+    by einsum as in the JAX package. x: (B, S, D); gate_weight: (D, E);
+    ffn1_weight: (E, D, I) (swiglu packs 2*I); ffn2_weight: (E, I, D)."""
+    B, S, D = x.shape
+    E = gate_weight.shape[1]
+    tokens = x.reshape(B * S, D)
+    probs = torch.softmax(tokens @ gate_weight, dim=-1)
+    top_p, top_e = _topk_lowest_index_first(probs, moe_topk)
+    if norm_topk_prob:
+        top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    # dense dispatch: each expert weighted by its routed probability (0 when
+    # not in the top-k)
+    weights = torch.zeros((B * S, E), dtype=x.dtype, device=x.device).scatter(
+        1, top_e, top_p.to(x.dtype))
+    h = torch.einsum("td,edi->tei", tokens, ffn1_weight)
+    if ffn1_bias is not None:
+        h = h + ffn1_bias[None]
+    if h.shape[-1] == 2 * ffn2_weight.shape[1]:  # swiglu-packed ffn1
+        gate_h, up = torch.chunk(h, 2, dim=-1)
+        h = torch.nn.functional.silu(gate_h) * up
+    else:
+        h = torch.nn.functional.gelu(h)
+    y = torch.einsum("tei,eid->ted", h, ffn2_weight)
+    if ffn2_bias is not None:
+        y = y + ffn2_bias[None]
+    return torch.einsum("ted,te->td", y, weights).reshape(B, S, D)
+
+
+# -- the fused transformer functionals ----------------------------------------
+def fused_bias_dropout_residual_layer_norm(x, residual, bias=None, ln_scale=None, ln_bias=None,
+                                           dropout_rate=0.5, ln_epsilon=1e-5, training=True,
+                                           mode="upscale_in_train", name=None):
+    """reference fused_transformer.py fused_bias_dropout_residual_layer_norm:
+    out = LN(residual + dropout(x + bias))."""
+    from ....nn import functional as F
+
+    y = x if bias is None else x + bias
+    if dropout_rate:
+        y = F.dropout(y, p=dropout_rate, training=training, mode=mode)
+    y = residual + y
+    return F.layer_norm(y, [int(y.shape[-1])], ln_scale, ln_bias, ln_epsilon)
+
+
+def fused_multi_head_attention(
+        x, qkv_weight, linear_weight, pre_layer_norm=False, pre_ln_scale=None,
+        pre_ln_bias=None, ln_scale=None, ln_bias=None, pre_ln_epsilon=1e-5, qkv_bias=None,
+        linear_bias=None, cache_kv=None, attn_mask=None, dropout_rate=0.5,
+        attn_dropout_rate=0.5, ln_epsilon=1e-5, training=True, mode="upscale_in_train",
+        ring_id=-1, add_residual=True, num_heads=-1, transpose_qkv_wb=False, name=None):
+    """reference fused_transformer.py fused_multi_head_attention — the
+    functional form of FusedMultiHeadAttention (packed [3, H, D, E] qkv
+    weight). ``cache_kv`` [2, B, H, T, D] holds past K/V: the new tokens are
+    appended and the call returns ``(out, new cache)``."""
+    from ....nn import functional as F
+    from ....ops import manipulation as m
+
+    if transpose_qkv_wb:
+        raise NotImplementedError(
+            "transpose_qkv_wb=True is not implemented (packed [3, H, D, E] "
+            "layout is — matches incubate.nn.FusedMultiHeadAttention)")
+    three, heads, head_dim, embed = (int(s) for s in qkv_weight.shape)
+    residual = x
+    if pre_layer_norm:
+        x = F.layer_norm(x, [embed], pre_ln_scale, pre_ln_bias, pre_ln_epsilon)
+    w = m.reshape(qkv_weight, [3 * embed, embed])
+    qkv = fused_matmul_bias(x, w, None if qkv_bias is None
+                            else m.reshape(qkv_bias, [3 * embed]), transpose_y=True)
+    qkv = m.reshape(qkv, [0, 0, 3, heads, head_dim])
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    cache_out = None
+    if cache_kv is not None:
+        # the caches are data on both sides: no gradient reaches the past K/V
+        # nor flows back from the returned cache (as in JAX, on raw arrays)
+        past = cache_kv.detach()
+        past_k = past[0].transpose(1, 2)     # -> (B, T, H, D)
+        past_v = past[1].transpose(1, 2)
+        k = m.concat([past_k, k], axis=1)
+        v = m.concat([past_v, v], axis=1)
+        cache_out = torch.stack([k.transpose(1, 2), v.transpose(1, 2)]).detach()
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                         dropout_p=attn_dropout_rate, is_causal=False,
+                                         training=training)
+    out = m.reshape(out, [0, 0, embed])
+    out = fused_matmul_bias(out, linear_weight, linear_bias)
+    if dropout_rate:
+        out = F.dropout(out, p=dropout_rate, training=training, mode=mode)
+    if add_residual:
+        out = residual + out
+    if not pre_layer_norm:
+        out = F.layer_norm(out, [embed], ln_scale, ln_bias, ln_epsilon)
+    if cache_out is not None:
+        return out, cache_out
+    return out
+
+
+def fused_feedforward(
+        x, linear1_weight, linear2_weight, linear1_bias=None, linear2_bias=None,
+        ln1_scale=None, ln1_bias=None, ln2_scale=None, ln2_bias=None, dropout1_rate=0.5,
+        dropout2_rate=0.5, activation="relu", ln1_epsilon=1e-5, ln2_epsilon=1e-5,
+        pre_layer_norm=False, training=True, mode="upscale_in_train", ring_id=-1,
+        add_residual=True, name=None):
+    """reference fused_transformer.py fused_feedforward: [LN ->] linear1 ->
+    act -> dropout -> linear2 -> dropout -> residual [-> LN]."""
+    from ....nn import functional as F
+
+    embed = int(x.shape[-1])
+    residual = x
+    if pre_layer_norm:
+        x = F.layer_norm(x, [embed], ln1_scale, ln1_bias, ln1_epsilon)
+    h = fused_linear_activation(x, linear1_weight, linear1_bias, activation=activation)
+    if dropout1_rate:
+        h = F.dropout(h, p=dropout1_rate, training=training, mode=mode)
+    h = fused_matmul_bias(h, linear2_weight, linear2_bias)
+    if dropout2_rate:
+        h = F.dropout(h, p=dropout2_rate, training=training, mode=mode)
+    out = residual + h if add_residual else h
+    if not pre_layer_norm:
+        out = F.layer_norm(out, [embed], ln2_scale, ln2_bias, ln2_epsilon)
+    return out
+
+
+def _ith(xs, i):
+    return xs[i] if xs else None
+
+
+def fused_multi_transformer(
+        x, ln_scales, ln_biases, qkv_weights, qkv_biases, linear_weights, linear_biases,
+        ffn_ln_scales, ffn_ln_biases, ffn1_weights, ffn1_biases, ffn2_weights, ffn2_biases,
+        pre_layer_norm=True, epsilon=1e-5, cache_kvs=None, pre_caches=None, seq_lens=None,
+        rotary_embs=None, time_step=None, attn_mask=None, dropout_rate=0.0,
+        activation="gelu", training=False, mode="upscale_in_train", trans_qkvw=True,
+        ring_id=-1, name=None, **unused):
+    """reference fused_transformer.py fused_multi_transformer — the whole
+    decoder stack as one call: per layer, fused attention + fused FFN. With
+    ``cache_kvs`` (per-layer [2, B, H, max_len, D]) it is the cached
+    generation contract and returns ``(out, new caches)``."""
+    # semantically significant rotary/varlen args must not be silently dropped
+    for arg_name, arg in (("rotary_embs", rotary_embs), ("pre_caches", pre_caches),
+                          ("seq_lens", seq_lens)):
+        if arg is not None:
+            raise NotImplementedError(
+                f"fused_multi_transformer: {arg_name} is not supported by "
+                "this build; apply rotary embeddings in the model (see "
+                "models/llama.py) or use models.llama_decode."
+                "LlamaDecodeEngine for cached decoding")
+    if unused:
+        raise TypeError("fused_multi_transformer: unexpected keyword arguments "
+                        f"{sorted(unused)}")
+    if not trans_qkvw:
+        raise NotImplementedError(
+            "fused_multi_transformer: trans_qkvw=False ([E, 3, H, D] weight "
+            "layout) is not supported; pass the default transposed "
+            "[3, H, D, E] layout")
+    if cache_kvs is not None:
+        if attn_mask is not None:
+            raise NotImplementedError(
+                "fused_multi_transformer: attn_mask with cache_kvs is not "
+                "supported (the cached path masks by position only); for "
+                "padded batches use models.serving.ContinuousBatchingEngine "
+                "or left-trim the prompts")
+        if training or (dropout_rate and mode == "downscale_in_infer"):
+            raise ValueError(
+                "fused_multi_transformer: the cached path is inference-only "
+                "(training=False; downscale_in_infer dropout would change "
+                "eval numerics and is not supported with cache_kvs)")
+        return _fused_multi_transformer_cached(
+            x, ln_scales, ln_biases, qkv_weights, qkv_biases, linear_weights, linear_biases,
+            ffn_ln_scales, ffn_ln_biases, ffn1_weights, ffn1_biases, ffn2_weights,
+            ffn2_biases, pre_layer_norm=pre_layer_norm, epsilon=epsilon, cache_kvs=cache_kvs,
+            time_step=time_step, activation=activation)
+    if time_step is not None:
+        raise ValueError(
+            "fused_multi_transformer: time_step needs cache_kvs (the "
+            "preallocated [2, B, H, max_len, D] per-layer caches)")
+    out = x
+    for i in range(len(qkv_weights)):
+        out = fused_multi_head_attention(
+            out, qkv_weights[i], linear_weights[i], pre_layer_norm=pre_layer_norm,
+            pre_ln_scale=_ith(ln_scales, i), pre_ln_bias=_ith(ln_biases, i),
+            ln_scale=_ith(ln_scales, i), ln_bias=_ith(ln_biases, i),
+            pre_ln_epsilon=epsilon, ln_epsilon=epsilon, qkv_bias=_ith(qkv_biases, i),
+            linear_bias=_ith(linear_biases, i), attn_mask=attn_mask,
+            dropout_rate=dropout_rate, attn_dropout_rate=dropout_rate, training=training,
+            mode=mode)
+        out = fused_feedforward(
+            out, ffn1_weights[i], ffn2_weights[i], linear1_bias=_ith(ffn1_biases, i),
+            linear2_bias=_ith(ffn2_biases, i), ln1_scale=_ith(ffn_ln_scales, i),
+            ln1_bias=_ith(ffn_ln_biases, i), ln2_scale=_ith(ffn_ln_scales, i),
+            ln2_bias=_ith(ffn_ln_biases, i), dropout1_rate=dropout_rate,
+            dropout2_rate=dropout_rate, activation=activation, ln1_epsilon=epsilon,
+            ln2_epsilon=epsilon, pre_layer_norm=pre_layer_norm, training=training, mode=mode)
+    return out
+
+
+def _host_int(t):
+    """A host integer from a Python number, numpy value or tensor (a CUDA
+    tensor is read back: the JAX function reads ``time_step`` on the host)."""
+    if isinstance(t, torch.Tensor):
+        return int(t.reshape(-1)[0])
+    return int(np.asarray(t).reshape(-1)[0])
+
+
+def _fused_multi_transformer_cached(
+        x, ln_scales, ln_biases, qkv_weights, qkv_biases, linear_weights, linear_biases,
+        ffn_ln_scales, ffn_ln_biases, ffn1_weights, ffn1_biases, ffn2_weights, ffn2_biases,
+        pre_layer_norm, epsilon, cache_kvs, time_step, activation):
+    """The reference's cached generation contract
+    (fused_multi_transformer_op.cu): per-layer PREALLOCATED caches
+    [2, B, H, max_len, D]; with ``time_step=None`` the call is the context/
+    prefill phase (writes positions 0..S-1, causal attention within the
+    prompt); with ``time_step=t`` it is one decode step (x is [B, 1, E],
+    K/V written at position t, attention over positions <= t). Returns
+    (out, new cache_kvs): each layer's cache is copied and the copy written,
+    the caller's caches are left as they were (the JAX function's
+    ``dynamic_update_slice``). The attention is the JAX function's, softmax
+    in ``promote_types(dtype, float32)`` over the whole cache with a position
+    mask. Inference semantics: dropout off."""
+    from ....nn import functional as F
+    from ....ops import manipulation as m
+
+    B, S, E = x.shape
+    t0 = None if time_step is None else _host_int(time_step)
+    if t0 is not None and S != 1:
+        raise ValueError(
+            "fused_multi_transformer decode (time_step given) expects one "
+            f"token per call, got S={S}")
+    max_len = int(cache_kvs[0].shape[3])
+    start = 0 if t0 is None else t0
+    if start + S > max_len:
+        raise ValueError(
+            f"fused_multi_transformer: writing positions "
+            f"{start}..{start + S - 1} overflows the preallocated cache "
+            f"(max_len={max_len}); allocate larger cache_kvs")
+    out = x
+    new_caches = []
+    positions = start + torch.arange(S, device=x.device)                  # query pos
+    pos_mask = torch.arange(max_len, device=x.device)[None, None, :] <= positions[None, :, None]
+    for i in range(len(qkv_weights)):
+        residual = out
+        h = out
+        if pre_layer_norm:
+            h = F.layer_norm(h, [E], _ith(ln_scales, i), _ith(ln_biases, i), epsilon)
+        three, heads, head_dim, _ = (int(s) for s in qkv_weights[i].shape)
+        w = m.reshape(qkv_weights[i], [3 * E, E])
+        qkv = fused_matmul_bias(h, w, None if not qkv_biases
+                                else m.reshape(qkv_biases[i], [3 * E]), transpose_y=True)
+        qkv = qkv.reshape(B, S, 3, heads, head_dim)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        cache = cache_kvs[i].clone()                  # [2, B, H, max_len, D]
+        cache[:, :, :, start:start + S] = torch.stack(
+            [k.transpose(1, 2), v.transpose(1, 2)]).to(cache.dtype)
+        new_caches.append(cache)
+        ck, cvv = cache[0], cache[1]
+        ct = torch.promote_types(q.dtype, torch.float32)
+        logits = torch.einsum("bshd,bhtd->bhst", q.to(ct), ck.to(ct)) / math.sqrt(head_dim)
+        logits = torch.where(pos_mask[:, None], logits, -1e30)
+        probs = torch.softmax(logits, -1)
+        attn = torch.einsum("bhst,bhtd->bshd", probs, cvv.to(ct))
+        attn = attn.reshape(B, S, heads * head_dim).to(x.dtype)
+        o = fused_matmul_bias(attn, linear_weights[i], _ith(linear_biases, i))
+        o = residual + o
+        if not pre_layer_norm:
+            o = F.layer_norm(o, [E], _ith(ln_scales, i), _ith(ln_biases, i), epsilon)
+        out = fused_feedforward(
+            o, ffn1_weights[i], ffn2_weights[i], linear1_bias=_ith(ffn1_biases, i),
+            linear2_bias=_ith(ffn2_biases, i), ln1_scale=_ith(ffn_ln_scales, i),
+            ln1_bias=_ith(ffn_ln_biases, i), ln2_scale=_ith(ffn_ln_scales, i),
+            ln2_bias=_ith(ffn_ln_biases, i), dropout1_rate=0.0, dropout2_rate=0.0,
+            activation=activation, ln1_epsilon=epsilon, ln2_epsilon=epsilon,
+            pre_layer_norm=pre_layer_norm, training=False)
+    return out, new_caches
+
+
+def blha_get_max_len(seq_lens_encoder, seq_lens_decoder, batch_size=None, name=None):
+    """reference blha_get_max_len: the (max encoder len, max decoder len)
+    pair, each a one-element tensor where the lengths lie (host lengths give
+    CPU tensors, the host values ``block_multihead_attention`` reads)."""
+    enc = torch.as_tensor(seq_lens_encoder)
+    dec = torch.as_tensor(seq_lens_decoder)
+    return enc.max().reshape(1), dec.max().reshape(1)
+
+
+def _host_max(x):
+    """max of a host length vector (numpy, sequence, CPU tensor), else None."""
+    if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+        return None
+    return int(np.asarray(x).max())
+
+
+def masked_multihead_attention(
+        x, cache_kv=None, bias=None, src_mask=None, sequence_lengths=None,
+        rotary_tensor=None, beam_cache_offset=None, qkv_out_scale=None, out_shift=None,
+        out_smooth=None, seq_len=1, rotary_emb_dims=0, use_neox_rotary_style=False,
+        compute_dtype="default", out_scale=-1.0, quant_round_type=1, quant_max_bound=127.0,
+        quant_min_bound=-127.0, name=None):
+    """reference masked_multihead_attention: ONE decode step of multi-head
+    attention against a [2, B, H, T, D] cache — the generation-loop kernel.
+    x is the packed qkv for the new token: (B, 3*H*D); ``sequence_lengths``
+    is each row's write position. Returns ``(out, new cache)``; the caller's
+    cache is not written.
+
+    The bounds of the write positions (the cache, the rotary table) are
+    checked on the host with the JAX exception when the lengths are host
+    data (numpy, a sequence, a CPU tensor); lengths already on the card are
+    checked there by a device assert, with no host sync (``_check``)."""
+    if rotary_emb_dims not in (0, 1):
+        raise NotImplementedError(
+            "masked_multihead_attention: rotary_emb_dims=2 (extra position "
+            "ids) is not supported; the standard rotary_emb_dims=1 form is")
+    if rotary_tensor is None and rotary_emb_dims:
+        raise ValueError(
+            "masked_multihead_attention: rotary_emb_dims=1 needs "
+            "rotary_tensor ([2, B, max_seq, 1, head_dim] cos/sin tables)")
+    if rotary_tensor is not None and not rotary_emb_dims:
+        raise ValueError(
+            "masked_multihead_attention: rotary_tensor given but "
+            "rotary_emb_dims=0 (the reference kernel gates rotation on "
+            "rotary_emb_dims; pass rotary_emb_dims=1)")
+    if beam_cache_offset is not None:
+        raise NotImplementedError(
+            "masked_multihead_attention: beam_cache_offset (beam-search KV "
+            "reordering) is not supported; use LlamaDecodeEngine's beam "
+            "search for reordered-cache generation")
+    if qkv_out_scale is not None or out_shift is not None \
+            or out_smooth is not None or out_scale != -1.0:
+        raise NotImplementedError(
+            "masked_multihead_attention: int8 quantization params "
+            "(qkv_out_scale/out_shift/out_smooth/out_scale) are not "
+            "supported; use LlamaDecodeEngine(kv_cache_dtype='int8') for "
+            "quantized-KV decoding")
+    if cache_kv is None:
+        raise ValueError("cache_kv is required (shape [2, B, H, T, D])")
+    xv = x
+    if bias is not None:
+        xv = xv + torch.as_tensor(bias).to(xv.device).reshape(-1)
+    two, B, H, T, D = cache_kv.shape
+    qkv = xv.reshape(B, 3, H, D)
+    q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]        # (B, H, D)
+    if sequence_lengths is None:
+        raise ValueError(
+            "sequence_lengths is required: it is the per-row cache write "
+            "position — without it every step would overwrite slot 0 and "
+            "decode with no history")
+    host_max = _host_max(sequence_lengths)
+    pos = torch.as_tensor(sequence_lengths).to(x.device).reshape(-1).long()
+    if host_max is not None:
+        if host_max >= T:
+            # the scatter would silently drop/clamp the write while the causal
+            # mask opens the whole cache — plausible-but-wrong logits
+            raise ValueError(
+                f"masked_multihead_attention: write position {host_max} exceeds "
+                f"the cache (T={T}); allocate a longer cache_kv")
+    else:
+        _check((pos < T).all(), ValueError,
+               f"masked_multihead_attention: a write position exceeds the cache (T={T}); "
+               "allocate a longer cache_kv")
+    bidx = torch.arange(B, device=x.device)
+    if rotary_tensor is not None and rotary_emb_dims:
+        # reference mmha_util.cu.h:46: rotary_emb [2, B, max_seq, 1, D]
+        # (cos at [0], sin at [1]) read at the row's CURRENT position; the
+        # default (use_neox_rotary_style=False) is the interleaved pairing,
+        # neox the half-split pairing
+        rv = rotary_tensor
+        max_rot = int(rv.shape[2])
+        if host_max is not None:
+            if host_max >= max_rot:
+                raise ValueError(
+                    f"masked_multihead_attention: position {host_max} exceeds the "
+                    f"rotary table (max_seq={max_rot}); build larger rotary_tensor tables")
+        else:
+            _check((pos < max_rot).all(), ValueError,
+                   f"masked_multihead_attention: a position exceeds the rotary table "
+                   f"(max_seq={max_rot}); build larger rotary_tensor tables")
+        cos = rv[0][bidx, pos, 0].to(q.dtype)[:, None, :]   # (B, 1, D)
+        sin = rv[1][bidx, pos, 0].to(q.dtype)[:, None, :]
+        rotate = _rotate_half if use_neox_rotary_style else _rotate_every_two
+        q = q * cos + rotate(q) * sin
+        k = k * cos + rotate(k) * sin
+    cache = cache_kv.clone()
+    cache[0, bidx, :, pos] = k.to(cache.dtype)
+    cache[1, bidx, :, pos] = v.to(cache.dtype)
+    ck, cvv = cache[0], cache[1]
+    mask = torch.arange(T, device=x.device)[None, None, :] <= pos[:, None, None]   # (B, 1, T)
+    scale = torch.sqrt(torch.tensor(D, dtype=torch.float32)).to(q.dtype)
+    logits = (torch.einsum("bhd,bhtd->bht", q, ck) / scale.to(q.device)).float()
+    if src_mask is not None:
+        # reference kernel: qk += mask (additive, [B, 1, 1, T] broadcast
+        # over heads — masked_multihead_attention_kernel.cu:385)
+        sm = torch.as_tensor(src_mask).to(x.device)
+        if sm.shape[-1] != T or sm.shape[0] not in (1, B):
+            raise ValueError(
+                "masked_multihead_attention: src_mask must be "
+                f"[B|1, 1, 1, T] with T={T} (the cache length); got "
+                f"{tuple(sm.shape)}")
+        logits = logits + sm.reshape(sm.shape[0], 1, T).float()
+    logits = torch.where(mask, logits, -1e30)
+    probs = torch.softmax(logits, -1).to(q.dtype)
+    out = torch.einsum("bht,bhtd->bhd", probs, cvv).reshape(B, H * D)
+    return out, cache

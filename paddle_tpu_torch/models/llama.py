@@ -56,6 +56,8 @@ from ..nn.layer.common import _TorchLinear as Linear
 from ..nn.layer.norm import RMSNorm
 
 _PARALLEL_SLICE = "the distributed slice of the port (ROADMAP Queue A item 10)"
+_MOE_SLICE = ("the MoE slice of the port (ROADMAP Queue A item 8: incubate.distributed's "
+              "MoE layer with LlamaMoEMLP)")
 
 
 class LlamaConfig:
@@ -146,7 +148,7 @@ def _check_supported(config):
         (config.sequence_parallel, "sequence_parallel", _PARALLEL_SLICE),
         ((config.pipeline_parallel_degree or 1) > 1, "pipeline_parallel_degree > 1",
          _PARALLEL_SLICE),
-        ((config.num_experts or 0) > 1, "MoE (num_experts > 1)", _PARALLEL_SLICE),
+        ((config.num_experts or 0) > 1, "MoE (num_experts > 1)", _MOE_SLICE),
         (getattr(config, "use_ring_attention", False), "ring attention", _PARALLEL_SLICE),
         (config.recompute_policy not in (None, "none"), "recompute_policy (remat planner)",
          _PARALLEL_SLICE),

@@ -6,7 +6,8 @@ instrumentation wired into op dispatch (``ops/_apply.py``), the to_static
 program cache (``jit/api.py``, ``jit/sot.py``), the continuous-batching
 serving engine (``models/serving.py``), the paged-KV allocator
 (``models/paged_kv.py``), the radix cache's spill store, the checkpoint
-manager and the serving fleet, exported three ways:
+manager, the serving fleet and the dataloader (``io/dataloader.py``),
+exported three ways:
 
 - ``monitor.snapshot()`` — JSON dict (always with a provenance block);
 - ``monitor.prometheus_text()`` — Prometheus text exposition;
@@ -14,8 +15,8 @@ manager and the serving fleet, exported three ways:
 
 The metric names, kinds and labels are the JAX package's (``catalog.py``
 is a copy), so one dashboard reads both packages. Metrics of parts the
-port does not have yet (the dataloader, the mesh, eager collectives, the
-mesh trainer) stay in the catalog; nothing records them.
+port does not have yet (the mesh, eager collectives, the mesh trainer) stay
+in the catalog; nothing records them.
 
 DISABLED BY DEFAULT. Every instrumented site guards on ``_state.on`` (one
 attribute load on a preallocated object), so the cost when off is one slot

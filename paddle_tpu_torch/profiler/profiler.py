@@ -13,8 +13,8 @@ window runs under ``torch.profiler.profile(activities=[CPU, CUDA])``.
 ``ProfilerResult.device_events()`` holds its CUDA kernel events (memcpy and
 memset activities too) on the host clock: a marker span recorded when the
 window opens ties torch.profiler's trace clock to ``perf_counter_ns``
-(``_PRIMER_LAUNCHES`` says why a window opens with a burst of tiny
-kernels). The
+(``_PRIMER_LAUNCHES`` says why a window opens and closes with a burst of
+tiny kernels). The
 chrome trace a result saves holds both, the device spans as
 ``cat: "DeviceOp"`` under a pid of their own per card, and
 ``device_op_stats()`` gives the per-kernel table (name, calls, total, avg,
@@ -271,6 +271,7 @@ def _get_supported_targets() -> Iterable[ProfilerTarget]:
 
 # -- the device side: torch.profiler over a RECORD window ----------------------
 _ANCHOR = "paddle_tpu_torch::profiler_window"
+_END_ANCHOR = "paddle_tpu_torch::profiler_window_end"
 # CUPTI reports the host waiting on a full launch queue as a device activity
 _NOT_KERNELS = ("Command Buffer Full",)
 # On an H100 with torch 2.11, a torch.profiler session in a process that
@@ -278,24 +279,38 @@ _NOT_KERNELS = ("Command Buffer Full",)
 # record of its first kernel launches (1 to 39 seen, more the longer the
 # process has run), however long they come after the session starts. So a
 # window opens with _PRIMER_LAUNCHES tiny kernels and a synchronize before
-# the caller's work: they absorb the loss. Launches of the window whose
-# kernel still has no record are counted (ProfilerResult.lost_device_records).
+# the caller's work: they absorb the loss. Such a session also, now and
+# then, keeps no record of its LAST launches (2 to 245 seen, tools/
+# profiler_record_loss.py), so a window closes with _TAIL_LAUNCHES tiny
+# kernels after an end marker, and their records are dropped like the
+# primer's. Launches of the window whose kernel still has no record are
+# counted (ProfilerResult.lost_device_records).
 _PRIMER_LAUNCHES = 256
+_TAIL_LAUNCHES = 1024
 
 
-def _lost_launches(function_events, kinds, after_us):
-    """How many kernel launches from ``after_us`` on (the trace's clock)
-    have no device record."""
+def _prime(n):
+    """``n`` tiny kernel launches, then a synchronize."""
+    x = torch.zeros(1, device="cuda")
+    for _ in range(n):
+        x.add_(1)
+    torch.cuda.synchronize()
+
+
+def _lost_launches(function_events, kinds, after_us, before_us=float("inf")):
+    """How many kernel launches from ``after_us`` up to ``before_us`` (the
+    trace's clock) have no device record."""
     device = {e.id for e in function_events if e.device_type in kinds}
     return sum(1 for e in function_events
                if e.device_type not in kinds and "LaunchKernel" in e.name
-               and e.time_range.start >= after_us and e.id not in device)
+               and after_us <= e.time_range.start < before_us and e.id not in device)
 
 
 def collect_device_events(function_events, anchor_ns, device_types=None):
     """The device activities of a torch.profiler trace (``prof.events()``)
-    launched after the ``_ANCHOR`` span: ``(events, lost)``, each event a
-    dict ``{name, plane, line, start_ns, dur_ns}`` with ``start_ns`` on the
+    launched after the ``_ANCHOR`` span and before the ``_END_ANCHOR``
+    span, where there is one: ``(events, lost)``, each event a dict
+    ``{name, plane, line, start_ns, dur_ns}`` with ``start_ns`` on the
     ``perf_counter_ns`` clock (the anchor started at host time
     ``anchor_ns``), ``lost`` as ``_lost_launches`` counts it.
     ``device_types`` defaults to CUDA."""
@@ -306,14 +321,18 @@ def collect_device_events(function_events, anchor_ns, device_types=None):
     if anchor is None:
         raise RuntimeError("the profiler's window marker is missing from its trace")
     start = anchor.time_range.start
+    end = next((e.time_range.start for e in function_events if e.name == _END_ANCHOR),
+               float("inf"))
     offset_ns = anchor_ns - start * 1e3
-    # what the runtime launched before the marker: the window's primer
-    early = {e.id for e in function_events if e.device_type not in kinds
-             and e.name.startswith("cu") and e.time_range.start < start}
+    # what the runtime launched before the marker and after the end marker:
+    # the window's primer and its tail
+    outside = {e.id for e in function_events if e.device_type not in kinds
+               and e.name.startswith("cu")
+               and not start <= e.time_range.start < end}
     out = []
     for e in function_events:
-        if (e.device_type not in kinds or e.name in _NOT_KERNELS or e.name == _ANCHOR
-                or e.id in early):
+        if (e.device_type not in kinds or e.name in _NOT_KERNELS
+                or e.name in (_ANCHOR, _END_ANCHOR) or e.id in outside):
             continue
         out.append({
             "name": e.name,
@@ -323,7 +342,7 @@ def collect_device_events(function_events, anchor_ns, device_types=None):
             "dur_ns": e.time_range.elapsed_us() * 1e3,
         })
     out.sort(key=lambda ev: ev["start_ns"])
-    return out, _lost_launches(function_events, kinds, start)
+    return out, _lost_launches(function_events, kinds, start, end)
 
 
 def device_op_stats(device_events):
@@ -371,17 +390,14 @@ def chrome_events(device_events, base_pid=900000):
 
 class _DeviceTrace:
     """torch.profiler (CPU and CUDA activities) over one RECORD window,
-    opened with the primer launches above."""
+    opened and closed with the primer launches above."""
 
     def __init__(self):
         from torch.profiler import ProfilerActivity, profile, record_function
 
         self._prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
         self._prof.__enter__()
-        primer = torch.zeros(1, device="cuda")
-        for _ in range(_PRIMER_LAUNCHES):
-            primer.add_(1)
-        torch.cuda.synchronize()
+        _prime(_PRIMER_LAUNCHES)
         t0 = time.perf_counter_ns()
         with record_function(_ANCHOR):
             t1 = time.perf_counter_ns()
@@ -389,7 +405,12 @@ class _DeviceTrace:
 
     def stop(self):
         """``(events, lost)`` (``collect_device_events``)."""
+        from torch.profiler import record_function
+
         torch.cuda.synchronize()
+        with record_function(_END_ANCHOR):
+            pass
+        _prime(_TAIL_LAUNCHES)
         self._prof.__exit__(None, None, None)
         return collect_device_events(self._prof.events(), self._anchor_ns)
 

@@ -491,3 +491,36 @@ def test_primer_dropped_and_lost_launches_counted():
         ("fa_fwd_wgmma", 1_000_000 + 100_000, 20_000.0),
         ("triton_poi", 1_000_000 + 120_000, 5_000.0)]
     assert out[0]["plane"] == "cuda:0" and out[0]["line"] == "stream 7"
+
+
+def test_tail_after_end_marker_dropped_and_not_counted():
+    """A window closes with an end marker and a tail of tiny kernels: the
+    tail's records are dropped like the primer's, and a tail launch with no
+    record is not counted as lost; a window's own launch still is."""
+    from types import SimpleNamespace as NS
+
+    from torch.autograd import DeviceType
+
+    from paddle_tpu_torch.profiler.profiler import _ANCHOR, _END_ANCHOR, _lost_launches
+
+    def ev(name, id_, kind, start_us, end_us):
+        return NS(name=name, id=id_, device_type=kind, device_index=0, device_resource_id=7,
+                  time_range=NS(start=start_us, end=end_us,
+                                elapsed_us=lambda s=start_us, e=end_us: e - s))
+
+    cpu, cuda = DeviceType.CPU, DeviceType.CUDA
+    events = [ev("cudaLaunchKernel", 9, cpu, 1.0, 2.0),        # the primer
+              ev("primer", 9, cuda, 2.0, 3.0),
+              ev(_ANCHOR, 1, cpu, 10.0, 11.0),
+              ev("cuLaunchKernel", 2, cpu, 100.0, 101.0),
+              ev("triton_poi", 2, cuda, 105.0, 110.0),
+              ev("cudaLaunchKernel", 3, cpu, 120.0, 121.0),    # no device record
+              ev(_END_ANCHOR, 4, cpu, 200.0, 201.0),
+              ev("cudaLaunchKernel", 5, cpu, 210.0, 211.0),    # the tail, recorded
+              ev("tail", 5, cuda, 212.0, 213.0),
+              ev("cudaLaunchKernel", 6, cpu, 220.0, 221.0)]    # the tail, no record
+    assert _lost_launches(events, (cuda,), 10.0) == 2
+    assert _lost_launches(events, (cuda,), 10.0, 200.0) == 1
+    out, lost = collect_device_events(events, 1_000_000)
+    assert lost == 1
+    assert [e["name"] for e in out] == ["triton_poi"]
