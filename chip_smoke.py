@@ -177,11 +177,12 @@ Phases, each a hard check (the script exits nonzero on the first failure):
      captured against the same functions without graphs:
      equal tokens, and beam search (B8 K4, dense and paged) equal tokens and
      scores; (c) the flagship trained under jit.to_static (Inductor, the
-     kernels as torch.library ops; phase 6's cell): the cold compile
-     seconds, launches (2L, L, L) a warm step and no math-path attention,
-     every gradient finite and nonzero, a falling fp32 loss, the median
-     step_ms beside phase 6's eager median from this run, peak memory and a
-     profiled step by kernel group; then phase 7's 2-layer fp32 shape,
+     kernels as torch.library ops; phase 6's cell cut to TOSTATIC14_LAYERS
+     layers for the script's time): the cold compile seconds, launches
+     (2L, L, L) a warm step and no math-path attention, every gradient
+     finite and nonzero, a falling fp32 loss, the median step_ms beside the
+     same model's eager median (its steps taken before the compile), peak
+     memory and a profiled step by kernel group; then phase 7's 2-layer fp32 shape,
      compiled against eager on the card: losses within 1e-5 relative,
      step-1 gradients within 1e-4 norm-relative; (d) the axpy op inside a
      full_graph=True to_static function: one launch a call, bit for bit the
@@ -434,6 +435,38 @@ Phases, each a hard check (the script exits nonzero on the first failure):
      ogbn-arxiv's scale (169,343 nodes, 1,166,243 edges, 128 features),
      the graph samplers' draws, asp's 2:4 masks on 2 blocks of (b)'s width,
      exact after 3 decorated AdamW steps.
+ 24. the MoE layer and static graphs: (a) within MOE_SECONDS, the LLaMA MoE
+     configuration at mistralai/Mixtral-8x7B-v0.1's widths (hidden 4096,
+     FFN 14336, 32 heads over 8 KV heads x 128, 8 experts with 2 a token,
+     vocab 32000, rope theta 1e6, RMS eps 1e-5; bf16, random weights from
+     a seed; depth cut to 4 layers served and 2 trained; the router keeps
+     the JAX gate's bias): an eval forward at B4 S2048 under Mixtral's
+     routing (naive gate, top-2, no capacity drops) launches kernel 1 4
+     times, no math path, the expert token counts printed; generate B1,
+     a 128-token prompt, 16 new tokens (the prefix recomputed) launches it
+     4 times a step and its greedy ids equal a second run's; GShard
+     training (capacity, random routing) with per-layer recompute and
+     AdamW(multi_precision) at B4 S2048, 2 warm-ups and 3 timed steps on
+     one batch: 4/2/2 a step, the loss equal to the CE plus 0.01 times the
+     gates' aux loss (> 0) bit for bit, the fp32 CE falls, the peak under
+     75 GB, the share of routed slots capacity dropped; one MoELayer (E 8,
+     d 64, T 512) under each gate in eval and GShard without random
+     routing in training, card against CPU: the dispatch of one set of
+     logits bit for bit, the routing equal, outputs and gradients within
+     1e-5 scaled; a fp32 2-layer MoE LLaMA with random routing, gradients
+     with per-layer recompute against without at the same seed; (b) within
+     STATIC_SECONDS, static graphs on phase 6's cell: the flagship built
+     under program_guard on static.data (the batch dim dynamic, captured
+     at 1; 8 kernel-1 launches at capture), AdamW(multi_precision)
+     .minimize, 3 Executor.run steps at B8 S2048 against an eager twin
+     from the same weights on the same batch: losses and weights equal bit
+     for bit, 16/8/8 a run, replay beside eager ms; the same from fp32
+     weights under static.amp.decorate(use_bf16=True) at O1 against eager
+     auto_cast O1 bf16 steps; save/load_inference_model of the flagship,
+     a B8 S128 run equal to eager's logits bit for bit with 8 launches;
+     static.nn's fc, conv2d, batch_norm, embedding, cond (both branches)
+     and while_loop built and replayed on the CPU and on the card, within
+     1e-5 scaled.
 Phases 3, 9 and 13 time the decode engine's default, the captured path.
 The last line is the device JSON object; the line before it the card's name
 and power limit; before that the kernels JSON object.
@@ -3381,6 +3414,10 @@ TOL_COMPILED_LOSS = 1e-5   # relative
 TOL_COMPILED_GRAD = 1e-4   # norm-relative per parameter
 # the .item() break (e): Inductor's tanh is libdevice's, eager's ATen's
 TOL_BREAK = 1e-6
+# (c)'s depth: phase 6's cell cut from 8 to 4 layers, for phase 24's time
+# (the cold compile took 69 s at 8 layers on an H100 80GB HBM3 at 700 W)
+TOSTATIC14_LAYERS = 4
+TOSTATIC14_EAGER_STEPS = (1, 3)   # (c)'s eager yardstick: warm-ups, timed
 # (a) what the captured programs keep: the engine's graphs share one memory
 # pool, so 14 new prefill graphs keep their (B, V) logits (4 MiB at the
 # flagship), not a private pool of intermediates each (tens of MiB each)
@@ -3577,22 +3614,38 @@ def captured_forms(torch, models):
     return out
 
 
-def to_static_training(torch, fa, models, AdamW, jit, smi, eager, math_calls):
-    """Phase 14 (c): phase 6's step under jit.to_static (Inductor), against
-    phase 6's eager numbers from this run."""
-    cfg = models.LlamaConfig(**FLAGSHIP, dtype="bfloat16", recompute=True,
-                             recompute_granularity="full")
+def to_static_training(torch, fa, models, AdamW, jit, smi, math_calls):
+    """Phase 14 (c): phase 6's step (cut to TOSTATIC14_LAYERS layers) under
+    jit.to_static (Inductor), against the same model's eager steps."""
+    cfg = models.LlamaConfig(**dict(FLAGSHIP, num_hidden_layers=TOSTATIC14_LAYERS),
+                             dtype="bfloat16", recompute=True, recompute_granularity="full")
     L, B, S = cfg.num_hidden_layers, 8, 2048
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model = models.LlamaForCausalLM(cfg, device="cuda", seed=0)
     model.train()
-    jit.to_static(model)
     opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters(), multi_precision=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     ids = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", generator=gen)
     labels = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", generator=gen)
+    # the eager yardstick: the same model's steps before it is compiled
+    eager_all = []
+    for i in range(sum(TOSTATIC14_EAGER_STEPS)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = model(ids, labels=labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        if i >= TOSTATIC14_EAGER_STEPS[0]:
+            eager_all.append((time.perf_counter() - t0) * 1e3)
+    del loss
+    eager_ms = sorted(eager_all)[len(eager_all) // 2]
+    eager_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    jit.to_static(model)
 
     def fp32_loss(logits):
         with torch.no_grad():
@@ -3647,17 +3700,16 @@ def to_static_training(torch, fa, models, AdamW, jit, smi, eager, math_calls):
     profile = profile_step(torch, step, step_ms)
     if not all(math.isfinite(x) for x in first + last) or not last[1] < first[1]:
         fail(f"the to_static loss did not fall: {first} -> {last}")
-    out = dict(step_ms=step_ms, step_ms_all=times, eager_step_ms=eager["step_ms"],
-               eager_step_ms_all=eager["step_ms_all"], step_ms_over_eager=step_ms / eager[
-                   "step_ms"], tokens_per_sec=B * S / (step_ms / 1e3),
+    out = dict(step_ms=step_ms, step_ms_all=times, eager_step_ms=eager_ms,
+               eager_step_ms_all=eager_all, step_ms_over_eager=step_ms / eager_ms,
+               tokens_per_sec=B * S / (step_ms / 1e3),
                compile_s=compile_s, cold_step_launches=list(cold_counts),
                launches_per_step=dict(fwd=per_step[0], bwd_dq=per_step[1],
                                       bwd_dkv=per_step[2]),
                math_path_calls=0, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-               eager_peak_mem_gb=eager["peak_mem_gb"], loss_first=first[0],
+               eager_peak_mem_gb=eager_peak, loss_first=first[0],
                loss_last=last[0], loss_first_fp32=first[1], loss_last_fp32=last[1],
-               batch=B, seq=S, layers=L, steps=8, profile=profile,
-               eager_profile_by_group=eager["profile"]["by_group"], card=smi)
+               batch=B, seq=S, layers=L, steps=8, profile=profile, card=smi)
     del model, opt
     return out
 
@@ -3797,7 +3849,7 @@ def to_static_forward(torch, fa, models, jit, math_calls, smi):
                 timing=f"CUDA events around each call, median of {DEPLOY_RUNS}", card=smi)
 
 
-def phase_compiled(torch, fa, axpy, models, AdamW, jit, serving_mod, port_F, smi, eager):
+def phase_compiled(torch, fa, axpy, models, AdamW, jit, serving_mod, port_F, smi):
     """Phase 14: the compiled paths (module docstring)."""
     out = dict(decode={})
     for name, width in WIDTHS14:
@@ -3811,7 +3863,7 @@ def phase_compiled(torch, fa, axpy, models, AdamW, jit, serving_mod, port_F, smi
     out["forms"]["seconds"] = time.perf_counter() - t0
     print("captured_forms " + json.dumps(out["forms"]), flush=True)
     math_calls = count_math_path(port_F)
-    out["training"] = to_static_training(torch, fa, models, AdamW, jit, smi, eager, math_calls)
+    out["training"] = to_static_training(torch, fa, models, AdamW, jit, smi, math_calls)
     print("to_static_training " + json.dumps(out["training"]), flush=True)
     out["fp32"] = to_static_vs_eager_fp32(torch, fa, models, AdamW, jit)
     print("to_static_vs_eager_fp32 " + json.dumps(out["fp32"]), flush=True)
@@ -8505,6 +8557,507 @@ def phase_io(torch, fa, T, port_F, smi, unfused_bert_step_ms):
     return out
 
 
+# phase 24: the MoE layer with the LLaMA MoE configuration at Mixtral-8x7B's
+# widths, and static graphs (capture-replay) driving the flagship (module
+# docstring). MOE_SECONDS and STATIC_SECONDS are the two parts' shares of the
+# script's time.
+MOE_SECONDS = 90
+STATIC_SECONDS = 60
+# (a): mistralai/Mixtral-8x7B-v0.1 config.json: hidden 4096, intermediate
+# 14336, 32 heads over 8 KV heads x 128, 8 experts with 2 a token, vocab
+# 32000, rope theta 1e6, RMS eps 1e-5. Cut: the depth (32 -> 4 layers served,
+# 2 trained), the weights (random from the seed), the router keeps the JAX
+# gate's bias (Mixtral's has none)
+MIXTRAL24 = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+                 num_attention_heads=32, num_key_value_heads=8, max_position_embeddings=32768,
+                 rope_theta=1e6, rms_norm_eps=1e-5, num_experts=8, moe_topk=2)
+MOE24 = dict(serve_layers=4, train_layers=2, batch=4, seq=2048, prompt=128, new=16, warm=2,
+             timed=3, lr=1e-4, peak_gb=75.0, seed=24)
+# (a) 4: one MoELayer card against CPU; (a) 5: the recompute check's width
+MOE24_SMALL = dict(experts=8, d_model=64, hidden=128, tokens=512)
+MOE24_RECOMPUTE = dict(vocab_size=1000, hidden_size=256, intermediate_size=512,
+                       num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                       num_experts=8, moe_topk=2, moe_gate="gshard")
+TOL_MOE24 = 1e-5           # scaled; fp32 outputs and gradients, card against CPU / recompute
+# (b): phase 6's cell captured as a static Program and replayed; the inference
+# model at phase 15's shape
+STATIC24 = dict(batch=8, seq=2048, steps=3, infer_batch=8, infer_seq=128, seed=0)
+TOL_STATIC24 = 1e-5        # scaled; the static.nn cases, card against CPU
+
+
+class default_device:
+    """Entry points of the port build on ``dev`` inside the block (the port's
+    ``set_device``), and on what they built on before it after."""
+
+    def __init__(self, T, dev):
+        from paddle_tpu_torch.device import _CURRENT
+
+        self.T, self.dev, self.current = T, dev, _CURRENT
+
+    def __enter__(self):
+        self.prev = self.current[0]
+        self.T.set_device(self.dev)
+
+    def __exit__(self, *exc):
+        self.current[0] = self.prev
+
+
+def scaled_max_err(torch, a, ref):
+    """max |a - ref| / max(1, max |ref|), in float64 on the CPU."""
+    a, ref = a.detach().double().cpu(), ref.detach().double().cpu()
+    return float((a - ref).abs().max() / max(1.0, float(ref.abs().max())))
+
+
+def mixtral24(models, layers, **kw):
+    return models.LlamaConfig(**MIXTRAL24, num_hidden_layers=layers, dtype="bfloat16", **kw)
+
+
+def moe_counts(model):
+    """Each MoE layer's expert token counts and (dropped, routed) slots of
+    its last forward."""
+    layers = [layer.mlp.moe for layer in model.llama.layers if hasattr(layer.mlp, "moe")]
+    drops = [tuple(int(v) for v in m.last_drops) for m in layers]
+    return [list(m.last_counts) for m in layers], drops
+
+
+def mixtral_eval_and_generate(torch, fa, T, models, math_calls):
+    """(a) 1-2: the eval forward at B4 S2048 under Mixtral's routing (naive
+    gate, top-2, no capacity drops) and ``generate`` at B1."""
+    C = MOE24
+    L = C["serve_layers"]
+    model = models.LlamaForCausalLM(mixtral24(models, L, moe_gate="naive"), device="cuda",
+                                    seed=C["seed"]).eval()
+    params = sum(p.numel() for p in model.parameters())
+    g = torch.Generator(device="cuda").manual_seed(C["seed"])
+    ids = torch.randint(0, MIXTRAL24["vocab_size"], (C["batch"], C["seq"]), device="cuda",
+                        generator=g)
+
+    def forward():
+        with torch.no_grad():
+            return model(ids)
+
+    torch.cuda.synchronize()
+    reset_counts(fa)
+    math_calls[0] = 0
+    logits = forward()
+    torch.cuda.synchronize()
+    launched = counts(fa)
+    row = dict(params=params, weight_gb=sum(p.numel() * p.element_size()
+                                             for p in model.parameters()) / 1e9,
+               launches=launched, math_calls=math_calls[0], copies=fa.copies_for_alignment,
+               finite=bool(torch.isfinite(logits).all()), shape=list(logits.shape))
+    row["expert_tokens"], row["drops"] = moe_counts(model)
+    del logits
+    row["ms"], row["ms_all"] = timed_runs(torch, forward, C["timed"])
+    tokens = C["batch"] * C["seq"]
+    row["tokens_per_sec"] = tokens / (row["ms"] / 1e3)
+    ok = (launched == (L, 0, 0) and row["math_calls"] == 0 and row["copies"] == 0
+          and row["finite"] and row["shape"] == [C["batch"], C["seq"], MIXTRAL24["vocab_size"]]
+          and all(sum(c) == tokens * 2 for c in row["expert_tokens"])
+          and all(d == (0, tokens * 2) for d in row["drops"]))
+    if not ok:
+        fail(f"phase 24 (a) Mixtral-width eval forward: {row}")
+    # generate: the JAX generate recomputes the prefix each step
+    prompt = ids[:1, :C["prompt"]]
+    torch.cuda.synchronize()
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    first = model.generate(prompt, max_new_tokens=C["new"])
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launched = counts(fa)
+    again = model.generate(prompt, max_new_tokens=C["new"])
+    gen = dict(batch=1, prompt=C["prompt"], new_tokens=C["new"], launches=launched,
+               launches_per_step=launched[0] / C["new"], seconds=gen_s,
+               ms_per_token=gen_s * 1e3 / C["new"], ids_equal=bool(torch.equal(first, again)),
+               shape=list(first.shape), prompt_kept=bool(torch.equal(first[:, :C["prompt"]],
+                                                                     prompt)))
+    del model
+    if not (launched == (L * C["new"], 0, 0) and gen["ids_equal"] and gen["prompt_kept"]
+            and gen["shape"] == [1, C["prompt"] + C["new"]]):
+        fail(f"phase 24 (a) Mixtral-width generate: {gen}")
+    return dict(eval_bf16=row, generate=gen)
+
+
+def mixtral_training(torch, fa, T, models, math_calls):
+    """(a) 3: GShard (capacity, random routing) training at B4 S2048, bf16,
+    per-layer recompute, AdamW(multi_precision)."""
+    C = MOE24
+    L = C["train_layers"]
+    torch.cuda.reset_peak_memory_stats()
+    model = models.LlamaForCausalLM(mixtral24(models, L, moe_gate="gshard", recompute=True,
+                                              recompute_granularity="full"),
+                                    device="cuda", seed=C["seed"]).train()
+    # one parameter group a parameter: the rule's float32 temporaries (the
+    # gradients' copies, the denominators, the updates) are then one
+    # tensor's, where one group of 3.16 B parameters would add 3 x 12.6 GB
+    # to the 50.5 GB of weights, gradients, masters and moments
+    opt = T.optimizer.AdamW(learning_rate=C["lr"], multi_precision=True,
+                            parameters=[{"params": [p]} for p in model.parameters()])
+    g = torch.Generator(device="cuda").manual_seed(C["seed"] + 1)
+    shape = (C["batch"], C["seq"])
+    ids = torch.randint(0, MIXTRAL24["vocab_size"], shape, device="cuda", generator=g)
+    labels = torch.randint(0, MIXTRAL24["vocab_size"], shape, device="cuda", generator=g)
+    # the aux loss each forward adds (moe_aux_loss is read once a forward)
+    auxes = []
+    read_aux = model.moe_aux_loss
+
+    def spy():
+        aux = read_aux()
+        auxes.append(aux.detach())
+        return aux
+
+    model.moe_aux_loss = spy
+    rows, step_ms = [], []
+    for i in range(C["warm"] + C["timed"]):
+        reset_counts(fa)
+        math_calls[0] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, logits = model(ids, labels=labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        with torch.no_grad():
+            ce = model.criterion(logits, labels)
+            aux = auxes[-1]
+            # the model's own sum: ce + cast(aux) * 0.01 in the loss's dtype
+            want = ce + aux.to(ce.dtype) * torch.tensor(0.01, dtype=ce.dtype, device=ce.device)
+            rows.append(dict(
+                loss=float(loss), ce_fp32=float(model.criterion(logits.float(), labels)),
+                aux=float(aux), loss_is_ce_plus_aux=bool(torch.equal(loss.detach(), want)),
+                launches=counts(fa) + (math_calls[0],), drops=moe_counts(model)[1]))
+        del loss, logits, ce, want
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    timed = step_ms[C["warm"]:]
+    med = sorted(timed)[len(timed) // 2]
+    dropped = sum(d for r in rows for d, _ in r["drops"])
+    routed = sum(n for r in rows for _, n in r["drops"])
+    slots = len(rows) * L * C["batch"] * C["seq"] * MIXTRAL24["moe_topk"]
+    out = dict(layers=L, params=sum(p.numel() for p in model.parameters()), steps=rows,
+               step_ms=step_ms, step_ms_median=med,
+               tokens_per_sec=C["batch"] * C["seq"] / (med / 1e3), peak_gb=peak,
+               dropped_share_of_routed=dropped / routed, routed_share_of_slots=routed / slots,
+               capacity=int(math.ceil(1.2 * C["batch"] * C["seq"] * 2 / 8)))
+    del model, opt, ids, labels
+    ok = (all(r["launches"] == (2 * L, L, L, 0) for r in rows)
+          and all(math.isfinite(r["loss"]) and r["loss_is_ce_plus_aux"] and r["aux"] > 0
+                  for r in rows)
+          and rows[-1]["ce_fp32"] < rows[0]["ce_fp32"] and peak < C["peak_gb"])
+    if not ok:
+        fail(f"phase 24 (a) Mixtral-width GShard training: {out}")
+    return out
+
+
+def moe_layer_card_vs_cpu(torch, T):
+    """(a) 4: one MoELayer (E 8, d 64, T 512) under each gate, on the card and
+    on a CPU twin: the dispatch of the same logits bit for bit, the layer's
+    routing, outputs and gradients."""
+    import copy
+
+    from paddle_tpu_torch.incubate.distributed.models import moe
+    from paddle_tpu_torch.incubate.distributed.models.moe.gate import _topk_dispatch
+
+    C = MOE24_SMALL
+    d, E = C["d_model"], C["experts"]
+    g = torch.Generator().manual_seed(241)
+    x_cpu = torch.randn(C["tokens"], d, generator=g)
+    out = {}
+    for name, gate, train in (
+            ("naive_eval", lambda: moe.NaiveGate(d, E, topk=2), False),
+            ("gshard_eval", lambda: moe.GShardGate(d, E), False),
+            ("switch_eval", lambda: moe.SwitchGate(d, E), False),
+            ("gshard_train_no_random", lambda: moe.GShardGate(d, E, random_routing=False),
+             True)):
+        T.seed(242)
+        with default_device(T, "cpu"):
+            experts = [T.nn.Sequential(T.nn.Linear(d, C["hidden"]), T.nn.GELU(),
+                                       T.nn.Linear(C["hidden"], d)) for _ in range(E)]
+            cpu = moe.MoELayer(d, experts, gate=gate())
+        card = copy.deepcopy(cpu).to("cuda")
+        row = {}
+        for layer in (cpu, card):
+            layer.train(train)
+        res = []
+        for layer, x0 in ((cpu, x_cpu), (card, x_cpu.cuda())):
+            x = x0.clone().requires_grad_(True)
+            y = layer(x)
+            aux = layer.gate.get_loss()
+            total = y.square().mean() + (aux if aux is not None else 0.0)
+            total.backward()
+            res.append(dict(y=y, dx=x.grad, route=layer.route(x.detach()),
+                            grads={n: p.grad for n, p in layer.named_parameters()}))
+        (lc, sc, ic, kc), (lg, sg, ig, kg) = res[0]["route"], res[1]["route"]
+        k = layer.top_k
+        same = _topk_dispatch(lc.detach().cuda(), top_k=k, capacity=layer.gate.capacity_for(
+            C["tokens"], train), sample=False)
+        ref = _topk_dispatch(lc.detach(), top_k=k, capacity=cpu.gate.capacity_for(
+            C["tokens"], train), sample=False)
+        row["dispatch_same_logits_equal"] = all(
+            torch.equal(a.cpu(), b) for a, b in zip((same[0], same[2], same[3]),
+                                                     (ref[0], ref[2], ref[3])))
+        row["routing_equal"] = bool(torch.equal(ic, ig.cpu()) and torch.equal(kc, kg.cpu())
+                                    and torch.equal(sc[kc], sg.cpu()[kg.cpu()]))
+        row["kept"] = int(kc.sum())
+        row["out_err"] = scaled_max_err(torch, res[1]["y"], res[0]["y"])
+        row["dx_err"] = scaled_max_err(torch, res[1]["dx"], res[0]["dx"])
+        row["grad_err"] = max(scaled_max_err(torch, res[1]["grads"][n], gr)
+                              for n, gr in res[0]["grads"].items())
+        out[name] = row
+        if not (row["dispatch_same_logits_equal"] and row["routing_equal"]
+                and max(row["out_err"], row["dx_err"], row["grad_err"]) <= TOL_MOE24):
+            fail(f"phase 24 (a) MoELayer {name} card against CPU: {row}")
+    return out
+
+
+def moe_recompute_check(torch, T, models):
+    """(a) 5: a fp32 2-layer MoE LLaMA on the card with random routing on:
+    the gradients with per-layer recompute equal those without at the same
+    seed (the recomputed forward draws the forward's routing)."""
+    grads, losses = [], []
+    g = torch.Generator().manual_seed(243)
+    ids = torch.randint(0, MOE24_RECOMPUTE["vocab_size"], (2, 128), generator=g).cuda()
+    labels = torch.randint(0, MOE24_RECOMPUTE["vocab_size"], (2, 128), generator=g).cuda()
+    for recompute in (True, False):
+        model = models.LlamaForCausalLM(models.LlamaConfig(**MOE24_RECOMPUTE,
+                                                           recompute=recompute),
+                                        device="cuda", seed=244).train()
+        T.seed(245)
+        loss, _ = model(ids, labels=labels)
+        loss.backward()
+        losses.append(float(loss))
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+    err = max(scaled_max_err(torch, grads[0][n], gr) for n, gr in grads[1].items())
+    equal = all(torch.equal(grads[0][n], gr) for n, gr in grads[1].items())
+    out = dict(losses=losses, grad_err=err, grads_bit_equal=equal, tol=TOL_MOE24)
+    if not (losses[0] == losses[1] and err <= TOL_MOE24):
+        fail(f"phase 24 (a) recompute with random routing: {out}")
+    return out
+
+
+def static_flagship_train(torch, fa, T, models, amp=False):
+    """(b) 1-3: phase 6's cell built under program_guard (batch dim dynamic,
+    captured at 1), AdamW(multi_precision).minimize, replayed by
+    Executor.run against an eager twin from the same weights on the same
+    batch; with ``amp`` fp32 weights under static.amp.decorate(use_bf16) at
+    O1 against the eager auto_cast O1 bf16 steps."""
+    C = STATIC24
+    B, S = C["batch"], C["seq"]
+    dtype = "float32" if amp else "bfloat16"
+    cfg = models.LlamaConfig(**FLAGSHIP, dtype=dtype, recompute=True,
+                             recompute_granularity="full")
+    L = cfg.num_hidden_layers
+
+    def optimizer(params):
+        opt = T.optimizer.AdamW(learning_rate=TRAIN_LR, parameters=params,
+                                multi_precision=not amp)
+        return T.static.amp.decorate(opt, use_bf16=True) if amp else opt
+
+    main = T.static.Program()
+    torch.cuda.synchronize()
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    with T.static.program_guard(main, T.static.Program()):
+        ids = T.static.data("input_ids", [None, S], "int64")
+        labels = T.static.data("labels", [None, S], "int64")
+        model = models.LlamaForCausalLM(cfg, device="cuda", seed=C["seed"]).train()
+        loss, _ = model(ids, labels=labels)
+        loss.name = "loss"
+        optimizer(model.parameters()).minimize(loss)
+    torch.cuda.synchronize()
+    capture = dict(seconds=time.perf_counter() - t0, launches=counts(fa), entries=len(main._ops),
+                   captured_batch=int(torch.Tensor.shape.__get__(ids)[0]))
+    twin = models.LlamaForCausalLM(cfg, device="cuda", seed=C["seed"]).train()
+    topt = T.optimizer.AdamW(learning_rate=TRAIN_LR, parameters=twin.parameters(),
+                             multi_precision=not amp)
+    g = torch.Generator(device="cuda").manual_seed(C["seed"] + 24)
+    x = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", generator=g)
+    y = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", generator=g)
+    exe = T.static.Executor()
+    rows = []
+    for _ in range(C["steps"]):
+        torch.cuda.synchronize()
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        (lv,) = exe.run(main, feed={"input_ids": x, "labels": y}, fetch_list=["loss"],
+                        return_numpy=False)
+        torch.cuda.synchronize()
+        replay_ms = (time.perf_counter() - t0) * 1e3
+        replay_launches = counts(fa)
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        with T.amp.auto_cast(enable=amp, level="O1", dtype="bfloat16"):
+            ref, _ = twin(x, labels=y)
+        ref.backward()
+        topt.step()
+        topt.clear_grad()
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        rows.append(dict(loss=float(lv), eager_loss=float(ref),
+                         equal=bool(torch.equal(lv.detach(), ref.detach())),
+                         replay_ms=replay_ms, eager_ms=eager_ms, launches=replay_launches,
+                         eager_launches=counts(fa)))
+        del lv, ref
+    weights_equal = all(torch.equal(p, q) for p, q in zip(model.parameters(),
+                                                         twin.parameters()))
+    out = dict(batch=B, seq=S, layers=L, weights=dtype, amp="O1 bfloat16" if amp else None,
+               capture=capture, steps=rows, weights_equal=weights_equal,
+               replay_ms=[r["replay_ms"] for r in rows], eager_ms=[r["eager_ms"] for r in rows],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del main, model, twin, topt, exe
+    want = (2 * L, L, L)
+    ok = (capture["launches"] == (L, 0, 0) and capture["captured_batch"] == 1
+          and all(r["equal"] and r["launches"] == want and r["eager_launches"] == want
+                  and math.isfinite(r["loss"]) for r in rows) and weights_equal)
+    if not ok:
+        fail(f"phase 24 (b) static flagship {'AMP ' if amp else ''}training: {out}")
+    return out
+
+
+def static_inference_model(torch, fa, T, models, tmp):
+    """(b) 4: save_inference_model/load_inference_model of the flagship (bf16,
+    eval) at B8 S128: the loaded program's logits equal eager's bit for bit."""
+    C = STATIC24
+    B, S = C["infer_batch"], C["infer_seq"]
+    cfg = models.LlamaConfig(**FLAGSHIP, dtype="bfloat16")
+    L = cfg.num_hidden_layers
+    model = models.LlamaForCausalLM(cfg, device="cuda", seed=C["seed"]).eval()
+    prefix = os.path.join(tmp, "static_flagship")
+    t0 = time.perf_counter()
+    T.static.save_inference_model(prefix, [T.static.InputSpec([B, S], "int64", "input_ids")],
+                                  model)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    program, feeds, fetch = T.static.load_inference_model(prefix)
+    load_s = time.perf_counter() - t0
+    g = torch.Generator(device="cuda").manual_seed(C["seed"] + 25)
+    ids = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", generator=g)
+    with torch.no_grad():
+        eager = model(ids)
+        torch.cuda.synchronize()
+        reset_counts(fa)
+        got = fetch(ids)
+        torch.cuda.synchronize()
+    launched = counts(fa)
+
+    def run():
+        with torch.no_grad():
+            return fetch(ids)
+
+    ms, ms_all = timed_runs(torch, run, 5)
+    out = dict(batch=B, seq=S, layers=L, save_s=save_s, load_s=load_s, launches=launched,
+               equal=bool(torch.equal(got, eager)), shape=list(got.shape), ms=ms,
+               ms_all=ms_all, program=type(program).__name__)
+    del model, fetch, program
+    if not (launched == (L, 0, 0) and out["equal"]):
+        fail(f"phase 24 (b) the static inference model: {out}")
+    return out
+
+
+def static_nn_cases(T, S):
+    """(name, build, feed) of the static.nn cases held card against CPU."""
+    import numpy as np
+
+    r = np.random.RandomState(246)
+    x48 = r.randn(16, 8).astype("float32")
+    img = r.randn(4, 6, 8, 8).astype("float32")
+
+    def fc():
+        return S.fc(T.static.data("x", [None, 8], "float32"), 32, activation="relu")
+
+    def conv():
+        return S.conv2d(T.static.data("x", [None, 6, 8, 8], "float32"), 16, 3, padding=1)
+
+    def bn():
+        return S.batch_norm(T.static.data("x", [None, 6, 8, 8], "float32"))
+
+    def emb():
+        return S.embedding(T.static.data("x", [None, 5], "int64"), (1000, 64))
+
+    def cond():
+        x = T.static.data("x", [None, 8], "float32")
+        return S.cond(x.sum() > 0, lambda: S.fc(x, 4), lambda: x[:, :4] * 3.0)
+
+    def while_loop():
+        x = T.static.data("x", [None, 8], "float32")
+        i = T.full([], 0, "int64")
+        return S.while_loop(lambda i, v: v.abs().sum() < 1e3,
+                            lambda i, v: [i + 1, v * 1.5 + 0.25], [i, x])[1]
+
+    ids = r.randint(0, 1000, (16, 5)).astype("int64")
+    return [("fc", fc, {"x": x48}), ("conv2d", conv, {"x": img}), ("batch_norm", bn, {"x": img}),
+            ("embedding", emb, {"x": ids}), ("cond_true", cond, {"x": np.abs(x48)}),
+            ("cond_false", cond, {"x": -np.abs(x48)}), ("while_loop", while_loop, {"x": x48})]
+
+
+def static_nn_card_vs_cpu(torch, T):
+    """(b) 5: each static.nn case built and replayed on the CPU and on the
+    card, the CPU program's parameters carried into the card's."""
+    S = T.static.nn
+    out = {}
+    for name, build, feed in static_nn_cases(T, S):
+        progs = []
+        for dev in ("cpu", "gpu"):
+            with default_device(T, dev):
+                main = T.static.Program()
+                with T.static.program_guard(main, T.static.Program()):
+                    build().name = "out"
+            progs.append(main)
+        with torch.no_grad():
+            for p, q in zip(progs[0].all_parameters(), progs[1].all_parameters()):
+                q.copy_(p)
+        got = [torch.from_numpy(T.static.Executor().run(p, feed=feed, fetch_list=["out"])[0])
+               for p in progs]
+        out[name] = dict(err=scaled_max_err(torch, got[1], got[0]), shape=list(got[0].shape),
+                         params=len(progs[1].all_parameters()),
+                         on_card=all(p.is_cuda for p in progs[1].all_parameters()))
+    if not all(r["err"] <= TOL_STATIC24 and r["on_card"] for r in out.values()):
+        fail(f"phase 24 (b) static.nn card against CPU: {out}")
+    return out
+
+
+def phase_moe_static(torch, fa, T, port_F, smi, tmp):
+    """Phase 24 (module docstring): (a) the MoE layer at Mixtral-8x7B's widths
+    within MOE_SECONDS, (b) static graphs on the flagship within
+    STATIC_SECONDS."""
+    import paddle_tpu_torch.models as models
+
+    math_calls = count_math_path(port_F)
+    out = {}
+    for part, cap, runs in (
+            ("moe", MOE_SECONDS, (
+                ("serve", lambda: mixtral_eval_and_generate(torch, fa, T, models, math_calls)),
+                ("train", lambda: mixtral_training(torch, fa, T, models, math_calls)),
+                ("card_vs_cpu", lambda: moe_layer_card_vs_cpu(torch, T)),
+                ("recompute", lambda: moe_recompute_check(torch, T, models)))),
+            ("static", STATIC_SECONDS, (
+                ("train", lambda: static_flagship_train(torch, fa, T, models)),
+                ("amp", lambda: static_flagship_train(torch, fa, T, models, amp=True)),
+                ("inference_model", lambda: static_inference_model(torch, fa, T, models, tmp)),
+                ("card_vs_cpu", lambda: static_nn_card_vs_cpu(torch, T))))):
+        t_part = time.perf_counter()
+        for key, run in runs:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out[f"{part}_{key}"] = res = run()
+            res["part_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            print(f"{part}24_{key} " + json.dumps(dict(res, card=smi,
+                                                       seconds=time.perf_counter() - t0)),
+                  flush=True)
+        seconds = time.perf_counter() - t_part
+        out[f"{part}_seconds"] = seconds
+        print(f"phase_seconds 24 ({part}) {seconds:.1f}", flush=True)
+        if seconds > cap:
+            fail(f"phase 24 ({part}) took {seconds:.1f} s, more than its {cap} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
 
@@ -8639,8 +9192,7 @@ def main():
     # phase 14: the compiled paths (launch counts set to 0 before each
     # counted call, read after it)
     t0 = time.perf_counter()
-    compiled = phase_compiled(torch, fa, axpy, models, AdamW, jit, serving_mod, port_F, smi,
-                              training)
+    compiled = phase_compiled(torch, fa, axpy, models, AdamW, jit, serving_mod, port_F, smi)
     print(f"phase_seconds 14 {time.perf_counter() - t0:.1f}", flush=True)
 
     # phase 15: the deploy path (launch counts set to 0 before the counted
@@ -8743,6 +9295,21 @@ def main():
     print(f"phase_seconds 23 {io_s:.1f}", flush=True)
     if io_s > IO_SECONDS:
         fail(f"phase 23 took {io_s:.1f} s, more than its {IO_SECONDS} s")
+    # phase 24: the MoE layer at Mixtral-8x7B's widths and static graphs on the
+    # flagship (launch counts and the math-path count set to 0 before each
+    # counted forward, generate, training step, capture and replay, read
+    # after each)
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_static_") as tmp:
+        p24 = phase_moe_static(torch, fa, T, port_F, smi, tmp)
+    print(f"phase_seconds 24 {time.perf_counter() - t0:.1f}", flush=True)
+    moe_eval, moe_gen = p24["moe_serve"]["eval_bf16"], p24["moe_serve"]["generate"]
+    moe_train = p24["moe_train"]["steps"][-1]["launches"]
+    static_train = p24["static_train"]["steps"][-1]["launches"]
+    static_amp = p24["static_amp"]["steps"][-1]["launches"]
+
     fed = io23["loader"]["training"]["launches_per_step"][-1]
     fused_bert = io23["fused_bert"]["launches_per_step"][-1]
     fdpa = io23["fused_dot_product_attention"]["launches"]
@@ -8789,6 +9356,16 @@ def main():
                                   "fused_multi_transformer"]["eval_bf16"]["launches"][0],
                               fused_bert_base_train_o1_bf16=fused_bert[0],
                               fused_dot_product_attention=fdpa[0],
+                              mixtral_moe_eval=moe_eval["launches"][0],
+                              mixtral_moe_generate=moe_gen["launches"][0],
+                              mixtral_moe_generate_per_step=moe_gen["launches_per_step"],
+                              mixtral_moe_train_gshard=moe_train[0],
+                              static_flagship_train=static_train[0],
+                              static_flagship_train_amp_o1=static_amp[0],
+                              static_flagship_capture=p24["static_train"]["capture"][
+                                  "launches"][0],
+                              static_inference_model=p24["static_inference_model"][
+                                  "launches"][0],
                               **{k: v["fwd"] for k, v in amp_launches.items()}),
         max_abs_err=main_row["max_abs_err"],
         tol=main_row["tol"], ms=main_row["kernel_ms"], kernel_ms=main_row["kernel_ms"],
@@ -8827,6 +9404,9 @@ def main():
                                   loader_fed_training=fed[1 + (key == "dkv")],
                                   fused_bert_base_train_o1_bf16=fused_bert[1 + (key == "dkv")],
                                   fused_dot_product_attention=fdpa[1 + (key == "dkv")],
+                                  mixtral_moe_train_gshard=moe_train[1 + (key == "dkv")],
+                                  static_flagship_train=static_train[1 + (key == "dkv")],
+                                  static_flagship_train_amp_o1=static_amp[1 + (key == "dkv")],
                                   **{k: v[f"bwd_{key}"] for k, v in amp_launches.items()}),
             max_abs_err=max(tr[f"{g}_max_abs_err"] for g in grads),
             norm_rel_err=max(tr[f"{g}_err"] for g in grads), tol=tr["tol"],

@@ -147,6 +147,8 @@ from . import reader  # noqa: E402,F401
 from . import regularizer  # noqa: E402,F401
 from . import sysconfig  # noqa: E402,F401
 from . import version  # noqa: E402,F401
+from . import static  # noqa: E402,F401
+from . import base  # noqa: E402,F401
 
 
 def rank(x):
@@ -159,9 +161,34 @@ def shape(x):
 
 
 def in_dynamic_mode():
-    """True in eager code, False while ``jit.to_static`` traces (the JAX
-    package's functional mode)."""
-    return not torch.compiler.is_compiling()
+    """True in eager code; False while ``jit.to_static`` traces (the JAX
+    package's functional mode) and after ``enable_static``."""
+    return not _STATIC_MODE[0] and not torch.compiler.is_compiling()
+
+
+_STATIC_MODE = [False]
+
+
+def enable_static():
+    """Static mode: calls on placeholders from here on are recorded into the
+    process-global default main Program (``static``), so the guard-less idiom
+    (enable_static + static.data + ops + Executor.run) replays against the
+    feed. ``program_guard`` still scopes recording to a Program of its own."""
+    from .framework import capture as _capture
+
+    _STATIC_MODE[0] = True
+    _capture.set_default(static._MAIN[0])
+
+
+def disable_static(place=None):
+    from .framework import capture as _capture
+
+    _STATIC_MODE[0] = False
+    _capture.set_default(None)
+
+
+def in_static_mode():
+    return _STATIC_MODE[0]
 
 
 def disable_signal_handler():

@@ -37,7 +37,10 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ...framework import capture as _capture
 from ...ops._apply import _AMP_STATE
+
+_CAPTURE = _capture._ANY
 
 _FULL = (None, "full", "nothing_saveable")
 _aten = torch.ops.aten
@@ -84,6 +87,11 @@ def recompute(function, *args, **kwargs):
     activations (all of them, or all but the products' outputs under a
     selective ``checkpoint_policy``); they are recomputed in the backward
     pass."""
+    if _CAPTURE[0]:
+        # static capture: the segment is one entry, replayed as a segment
+        prog = _capture.wants(args, kwargs)
+        if prog is not None:
+            return _capture.call(recompute, (function,) + args, kwargs, prog)
     preserve_rng_state = kwargs.pop("preserve_rng_state", True)
     kwargs.pop("use_reentrant", None)
     policy = kwargs.pop("checkpoint_policy", None)

@@ -2,15 +2,15 @@
 the port (counterpart of paddle_tpu.incubate): ``nn`` (the fused functionals
 and layers), ``asp`` (n:m sparsity), the graph ops, the geometric segment ops
 under their incubate names, ``softmax_mask_fuse*`` and ``identity_loss``, and
-``inference`` (the port's ``inference`` module). ``incubate.distributed`` (the
-MoE layer) is not ported yet: it belongs to ROADMAP Queue A item 8's MoE
-entry.
+``inference`` (the port's ``inference`` module), and ``distributed`` (the MoE
+layer, ``distributed.models.moe``).
 """
 import torch as _torch
 
 from . import nn  # noqa: F401
 from . import autograd  # noqa: F401
 from . import asp  # noqa: F401
+from . import distributed  # noqa: F401
 
 # geometric segment ops surfaced under incubate (reference incubate/__init__)
 from ..geometric import segment_max, segment_mean, segment_min, segment_sum  # noqa: F401,E402
@@ -66,12 +66,3 @@ from .graph_ops import (  # noqa: F401,E402
     graph_sample_neighbors,
 )
 from .. import inference  # noqa: F401,E402  (paddle.incubate.inference alias)
-
-_MOE_SLICE = ("paddle_tpu_torch.incubate.distributed (the MoE layer) is not ported yet: "
-              "it belongs to ROADMAP Queue A item 8's MoE entry, with LlamaMoEMLP")
-
-
-def __getattr__(name):
-    if name == "distributed":
-        raise AttributeError(_MOE_SLICE)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

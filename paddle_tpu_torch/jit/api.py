@@ -64,6 +64,7 @@ from torch.utils import _pytree as pytree
 
 from .. import monitor as _monitor
 from ..analysis import sanitizers as _sanitizers
+from ..framework import capture as _capture
 from . import sot as _sot
 
 
@@ -153,6 +154,12 @@ class StaticFunction:
 
     # -- call ---------------------------------------------------------------
     def __call__(self, *args, **kwargs):
+        if _capture._ANY[0]:
+            # static capture: the compiled call is one entry, traced on plain
+            # tensors with the recording off
+            prog = _capture.wants(args, kwargs)
+            if prog is not None:
+                return _capture.call(self, args, kwargs, prog, unwrap=True)
         if not _TO_STATIC_STATE[0] or torch.compiler.is_compiling():
             # disabled, or inside an outer trace, which traces through (as a
             # nested to_static call is traced inline by jax)

@@ -21,22 +21,32 @@ import torch
 
 from .llama import LlamaConfig, LlamaForCausalLM
 
-_LINEARS = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
-            "self_attn.o_proj", "mlp.gate_proj", "mlp.up_proj", "mlp.down_proj")
+_ATTN = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj", "self_attn.o_proj")
+_MLP = ("gate_proj", "up_proj", "down_proj")
 _NORMS = ("input_layernorm", "post_attention_layernorm")
 
 
 def name_map(config: LlamaConfig) -> dict[str, tuple[str, bool]]:
-    """JAX state_dict name -> (port parameter name, transpose?)."""
-    names = {"llama.embed_tokens.weight": ("llama.embed_tokens.weight", False),
-             "llama.norm.weight": ("llama.norm.weight", False)}
+    """JAX state_dict name -> (port parameter name, transpose?), in the JAX
+    ``state_dict``'s order. A MoE layer's experts (``mlp.moe.experts.{e}.``)
+    are transposed as the dense MLP is; its router (``mlp.moe.gate.gate.``
+    weight and bias) is the port's public ``nn.Linear``, in paddle's layout."""
+    names = {"llama.embed_tokens.weight": ("llama.embed_tokens.weight", False)}
+    every = max(1, config.moe_every_k or 1)
     for i in range(config.num_hidden_layers):
-        for lin in _LINEARS:
-            n = f"llama.layers.{i}.{lin}.weight"
-            names[n] = (n, True)
-        for norm in _NORMS:
-            n = f"llama.layers.{i}.{norm}.weight"
-            names[n] = (n, False)
+        pre = f"llama.layers.{i}."
+        lins = [f"{pre}{lin}.weight" for lin in _ATTN]
+        router = []
+        if (config.num_experts or 0) > 1 and i % every == 0:
+            lins += [f"{pre}mlp.moe.experts.{e}.{lin}.weight"
+                     for e in range(config.num_experts) for lin in _MLP]
+            router = [f"{pre}mlp.moe.gate.gate.{b}" for b in ("weight", "bias")]
+        else:
+            lins += [f"{pre}mlp.{lin}.weight" for lin in _MLP]
+        names.update((n, (n, True)) for n in lins)
+        names.update((n, (n, False)) for n in router)
+        names.update((f"{pre}{norm}.weight", (f"{pre}{norm}.weight", False)) for norm in _NORMS)
+    names["llama.norm.weight"] = ("llama.norm.weight", False)
     if not config.tie_word_embeddings:
         names["lm_head.weight"] = ("lm_head.weight", True)
     return names

@@ -36,9 +36,15 @@ outputs of the matrix products without batch dimensions as well (the JAX
 model's ``dots_with_no_batch_dims_saveable``). ``config.fused_head_ce``
 fuses the LM head with the cross-entropy over sequence chunks and returns
 ``(loss, None)``. Attention's backward runs the Hopper flash-attention
-backward kernels on the card. Tensor/sequence/pipeline parallelism, MoE,
-ring attention and the budget remat planner wait for the distributed slice
-(ROADMAP Queue A item 10) and raise ``NotImplementedError``.
+backward kernels on the card. ``config.num_experts > 1`` makes every
+``moe_every_k``-th decoder MLP a ``LlamaMoEMLP`` (``incubate.distributed``'s
+``MoELayer`` over SwiGLU experts, gate ``config.moe_gate``, top
+``config.moe_topk``); in training the loss gains ``0.01 *`` the sum of the
+gates' balance losses (``moe_aux_loss``), threaded out of each recompute
+segment as a real output, never in eval. Tensor/sequence/pipeline
+parallelism, expert parallelism, ring attention and the budget remat
+planner wait for the distributed slice (ROADMAP Queue A item 10) and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -56,8 +62,6 @@ from ..nn.layer.common import _TorchLinear as Linear
 from ..nn.layer.norm import RMSNorm
 
 _PARALLEL_SLICE = "the distributed slice of the port (ROADMAP Queue A item 10)"
-_MOE_SLICE = ("the MoE slice of the port (ROADMAP Queue A item 8: incubate.distributed's "
-              "MoE layer with LlamaMoEMLP)")
 
 
 class LlamaConfig:
@@ -148,7 +152,8 @@ def _check_supported(config):
         (config.sequence_parallel, "sequence_parallel", _PARALLEL_SLICE),
         ((config.pipeline_parallel_degree or 1) > 1, "pipeline_parallel_degree > 1",
          _PARALLEL_SLICE),
-        ((config.num_experts or 0) > 1, "MoE (num_experts > 1)", _MOE_SLICE),
+        (getattr(config, "moe_mesh", None) is not None, "expert parallelism (moe_mesh)",
+         _PARALLEL_SLICE),
         (getattr(config, "use_ring_attention", False), "ring attention", _PARALLEL_SLICE),
         (config.recompute_policy not in (None, "none"), "recompute_policy (remat planner)",
          _PARALLEL_SLICE),
@@ -211,11 +216,39 @@ class LlamaMLP(nn.Module):
         return self.down_proj(F.swiglu(self.gate_proj(x), self.up_proj(x)))
 
 
-class LlamaDecoderLayer(nn.Module):
+def _is_moe(config):
+    return (config.num_experts or 0) > 1
+
+
+class LlamaMoEMLP(nn.Module):
+    """Sparse MoE feed-forward: ``MoELayer`` over ``config.num_experts``
+    SwiGLU experts (torch's layout, as ``LlamaMLP``), the router the public
+    ``nn.Linear`` (paddle's layout, with a bias, as the JAX gate's)."""
+
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
+        from ..incubate.distributed.models.moe import MoELayer
+
+        experts = [LlamaMLP(config, device, dtype) for _ in range(config.num_experts)]
+        self.moe = MoELayer(d_model=config.hidden_size, experts=experts,
+                            gate={"type": config.moe_gate, "top_k": config.moe_topk},
+                            device=device, dtype=dtype)
+
+    @property
+    def aux_loss(self):
+        return self.moe.gate.get_loss()
+
+    def forward(self, x):
+        return self.moe(x)
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None, layer_idx=0):
+        super().__init__()
         self.self_attn = LlamaAttention(config, device, dtype)
-        self.mlp = LlamaMLP(config, device, dtype)
+        use_moe = _is_moe(config) and layer_idx % max(1, config.moe_every_k or 1) == 0
+        self.mlp = (LlamaMoEMLP if use_moe else LlamaMLP)(config, device, dtype)
+        self._moe_aux = None
         self.input_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps,
                                        device=device, dtype=dtype)
         self.post_attention_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps,
@@ -232,8 +265,31 @@ class LlamaDecoderLayer(nn.Module):
                     self.self_attn(self.input_layernorm(hidden_states), attn_mask))
         return ops.add(h, self.mlp(self.post_attention_layernorm(h)))
 
+    def _block_with_aux(self, hidden_states, attn_mask=None):
+        out = self._block(hidden_states, attn_mask)
+        aux = self.mlp.aux_loss
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=out.device)
+        return out, aux
+
+    def consume_moe_aux(self):
+        """This layer's gate balance loss from the last forward (cleared on
+        read). Under recompute it is the segment's second output, so the
+        backward's rerun of the segment (which sets and clears the gate's
+        loss again) never touches the value the loss used."""
+        aux = self._moe_aux
+        self._moe_aux = None
+        if aux is None and isinstance(self.mlp, LlamaMoEMLP):
+            aux = self.mlp.aux_loss
+        return aux
+
     def forward(self, hidden_states, attn_mask=None):
+        self._moe_aux = None
         if self._recompute and self.training:
+            if isinstance(self.mlp, LlamaMoEMLP):
+                out, self._moe_aux = recompute(self._block_with_aux, hidden_states, attn_mask,
+                                               checkpoint_policy=self._recompute_policy)
+                return out
             return recompute(self._block, hidden_states, attn_mask,
                              checkpoint_policy=self._recompute_policy)
         return self._block(hidden_states, attn_mask)
@@ -246,8 +302,8 @@ class LlamaModel(nn.Module):
         self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
                                       device=device, dtype=dtype)
         self.layers = nn.ModuleList(
-            [LlamaDecoderLayer(config, device, dtype)
-             for _ in range(config.num_hidden_layers)])
+            [LlamaDecoderLayer(config, device, dtype, layer_idx=i)
+             for i in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device=device,
                             dtype=dtype)
 
@@ -332,7 +388,9 @@ class LlamaForCausalLM(nn.Module):
         gen.manual_seed(seed)
         std = self.config.initializer_range
         for name, p in self.named_parameters():
-            if not name.endswith("layernorm.weight") and name != "llama.norm.weight":
+            if name.endswith(".bias"):  # the MoE routers' (zero, as the JAX Linear's)
+                p.zero_()
+            elif not name.endswith("layernorm.weight") and name != "llama.norm.weight":
                 p.normal_(0.0, std, generator=gen)
 
     @property
@@ -352,11 +410,32 @@ class LlamaForCausalLM(nn.Module):
                 labels = ops.squeeze(labels, -1)
             tok_loss = fused_linear_cross_entropy(
                 h, w, labels, ignore_index=self.criterion.ignore_index)
-            return self.criterion.masked_mean(tok_loss, labels), None
+            return self._with_aux(self.criterion.masked_mean(tok_loss, labels)), None
         logits = self.lm_head(h)
         if labels is None:
             return logits
-        return self.criterion(logits, labels), logits
+        return self._with_aux(self.criterion(logits, labels)), logits
+
+    def moe_aux_loss(self):
+        """Sum of the decoder MLPs' gate balance losses from the last forward
+        (cleared on read); a float32 zero when no MoE layer ran."""
+        total = None
+        for layer in self.llama.layers:
+            aux = layer.consume_moe_aux()
+            if aux is not None:
+                total = aux if total is None else ops.add(total, aux)
+        if total is None:
+            return torch.zeros((), dtype=torch.float32, device=self.device)
+        return total
+
+    def _with_aux(self, loss):
+        """The training loss plus 0.01 * the gates' balance loss (GShard
+        §3.2); eval loss stays pure cross-entropy."""
+        if self.training and _is_moe(self.config):
+            aux = ops.cast(self.moe_aux_loss(), loss.dtype)
+            loss = ops.add(loss, ops.multiply(aux, torch.tensor(0.01, dtype=loss.dtype,
+                                                                   device=loss.device)))
+        return loss
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens=32, temperature=0.0, generator=None):

@@ -167,6 +167,10 @@ def leaky_relu(x, negative_slope=0.01, name=None):
 def _prelu(x, weight, data_format="NCHW"):
     if weight.numel() == 1:
         w = weight.reshape(())
+    elif weight.dim() > 1:
+        # element mode: one alpha an element of x.shape[1:] (the JAX package
+        # reshapes it as a channel vector and raises)
+        w = weight.reshape((1,) + tuple(x.shape[1:]))
     else:
         axis = 1 if data_format == "NCHW" else x.dim() - 1
         shape = [1] * x.dim()

@@ -146,7 +146,9 @@ def embedding(x, weight, padding_idx=None, sparse=False, name=None):
 
 @defop("one_hot", differentiable=False)
 def _one_hot(x, num_classes):
-    return tF.one_hot(x.long(), num_classes).to(torch.float32)
+    # jax.nn.one_hot's law: an index outside [0, num_classes) gives a zero row
+    classes = torch.arange(num_classes, device=x.device)
+    return (x.long().unsqueeze(-1) == classes).to(torch.float32)
 
 
 def one_hot(x, num_classes, name=None):

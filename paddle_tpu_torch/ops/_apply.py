@@ -33,8 +33,11 @@ state, the flag and the stats slot are guarded, so a step compiled outside
 (``a @ b``, ``a + b``) are torch's own and bypass this dispatch (in the JAX
 package they are ``Tensor`` methods that dispatch).
 
-Not ported here: graph capture (``to_static`` is Dynamo) and the SPMD rules
-slot (ROADMAP Queue A item 10).
+Under static graph capture (``static.program_guard``, ``enable_static``)
+``apply`` records the op call into the active Program as one entry and runs
+it with the recording off (``framework/capture.py``), as the JAX dispatch
+records it; the check is one read of ``_CAPTURE``. Not ported here: the SPMD
+rules slot (ROADMAP Queue A item 10).
 
 The JAX package registers its built-in ops when it is imported; the port
 registers those it has ported, under the same names, and keeps every JAX
@@ -48,6 +51,7 @@ import functools
 import torch
 
 from .. import monitor as _monitor
+from ..framework import capture as _capture
 from ..framework import flags as _flags
 from ._builtin_names import BUILTIN_OP_NAMES
 
@@ -76,6 +80,8 @@ _MON_STATE = _monitor._state
 _TRACE = _monitor.trace
 _TRACE_STATE = _TRACE._state
 _MON = [None]  # (op-calls counter, latency histogram), bound on first use
+#: [a static Program is active on some thread] (``framework/capture.py``)
+_CAPTURE = _capture._ANY
 
 
 class OpDef:
@@ -145,7 +151,19 @@ def _finish_outputs(name, out):
 def apply(opdef: OpDef, *args, **kwargs):
     """Dispatch one op call: AMP cast, the function, scan and stats; while a
     profiler RECORD window is open, or the monitor or tracing is on, timed
-    and recorded by ``_observed``."""
+    and recorded by ``_observed``; under static capture, recorded into the
+    Program."""
+    if _CAPTURE[0]:
+        prog = _capture.wants(args, kwargs)
+        if prog is not None:
+            return _capture.call(functools.partial(_apply_now, opdef), args, kwargs, prog)
+    if _PROFILER[0] is not None or _MON_STATE.on or _TRACE_STATE.on:
+        return _observed(opdef, args, kwargs)
+    return _dispatch(opdef, args, kwargs)
+
+
+def _apply_now(opdef, *args, **kwargs):
+    """``apply`` without the capture check: the call a Program replays."""
     if _PROFILER[0] is not None or _MON_STATE.on or _TRACE_STATE.on:
         return _observed(opdef, args, kwargs)
     return _dispatch(opdef, args, kwargs)
@@ -213,7 +231,17 @@ def _dispatch(opdef, args, kwargs):
 def apply_raw(name, fn, tensor_args, n_outs=1):
     """Call ``fn`` on positional tensors and return its outputs as a tuple
     (the JAX entry for PyLayer and create_graph replay; autograd records it
-    as it records any torch code)."""
+    as it records any torch code); under static capture, recorded as one
+    entry, as the JAX package records it."""
+    if _CAPTURE[0]:
+        prog = _capture.wants(tensor_args, {})
+        if prog is not None:
+            return _capture.call(functools.partial(_apply_raw_now, fn), tuple(tensor_args), {},
+                                 prog)
+    return _apply_raw_now(fn, *tensor_args)
+
+
+def _apply_raw_now(fn, *tensor_args):
     out = fn(*tensor_args)
     return tuple(out) if isinstance(out, (tuple, list)) else (out,)
 

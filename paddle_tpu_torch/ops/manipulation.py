@@ -24,11 +24,15 @@ def _ints(seq):
     if isinstance(seq, torch.Tensor):
         return tuple(int(v) for v in seq.reshape(-1).tolist())
     if isinstance(seq, (bool, int, np.integer)):
-        return (int(seq),)
-    return tuple(int(v.item() if isinstance(v, torch.Tensor) else v) for v in seq)
+        return (_int(seq),)
+    return tuple(_int(v) for v in seq)
 
 
 def _int(v):
+    # an int subclass passes as it is: a static graph's dynamic dim
+    # (framework/capture.py ``_SymDim``) must reach the recorded op
+    if isinstance(v, int) and not isinstance(v, bool):
+        return v
     return int(v.item() if isinstance(v, torch.Tensor) else v)
 
 

@@ -91,11 +91,19 @@ class Optimizer:
 
     def __init__(self, learning_rate=0.001, parameters=None, weight_decay=None,
                  grad_clip=None, multi_precision=False, name=None):
+        # static mode: with no parameters under an active Program, the
+        # optimizer binds the Program's builder parameters at minimize()
+        self._static_bind = False
         if parameters is None:
-            from ..framework.enforce import InvalidArgumentError
+            from ..framework import capture
 
-            raise InvalidArgumentError("parameters is required: pass model.parameters() or "
-                                       "model.named_parameters()")
+            if capture.active() is None:
+                from ..framework.enforce import InvalidArgumentError
+
+                raise InvalidArgumentError("parameters is required: pass model.parameters() "
+                                           "or model.named_parameters()")
+            self._static_bind = True
+            parameters = []
         if not isinstance(learning_rate, LRScheduler) and (
                 isinstance(learning_rate, bool)
                 or not isinstance(learning_rate, (int, float, np.floating))):
@@ -207,9 +215,38 @@ class Optimizer:
     clear_gradients = clear_grad
 
     def minimize(self, loss, startup_program=None, parameters=None, no_grad_set=None):
+        """``loss.backward()`` and a step; ``parameters`` narrows the
+        optimized set. Under static capture (``program_guard``) nothing runs
+        now: the Program's every ``Executor.run`` does backward and step on
+        the replayed loss (the reference appends backward and update ops)."""
+        from ..framework import capture
+
+        prog = capture.active()
+        if parameters is not None:
+            self._bind(list(parameters))
+        if prog is not None:
+            if self._static_bind and parameters is None and prog.all_parameters():
+                self._bind(prog.all_parameters())
+            if not self._params:
+                from ..framework.enforce import InvalidArgumentError
+
+                raise InvalidArgumentError(
+                    "minimize() found no parameters: pass parameters= or build the net "
+                    "with static.nn builders (which register their parameters on the "
+                    "Program)")
+            prog._train_hooks.append((loss, self))
+            return None, None
         loss.backward()
         self.step()
         return None, None
+
+    def _bind(self, params):
+        """Optimize ``params`` (one group, the first group's settings)."""
+        group = dict(self._param_groups[0]) if self._param_groups else {}
+        group["params"] = list(params)
+        self._param_groups = [group]
+        self._params = list(params)
+        self._names = [getattr(p, "name", None) for p in params]
 
     # -- persistence ---------------------------------------------------------
     def _keyed(self):

@@ -611,9 +611,8 @@ def test_sampler_dtypes_match_jax():
 
 # -- the top level: what the port still lacks, each with the item that brings it
 DEFERRED = {
-    # item 8: the remaining models and domains (hapi, static, io, vision, ...)
+    # item 8: the remaining models and domains (hapi, vision, ...)
     "Model": 8, "summary": 8, "flops": 8, "callbacks": 8, "hapi": 8,
-    "static": 8, "base": 8, "enable_static": 8, "disable_static": 8, "in_static_mode": 8,
     "dataset": 8, "text_datasets": 8, "vision": 8, "audio": 8,
     "text": 8, "metric": 8, "distribution": 8, "fft": 8, "signal": 8, "sparse": 8,
     "onnx": 8,
@@ -698,9 +697,10 @@ def test_missing_models_names_are_the_deferred_list():
 # package's own modules are.
 API_DEFERRED = {
     "io": {}, "reader": {}, "geometric": {},
-    # the MoE layer (paddle_tpu/incubate/distributed), with LlamaMoEMLP
-    "incubate": {"distributed": "8-moe"},
-    "incubate.nn": {}, "incubate.nn.functional": {},
+    "incubate": {}, "incubate.nn": {}, "incubate.nn.functional": {},
+    # the MoE layer, and the static-graph surface
+    "incubate.distributed.models.moe": {},
+    "static": {}, "static.amp": {}, "base": {},
 }
 
 
@@ -727,11 +727,13 @@ def test_missing_api_names_are_the_deferred_lists(module):
 
 
 def test_incubate_distributed_raise_names_its_item():
+    # the MoE layer is ported; its expert parallelism (a mesh) waits for item 10
     import paddle_tpu_torch.incubate as inc
 
-    assert not hasattr(inc, "distributed")
-    with pytest.raises(AttributeError, match="Queue A item 8"):
-        inc.distributed  # noqa: B018
+    moe = inc.distributed.models.moe
+    experts = [torch.nn.Linear(4, 4) for _ in range(2)]
+    with pytest.raises(NotImplementedError, match="Queue A item 10"):
+        moe.MoELayer(d_model=4, experts=experts, gate={"type": "gshard"}, mesh=object())
 
 
 @pytest.mark.parametrize("module", ["nn.utils", "quantization", "nn.quant"])

@@ -268,7 +268,7 @@ class TestConverter:
 class TestUnportedOptions:
     @pytest.mark.parametrize("kw", [
         dict(tensor_parallel_degree=2), dict(sequence_parallel=True),
-        dict(pipeline_parallel_degree=2), dict(num_experts=4),
+        dict(pipeline_parallel_degree=2), dict(num_experts=4, moe_mesh=object()),
         dict(use_ring_attention=True),
         # selective recompute and the fused head are ported
         # (tests/test_torch_recompute.py, tests/test_torch_fused_ce.py); the
@@ -278,10 +278,20 @@ class TestUnportedOptions:
     ])
     def test_raises_not_implemented(self, kw):
         cfg = LlamaConfig(hidden_size=32, **_CFG, **kw)
-        # MoE is item 8's next entry (incubate.distributed with LlamaMoEMLP)
-        item = "Queue A item 8" if kw.get("num_experts") else "Queue A item 10"
-        with pytest.raises(NotImplementedError, match=item):
+        # MoE is ported (tests/test_torch_moe.py); expert parallelism is not
+        with pytest.raises(NotImplementedError, match="Queue A item 10"):
             LlamaForCausalLM(cfg, device="cpu")
+
+    @pytest.mark.parametrize("gate", ["naive", "gshard", "switch"])
+    def test_moe_config_builds(self, gate):
+        # num_experts > 1 builds the MoE model (held to JAX in test_torch_moe.py)
+        from paddle_tpu_torch.models.llama import LlamaMoEMLP
+
+        cfg = LlamaConfig(hidden_size=32, num_experts=4, moe_gate=gate,
+                          moe_topk=1 if gate == "switch" else 2, **_CFG)
+        model = LlamaForCausalLM(cfg, device="cpu")
+        assert all(isinstance(layer.mlp, LlamaMoEMLP) for layer in model.llama.layers)
+        assert model(torch.zeros(1, 4, dtype=torch.long)).shape == (1, 4, 64)
 
     def test_labels_raise(self):
         # hard labels train (TestLossAndGradientParity); soft labels, class

@@ -178,6 +178,8 @@ INTERP = [
 
 COMMON = [
     C("one_hot", lambda P, x: F(P).one_hot(x, 6), [I((3, 4), 0, 6)], grad=False),
+    # an index outside [0, 6) gives a zero row, as jax.nn.one_hot's
+    C("one_hot_out_of_range", lambda P, x: F(P).one_hot(x, 6), [I((3, 4), -2, 9)], grad=False),
     C("cosine_similarity", lambda P, a, b: F(P).cosine_similarity(a, b), [N(4, 5), N(4, 5)]),
     C("cosine_similarity_axis", lambda P, a, b: F(P).cosine_similarity(a, b, axis=-1, eps=1e-3),
       [N(2, 3, 5), N(2, 3, 5)]),
